@@ -1,0 +1,34 @@
+"""Ported-architecture registry: ``get_config(arch_id)`` returns the exact
+published ModelConfig; ``ARCHS`` lists every selectable ``--arch``.
+
+Only ``rwkv6-3b`` is ported so far.  The JAX package's nine other
+architectures are queued in ROADMAP.md ("Remaining model families").
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Dict, List
+
+from ..models.config import ModelConfig
+from .rwkv6_3b import config as _rwkv6
+
+ARCH_BUILDERS: Dict[str, Callable[[], ModelConfig]] = {
+    "rwkv6-3b": _rwkv6,
+}
+
+ARCHS: List[str] = list(ARCH_BUILDERS)
+
+
+def get_config(arch: str, **overrides) -> ModelConfig:
+    if arch not in ARCH_BUILDERS:
+        raise KeyError(
+            f"unknown arch {arch!r}; ported: {ARCHS} (the rest are queued in "
+            "ROADMAP.md, 'Remaining model families')"
+        )
+    cfg = ARCH_BUILDERS[arch]()
+    if overrides:
+        cfg = dataclasses.replace(cfg, **overrides)
+    return cfg
+
+
+__all__ = ["ARCHS", "ARCH_BUILDERS", "get_config"]

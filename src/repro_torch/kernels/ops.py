@@ -1,0 +1,28 @@
+"""Public entry points to the port's kernels.
+
+The device of the tensors decides: a CPU tensor goes to the plain PyTorch
+version in :mod:`.ref`, a CUDA tensor to the hand-written kernel, which
+either launches or raises.  There is no fallback from the kernel to the
+plain version on the card.
+"""
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from . import ref as _ref
+from .rwkv6_scan import rwkv6_scan as _rwkv6_scan
+
+__all__ = ["rwkv6"]
+
+
+def rwkv6(
+    r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
+    u: torch.Tensor, S0: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """WKV recurrence over a whole sequence.  Returns ``(y, S_T)``; see
+    :func:`repro_torch.kernels.ref.rwkv6_ref` for the shapes."""
+    if r.device.type == "cpu":
+        return _ref.rwkv6_ref(r, k, v, w, u, S0)
+    return _rwkv6_scan(r, k, v, w, u, S0)

@@ -1,0 +1,116 @@
+"""Python wrapper for the chunked RWKV6 WKV scan, a CUDA kernel for Hopper.
+
+The kernel (``csrc/rwkv6_scan.cu``) replaces the JAX package's Pallas TPU
+kernel ``repro.kernels.rwkv6_scan.rwkv6_scan``; its source comment says what
+bounds it on the H100 and how its design answers that.  This wrapper checks
+its arguments, allocates the outputs, launches on PyTorch's current stream
+and raises if the launch fails.  It takes CUDA tensors only: CPU tensors go
+to the plain version through :func:`repro_torch.kernels.ops.rwkv6`.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Tuple
+
+import torch
+
+from .build import load
+
+__all__ = ["rwkv6_scan", "check_rwkv6_args", "chunk_for", "smem_bytes"]
+
+_SUPPORTED_N = (32, 64)
+
+
+def chunk_for(T: int) -> int:
+    """Chunk length for a sequence of ``T`` tokens: 64 where it divides T,
+    else 16 with a masked ragged last chunk (the JAX model's rule)."""
+    return 64 if T % 64 == 0 else 16
+
+
+def check_rwkv6_args(r, k, v, w, u, S0) -> None:
+    """Raise on any argument the kernel does not take: shapes, dtypes,
+    contiguity and devices."""
+    if r.dim() != 4:
+        raise ValueError(f"r must be (B, T, H, N), got {tuple(r.shape)}")
+    B, T, H, N = r.shape
+    if T < 1:
+        raise ValueError("T must be >= 1")
+    if N not in _SUPPORTED_N:
+        raise ValueError(f"head size N={N} not in {_SUPPORTED_N}")
+    for name, a in (("k", k), ("v", v), ("w", w)):
+        if tuple(a.shape) != (B, T, H, N):
+            raise ValueError(f"{name} must be {(B, T, H, N)}, got {tuple(a.shape)}")
+    if tuple(u.shape) != (H, N):
+        raise ValueError(f"u must be {(H, N)}, got {tuple(u.shape)}")
+    if tuple(S0.shape) != (B, H, N, N):
+        raise ValueError(f"S0 must be {(B, H, N, N)}, got {tuple(S0.shape)}")
+    if r.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"r must be float32 or bfloat16, got {r.dtype}")
+    if k.dtype != r.dtype or v.dtype != r.dtype:
+        raise TypeError("r, k and v must share one dtype")
+    for name, a in (("w", w), ("u", u), ("S0", S0)):
+        if a.dtype != torch.float32:
+            raise TypeError(f"{name} must be float32, got {a.dtype}")
+    for name, a in (("r", r), ("k", k), ("v", v), ("w", w), ("u", u), ("S0", S0)):
+        if not a.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+        if a.device != r.device:
+            raise ValueError(f"{name} is on {a.device}, r on {r.device}")
+
+
+@functools.cache
+def _lib() -> ctypes.CDLL:
+    lib = load("rwkv6_scan")
+    fn = lib.rwkv6_scan_fwd
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    lib.rwkv6_scan_error_string.argtypes = [ctypes.c_int]
+    lib.rwkv6_scan_error_string.restype = ctypes.c_char_p
+    lib.rwkv6_scan_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.rwkv6_scan_smem_bytes.restype = ctypes.c_int
+    return lib
+
+
+def smem_bytes(N: int, chunk: int) -> int:
+    """Dynamic shared memory one block of the kernel takes at head size
+    ``N`` and chunk length ``chunk`` (builds the kernel if needed)."""
+    n = _lib().rwkv6_scan_smem_bytes(N, chunk)
+    if n < 0:
+        raise ValueError(f"no kernel built for N={N}, chunk={chunk}")
+    return n
+
+
+def rwkv6_scan(
+    r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
+    u: torch.Tensor, S0: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch the WKV kernel.  r, k, v ``(B,T,H,N)`` float32 or bfloat16;
+    w ``(B,T,H,N)``, u ``(H,N)`` and S0 ``(B,H,N,N)`` float32, all contiguous
+    on one CUDA device, any ``T >= 1``.  Returns ``(y (B,T,H,N) in r's dtype,
+    S_T (B,H,N,N) float32)``.  ``rwkv6_scan.launches`` counts launches."""
+    check_rwkv6_args(r, k, v, w, u, S0)
+    if r.device.type != "cuda":
+        raise ValueError(
+            f"rwkv6_scan launches a CUDA kernel; got tensors on {r.device} "
+            "(CPU tensors go through repro_torch.kernels.ops.rwkv6)"
+        )
+    B, T, H, N = r.shape
+    y = torch.empty_like(r)
+    sT = torch.empty((B, H, N, N), dtype=torch.float32, device=r.device)
+    lib = _lib()
+    with torch.cuda.device(r.device):
+        stream = torch.cuda.current_stream(r.device).cuda_stream
+        err = lib.rwkv6_scan_fwd(
+            r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
+            u.data_ptr(), S0.data_ptr(), y.data_ptr(), sT.data_ptr(),
+            B, T, H, N, chunk_for(T), int(r.dtype == torch.bfloat16), stream,
+        )
+    if err != 0:
+        msg = lib.rwkv6_scan_error_string(err).decode()
+        raise RuntimeError(f"rwkv6_scan launch failed: {msg} (cudaError {err})")
+    rwkv6_scan.launches += 1
+    return y, sT
+
+
+rwkv6_scan.launches = 0

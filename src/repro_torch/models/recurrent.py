@@ -1,0 +1,179 @@
+"""RWKV6 (Finch, arXiv:2404.05892) block in PyTorch.
+
+The counterpart of the RWKV6 part of the JAX package's
+``models/recurrent.py``; RG-LRU is queued in ROADMAP.md.  Every prefill with
+more than one token runs the WKV recurrence through
+:func:`repro_torch.kernels.ops.rwkv6`, the hand-written CUDA kernel on the
+card.  A single decode token is the one-step update in plain PyTorch, as the
+JAX package keeps it.
+
+State layout (per layer, stacked over layers by the model):
+  {"ts_tm": (B,d), "ts_cm": (B,d) in the activation dtype, "S": (B,H,N,N) f32}
+"""
+from __future__ import annotations
+
+from typing import Callable, Dict, Optional, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from ..kernels import ops
+from ..kernels.ref import rwkv6_ref
+from .config import ModelConfig
+from .layers import dense_apply, torch_dtype
+
+__all__ = ["rwkv6_init", "rwkv6_state", "rwkv6_apply"]
+
+MixFn = Callable[..., Tuple[torch.Tensor, torch.Tensor]]
+
+
+def rwkv6_init(gen: torch.Generator, cfg: ModelConfig, n_layers: int,
+               device: torch.device) -> Dict:
+    """Parameters of ``n_layers`` RWKV6 blocks, stacked over a leading layer
+    axis, with the JAX ``rwkv6_init`` distributions and dtypes (``w0`` and
+    ``u`` float32, the rest in the activation dtype)."""
+    d = cfg.d_model
+    dt = torch_dtype(cfg.dtype)
+    f32 = torch.float32
+    L = n_layers
+    lora = 64
+
+    def mat(din, dout, s=None):
+        s = s if s is not None else 1.0 / np.sqrt(din)
+        w = torch.randn((L, din, dout), generator=gen, dtype=f32, device=device)
+        return (w * s).to(dt)
+
+    def full(value, dtype=dt):
+        return torch.full((L, d), value, dtype=dtype, device=device)
+
+    def ln():
+        return {"scale": full(1.0), "bias": full(0.0)}
+
+    return {
+        "ln1": ln(),
+        "ln2": ln(),
+        # token-shift lerp coefficients (static part of ddlerp)
+        "mu": {key: full(0.5) for key in ("r", "k", "v", "g", "w")},
+        "wr": {"w": mat(d, d)},
+        "wk": {"w": mat(d, d)},
+        "wv": {"w": mat(d, d)},
+        "wg": {"w": mat(d, d)},
+        "wo": {"w": mat(d, d)},
+        # data-dependent decay LoRA: w_t = exp(-exp(w0 + tanh(xw A) B))
+        "w0": full(-2.0, f32),
+        "wA": mat(d, lora, s=0.01),
+        "wB": mat(lora, d, s=0.01),
+        "u": torch.randn((L, d), generator=gen, dtype=f32, device=device) * 0.1,
+        # per-head group norm on the time-mix output
+        "ln_x": ln(),
+        # channel mix
+        "mu_cm": {key: full(0.5) for key in ("k", "r")},
+        "cm_k": {"w": mat(d, cfg.d_ff)},
+        "cm_v": {"w": mat(cfg.d_ff, d)},
+        "cm_r": {"w": mat(d, d)},
+    }
+
+
+def rwkv6_state(cfg: ModelConfig, batch: int, n_layers: int,
+                device: torch.device) -> Dict[str, torch.Tensor]:
+    d = cfg.d_model
+    N = cfg.recurrent.head_size
+    H = d // N
+    dt = torch_dtype(cfg.dtype)
+    return {
+        "ts_tm": torch.zeros((n_layers, batch, d), dtype=dt, device=device),
+        "ts_cm": torch.zeros((n_layers, batch, d), dtype=dt, device=device),
+        "S": torch.zeros((n_layers, batch, H, N, N), dtype=torch.float32, device=device),
+    }
+
+
+def _group_norm(x: torch.Tensor, H: int, scale, bias, eps: float = 1e-5):
+    """GroupNorm over each head's channels. x: (B,S,d)."""
+    B, S, d = x.shape
+    xh = x.reshape(B, S, H, d // H).to(torch.float32)
+    mu = xh.mean(dim=-1, keepdim=True)
+    var = xh.var(dim=-1, keepdim=True, unbiased=False)
+    xn = (xh - mu) * torch.rsqrt(var + eps)
+    return xn.reshape(B, S, d).to(x.dtype) * scale + bias
+
+
+def _layer_norm(x: torch.Tensor, scale, bias, eps: float = 1e-5):
+    xf = x.to(torch.float32)
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = xf.var(dim=-1, keepdim=True, unbiased=False)
+    return ((xf - mu) * torch.rsqrt(var + eps)).to(x.dtype) * scale + bias
+
+
+def _wkv_one_token(r, k, v, w, u, S0):
+    # y stays float32, as the JAX block's sequential path leaves it
+    return rwkv6_ref(r.to(torch.float32), k, v, w, u, S0)
+
+
+def rwkv6_apply(
+    cfg: ModelConfig, p: Dict, x: torch.Tensor, state: Optional[Dict],
+    mix_fn: Optional[MixFn] = None,
+) -> Tuple[torch.Tensor, Optional[Dict]]:
+    """Full RWKV6 block (pre-norms included):
+
+        x = x + time_mix(ln1(x));  x = x + channel_mix(ln2(x))
+
+    x: (B,S,d).  ``state=None`` means a zero initial state and no state
+    returned.  Token-shift states hold the last *normed* token of each
+    sub-block's input, so decode continues exactly where prefill stopped.
+    ``mix_fn`` replaces the WKV recurrence (the plain version, to check the
+    kernel's path on the card); by default S > 1 goes to ``ops.rwkv6``.
+    """
+    B, S, d = x.shape
+    N = cfg.recurrent.head_size
+    H = d // N
+    if mix_fn is not None:
+        mix = mix_fn
+    elif S == 1:
+        mix = _wkv_one_token
+    else:
+        mix = ops.rwkv6
+
+    # ---- time mix -------------------------------------------------------------
+    xn = _layer_norm(x, p["ln1"]["scale"], p["ln1"]["bias"])
+    prev_tm = state["ts_tm"] if state is not None else torch.zeros_like(xn[:, 0])
+    xs = torch.cat([prev_tm[:, None, :], xn[:, :-1, :]], dim=1)
+
+    def lerp(mu):
+        return xn + (xs - xn) * mu
+
+    r = dense_apply(p["wr"], lerp(p["mu"]["r"])).reshape(B, S, H, N)
+    k = dense_apply(p["wk"], lerp(p["mu"]["k"])).reshape(B, S, H, N)
+    v = dense_apply(p["wv"], lerp(p["mu"]["v"])).reshape(B, S, H, N)
+    g = dense_apply(p["wg"], lerp(p["mu"]["g"]))
+    f32 = torch.float32
+    xw = lerp(p["mu"]["w"]).to(f32)
+    decay_in = p["w0"] + torch.tanh(xw @ p["wA"].to(f32)) @ p["wB"].to(f32)
+    w = torch.exp(-torch.exp(decay_in)).reshape(B, S, H, N)     # (0,1) decay
+
+    S0 = (
+        state["S"] if state is not None
+        else torch.zeros((B, H, N, N), dtype=f32, device=x.device)
+    )
+    u = p["u"].reshape(H, N)
+    y, S_T = mix(r, k, v, w, u, S0)
+    y = _group_norm(y.reshape(B, S, d), H, p["ln_x"]["scale"], p["ln_x"]["bias"])
+    y = y * F.silu(g)
+    x = x + dense_apply(p["wo"], y.to(x.dtype))
+
+    # ---- channel mix ------------------------------------------------------------
+    hn = _layer_norm(x, p["ln2"]["scale"], p["ln2"]["bias"])
+    prev_cm = state["ts_cm"] if state is not None else torch.zeros_like(hn[:, 0])
+    hs = torch.cat([prev_cm[:, None, :], hn[:, :-1, :]], dim=1)
+
+    def lerp_cm(mu):
+        return hn + (hs - hn) * mu
+
+    kk = torch.relu(dense_apply(p["cm_k"], lerp_cm(p["mu_cm"]["k"]))).square()
+    cm = torch.sigmoid(dense_apply(p["cm_r"], lerp_cm(p["mu_cm"]["r"]))) * dense_apply(p["cm_v"], kk)
+    out = x + cm
+
+    new_state = None
+    if state is not None:
+        new_state = {"ts_tm": xn[:, -1, :], "ts_cm": hn[:, -1, :], "S": S_T}
+    return out, new_state

@@ -1,0 +1,136 @@
+"""Single-replica continuous-batching engine.
+
+The counterpart of the JAX package's ``serve/engine.py``, with the same
+slot, splice and step semantics: a fixed-capacity slot array over a
+preallocated state; each request is prefilled into a fresh single-slot
+state which is then spliced into its slot; every ``step()`` decodes all
+slots in one batched call; finished requests free their slots.
+``measure_interference`` fits the paper's linear service-time model
+``T = m*k + c`` to measured decode-step latencies against the number of
+co-batched sequences.
+
+Where the JAX engine donates the old cache to each jitted call, this one
+updates the state tensors in place: the model writes each layer's new state
+into them, and a splice copies a request's state into its slot.
+"""
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from ..core.interference import fit_linear_interference
+from ..device import synchronize
+from ..models.transformer import LM
+
+__all__ = ["ServingEngine", "measure_interference"]
+
+
+@dataclass
+class _Slot:
+    request_id: Optional[str] = None
+    pos: int = 0
+    remaining: int = 0
+    generated: Optional[List[int]] = None
+
+
+class ServingEngine:
+    """Runs on the model's device (``LM(cfg, device=...)``)."""
+
+    def __init__(self, model: LM, params, max_batch: int = 8, max_seq: int = 512):
+        self.model = model
+        self.params = params
+        self.max_batch = max_batch
+        self.max_seq = max_seq
+        self.device = model.device
+        self.caches = model.init_cache(max_batch, max_seq)
+        self.slots = [_Slot() for _ in range(max_batch)]
+        self.tokens = torch.zeros(max_batch, dtype=torch.long, device=self.device)
+
+    # -- request lifecycle ------------------------------------------------------
+    def free_slots(self) -> List[int]:
+        return [i for i, s in enumerate(self.slots) if s.request_id is None]
+
+    @property
+    def active(self) -> int:
+        return sum(s.request_id is not None for s in self.slots)
+
+    @torch.inference_mode()
+    def add_request(self, request_id: str, prompt: Sequence[int],
+                    max_new_tokens: int) -> int:
+        free = self.free_slots()
+        if not free:
+            raise RuntimeError("no free slots")
+        slot = free[0]
+        prompt = torch.as_tensor(np.asarray(prompt, dtype=np.int64)[None, :],
+                                 device=self.device)                  # (1, P)
+        tmp_cache = self.model.init_cache(1, self.max_seq)
+        logits, tmp_cache = self.model.prefill(
+            self.params, {"tokens": prompt}, tmp_cache)
+        # splice the single-request state into this slot, in place
+        for full, one in zip(self.caches, tmp_cache):
+            for key in full:
+                full[key][:, slot].copy_(one[key][:, 0])
+        first = int(torch.argmax(logits[0]))
+        st = self.slots[slot]
+        st.request_id = request_id
+        st.pos = prompt.shape[1]
+        st.remaining = max_new_tokens
+        st.generated = [first]
+        self.tokens[slot] = first
+        return slot
+
+    @torch.inference_mode()
+    def step(self) -> Dict[str, List[int]]:
+        """One decode step for all slots; returns finished requests."""
+        logits, self.caches = self.model.decode_step(self.params, self.tokens, self.caches)
+        nxt = torch.argmax(logits, dim=-1)
+        finished: Dict[str, List[int]] = {}
+        new_tokens = nxt.cpu().numpy()
+        for i, st in enumerate(self.slots):
+            if st.request_id is None:
+                continue
+            st.generated.append(int(new_tokens[i]))
+            st.pos += 1
+            st.remaining -= 1
+            if st.remaining <= 0 or st.pos >= self.max_seq - 1:
+                finished[st.request_id] = st.generated
+                st.request_id = None
+                st.generated = None
+        self.tokens = nxt
+        return finished
+
+
+# -- the Fig. 4 analogue ---------------------------------------------------------
+def measure_interference(
+    model: LM, params, batch_sizes: Sequence[int], *, max_seq: int = 256,
+    iters: int = 20, warmup: int = 3, prompt_len: int = 8,
+) -> Tuple[float, float, float, List[Tuple[int, float]]]:
+    """Measure decode-step latency as a function of co-batched sequences and
+    fit ``T = m*k + c`` to the timings.  On the card the device is
+    synchronised before each clock read.  Returns (m, c, r2, samples)."""
+    samples: List[Tuple[int, float]] = []
+    rng = np.random.default_rng(0)
+    for k in batch_sizes:
+        eng = ServingEngine(model, params, max_batch=int(k), max_seq=max_seq)
+        for j in range(int(k)):
+            eng.add_request(
+                f"probe{j}", rng.integers(0, model.cfg.vocab, prompt_len),
+                max_new_tokens=10**9,
+            )
+        for _ in range(warmup):
+            eng.step()
+        synchronize(model.device)
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            eng.step()
+        synchronize(model.device)
+        dt = (time.perf_counter() - t0) / iters
+        samples.append((int(k), dt))
+    m, c, r2 = fit_linear_interference(
+        [s[0] for s in samples], [s[1] for s in samples]
+    )
+    return m, c, r2, samples
