@@ -6,19 +6,28 @@ Phases, each failing the run with a non-zero exit if anything is wrong:
 
 1. device    requires CUDA; prints the card's name and power limit.
 2. build     builds every CUDA kernel from ``src/repro_torch/csrc`` for
-             sm_90a and prints nvcc's register and shared-memory report.
+             sm_90a in one parallel build and prints nvcc's register and
+             shared-memory reports.
 3. kernels   holds each kernel against its plain PyTorch version on the
-             card at the main path's shapes, and times both.
+             card at the main paths' shapes, and times both (and, for
+             attention, ``scaled_dot_product_attention`` as a yardstick).
 4. serve     serves requests through ``ServingEngine`` on full-width
              RWKV6-3B in bf16 (random weights from a seed) and checks that
              every prefill went through the WKV kernel, that the tokens are
              valid ids, and one prefill's logits against the plain WKV.
 5. fit       fits ``T = m*k + c`` to decode-step latency with
              ``measure_interference``.
+6. train     trains full-width Qwen1.5-0.5B in bf16 through
+             ``repro_torch.launch.train.train`` (B=4, S=2048, 6 steps) and
+             checks that every attention layer's forward ran the attention
+             kernel, that losses and gradient norms are finite, that step
+             1 agrees with the same step through the plain attention (in
+             bf16 and in a float32 copy), and that a checkpoint of the final
+             state restores leaf for leaf.
 
 The line before the last is a JSON object with each kernel's launches on
-the serving path, its error against the plain version, its time, the plain
-version's time and its bound; the last line is
+its main path, its error against the plain version, its time, the plain
+version's time, its bound and the library call's time; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Imports nothing of JAX and nothing of the JAX package.
 """
@@ -28,6 +37,7 @@ import dataclasses
 import json
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -36,16 +46,31 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
+from torch.autograd import DeviceType  # noqa: E402
+from torch.profiler import ProfilerActivity, profile  # noqa: E402
+from torch.utils.checkpoint import checkpoint  # noqa: E402
+
+from repro_torch.ckpt.checkpoint import CheckpointManager  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.data.synthetic import SyntheticLM  # noqa: E402
+from repro_torch.data.pipeline import to_device  # noqa: E402
 from repro_torch.kernels.build import build  # noqa: E402
-from repro_torch.kernels.ref import rwkv6_ref  # noqa: E402
+from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
+from repro_torch.kernels.flash_attention import smem_bytes as attn_smem_bytes  # noqa: E402
+from repro_torch.kernels.ref import attention_ref, rwkv6_ref  # noqa: E402
 from repro_torch.kernels.rwkv6_scan import chunk_for, rwkv6_scan, smem_bytes  # noqa: E402
+from repro_torch.launch.train import train  # noqa: E402
 from repro_torch.models import LM  # noqa: E402
+from repro_torch.optim.optimizers import AdamW, global_norm  # noqa: E402
+from repro_torch.optim.schedules import cosine_with_warmup  # noqa: E402
 from repro_torch.serve.engine import ServingEngine, measure_interference  # noqa: E402
+from repro_torch.train.step import make_train_step, value_and_grad  # noqa: E402
+from repro_torch.tree import tree_leaves, tree_map  # noqa: E402
 
 # Published peaks of one H100 SXM (NVIDIA data sheet, dense, at 700 W).
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+BF16_OPS_PER_S = 989e12
 
 H, N = 40, 64                       # RWKV6-3B: 40 heads of size 64
 KERNEL_TOL = {torch.float32: 2e-3, torch.bfloat16: 5e-2}
@@ -57,6 +82,24 @@ LOGITS_F32_TOL = 1e-3
 BF16_NOISE_FACTOR = 2.0
 SERVE_PROMPTS = (64, 128, 80, 200, 512, 16, 33, 256, 97, 20)
 SERVE_NEW_TOKENS = (16, 32, 24, 20, 16, 32, 18, 28, 16, 24)
+
+# Attention kernel against attention_ref: float32 at 1e-4 abs + rel (the
+# JAX sweep's 3e-5, widened for the card's other summation order); bf16 at
+# the sweep's 3e-2.
+ATTN_TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
+# (B, S, Hq, Hk, D, causal, window, dtypes): the training shape, a GQA f32
+# case at D=128, and a windowed, non-causal, ragged case at D=32
+ATTN_CASES = (
+    (4, 2048, 16, 16, 64, True, None, (torch.bfloat16,)),
+    (1, 512, 8, 2, 128, True, None, (torch.float32,)),
+    (1, 200, 4, 2, 32, False, 128, (torch.float32, torch.bfloat16)),
+)
+TRAIN_ARCH, TRAIN_B, TRAIN_S, TRAIN_STEPS = "qwen1.5-0.5b", 4, 2048, 6
+# Step 1 through the attention kernel against the same step through the
+# plain attention, same weights and batch: in a float32 copy, loss and
+# gradient norm within this relative tolerance (the kernel's f32 error, about
+# 1e-6 of |o|, grown through 24 layers and a 151936-way softmax).
+TRAIN_F32_RTOL = 1e-4
 
 
 def check(cond: bool, msg: str) -> None:
@@ -282,6 +325,225 @@ def fit_phase(model, params):
         print(f"[fit]   k={k}: {dt * 1e3:.3f} ms (fit {(m * k + c) * 1e3:.3f} ms)", flush=True)
 
 
+def attention_cost(B, S, Hq, Hk, D, elem_bytes, causal=True, window=None):
+    """(bytes, operations) attention needs for these shapes: q, k, v read
+    and o written once; 4*D operations (a multiply and an add in q.k and in
+    p.v) for each (query, key) pair the masks let in, counted exactly."""
+    i = np.arange(S)
+    hi = i + 1 if causal else np.full(S, S)
+    lo = np.maximum(0, i - window + 1) if window else np.zeros(S, dtype=int)
+    pairs = int((hi - lo).sum()) * B * Hq
+    nbytes = (2 * B * S * Hq * D + 2 * B * S * Hk * D) * elem_bytes
+    return nbytes, 4 * D * pairs
+
+
+def attention_phase(dev):
+    """The attention kernel against attention_ref, then its times at the
+    training shape beside the plain version's and the library call's."""
+    gen = torch.Generator(device=dev).manual_seed(2)
+    worst = 0.0
+    for B, S, Hq, Hk, D, causal, window, dtypes in ATTN_CASES:
+        for dtype in dtypes:
+            q = torch.randn((B, S, Hq, D), generator=gen, device=dev).to(dtype)
+            k = torch.randn((B, S, Hk, D), generator=gen, device=dev).to(dtype)
+            v = torch.randn((B, S, Hk, D), generator=gen, device=dev).to(dtype)
+            out = flash_attention(q, k, v, causal=causal, window=window)
+            torch.cuda.synchronize()
+            ref = attention_ref(q, k, v, causal=causal, window=window)
+            got, want = out.float(), ref.float()
+            check(bool(torch.isfinite(got).all()), f"non-finite attention output S={S}")
+            tol = ATTN_TOL[dtype]
+            err = float((got - want).abs().max())
+            over = float(((got - want).abs() - (tol + tol * want.abs())).max())
+            check(over <= 0, f"attention kernel disagrees B={B} S={S} Hq={Hq} Hk={Hk} D={D} "
+                  f"causal={causal} window={window} {dtype}: max abs err {err:.3e} "
+                  f"beyond {tol} abs+rel")
+            worst = max(worst, err)
+            print(f"[kernels] flash_attention B={B} S={S} Hq={Hq} Hk={Hk} D={D} "
+                  f"causal={causal} window={window} {str(dtype)[6:]}: max abs err "
+                  f"{err:.3e} (tol {tol} abs+rel)", flush=True)
+
+    B, S, Hq, Hk, D = TRAIN_B, TRAIN_S, 16, 16, 64
+    q, k, v = (torch.randn((B, S, H_, D), generator=gen, device=dev).to(torch.bfloat16)
+               for H_ in (Hq, Hk, Hk))
+    ms = time_ms(lambda: flash_attention(q, k, v, causal=True), iters=20)
+    plain_ms = time_ms(lambda: attention_ref(q, k, v, causal=True), iters=3, warmup=1)
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))   # (B, H, S, D)
+    library_ms = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True), iters=20)
+    nbytes, ops = attention_cost(B, S, Hq, Hk, D, 2)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / BF16_OPS_PER_S * 1e3
+    bound = max(t_bytes, t_ops)
+    print(f"[kernels] flash_attention B={B} S={S} Hq={Hq} Hk={Hk} D={D} causal bf16: "
+          f"{ms:.4f} ms; plain version {plain_ms:.3f} ms; "
+          f"scaled_dot_product_attention {library_ms:.4f} ms; bound {bound:.4f} ms "
+          f"({nbytes} bytes -> {t_bytes:.4f} ms, {ops} bf16 ops -> {t_ops:.4f} ms), "
+          f"{100 * bound / ms:.2f}% of bound", flush=True)
+    return worst, dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound,
+                       bound_by="bytes" if t_bytes >= t_ops else "operations")
+
+
+def plain_attention(q, k, v, causal=True, window=None):
+    """attention_ref, recomputed in the backward pass rather than keeping
+    its (B, H, S, S) weights for all 24 layers: the same function and
+    gradient, in the memory the kernel's path takes."""
+    return checkpoint(attention_ref, q, k, v, use_reentrant=False,
+                      causal=causal, window=window)
+
+
+def step_one(cfg, dev, attn_fn, f32=False):
+    """Loss and gradient norm of the first training step of ``train()``
+    (bf16 weights from seed 0, the stream's first batch) through ``attn_fn``
+    (None: the kernel), in bf16 or in a float32 copy of the same weights."""
+    params = LM(cfg, device=dev).init(torch.Generator(device=dev).manual_seed(0))
+    if f32:
+        cfg = dataclasses.replace(cfg, dtype="float32")
+        params = tree_map(lambda t: t.float(), params)
+    batch = to_device(next(iter(SyntheticLM(cfg.vocab, TRAIN_B, TRAIN_S, seed=0))), dev)
+    loss, _, grads = value_and_grad(LM(cfg, device=dev, attn_fn=attn_fn), params, batch)
+    gnorm = float(global_norm(grads))
+    del params, grads
+    torch.cuda.empty_cache()
+    return float(loss), gnorm
+
+
+# kernel-name fragments of the profile's groups, first match wins
+PROFILE_GROUPS = (
+    ("attention kernel", ("flash_attention_kernel",)),
+    ("matrix products", ("gemm", "xmma", "nvjet", "cutlass", "Kernel2")),
+    ("softmax", ("softmax",)),
+    ("reductions", ("reduce",)),
+    ("copies and casts", ("copy", "Memcpy", "Memset", "cat", "index")),
+)
+
+
+def profile_step(cfg, dev, params, opt_state):
+    """One more training step, under torch.profiler: device time by kernel
+    group and the top kernels, and the device's busy share of the step (the
+    union of kernel intervals over the step's host-clock time, which the
+    profiler itself lengthens)."""
+    step = make_train_step(LM(cfg, device=dev),
+                           AdamW(lr=cosine_with_warmup(3e-3, 1, TRAIN_STEPS)))
+    batch = to_device(next(iter(SyntheticLM(cfg.vocab, TRAIN_B, TRAIN_S, seed=1))), dev)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        step(params, opt_state, batch)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t) * 1e6
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not kernels:
+        print("[train] profile: the profiler saw no device time", flush=True)
+        return
+    by_name, spans = {}, []
+    for e in kernels:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+        spans.append((e.time_range.start, e.time_range.end))
+    spans.sort()
+    busy, (lo, hi) = 0.0, spans[0]
+    for a, b in spans[1:]:
+        if a > hi:
+            busy, lo = busy + hi - lo, a
+        hi = max(hi, b)
+    busy += hi - lo
+    total = sum(by_name.values())
+    groups = {name: 0.0 for name, _ in PROFILE_GROUPS}
+    groups["other elementwise"] = 0.0
+    for name, us in by_name.items():
+        group = next((g for g, keys in PROFILE_GROUPS if any(k in name for k in keys)),
+                     "other elementwise")
+        groups[group] += us
+    print(f"[train] profile of one step: {wall_us / 1e3:.2f} ms on the host clock under "
+          f"the profiler, {len(kernels)} device events, device busy {busy / 1e3:.2f} ms "
+          f"({100 * busy / wall_us:.1f}%), kernel time {total / 1e3:.2f} ms", flush=True)
+    for group, us in sorted(groups.items(), key=lambda kv: -kv[1]):
+        print(f"[train]   {group}: {us / 1e3:.2f} ms ({100 * us / total:.1f}%)", flush=True)
+    for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:12]:
+        print(f"[train]   kernel {us / 1e3:9.3f} ms  {name[:110]}", flush=True)
+
+
+def train_phase(dev):
+    cfg = get_config(TRAIN_ARCH)
+    print(f"[train] {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"{cfg.n_heads} heads of {cfg.head_dim} ({cfg.n_kv_heads} kv), d_ff {cfg.d_ff}, "
+          f"vocab {cfg.vocab}, {cfg.dtype}; B={TRAIN_B} S={TRAIN_S}, {TRAIN_STEPS} steps",
+          flush=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as tmp:
+        flash_attention.launches = 0
+        rwkv6_scan.launches = 0
+        out = train(TRAIN_ARCH, use_reduced=False, steps=TRAIN_STEPS, batch=TRAIN_B,
+                    seq=TRAIN_S, ckpt_dirs=[str(Path(tmp) / "run")], log_every=1,
+                    device=dev)
+        launches = flash_attention.launches
+        peak = torch.cuda.max_memory_allocated()
+        check(launches == cfg.n_layers * TRAIN_STEPS,
+              f"flash_attention launched {launches} times for {TRAIN_STEPS} forward "
+              f"passes of {cfg.n_layers} layers")
+        check(rwkv6_scan.launches == 0, "the training path launched the WKV kernel")
+        check(bool(np.isfinite(out["losses"]).all() and np.isfinite(out["grad_norms"]).all()),
+              f"non-finite loss or gradient norm: {out['losses']} {out['grad_norms']}")
+        n_params = sum(t.numel() for t in tree_leaves(out["params"]))
+        print(f"[train] {n_params} parameters", flush=True)
+        step_ms = 1e3 * np.asarray(out["step_s"])
+        print(f"[train] losses {[round(x, 5) for x in out['losses']]}; gradient norms "
+              f"{[round(x, 5) for x in out['grad_norms']]}", flush=True)
+        print(f"[train] step ms {[round(float(x), 2) for x in step_ms]} (the first cold): "
+              f"median {np.median(step_ms):.2f}, min {step_ms.min():.2f}, "
+              f"max {step_ms.max():.2f}; {TRAIN_B * TRAIN_S / np.median(step_ms) * 1e3:.1f} "
+              f"tokens/s at the median; peak memory {peak / 2**30:.2f} GiB; "
+              f"flash_attention launches {launches} = {cfg.n_layers} layers x "
+              f"{TRAIN_STEPS} forward passes", flush=True)
+
+        profile_step(cfg, dev, out["params"], out["opt_state"])
+        state = (out["params"], out["opt_state"])
+        mgr = CheckpointManager(replica_dirs=[str(Path(tmp) / "final")])
+        t = time.perf_counter()
+        mgr.save(state, TRAIN_STEPS)
+        back, step, _ = mgr.restore(state)
+        same = all(torch.equal(a, b) and a.dtype == b.dtype
+                   for a, b in zip(tree_leaves(back), tree_leaves(state)))
+        n_leaves = len(tree_leaves(state))
+        check(step == TRAIN_STEPS and same, "the restored checkpoint differs from the state")
+        print(f"[train] checkpoint of the final state ({n_leaves} leaves, "
+              f"{sum(x.numel() * x.element_size() for x in tree_leaves(state)) / 2**30:.2f} GiB) "
+              f"saved and restored leaf for leaf equal in {time.perf_counter() - t:.1f} s",
+              flush=True)
+        kern16 = (out["losses"][0], out["grad_norms"][0])
+        del out, state, back
+        torch.cuda.empty_cache()
+
+    step1_check(cfg, dev, kern16)
+    return launches, peak
+
+
+def step1_check(cfg, dev, kern16):
+    """Step 1 through the kernel against the plain attention, same weights
+    and batch.  In a float32 copy: loss and gradient norm within
+    TRAIN_F32_RTOL.  In bf16 both paths round every activation, so the
+    kernel's bf16 step is held against the float32 plain step: its distance
+    may be at most BF16_NOISE_FACTOR times the plain bf16 step's own
+    distance, or 2^-9 (half a bf16 ulp) of the value, whichever is larger."""
+    plain16 = step_one(cfg, dev, plain_attention)
+    kern32 = step_one(cfg, dev, None, f32=True)
+    plain32 = step_one(cfg, dev, plain_attention, f32=True)
+    for i, name in enumerate(("loss", "gradient norm")):
+        ref = plain32[i]
+        err32 = abs(kern32[i] - ref)
+        d_kern, d_plain = abs(kern16[i] - ref), abs(plain16[i] - ref)
+        allowed = max(BF16_NOISE_FACTOR * d_plain, 2.0 ** -9 * abs(ref))
+        print(f"[train] step 1 {name}: kernel bf16 {kern16[i]:.6f}, plain bf16 "
+              f"{plain16[i]:.6f}, kernel f32 {kern32[i]:.6f}, plain f32 {ref:.6f}; f32 "
+              f"rel diff {err32 / abs(ref):.3e} (tol {TRAIN_F32_RTOL}); bf16 distance from "
+              f"plain f32: kernel {d_kern:.3e}, plain {d_plain:.3e} (allowed {allowed:.3e})",
+              flush=True)
+        check(err32 <= TRAIN_F32_RTOL * abs(ref),
+              f"float32 step 1 {name}: kernel {kern32[i]} vs plain {ref}")
+        check(d_kern <= allowed, f"bf16 step 1 {name}: kernel {kern16[i]} is {d_kern:.3e} "
+              f"from the float32 plain step, beyond {allowed:.3e}")
+
+
 def _tree_map(fn, tree):
     if isinstance(tree, dict):
         return {key: _tree_map(fn, val) for key, val in tree.items()}
@@ -315,18 +577,29 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     t = time.perf_counter()
-    reports = build(["rwkv6_scan"])
+    reports = build(["rwkv6_scan", "flash_attention"])
+    print(f"[build] both kernels built in parallel in {time.perf_counter() - t:.1f} s",
+          flush=True)
     for name, report in reports.items():
-        print(f"[build] {name} ({time.perf_counter() - t:.1f} s):", flush=True)
+        print(f"[build] {name}:", flush=True)
         for line in report.splitlines() or ["(library already built)"]:
             print(f"[build]   {line}", flush=True)
     print(f"[build] rwkv6_scan dynamic shared memory per block at N={N}: "
           f"chunk 64 {smem_bytes(N, 64)} bytes, chunk 16 {smem_bytes(N, 16)} bytes "
           f"(256 threads a block)", flush=True)
+    print(f"[build] flash_attention dynamic shared memory per block: "
+          + ", ".join(f"D={d} {attn_smem_bytes(d)} bytes" for d in (32, 64, 128))
+          + " (256 threads a block)", flush=True)
 
     worst, timing = kernel_phase(dev)
+    attn_worst, attn_t = attention_phase(dev)
+    flash_attention.launches = 0
     model, params, launches = serve_phase(dev)
+    check(flash_attention.launches == 0, "the serving path launched the attention kernel")
     fit_phase(model, params)
+    del model, params
+    torch.cuda.empty_cache()
+    attn_launches, _ = train_phase(dev)
 
     main_t = timing[512]
     print(f"[done] {time.perf_counter() - t_start:.1f} s", flush=True)
@@ -343,6 +616,18 @@ def main() -> int:
         "bound_ms": main_t["bound_ms"],
         "bound_by": main_t["bound_by"],
         "library_ms": None,
+    }, {
+        "name": "flash_attention",
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:97",
+        "launches": attn_launches,
+        "max_abs_err": attn_worst,
+        "ms": attn_t["ms"],
+        "plain_ms": attn_t["plain_ms"],
+        "bound_ms": attn_t["bound_ms"],
+        "bound_by": attn_t["bound_by"],
+        "library_ms": attn_t["library_ms"],
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

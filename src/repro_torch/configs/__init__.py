@@ -1,7 +1,9 @@
 """Ported-architecture registry: ``get_config(arch_id)`` returns the exact
 published ModelConfig; ``ARCHS`` lists every selectable ``--arch``.
 
-Only ``rwkv6-3b`` is ported so far.  The JAX package's nine other
+Ported so far: ``qwen1.5-0.5b`` (the ``dense`` family, trained through
+``launch/train.py``) and ``rwkv6-3b`` (the ``ssm`` family, served through
+``launch/serve.py`` and trainable).  The JAX package's eight other
 architectures are queued in ROADMAP.md ("Remaining model families").
 """
 from __future__ import annotations
@@ -10,9 +12,11 @@ import dataclasses
 from typing import Callable, Dict, List
 
 from ..models.config import ModelConfig
+from .qwen1_5_0_5b import config as _qwen05
 from .rwkv6_3b import config as _rwkv6
 
 ARCH_BUILDERS: Dict[str, Callable[[], ModelConfig]] = {
+    "qwen1.5-0.5b": _qwen05,
     "rwkv6-3b": _rwkv6,
 }
 

@@ -7,14 +7,26 @@ plain version on the card.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
 from . import ref as _ref
+from .flash_attention import flash_attention as _flash_attention
 from .rwkv6_scan import rwkv6_scan as _rwkv6_scan
 
-__all__ = ["rwkv6"]
+__all__ = ["attention", "rwkv6"]
+
+
+def attention(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+    causal: bool = True, window: Optional[int] = None,
+) -> torch.Tensor:
+    """GQA attention forward.  q ``(B,S,Hq,D)``, k and v ``(B,S,Hk,D)``;
+    returns ``(B,S,Hq,D)``; see :func:`repro_torch.kernels.ref.attention_ref`."""
+    if q.device.type == "cpu":
+        return _ref.attention_ref(q, k, v, causal=causal, window=window)
+    return _flash_attention(q, k, v, causal=causal, window=window)
 
 
 def rwkv6(

@@ -6,11 +6,43 @@ takes the plain version only for tensors that lie on the CPU.
 """
 from __future__ import annotations
 
-from typing import Tuple
+import math
+from typing import Optional, Tuple
 
 import torch
 
-__all__ = ["rwkv6_ref"]
+__all__ = ["attention_ref", "rwkv6_ref"]
+
+
+def attention_ref(
+    q: torch.Tensor,            # (B, S, Hq, D)
+    k: torch.Tensor,            # (B, S, Hk, D)
+    v: torch.Tensor,            # (B, S, Hk, D)
+    *,
+    causal: bool = True,
+    window: Optional[int] = None,
+    scale: Optional[float] = None,
+) -> torch.Tensor:
+    """Naive GQA attention (full S x S score materialisation): scores in
+    float32, masked to -1e30, softmax in float32, the weights rounded to
+    v's dtype before the product with v.  Returns ``(B, S, Hq, D)``."""
+    B, S, Hq, D = q.shape
+    Hk = k.shape[2]
+    g = Hq // Hk
+    scale = scale if scale is not None else 1.0 / math.sqrt(D)
+    qg = q.reshape(B, S, Hk, g, D)
+    f32 = torch.float32
+    logits = torch.einsum("bqhgd,bkhd->bhgqk", qg.to(f32), k.to(f32)) * scale
+    pos = torch.arange(S, device=q.device)
+    mask = torch.ones((S, S), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= pos[None, :] <= pos[:, None]
+    if window is not None:
+        mask &= pos[None, :] > pos[:, None] - window
+    logits = torch.where(mask, logits, torch.full((), -1e30, dtype=f32, device=q.device))
+    w = torch.softmax(logits, dim=-1).to(v.dtype)
+    out = torch.einsum("bhgqk,bkhd->bqhgd", w, v)
+    return out.reshape(B, S, Hq, D)
 
 
 def rwkv6_ref(

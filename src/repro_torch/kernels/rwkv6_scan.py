@@ -6,6 +6,12 @@ bounds it on the H100 and how its design answers that.  This wrapper checks
 its arguments, allocates the outputs, launches on PyTorch's current stream
 and raises if the launch fails.  It takes CUDA tensors only: CPU tensors go
 to the plain version through :func:`repro_torch.kernels.ops.rwkv6`.
+
+:func:`rwkv6_scan_trainable` is the counterpart of the JAX
+``rwkv6_scan_trainable``: its forward is ``ops.rwkv6`` (on the card, the
+kernel) and its backward recomputes the recurrence through
+:func:`repro_torch.kernels.ref.rwkv6_ref` and differentiates it, the JAX
+package's own oracle backward.  There is no backward kernel.
 """
 from __future__ import annotations
 
@@ -16,8 +22,10 @@ from typing import Tuple
 import torch
 
 from .build import load
+from .ref import rwkv6_ref
 
-__all__ = ["rwkv6_scan", "check_rwkv6_args", "chunk_for", "smem_bytes"]
+__all__ = ["rwkv6_scan", "rwkv6_scan_trainable", "check_rwkv6_args", "chunk_for",
+           "smem_bytes"]
 
 _SUPPORTED_N = (32, 64)
 
@@ -114,3 +122,28 @@ def rwkv6_scan(
 
 
 rwkv6_scan.launches = 0
+
+
+class _Rwkv6Scan(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, r, k, v, w, u, S0):
+        from .ops import rwkv6
+
+        ctx.save_for_backward(r, k, v, w, u, S0)
+        return rwkv6(r, k, v, w, u, S0)
+
+    @staticmethod
+    def backward(ctx, gy, gs):
+        with torch.enable_grad():
+            leaves = [t.detach().requires_grad_() for t in ctx.saved_tensors]
+            y, sT = rwkv6_ref(*leaves)
+            return torch.autograd.grad((y, sT), leaves, (gy, gs), allow_unused=True)
+
+
+def rwkv6_scan_trainable(
+    r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
+    u: torch.Tensor, S0: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """WKV recurrence through ``ops.rwkv6`` with the oracle backward
+    (recompute through ``rwkv6_ref`` and differentiate it)."""
+    return _Rwkv6Scan.apply(r, k, v, w, u, S0)

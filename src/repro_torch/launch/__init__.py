@@ -1,1 +1,1 @@
-"""Launchers.  Only the serving driver is ported so far."""
+"""Launchers: the serving driver and the training driver."""

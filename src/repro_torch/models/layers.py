@@ -1,20 +1,28 @@
-"""Shared layers the RWKV6 model needs: dense projections, the final
-LayerNorm and the token embedding.
+"""Shared layers: dense projections, norms, gated MLPs, the token embedding
+and rotary embeddings.
 
 Plain functions on tensors, with parameters held in dictionaries laid out
 as in the JAX package's ``models/layers.py``, so JAX weights load as they
-are.  RMSNorm, the gated MLPs and rotary embeddings come with the families
-that use them (ROADMAP.md, "Remaining model families").
+are.  The ``*_init`` functions take ``layers=n`` to stack ``n`` blocks' leaves
+over a leading layer axis, as the JAX model's ``vmap``-ed init does.
+M-RoPE comes with the qwen2-vl family (ROADMAP.md, "Remaining model
+families").
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Callable, Dict, Optional, Tuple
 
+import numpy as np
 import torch
+import torch.nn.functional as F
 
 from .config import ModelConfig
 
-__all__ = ["torch_dtype", "dense_apply", "norm_init", "norm_apply", "embed_init"]
+__all__ = [
+    "torch_dtype", "dense_init", "dense_apply", "norm_init", "norm_apply",
+    "activation", "mlp_init", "mlp_apply", "embed_init", "rope_freqs",
+    "apply_rope",
+]
 
 
 def torch_dtype(name: str) -> torch.dtype:
@@ -25,6 +33,23 @@ def torch_dtype(name: str) -> torch.dtype:
     return dt
 
 
+def _lead(layers: Optional[int]) -> Tuple[int, ...]:
+    return () if layers is None else (layers,)
+
+
+# -- dense ----------------------------------------------------------------------
+def dense_init(gen: torch.Generator, in_dim: int, out_dim: int, dtype: torch.dtype,
+               device: torch.device, bias: bool = False, scale: Optional[float] = None,
+               layers: Optional[int] = None) -> Dict[str, torch.Tensor]:
+    scale = scale if scale is not None else 1.0 / np.sqrt(in_dim)
+    shape = _lead(layers) + (in_dim, out_dim)
+    w = torch.randn(shape, generator=gen, dtype=torch.float32, device=device) * scale
+    p = {"w": w.to(dtype)}
+    if bias:
+        p["b"] = torch.zeros(_lead(layers) + (out_dim,), dtype=dtype, device=device)
+    return p
+
+
 def dense_apply(p: Dict[str, torch.Tensor], x: torch.Tensor) -> torch.Tensor:
     y = x @ p["w"]
     if "b" in p:
@@ -32,32 +57,32 @@ def dense_apply(p: Dict[str, torch.Tensor], x: torch.Tensor) -> torch.Tensor:
     return y
 
 
-def norm_init(cfg: ModelConfig, device: torch.device,
-              dim: Optional[int] = None) -> Dict[str, torch.Tensor]:
+# -- normalisation ----------------------------------------------------------------
+def norm_init(cfg: ModelConfig, device: torch.device, dim: Optional[int] = None,
+              layers: Optional[int] = None) -> Dict[str, torch.Tensor]:
     dim = dim or cfg.d_model
     dt = torch_dtype(cfg.dtype)
-    if cfg.norm == "nonparametric":
+    if cfg.norm == "nonparametric":        # OLMo-style non-parametric LN
         return {}
-    if cfg.norm == "rmsnorm":
-        raise NotImplementedError(
-            "rmsnorm is not ported yet (ROADMAP.md, 'Remaining model families')")
-    p = {"scale": torch.ones(dim, dtype=dt, device=device)}
+    shape = _lead(layers) + (dim,)
+    p = {"scale": torch.ones(shape, dtype=dt, device=device)}
     if cfg.norm == "layernorm":            # with bias
-        p["bias"] = torch.zeros(dim, dtype=dt, device=device)
+        p["bias"] = torch.zeros(shape, dtype=dt, device=device)
     return p
 
 
 def norm_apply(cfg: ModelConfig, p: Dict[str, torch.Tensor], x: torch.Tensor,
                eps: float = 1e-6) -> torch.Tensor:
-    """LayerNorm over the last axis in float32, cast back, then the affine
-    part in the activation dtype (the JAX ``norm_apply`` layernorm branch)."""
-    if cfg.norm == "rmsnorm":
-        raise NotImplementedError(
-            "rmsnorm is not ported yet (ROADMAP.md, 'Remaining model families')")
+    """RMSNorm or LayerNorm over the last axis in float32, cast back, then
+    the affine part in the activation dtype (the JAX ``norm_apply``)."""
     xf = x.to(torch.float32)
-    mu = xf.mean(dim=-1, keepdim=True)
-    var = (xf - mu).square().mean(dim=-1, keepdim=True)
-    y = ((xf - mu) * torch.rsqrt(var + eps)).to(x.dtype)
+    if cfg.norm == "rmsnorm":
+        y = xf * torch.rsqrt(xf.square().mean(dim=-1, keepdim=True) + eps)
+    else:
+        mu = xf.mean(dim=-1, keepdim=True)
+        var = (xf - mu).square().mean(dim=-1, keepdim=True)
+        y = (xf - mu) * torch.rsqrt(var + eps)
+    y = y.to(x.dtype)
     if "scale" in p:
         y = y * p["scale"]
     if "bias" in p:
@@ -65,7 +90,67 @@ def norm_apply(cfg: ModelConfig, p: Dict[str, torch.Tensor], x: torch.Tensor,
     return y
 
 
+# -- activations / MLP -------------------------------------------------------------
+def activation(name: str) -> Callable[[torch.Tensor], torch.Tensor]:
+    if name == "silu":
+        return F.silu
+    if name == "gelu":
+        return lambda x: F.gelu(x, approximate="tanh")
+    if name == "relu2":  # squared ReLU (Nemotron / Minitron family)
+        return lambda x: F.relu(x).square()
+    raise ValueError(f"unknown activation {name!r}")
+
+
+def mlp_init(gen: torch.Generator, cfg: ModelConfig, device: torch.device,
+             d_ff: Optional[int] = None, layers: Optional[int] = None) -> Dict:
+    d_ff = d_ff or cfg.d_ff
+    dt = torch_dtype(cfg.dtype)
+    p = {"wi": dense_init(gen, cfg.d_model, d_ff, dt, device, layers=layers)}
+    if cfg.mlp in ("swiglu", "geglu"):
+        p["wg"] = dense_init(gen, cfg.d_model, d_ff, dt, device, layers=layers)
+    p["wo"] = dense_init(gen, d_ff, cfg.d_model, dt, device, layers=layers)
+    return p
+
+
+def mlp_apply(cfg: ModelConfig, p: Dict, x: torch.Tensor) -> torch.Tensor:
+    act = activation("gelu" if cfg.mlp == "geglu" else cfg.act)
+    h = dense_apply(p["wi"], x)
+    if "wg" in p:
+        h = act(dense_apply(p["wg"], x)) * h
+    else:
+        h = act(h)
+    return dense_apply(p["wo"], h)
+
+
+# -- embeddings ----------------------------------------------------------------------
 def embed_init(gen: torch.Generator, vocab: int, dim: int, dtype: torch.dtype,
                device: torch.device) -> Dict[str, torch.Tensor]:
     w = torch.randn((vocab, dim), generator=gen, dtype=torch.float32, device=device) * 0.02
     return {"embedding": w.to(dtype)}
+
+
+# -- rotary embeddings ----------------------------------------------------------------
+def rope_freqs(head_dim: int, theta: float, positions: torch.Tensor
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """cos/sin tables for integer positions ``(..., S)``, each of shape
+    ``(..., S, head_dim // 2)``, in float32."""
+    half = head_dim // 2
+    f32 = torch.float32
+    inv = 1.0 / (theta ** (torch.arange(half, dtype=f32, device=positions.device) / half))
+    ang = positions.to(f32)[..., None] * inv
+    return torch.cos(ang), torch.sin(ang)
+
+
+def _rotate(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
+    """x: (..., S, n_heads, head_dim); cos/sin broadcastable to (..., S, 1, half)."""
+    half = x.shape[-1] // 2
+    x1, x2 = x[..., :half], x[..., half:]
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(x.dtype)
+
+
+def apply_rope(q: torch.Tensor, k: torch.Tensor, positions: torch.Tensor,
+               theta: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Standard RoPE.  q: (B,S,Hq,D), k: (B,S,Hk,D), positions: (B,S)."""
+    cos, sin = rope_freqs(q.shape[-1], theta, positions)
+    cos, sin = cos[..., None, :], sin[..., None, :]
+    return _rotate(q, cos, sin), _rotate(k, cos, sin)

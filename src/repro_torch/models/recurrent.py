@@ -4,8 +4,10 @@ The counterpart of the RWKV6 part of the JAX package's
 ``models/recurrent.py``; RG-LRU is queued in ROADMAP.md.  Every prefill with
 more than one token runs the WKV recurrence through
 :func:`repro_torch.kernels.ops.rwkv6`, the hand-written CUDA kernel on the
-card.  A single decode token is the one-step update in plain PyTorch, as the
-JAX package keeps it.
+card; training (no state) goes through its trainable form,
+:func:`repro_torch.kernels.rwkv6_scan.rwkv6_scan_trainable`, whose backward
+differentiates the plain version.  A single decode token is the one-step
+update in plain PyTorch, as the JAX package keeps it.
 
 State layout (per layer, stacked over layers by the model):
   {"ts_tm": (B,d), "ts_cm": (B,d) in the activation dtype, "S": (B,H,N,N) f32}
@@ -20,6 +22,7 @@ import torch.nn.functional as F
 
 from ..kernels import ops
 from ..kernels.ref import rwkv6_ref
+from ..kernels.rwkv6_scan import rwkv6_scan_trainable
 from .config import ModelConfig
 from .layers import dense_apply, torch_dtype
 
@@ -122,7 +125,8 @@ def rwkv6_apply(
     returned.  Token-shift states hold the last *normed* token of each
     sub-block's input, so decode continues exactly where prefill stopped.
     ``mix_fn`` replaces the WKV recurrence (the plain version, to check the
-    kernel's path on the card); by default S > 1 goes to ``ops.rwkv6``.
+    kernel's path on the card); by default S > 1 goes to ``ops.rwkv6``,
+    through its trainable form when there is no state (training).
     """
     B, S, d = x.shape
     N = cfg.recurrent.head_size
@@ -131,6 +135,8 @@ def rwkv6_apply(
         mix = mix_fn
     elif S == 1:
         mix = _wkv_one_token
+    elif state is None:
+        mix = rwkv6_scan_trainable
     else:
         mix = ops.rwkv6
 

@@ -5,9 +5,12 @@ is a sequence of segments, each a homogeneous stack of blocks whose
 parameters and states are stacked over a leading layer axis, as in the JAX
 package; a Python loop over layers takes the place of ``lax.scan``.
 
-Ported: the ``ssm`` family (one ``"rwkv"`` segment of RWKV6 blocks).  The
-other families raise ``NotImplementedError``; they are queued in ROADMAP.md
-("Remaining model families").
+Ported: the ``dense`` family (one ``"attn"`` segment of GQA + MLP blocks,
+trained without a cache) and the ``ssm`` family (one ``"rwkv"`` segment of
+RWKV6 blocks, served and trained).  The other families raise
+``NotImplementedError``; they are queued in ROADMAP.md ("Remaining model
+families").  Activation checkpointing (``remat`` other than ``"none"``) is
+queued too.
 
 Parameters are plain dictionaries of tensors laid out like the JAX
 ``LM.init`` pytree, so :func:`repro_torch.models.convert.params_from_jax`
@@ -16,25 +19,32 @@ loads JAX weights as they are.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Dict, List, Optional, Union
+from typing import Any, Dict, List, Optional, Tuple, Union
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
+from .attention import AttnFn, gqa_apply, gqa_init
 from .config import ModelConfig
-from .layers import embed_init, norm_apply, norm_init, torch_dtype
+from .layers import embed_init, mlp_apply, mlp_init, norm_apply, norm_init, torch_dtype
 from .recurrent import MixFn, rwkv6_apply, rwkv6_init, rwkv6_state
 
-__all__ = ["Segment", "LM", "build_segments"]
+__all__ = ["Segment", "LM", "build_segments", "MOE_AUX_WEIGHT"]
+
+MOE_AUX_WEIGHT = 0.01
 
 
 @dataclass(frozen=True)
 class Segment:
-    kind: str            # "rwkv"
-    n: int               # layers
+    kind: str                     # "attn" | "rwkv"
+    n: int                        # layers
+    window: Optional[int] = None  # local-attention window ("attn")
 
 
 def build_segments(cfg: ModelConfig) -> List[Segment]:
+    if cfg.family == "dense":
+        return [Segment("attn", cfg.n_layers, window=cfg.attn_window)]
     if cfg.family == "ssm" and cfg.recurrent is not None and cfg.recurrent.kind == "rwkv6":
         return [Segment("rwkv", cfg.n_layers)]
     raise NotImplementedError(
@@ -50,12 +60,23 @@ def _layer(tree: Any, i: int) -> Any:
     return tree[i]
 
 
+def _unstack(tree: Any, n: int) -> List[Any]:
+    """The ``n`` layers of a layer-stacked dictionary of tensors, split with
+    one ``unbind`` per leaf, so autograd gathers each leaf's gradient in
+    one stack rather than one full-size scatter per layer."""
+    if isinstance(tree, dict):
+        per_key = {key: _unstack(val, n) for key, val in tree.items()}
+        return [{key: val[i] for key, val in per_key.items()} for i in range(n)]
+    return list(torch.unbind(tree, 0))
+
+
 class LM:
     """Language model over ``ModelConfig``, on one device.
 
     Public surface (mirrors the JAX ``LM``):
       init(generator) -> params
-      init_cache(batch, capacity) -> caches
+      loss(params, batch) -> (scalar, metrics)           [training]
+      init_cache(batch, capacity) -> caches              [ssm only]
       backbone(params, tokens, caches=None) -> (hidden, caches)
       logits(params, hidden) -> logits
       prefill(params, batch, caches) -> (last-token logits, caches)
@@ -63,18 +84,31 @@ class LM:
 
     Caches are updated in place and returned, where the JAX model returns
     new arrays (its engine donates the old ones).  ``mix_fn`` replaces the
-    WKV recurrence in every block, to hold the kernel's path against the
-    plain version on the card.
+    WKV recurrence in every RWKV6 block and ``attn_fn`` the attention of
+    every GQA block, to hold the kernels' path against the plain versions
+    on the card.
     """
 
     def __init__(self, cfg: ModelConfig, device: Optional[Union[str, torch.device]] = "cuda",
-                 mix_fn: Optional[MixFn] = None):
+                 mix_fn: Optional[MixFn] = None, attn_fn: Optional[AttnFn] = None):
         self.cfg = cfg
         self.device = resolve_device(device)
         self.segments = build_segments(cfg)
         self.mix_fn = mix_fn
+        self.attn_fn = attn_fn
 
     # ------------------------------------------------------------------ init --
+    def _block_init(self, gen: torch.Generator, seg: Segment) -> Dict:
+        cfg, dev, n = self.cfg, self.device, seg.n
+        if seg.kind == "rwkv":
+            return {"block": rwkv6_init(gen, cfg, n, dev)}
+        return {
+            "norm1": norm_init(cfg, dev, layers=n),
+            "norm2": norm_init(cfg, dev, layers=n),
+            "attn": gqa_init(gen, cfg, dev, layers=n),
+            "ffn": mlp_init(gen, cfg, dev, layers=n),
+        }
+
     def init(self, gen: torch.Generator) -> Dict:
         """Random parameters drawn from ``gen``, which lies on the model's
         device."""
@@ -83,9 +117,7 @@ class LM:
         params: Dict[str, Any] = {
             "embed": embed_init(gen, cfg.vocab, cfg.d_model, dt, dev),
             "final_norm": norm_init(cfg, dev),
-            "segments": [
-                {"block": rwkv6_init(gen, cfg, seg.n, dev)} for seg in self.segments
-            ],
+            "segments": [self._block_init(gen, seg) for seg in self.segments],
         }
         if not cfg.tie_embeddings:
             w = torch.randn((cfg.d_model, cfg.vocab), generator=gen,
@@ -97,22 +129,48 @@ class LM:
     def init_cache(self, batch: int, capacity: int) -> List[Dict[str, torch.Tensor]]:
         """Per-segment states, stacked over layers.  RWKV6 state does not
         grow with the sequence, so ``capacity`` is not needed for it."""
+        if any(seg.kind != "rwkv" for seg in self.segments):
+            raise NotImplementedError(
+                "the KV cache is not ported yet (ROADMAP.md, queue 1, slice 3)")
         return [rwkv6_state(self.cfg, batch, seg.n, self.device) for seg in self.segments]
+
+    # ----------------------------------------------------------------- blocks --
+    def _apply_attn_block(self, seg: Segment, p, x, positions):
+        cfg = self.cfg
+        h = norm_apply(cfg, p["norm1"], x)
+        a, _ = gqa_apply(cfg, p["attn"], h, positions, causal=True,
+                         window=seg.window, attn_fn=self.attn_fn)
+        x = x + a
+        h2 = norm_apply(cfg, p["norm2"], x)
+        return x + mlp_apply(cfg, p["ffn"], h2)
 
     # ----------------------------------------------------------------- driver --
     def backbone(self, params, tokens: torch.Tensor, caches=None):
         """Embed -> segments -> final norm.  Returns ``(hidden (B,S,d),
         caches)``; with caches, each layer's new state is written into them
-        in place."""
+        in place.  Attention runs from position 0 with no cache (training,
+        or a prefill that keeps no state)."""
         cfg = self.cfg
+        if caches is None and cfg.remat != "none":
+            raise NotImplementedError(
+                f"remat={cfg.remat!r} is not ported yet (ROADMAP.md, queue 1, slice 2 "
+                "follow-ups)")
+        B, S = tokens.shape
         x = params["embed"]["embedding"][tokens]
+        positions = torch.arange(S, device=tokens.device).expand(B, S)
         for s, seg in enumerate(self.segments):
             seg_p = params["segments"][s]
+            if seg.kind == "attn":
+                if caches is not None:
+                    raise NotImplementedError(
+                        "the KV cache is not ported yet (ROADMAP.md, queue 1, slice 3)")
+                for p in _unstack(seg_p, seg.n):
+                    x = self._apply_attn_block(seg, p, x, positions)
+                continue
             cache = caches[s] if caches is not None else None
-            for i in range(seg.n):
+            for i, p in enumerate(_unstack(seg_p, seg.n)):
                 state = _layer(cache, i) if cache is not None else None
-                x, new = rwkv6_apply(cfg, _layer(seg_p, i)["block"], x, state,
-                                     mix_fn=self.mix_fn)
+                x, new = rwkv6_apply(cfg, p["block"], x, state, mix_fn=self.mix_fn)
                 if cache is not None:
                     for key, val in new.items():
                         cache[key][i].copy_(val)
@@ -129,7 +187,40 @@ class LM:
         ld = torch_dtype(cfg.logits_dtype)
         return hidden.to(ld) @ w.to(ld)
 
+    def _xent(self, params, hidden: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+        """Mean cross-entropy over the vocabulary; with ``xent_chunk`` > 1
+        dividing S, computed over that many sequence chunks, each
+        recomputed in the backward pass (``jax.remat`` in the JAX model) so
+        only one chunk's logits are alive at a time."""
+        nc = self.cfg.xent_chunk
+
+        def ce(h, y):
+            lg = self.logits(params, h)
+            m = lg.max(dim=-1, keepdim=True).values.detach()
+            logz = torch.log(torch.exp(lg - m).sum(dim=-1)) + m[..., 0]
+            gold = lg.gather(-1, y[..., None].long())[..., 0]
+            return (logz - gold).sum()
+
+        B, S, _ = hidden.shape
+        if nc and nc > 1 and S % nc == 0:
+            parts = [checkpoint(ce, h, y, use_reentrant=False)
+                     for h, y in zip(hidden.chunk(nc, dim=1), labels.chunk(nc, dim=1))]
+            total = torch.stack(parts).sum()
+        else:
+            total = ce(hidden, labels)
+        return total / (B * S)
+
     # -------------------------------------------------------------------- API --
+    def loss(self, params, batch: Dict[str, torch.Tensor]
+             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """batch: tokens (B,S), labels (B,S).  Returns ``(loss, {"xent",
+        "moe_aux"})`` as the JAX model does (no MoE here, so the auxiliary
+        loss is 0)."""
+        hidden, _ = self.backbone(params, batch["tokens"])
+        xent = self._xent(params, hidden, batch["labels"])
+        aux = torch.zeros((), dtype=torch.float32, device=hidden.device)
+        return xent + MOE_AUX_WEIGHT * aux, {"xent": xent, "moe_aux": aux}
+
     def prefill(self, params, batch: Dict[str, torch.Tensor], caches):
         """Bulk-process a prompt, filling caches.  Returns last-token logits."""
         hidden, caches = self.backbone(params, batch["tokens"], caches=caches)

@@ -1,0 +1,64 @@
+"""Nested dictionaries, lists and tuples of tensors ("trees"), flattened in
+the order ``jax.tree.flatten`` gives: dictionary keys sorted, lists and
+tuples in order, ``None`` an empty subtree.
+
+The port's parameter and optimizer trees keep the JAX package's layout, so
+the clip scale, the checkpoint leaves (``leaf_<i>``) and the tests'
+comparisons all see the leaves in the same order as the JAX side.
+"""
+from __future__ import annotations
+
+from typing import Any, Callable, List, Tuple
+
+__all__ = ["tree_leaves", "tree_map", "tree_flatten", "tree_unflatten"]
+
+
+def tree_flatten(tree: Any) -> Tuple[List[Any], Any]:
+    """``(leaves, structure)``; :func:`tree_unflatten` inverts it."""
+    leaves: List[Any] = []
+
+    def walk(node):
+        if isinstance(node, dict):
+            return ("dict", [(key, walk(node[key])) for key in sorted(node)])
+        if isinstance(node, (list, tuple)):
+            return (type(node), [walk(val) for val in node])
+        if node is None:
+            return ("none", None)
+        leaves.append(node)
+        return ("leaf", None)
+
+    return leaves, walk(tree)
+
+
+def tree_unflatten(structure: Any, leaves: List[Any]) -> Any:
+    it = iter(leaves)
+
+    def build(spec):
+        kind, children = spec
+        if kind == "dict":
+            return {key: build(child) for key, child in children}
+        if kind == "none":
+            return None
+        if kind == "leaf":
+            return next(it)
+        return kind(build(child) for child in children)
+
+    out = build(structure)
+    if next(it, None) is not None:
+        raise ValueError("more leaves than the structure holds")
+    return out
+
+
+def tree_leaves(tree: Any) -> List[Any]:
+    return tree_flatten(tree)[0]
+
+
+def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:
+    """``fn`` applied leaf by leaf to ``tree`` and the trees in ``rest``,
+    which have the same structure."""
+    leaves, structure = tree_flatten(tree)
+    others = [tree_flatten(r)[0] for r in rest]
+    for o in others:
+        if len(o) != len(leaves):
+            raise ValueError("trees differ in structure")
+    return tree_unflatten(structure, [fn(*args) for args in zip(leaves, *others)])

@@ -1,0 +1,192 @@
+"""The port's attention and its layers (``repro_torch``) held against the JAX
+package.
+
+Inputs are made with numpy from a seed and handed to both sides.  JAX runs
+on the CPU; its Pallas flash-attention kernel runs in interpret mode, as the
+JAX package's own tests run it.  On the CPU the port's ``ops.attention``
+takes the plain version; ``test_torch_kernels_cuda.py`` holds the CUDA
+kernel against it on a card.
+"""
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_config as jax_get_config
+from repro.kernels.flash_attention import flash_attention as jax_flash_attention
+from repro.kernels.flash_attention import flash_attention_trainable as jax_flash_trainable
+from repro.kernels.ref import attention_ref as jax_attention_ref
+from repro.models import reduced as jax_reduced
+from repro.models.attention import gqa_apply as jax_gqa_apply
+from repro.models.attention import gqa_init as jax_gqa_init
+from repro.models.layers import apply_rope as jax_apply_rope
+from repro.models.layers import mlp_apply as jax_mlp_apply
+from repro.models.layers import mlp_init as jax_mlp_init
+from repro.models.layers import norm_apply as jax_norm_apply
+
+from repro_torch.configs import get_config
+from repro_torch.kernels import ops
+from repro_torch.kernels.flash_attention import (
+    check_attention_args,
+    flash_attention,
+    flash_attention_trainable,
+)
+from repro_torch.models import params_from_jax, reduced
+from repro_torch.models.attention import gqa_apply
+from repro_torch.models.layers import apply_rope, mlp_apply, norm_apply
+
+# the JAX package's kernel-sweep tolerances (tests/test_kernels.py)
+TOL = {"float32": dict(atol=3e-5, rtol=3e-5), "bfloat16": dict(atol=3e-2, rtol=3e-2)}
+
+
+def _qkv(seed, B, S, Hq, Hk, D):
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((B, S, Hq, D)).astype(np.float32),
+            rng.standard_normal((B, S, Hk, D)).astype(np.float32),
+            rng.standard_normal((B, S, Hk, D)).astype(np.float32))
+
+
+def _t(a, dtype=torch.float32):
+    return torch.from_numpy(np.asarray(a)).to(dtype)
+
+
+def _np(t):
+    return t.detach().to(torch.float32).numpy()
+
+
+@pytest.mark.parametrize("B,S,Hq,Hk,D,causal,window", [
+    (1, 128, 4, 4, 32, True, None),       # MHA
+    (1, 256, 8, 2, 64, True, None),       # GQA
+    (2, 128, 4, 1, 128, True, None),      # MQA
+    (1, 200, 8, 2, 32, True, None),       # ragged S: JAX takes one block of S
+    (1, 256, 4, 2, 64, True, 64),
+    (1, 256, 4, 1, 32, True, 128),
+    (1, 128, 8, 2, 64, False, None),
+    (1, 200, 4, 4, 128, False, 64),
+])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ops_attention_matches_jax_kernel_and_ref(B, S, Hq, Hk, D, causal, window, dtype):
+    q, k, v = _qkv(0, B, S, Hq, Hk, D)
+    td, jd = getattr(torch, dtype), getattr(jnp, dtype)
+    out = ops.attention(_t(q, td), _t(k, td), _t(v, td), causal=causal, window=window)
+    assert out.dtype == td and tuple(out.shape) == (B, S, Hq, D)
+    jq, jk, jv = (jnp.asarray(a, jd) for a in (q, k, v))
+    block = 128 if S % 128 == 0 else S
+    want_kernel = jax_flash_attention(jq, jk, jv, causal=causal, window=window,
+                                      block_q=block, block_k=block, interpret=True)
+    want_ref = jax_attention_ref(jq, jk, jv, causal=causal, window=window)
+    for want in (want_kernel, want_ref):
+        np.testing.assert_allclose(_np(out), np.asarray(want, np.float32), **TOL[dtype])
+
+
+@pytest.mark.parametrize("window", [None, 48])
+def test_trainable_gradients_match_jax(window):
+    B, S, Hq, Hk, D = 1, 128, 4, 2, 32
+    q, k, v = _qkv(1, B, S, Hq, Hk, D)
+    g = np.random.default_rng(2).standard_normal((B, S, Hq, D)).astype(np.float32)
+    tq, tk, tv = (_t(a).requires_grad_() for a in (q, k, v))
+    out = flash_attention_trainable(tq, tk, tv, causal=True, window=window)
+    grads = torch.autograd.grad(out, (tq, tk, tv), _t(g))
+
+    def f(q_, k_, v_):
+        o = jax_flash_trainable(q_, k_, v_, causal=True, window=window, interpret=True)
+        return jnp.sum(o * g)
+
+    want = jax.grad(f, argnums=(0, 1, 2))(*(jnp.asarray(a) for a in (q, k, v)))
+    for got, ref in zip(grads, want):
+        np.testing.assert_allclose(_np(got), np.asarray(ref), atol=1e-4, rtol=1e-4)
+
+
+def test_kernel_wrapper_rejects_what_it_does_not_take():
+    q, k, v = (_t(a) for a in _qkv(3, 1, 16, 4, 2, 32))
+    check_attention_args(q, k, v)
+    with pytest.raises(ValueError, match="head size"):
+        check_attention_args(q[..., :16].contiguous(), k[..., :16].contiguous(),
+                             v[..., :16].contiguous())
+    with pytest.raises(ValueError, match="multiple"):
+        check_attention_args(q[:, :, :3].contiguous(), k, v)
+    with pytest.raises(TypeError):
+        check_attention_args(q.half(), k.half(), v.half())
+    with pytest.raises(ValueError, match="contiguous"):
+        check_attention_args(q.transpose(1, 2).contiguous().transpose(1, 2), k, v)
+    with pytest.raises(ValueError, match="window"):
+        check_attention_args(q, k, v, window=0)
+    before = flash_attention.launches
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_attention(q, k, v)           # the kernel takes CUDA tensors only
+    assert flash_attention.launches == before
+
+
+# -- layers ------------------------------------------------------------------------
+@pytest.fixture(scope="module")
+def qwen_cfgs():
+    return jax_reduced(jax_get_config("qwen1.5-0.5b")), reduced(get_config("qwen1.5-0.5b"))
+
+
+def test_rmsnorm_matches_jax(qwen_cfgs):
+    jcfg, cfg = qwen_cfgs
+    rng = np.random.default_rng(4)
+    x = (rng.standard_normal((2, 16, cfg.d_model)) * 3).astype(np.float32)
+    scale = rng.uniform(0.5, 1.5, cfg.d_model).astype(np.float32)
+    got = norm_apply(cfg, {"scale": _t(scale)}, _t(x))
+    want = jax_norm_apply(jcfg, {"scale": jnp.asarray(scale)}, jnp.asarray(x))
+    np.testing.assert_allclose(_np(got), np.asarray(want), atol=1e-6, rtol=1e-6)
+
+
+@pytest.mark.parametrize("mlp", ["swiglu", "geglu", "mlp"])
+def test_mlp_matches_jax(qwen_cfgs, mlp):
+    jcfg, cfg = (dataclasses.replace(c, mlp=mlp) for c in qwen_cfgs)
+    jp = jax_mlp_init(jax.random.PRNGKey(5), jcfg)
+    x = np.random.default_rng(5).standard_normal((2, 16, cfg.d_model)).astype(np.float32)
+    got = mlp_apply(cfg, params_from_jax(jax.tree.map(np.asarray, jp), device="cpu"), _t(x))
+    want = jax_mlp_apply(jcfg, jp, jnp.asarray(x))
+    np.testing.assert_allclose(_np(got), np.asarray(want), atol=1e-6, rtol=1e-6)
+
+
+def test_rope_matches_jax(qwen_cfgs):
+    _, cfg = qwen_cfgs
+    assert cfg.rope_theta == 1e6
+    q, k, _ = _qkv(6, 2, 128, 4, 2, 32)
+    pos = np.broadcast_to(np.arange(128, dtype=np.int32), (2, 128))
+    gq, gk = apply_rope(_t(q), _t(k), torch.from_numpy(pos.copy()), cfg.rope_theta)
+    wq, wk = jax_apply_rope(jnp.asarray(q), jnp.asarray(k), jnp.asarray(pos), cfg.rope_theta)
+    np.testing.assert_allclose(_np(gq), np.asarray(wq), atol=1e-6, rtol=1e-6)
+    np.testing.assert_allclose(_np(gk), np.asarray(wk), atol=1e-6, rtol=1e-6)
+
+
+@pytest.mark.parametrize("causal,window,softcap", [
+    (True, None, None),      # the kernel route
+    (True, 32, None),        # the kernel route, windowed
+    (False, None, None),     # _mask_bias / _sdpa
+    (True, None, 30.0),      # a softcap: _mask_bias / _sdpa
+])
+def test_gqa_apply_matches_jax(qwen_cfgs, causal, window, softcap):
+    jcfg, cfg = (dataclasses.replace(c, n_kv_heads=2, attn_logit_softcap=softcap)
+                 for c in qwen_cfgs)
+    jp = jax_gqa_init(jax.random.PRNGKey(7), jcfg)
+    jp = jax.tree.map(lambda a: a + 0.01, jp)       # nonzero QKV biases
+    rng = np.random.default_rng(7)
+    x = rng.standard_normal((2, 64, cfg.d_model)).astype(np.float32)
+    pos = np.broadcast_to(np.arange(64, dtype=np.int32), (2, 64)).copy()
+    got, cache = gqa_apply(cfg, params_from_jax(jax.tree.map(np.asarray, jp), device="cpu"),
+                           _t(x), torch.from_numpy(pos), causal=causal, window=window)
+    want, _ = jax_gqa_apply(jcfg, jp, jnp.asarray(x), jnp.asarray(pos), causal=causal,
+                            window=window)
+    assert cache is None
+    np.testing.assert_allclose(_np(got), np.asarray(want), atol=1e-5, rtol=1e-5)
+
+
+def test_gqa_apply_says_where_unported_paths_are_queued(qwen_cfgs):
+    _, cfg = qwen_cfgs
+    p = {name: {"w": torch.zeros(cfg.d_model, cfg.d_model)} for name in ("wq", "wk", "wv", "wo")}
+    x = torch.zeros(1, 4, cfg.d_model)
+    pos = torch.arange(4)[None]
+    for kwargs in ({"cache": {}}, {"cache_read_only": True}, {"kv_x": x}):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            gqa_apply(cfg, p, x, pos, **kwargs)
+    mcfg = dataclasses.replace(cfg, rope="mrope")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        gqa_apply(mcfg, p, x, pos, position_ids=torch.zeros(3, 1, 4, dtype=torch.long))

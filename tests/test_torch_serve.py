@@ -137,7 +137,9 @@ def test_entry_points_need_a_card_unless_told_cpu(monkeypatch):
 def test_unported_families_say_where_they_are_queued():
     cfg = reduced(get_config("rwkv6-3b"))
     import dataclasses
+    from repro_torch.models import MoEConfig
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        LM(dataclasses.replace(cfg, family="dense"), device="cpu")
+        LM(dataclasses.replace(cfg, family="moe", moe=MoEConfig(n_experts=4, d_expert=64)),
+           device="cpu")
     with pytest.raises(KeyError, match="ROADMAP"):
         get_config("olmo-1b")
