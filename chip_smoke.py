@@ -10,14 +10,23 @@ Phases, each failing the run with a non-zero exit if anything is wrong:
              shared-memory reports.
 3. kernels   holds each kernel against its plain PyTorch version on the
              card at the main paths' shapes, and times both (and, for
-             attention, ``scaled_dot_product_attention`` as a yardstick).
+             attention and decode, ``scaled_dot_product_attention`` as a
+             yardstick).
 4. serve     serves requests through ``ServingEngine`` on full-width
              RWKV6-3B in bf16 (random weights from a seed) and checks that
              every prefill went through the WKV kernel, that the tokens are
              valid ids, and one prefill's logits against the plain WKV.
 5. fit       fits ``T = m*k + c`` to decode-step latency with
              ``measure_interference``.
-6. train     trains full-width Qwen1.5-0.5B in bf16 through
+6. dense     serves the same requests through ``ServingEngine`` on
+             full-width Minitron-8B in bf16 with a KV cache and checks that
+             every prefill went through the attention kernel and every
+             decode step through the decode kernel, that the tokens are
+             valid ids, one prefill's logits against the plain attention
+             and a few decode steps' logits against the plain decode
+             attention (in bf16 and in a float32 copy); fits
+             ``T = m*k + c`` on this model and profiles one decode step.
+7. train     trains full-width Qwen1.5-0.5B in bf16 through
              ``repro_torch.launch.train.train`` (B=4, S=2048, 6 steps) and
              checks that every attention layer's forward ran the attention
              kernel, that losses and gradient norms are finite, that step
@@ -34,6 +43,7 @@ Imports nothing of JAX and nothing of the JAX package.
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import json
 import subprocess
 import sys
@@ -57,10 +67,13 @@ from repro_torch.data.pipeline import to_device  # noqa: E402
 from repro_torch.kernels.build import build  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
 from repro_torch.kernels.flash_attention import smem_bytes as attn_smem_bytes  # noqa: E402
-from repro_torch.kernels.ref import attention_ref, rwkv6_ref  # noqa: E402
+from repro_torch.kernels.flash_decode import flash_decode, split_plan  # noqa: E402
+from repro_torch.kernels.flash_decode import smem_bytes as decode_smem_bytes  # noqa: E402
+from repro_torch.kernels.ref import attention_ref, decode_attention_ref, rwkv6_ref  # noqa: E402
 from repro_torch.kernels.rwkv6_scan import chunk_for, rwkv6_scan, smem_bytes  # noqa: E402
 from repro_torch.launch.train import train  # noqa: E402
 from repro_torch.models import LM  # noqa: E402
+from repro_torch.models.layers import torch_dtype  # noqa: E402
 from repro_torch.optim.optimizers import AdamW, global_norm  # noqa: E402
 from repro_torch.optim.schedules import cosine_with_warmup  # noqa: E402
 from repro_torch.serve.engine import ServingEngine, measure_interference  # noqa: E402
@@ -87,14 +100,38 @@ SERVE_NEW_TOKENS = (16, 32, 24, 20, 16, 32, 18, 28, 16, 24)
 # JAX sweep's 3e-5, widened for the card's other summation order); bf16 at
 # the sweep's 3e-2.
 ATTN_TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
-# (B, S, Hq, Hk, D, causal, window, dtypes): the training shape, a GQA f32
-# case at D=128, and a windowed, non-causal, ragged case at D=32
+# (B, S, Hq, Hk, D, causal, window, dtypes): the training shape, the dense
+# serving path's longest prefill (Minitron-8B's GQA heads at D=128), and a
+# windowed, non-causal, ragged case at D=32
 ATTN_CASES = (
     (4, 2048, 16, 16, 64, True, None, (torch.bfloat16,)),
-    (1, 512, 8, 2, 128, True, None, (torch.float32,)),
+    (1, 512, 32, 8, 128, True, None, (torch.float32, torch.bfloat16)),
     (1, 200, 4, 2, 32, False, 128, (torch.float32, torch.bfloat16)),
 )
 TRAIN_ARCH, TRAIN_B, TRAIN_S, TRAIN_STEPS = "qwen1.5-0.5b", 4, 2048, 6
+
+DENSE_ARCH, SERVE_B, SERVE_C = "minitron-8b", 8, 1024
+# Decode kernel against decode_attention_ref: the attention tolerances (the
+# JAX sweep's 3e-2 in bf16; its 3e-5 in f32 widened to 1e-4 for the card's
+# summation order).  (B, C, Hq, Hk, D, lengths): the serving shape with the
+# lengths the first eight served prompts give at their first decode step
+# and with every slot valid, D=64 MHA, and MQA with a ragged C (not a
+# multiple of the 64-slot tile); lengths 1 and C.
+SERVE_LENGTHS = tuple(n + 1 for n in SERVE_PROMPTS[:SERVE_B])
+DECODE_CASES = (
+    (SERVE_B, SERVE_C, 32, 8, 128, SERVE_LENGTHS),
+    (SERVE_B, SERVE_C, 32, 8, 128, (SERVE_C,) * SERVE_B),
+    (4, 512, 16, 16, 64, (1, 512, 300, 77)),
+    (3, 1000, 16, 1, 128, (1, 1000, 999)),
+)
+# the decode kernel is timed over this many layers' caches in turn, so each
+# launch finds its K and V outside the 50 MB L2 as a decode step does
+DECODE_TIMING_LAYERS = 16
+# The bf16 decode kernel also against decode_attention_ref on its inputs cast
+# up to float32 (no rounding of the weights, as in the kernel), abs: the
+# kernel's only rounding is then its bf16 output.
+DECODE_BF16_UPCAST_TOL = 1e-2
+DECODE_CHECK_STEPS = 4
 # Step 1 through the attention kernel against the same step through the
 # plain attention, same weights and batch: in a float32 copy, loss and
 # gradient norm within this relative tolerance (the kernel's f32 error, about
@@ -201,27 +238,18 @@ def kernel_phase(dev):
     return worst, timing
 
 
-def serve_phase(dev):
-    cfg = get_config("rwkv6-3b")
-    model = LM(cfg, device=dev)
-    t0 = time.perf_counter()
-    params = model.init(torch.Generator(device=dev).manual_seed(0))
-    torch.cuda.synchronize()
-    n_params = sum(t.numel() for t in _leaves(params))
-    print(f"[serve] {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
-          f"{cfg.n_heads} heads of {cfg.recurrent.head_size}, d_ff {cfg.d_ff}, "
-          f"vocab {cfg.vocab}, {cfg.dtype}; {n_params} parameters, "
-          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB, "
-          f"init {time.perf_counter() - t0:.1f} s", flush=True)
-
+def serve_requests_for(cfg):
+    """The served requests: prompts of SERVE_PROMPTS tokens drawn from seed
+    0 over the model's vocabulary, SERVE_NEW_TOKENS new tokens each."""
     rng = np.random.default_rng(0)
-    requests = [(f"req{i}", rng.integers(0, cfg.vocab, n).tolist(), m)
-                for i, (n, m) in enumerate(zip(SERVE_PROMPTS, SERVE_NEW_TOKENS))]
-    engine = ServingEngine(model, params, max_batch=8, max_seq=1024)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
+    return [(f"req{i}", rng.integers(0, cfg.vocab, n).tolist(), m)
+            for i, (n, m) in enumerate(zip(SERVE_PROMPTS, SERVE_NEW_TOKENS))]
 
-    rwkv6_scan.launches = 0
+
+def serve(engine, requests):
+    """Admit requests as slots free up and step until all have finished,
+    each prefill and step timed on the host clock after a synchronise.
+    Returns ``(done, prefill seconds, step seconds, wall seconds)``."""
     pending, done = list(requests), {}
     prefill_s, step_s = [], []
     t_start = time.perf_counter()
@@ -235,94 +263,244 @@ def serve_phase(dev):
         done.update(engine.step())
         torch.cuda.synchronize()
         step_s.append(time.perf_counter() - t)
-    wall = time.perf_counter() - t_start
-    launches = rwkv6_scan.launches
+    return done, prefill_s, step_s, time.perf_counter() - t_start
 
-    check(launches == cfg.n_layers * len(requests),
-          f"rwkv6_scan launched {launches} times for {len(requests)} prefills "
-          f"of {cfg.n_layers} layers")
+
+def report_serve(tag, cfg, requests, done, prefill_s, step_s, wall):
+    """Check that every request got its tokens, each a valid id, and print
+    the served set's times."""
     for rid, prompt, n_new in requests:
         toks = done[rid]
         check(len(toks) == n_new + 1, f"{rid}: {len(toks)} tokens, wanted {n_new + 1}")
         check(all(0 <= t < cfg.vocab for t in toks), f"{rid}: token id out of range")
     n_tok = sum(len(t) for t in done.values())
-    print(f"[serve] {len(requests)} requests (prompts {list(SERVE_PROMPTS)}), "
+    print(f"[{tag}] {len(requests)} requests (prompts {list(SERVE_PROMPTS)}), "
           f"{n_tok} tokens in {wall:.3f} s = {n_tok / wall:.1f} tok/s, "
           f"{len(step_s)} decode steps at batch 8", flush=True)
-    print(f"[serve] prefill ms per request: median {1e3 * np.median(prefill_s):.2f}, "
+    print(f"[{tag}] prefill ms per request: median {1e3 * np.median(prefill_s):.2f}, "
           f"by prompt length (in order, the first one cold) "
           f"{[(n, round(1e3 * x, 2)) for n, x in zip(SERVE_PROMPTS, prefill_s)]}", flush=True)
-    print(f"[serve] decode step ms: median {1e3 * np.median(step_s):.2f}, "
+    print(f"[{tag}] decode step ms: median {1e3 * np.median(step_s):.2f}, "
           f"min {1e3 * min(step_s):.2f}, max {1e3 * max(step_s):.2f}", flush=True)
+
+
+def serve_phase(dev):
+    cfg = get_config("rwkv6-3b")
+    model = LM(cfg, device=dev)
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    print(f"[serve] {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"{cfg.n_heads} heads of {cfg.recurrent.head_size}, d_ff {cfg.d_ff}, "
+          f"vocab {cfg.vocab}, {cfg.dtype}; {n_params} parameters, "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB, "
+          f"init {time.perf_counter() - t0:.1f} s", flush=True)
+
+    requests = serve_requests_for(cfg)
+    engine = ServingEngine(model, params, max_batch=8, max_seq=1024)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    rwkv6_scan.launches = 0
+    done, prefill_s, step_s, wall = serve(engine, requests)
+    launches = rwkv6_scan.launches
+
+    check(launches == cfg.n_layers * len(requests),
+          f"rwkv6_scan launched {launches} times for {len(requests)} prefills "
+          f"of {cfg.n_layers} layers")
+    report_serve("serve", cfg, requests, done, prefill_s, step_s, wall)
     print(f"[serve] rwkv6_scan launches {launches} = {cfg.n_layers} layers x "
           f"{len(requests)} prefills; peak memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
 
     rid, prompt, _ = requests[3]
-    lg = prefill_check(model, params, prompt)
+    lg = prefill_check("serve", model, params, prompt, "WKV kernel vs plain WKV",
+                       mix_fn=rwkv6_ref)
     check(int(lg.argmax()) == done[rid][0], "prefill is not deterministic")
     return model, params, launches
 
 
-def prefill_check(model, params, prompt):
-    """One prompt's prefill logits through the WKV kernel, held against the
-    same prefill through the plain WKV, in float32 and in bf16.
+def hold_logits(tag, what, kern16, plain16, kern32, plain32):
+    """A kernel path's logits held against the plain path's, in float32 and
+    in bf16.
 
     In float32 (the same weights cast up) the two must agree to
     LOGITS_F32_TOL of max |logit|.  In bf16 both paths round every
     activation, and 32 layers of random weights amplify a one-ulp difference
-    in y into visible logit differences, so the kernel's bf16 logits are
-    held against the float32 plain logits: their RMS distance may be at most
+    into visible logit differences, so the kernel's bf16 logits are held
+    against the float32 plain logits: their RMS distance may be at most
     BF16_NOISE_FACTOR times the plain bf16 path's own RMS distance from
-    them.  Returns the kernel's bf16 logits."""
+    them."""
+    for name, lg in (("bf16", kern16), ("float32", kern32)):
+        check(bool(torch.isfinite(lg).all()), f"non-finite {name} logits: {what}")
+
+    def rms(a, b):
+        return float((a - b).square().mean().sqrt())
+
+    def agree(a, b):
+        return float((a.argmax(-1) == b.argmax(-1)).float().mean())
+
+    scale32 = float(plain32.abs().max())
+    err32 = float((kern32 - plain32).abs().max())
+    rms_kern, rms_plain = rms(kern16, plain32), rms(plain16, plain32)
+    print(f"[{tag}] {what}: float32 max abs diff {err32:.4e} (max |logit| {scale32:.4f}, "
+          f"tol {LOGITS_F32_TOL} of it); bf16 max abs diff "
+          f"{float((kern16 - plain16).abs().max()):.4e}; RMS from float32 plain: kernel bf16 "
+          f"{rms_kern:.4e}, plain bf16 {rms_plain:.4e} (tol {BF16_NOISE_FACTOR}x); greedy "
+          f"tokens of kernel bf16 agree with plain bf16 {agree(kern16, plain16):.3f}, with "
+          f"plain float32 {agree(kern16, plain32):.3f}", flush=True)
+    check(err32 <= LOGITS_F32_TOL * scale32,
+          f"float32 logits differ by {err32:.4e}, beyond {LOGITS_F32_TOL} x {scale32:.4f}: {what}")
+    check(rms_kern <= BF16_NOISE_FACTOR * rms_plain,
+          f"bf16 logits are {rms_kern:.4e} RMS from float32, beyond {BF16_NOISE_FACTOR} x "
+          f"the plain path's {rms_plain:.4e}: {what}")
+
+
+def prefill_check(tag, model, params, prompt, what, **plain):
+    """One prompt's prefill logits through the kernels, held against the
+    same prefill through the plain versions that ``plain`` hands to ``LM``
+    (``mix_fn=rwkv6_ref``, ``attn_fn=attention_ref``) by ``hold_logits``.
+    Returns the kernels' bf16 logits."""
     cfg, dev = model.cfg, model.device
     tokens = torch.tensor([prompt], device=dev)
     cfg32 = dataclasses.replace(cfg, dtype="float32")
     params32 = _tree_map(lambda t: t.float(), params)
 
-    def prefill(c, p, mix_fn):
-        m = LM(c, device=dev, mix_fn=mix_fn)
+    def prefill(c, p, hooks):
+        m = LM(c, device=dev, **hooks)
         with torch.inference_mode():
             lg, _ = m.prefill(p, {"tokens": tokens}, m.init_cache(1, len(prompt)))
         return lg.float()
 
-    kern16, plain16 = prefill(cfg, params, None), prefill(cfg, params, rwkv6_ref)
-    kern32, plain32 = prefill(cfg32, params32, None), prefill(cfg32, params32, rwkv6_ref)
+    kern16, plain16 = prefill(cfg, params, {}), prefill(cfg, params, plain)
+    kern32, plain32 = prefill(cfg32, params32, {}), prefill(cfg32, params32, plain)
     del params32
-    for name, lg in (("bf16", kern16), ("float32", kern32)):
-        check(bool(torch.isfinite(lg).all()), f"non-finite {name} prefill logits")
-
-    def rms(a, b):
-        return float((a - b).square().mean().sqrt())
-
-    scale32 = float(plain32.abs().max())
-    err32 = float((kern32 - plain32).abs().max())
-    rms_kern, rms_plain = rms(kern16, plain32), rms(plain16, plain32)
-    print(f"[serve] prefill logits, {len(prompt)} tokens, WKV kernel vs plain WKV: "
-          f"float32 max abs diff {err32:.4e} (max |logit| {scale32:.4f}, tol "
-          f"{LOGITS_F32_TOL} of it); bf16 max abs diff {float((kern16 - plain16).abs().max()):.4e}; "
-          f"RMS from float32 plain: kernel bf16 {rms_kern:.4e}, plain bf16 {rms_plain:.4e} "
-          f"(tol {BF16_NOISE_FACTOR}x); greedy token kernel {int(kern16.argmax())}, "
-          f"plain {int(plain16.argmax())}, float32 {int(plain32.argmax())}", flush=True)
-    check(err32 <= LOGITS_F32_TOL * scale32,
-          f"float32 prefill logits differ by {err32:.4e}, beyond {LOGITS_F32_TOL} x {scale32:.4f}")
-    check(rms_kern <= BF16_NOISE_FACTOR * rms_plain,
-          f"bf16 prefill logits are {rms_kern:.4e} RMS from float32, beyond "
-          f"{BF16_NOISE_FACTOR} x the plain path's {rms_plain:.4e}")
+    torch.cuda.empty_cache()
+    hold_logits(tag, f"prefill logits, {len(prompt)} tokens, {what}",
+                kern16, plain16, kern32, plain32)
     return kern16
 
 
-def fit_phase(model, params):
-    rwkv6_scan.launches = 0
+def fit_phase(tag, model, params, prefill_kernels=(), step_kernels=()):
+    """Fit ``T = m*k + c`` with ``measure_interference`` and check that each
+    probe prefill launched every kernel of ``prefill_kernels`` and each
+    probe step every kernel of ``step_kernels``, once a layer."""
+    sizes, warmup, iters = (1, 2, 4, 8), 3, 10
+    for kern in (*prefill_kernels, *step_kernels):
+        kern.launches = 0
     m, c, r2, samples = measure_interference(
-        model, params, batch_sizes=(1, 2, 4, 8), max_seq=1024, iters=10)
-    check(rwkv6_scan.launches == model.cfg.n_layers * 15,
-          f"rwkv6_scan launched {rwkv6_scan.launches} times for 15 probe prefills")
+        model, params, batch_sizes=sizes, max_seq=SERVE_C, iters=iters, warmup=warmup)
+    n = model.cfg.n_layers
+    for kern, calls, what in ([(k, sum(sizes), "probe prefills") for k in prefill_kernels]
+                              + [(k, len(sizes) * (warmup + iters), "probe steps")
+                                 for k in step_kernels]):
+        check(kern.launches == n * calls,
+              f"{kern.__name__} launched {kern.launches} times for {calls} {what}")
     check(bool(np.isfinite([m, c, r2]).all()), "non-finite interference fit")
-    print(f"[fit] decode-step latency T = m*k + c: m={m * 1e3:.4f} ms/seq, "
+    print(f"[{tag}] decode-step latency T = m*k + c: m={m * 1e3:.4f} ms/seq, "
           f"c={c * 1e3:.4f} ms, R^2={r2:.4f}", flush=True)
     for k, dt in samples:
-        print(f"[fit]   k={k}: {dt * 1e3:.3f} ms (fit {(m * k + c) * 1e3:.3f} ms)", flush=True)
+        print(f"[{tag}]   k={k}: {dt * 1e3:.3f} ms (fit {(m * k + c) * 1e3:.3f} ms)", flush=True)
+
+
+def dense_phase(dev):
+    """Serve the requests on full-width Minitron-8B with a KV cache; then the
+    prefill and decode checks, the interference fit and a profiled decode
+    step on the same model.  Returns the decode kernel's launches in the
+    served set."""
+    cfg = get_config(DENSE_ARCH)
+    model = LM(cfg, device=dev)
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    print(f"[dense] {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"{cfg.n_heads} heads of {cfg.head_dim} ({cfg.n_kv_heads} kv), d_ff {cfg.d_ff}, "
+          f"vocab {cfg.vocab}, {cfg.dtype}; {n_params} parameters, "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB, "
+          f"init {time.perf_counter() - t0:.1f} s", flush=True)
+
+    requests = serve_requests_for(cfg)
+    engine = ServingEngine(model, params, max_batch=SERVE_B, max_seq=SERVE_C)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    flash_attention.launches = flash_decode.launches = rwkv6_scan.launches = 0
+    done, prefill_s, step_s, wall = serve(engine, requests)
+    attn_launches, launches = flash_attention.launches, flash_decode.launches
+    peak = torch.cuda.max_memory_allocated()
+
+    check(attn_launches == cfg.n_layers * len(requests),
+          f"flash_attention launched {attn_launches} times for {len(requests)} prefills "
+          f"of {cfg.n_layers} layers")
+    check(launches == cfg.n_layers * len(step_s),
+          f"flash_decode launched {launches} times for {len(step_s)} decode steps "
+          f"of {cfg.n_layers} layers")
+    check(rwkv6_scan.launches == 0, "the dense serving path launched the WKV kernel")
+    report_serve("dense", cfg, requests, done, prefill_s, step_s, wall)
+    print(f"[dense] flash_attention launches {attn_launches} = {cfg.n_layers} layers x "
+          f"{len(requests)} prefills; flash_decode launches {launches} = {cfg.n_layers} "
+          f"layers x {len(step_s)} decode steps; peak memory {peak / 2**30:.2f} GiB", flush=True)
+    del engine
+    torch.cuda.empty_cache()
+
+    rid, prompt, _ = requests[4]
+    lg = prefill_check("dense", model, params, prompt,
+                       "attention kernel vs plain attention", attn_fn=attention_ref)
+    check(int(lg.argmax()) == done[rid][0], "prefill is not deterministic")
+    decode_check(model, params, requests, done)
+    fit_phase("dense", model, params, (flash_attention,), (flash_decode,))
+    engine = ServingEngine(model, params, max_batch=SERVE_B, max_seq=SERVE_C)
+    for req in requests[:SERVE_B]:
+        engine.add_request(*req)
+    engine.step()
+    profile_report("dense", engine.step)
+    return launches
+
+
+def decode_check(model, params, requests, done):
+    """A few decode steps from one prefilled cache through the decode kernel,
+    held against the same steps through the plain decode attention.
+
+    The first SERVE_B requests are prefilled into one engine; from a copy
+    of its cache each path runs DECODE_CHECK_STEPS steps on the same tokens
+    (the prefill's greedy tokens, then tokens drawn from a seed), held by
+    ``hold_logits`` with the float32 paths' weights and cache cast up."""
+    cfg, dev = model.cfg, model.device
+    engine = ServingEngine(model, params, max_batch=SERVE_B, max_seq=SERVE_C)
+    for req in requests[:SERVE_B]:
+        engine.add_request(*req)
+    check(engine.tokens.tolist() == [done[rid][0] for rid, _, _ in requests[:SERVE_B]],
+          "prefill is not deterministic")
+    rng = np.random.default_rng(3)
+    feed = [engine.tokens.clone()] + [
+        torch.as_tensor(rng.integers(0, cfg.vocab, SERVE_B), device=dev)
+        for _ in range(DECODE_CHECK_STEPS - 1)]
+    pos0, caches0 = engine.pos.clone(), engine.caches
+    del engine
+
+    def decode(c, p, decode_fn):
+        m = LM(c, device=dev, decode_fn=decode_fn)
+        dt = torch_dtype(c.dtype)
+        caches = _tree_map(lambda t: t.to(dt, copy=True) if t.is_floating_point()
+                           else t.clone(), caches0)
+        out = []
+        with torch.inference_mode():
+            for t in range(DECODE_CHECK_STEPS):
+                lg, caches = m.decode_step(p, feed[t], pos0 + t, caches)
+                out.append(lg.float())
+        return torch.stack(out)
+
+    kern16, plain16 = decode(cfg, params, None), decode(cfg, params, decode_attention_ref)
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    params32 = _tree_map(lambda t: t.float(), params)
+    kern32 = decode(cfg32, params32, None)
+    plain32 = decode(cfg32, params32, decode_attention_ref)
+    del params32, caches0
+    torch.cuda.empty_cache()
+    hold_logits("dense", f"decode logits, {DECODE_CHECK_STEPS} steps at batch {SERVE_B}, "
+                "decode kernel vs plain decode attention", kern16, plain16, kern32, plain32)
 
 
 def attention_cost(B, S, Hq, Hk, D, elem_bytes, causal=True, window=None):
@@ -383,6 +561,115 @@ def attention_phase(dev):
                        bound_by="bytes" if t_bytes >= t_ops else "operations")
 
 
+def layers(fn, n):
+    """A call that runs ``fn(0)``, ``fn(1)``, ..., ``fn(n-1)``, ``fn(0)``, ...
+    on successive calls."""
+    i = itertools.count()
+    return lambda: fn(next(i) % n)
+
+
+def decode_cost(B, Hq, Hk, D, lengths, elem_bytes):
+    """(bytes, operations) decode attention needs for these inputs: q read
+    and o written once, k and v read once up to each row's length, the
+    lengths themselves; 4*D operations (a multiply and an add in q.k and in
+    p.v) for each (query head, valid slot) pair."""
+    n = int(sum(lengths))
+    nbytes = (2 * B * Hq * D + 2 * n * Hk * D) * elem_bytes + 4 * B
+    return nbytes, 4 * D * Hq * n
+
+
+def device_ms(fn, iters: int, warmup: int = 3) -> float:
+    """Device time of ``fn`` per call: the card's kernel times over ``iters``
+    calls under torch.profiler, summed, over ``iters``.  Gaps between
+    kernels, which the host's launch rate sets for calls this short, are
+    not counted."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.time_range.elapsed_us() for e in prof.events()
+             if e.device_type == DeviceType.CUDA)
+    check(us > 0, "the profiler saw no device time")
+    return us / iters / 1e3
+
+
+def decode_phase(dev):
+    """The decode kernel against decode_attention_ref, then its device time
+    at the serving shape beside the plain version's and the library call's,
+    each over DECODE_TIMING_LAYERS layers' caches in turn."""
+    gen = torch.Generator(device=dev).manual_seed(3)
+    worst = 0.0
+    for B, C, Hq, Hk, D, lengths in DECODE_CASES:
+        lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+        for dtype in (torch.float32, torch.bfloat16):
+            q = torch.randn((B, Hq, D), generator=gen, device=dev).to(dtype)
+            k = torch.randn((B, C, Hk, D), generator=gen, device=dev).to(dtype)
+            v = torch.randn((B, C, Hk, D), generator=gen, device=dev).to(dtype)
+            out = flash_decode(q, k, v, lens)
+            torch.cuda.synchronize()
+            got, want = out.float(), decode_attention_ref(q, k, v, lens).float()
+            check(bool(torch.isfinite(got).all()), f"non-finite decode output C={C}")
+            tol = ATTN_TOL[dtype]
+            err = float((got - want).abs().max())
+            over = float(((got - want).abs() - (tol + tol * want.abs())).max())
+            check(over <= 0, f"decode kernel disagrees B={B} C={C} Hq={Hq} Hk={Hk} D={D} "
+                  f"lengths={list(lengths)} {dtype}: max abs err {err:.3e} beyond {tol} abs+rel")
+            worst = max(worst, err)
+            upcast = ""
+            if dtype == torch.bfloat16:
+                up = decode_attention_ref(q.float(), k.float(), v.float(), lens)
+                err_up = float((got - up).abs().max())
+                check(err_up <= DECODE_BF16_UPCAST_TOL,
+                      f"bf16 decode kernel B={B} C={C} Hq={Hq} Hk={Hk} D={D} is {err_up:.3e} "
+                      f"from the float32 plain version on its inputs, beyond "
+                      f"{DECODE_BF16_UPCAST_TOL}")
+                upcast = (f"; against the float32 plain version on these inputs {err_up:.3e} "
+                          f"(tol {DECODE_BF16_UPCAST_TOL} abs)")
+            print(f"[kernels] flash_decode B={B} C={C} Hq={Hq} Hk={Hk} D={D} lengths "
+                  f"{list(lengths)} {str(dtype)[6:]}: max abs err {err:.3e} "
+                  f"(tol {tol} abs+rel){upcast}", flush=True)
+
+    B, C, Hq, Hk, D, L = SERVE_B, SERVE_C, 32, 8, 128, DECODE_TIMING_LAYERS
+    bf16 = torch.bfloat16
+    q = torch.randn((L, B, Hq, D), generator=gen, device=dev).to(bf16)
+    k = torch.randn((L, B, C, Hk, D), generator=gen, device=dev).to(bf16)
+    v = torch.randn((L, B, C, Hk, D), generator=gen, device=dev).to(bf16)
+    kt, vt = (t.transpose(2, 3).contiguous() for t in (k, v))        # (L, B, Hk, C, D)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    timing = {}
+    for name, lengths in (("served", SERVE_LENGTHS), ("full", (C,) * B)):
+        lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+        mask = (torch.arange(C, device=dev)[None, :] < lens[:, None])[:, None, None, :]
+        lib = sdpa(q[0][:, :, None], kt[0], vt[0], attn_mask=mask, enable_gqa=True)[:, :, 0]
+        lib_err = float((lib.float() - decode_attention_ref(q[0], k[0], v[0], lens).float())
+                        .abs().max())
+
+        ms = device_ms(layers(lambda i: flash_decode(q[i], k[i], v[i], lens), L), 4 * L)
+        plain_ms = device_ms(layers(lambda i: decode_attention_ref(q[i], k[i], v[i], lens), L),
+                             L)
+        library_ms = device_ms(layers(lambda i: sdpa(q[i][:, :, None], kt[i], vt[i],
+                                                      attn_mask=mask, enable_gqa=True), L), 4 * L)
+        nbytes, ops = decode_cost(B, Hq, Hk, D, lengths, 2)
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / BF16_OPS_PER_S * 1e3
+        bound = max(t_bytes, t_ops)
+        timing[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound,
+                            bound_by="bytes" if t_bytes >= t_ops else "operations")
+        print(f"[kernels] flash_decode B={B} C={C} Hq={Hq} Hk={Hk} D={D} bf16, lengths "
+              f"{name} (sum {sum(lengths)}), (split_keys, nsplit) "
+              f"{split_plan(B, Hk, C, torch.cuda.get_device_properties(0).multi_processor_count)}"
+              f": device {ms:.4f} ms a launch; plain version {plain_ms:.4f} ms; "
+              f"scaled_dot_product_attention {library_ms:.4f} ms (max abs diff from the plain "
+              f"version {lib_err:.3e}); bound {bound:.4f} ms ({nbytes} bytes -> "
+              f"{t_bytes:.4f} ms, {ops} bf16 ops -> {t_ops:.4f} ms), {100 * bound / ms:.1f}% "
+              f"of bound", flush=True)
+    del q, k, v, kt, vt
+    torch.cuda.empty_cache()
+    return worst, timing
+
+
 def plain_attention(q, k, v, causal=True, window=None):
     """attention_ref, recomputed in the backward pass rather than keeping
     its (B, H, S, S) weights for all 24 layers: the same function and
@@ -410,6 +697,7 @@ def step_one(cfg, dev, attn_fn, f32=False):
 # kernel-name fragments of the profile's groups, first match wins
 PROFILE_GROUPS = (
     ("attention kernel", ("flash_attention_kernel",)),
+    ("decode kernel", ("flash_decode",)),
     ("matrix products", ("gemm", "xmma", "nvjet", "cutlass", "Kernel2")),
     ("softmax", ("softmax",)),
     ("reductions", ("reduce",)),
@@ -417,23 +705,20 @@ PROFILE_GROUPS = (
 )
 
 
-def profile_step(cfg, dev, params, opt_state):
-    """One more training step, under torch.profiler: device time by kernel
-    group and the top kernels, and the device's busy share of the step (the
-    union of kernel intervals over the step's host-clock time, which the
+def profile_report(tag, fn):
+    """Run ``fn`` once under torch.profiler and print device time by kernel
+    group and the top kernels, and the device's busy share of the call (the
+    union of kernel intervals over the call's host-clock time, which the
     profiler itself lengthens)."""
-    step = make_train_step(LM(cfg, device=dev),
-                           AdamW(lr=cosine_with_warmup(3e-3, 1, TRAIN_STEPS)))
-    batch = to_device(next(iter(SyntheticLM(cfg.vocab, TRAIN_B, TRAIN_S, seed=1))), dev)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
-        step(params, opt_state, batch)
+        fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t) * 1e6
     kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     if not kernels:
-        print("[train] profile: the profiler saw no device time", flush=True)
+        print(f"[{tag}] profile: the profiler saw no device time", flush=True)
         return
     by_name, spans = {}, []
     for e in kernels:
@@ -453,13 +738,22 @@ def profile_step(cfg, dev, params, opt_state):
         group = next((g for g, keys in PROFILE_GROUPS if any(k in name for k in keys)),
                      "other elementwise")
         groups[group] += us
-    print(f"[train] profile of one step: {wall_us / 1e3:.2f} ms on the host clock under "
-          f"the profiler, {len(kernels)} device events, device busy {busy / 1e3:.2f} ms "
+    print(f"[{tag}] profile: {wall_us / 1e3:.2f} ms on the host clock under the "
+          f"profiler, {len(kernels)} device events, device busy {busy / 1e3:.2f} ms "
           f"({100 * busy / wall_us:.1f}%), kernel time {total / 1e3:.2f} ms", flush=True)
     for group, us in sorted(groups.items(), key=lambda kv: -kv[1]):
-        print(f"[train]   {group}: {us / 1e3:.2f} ms ({100 * us / total:.1f}%)", flush=True)
+        if us > 0:
+            print(f"[{tag}]   {group}: {us / 1e3:.2f} ms ({100 * us / total:.1f}%)", flush=True)
     for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:12]:
-        print(f"[train]   kernel {us / 1e3:9.3f} ms  {name[:110]}", flush=True)
+        print(f"[{tag}]   kernel {us / 1e3:9.3f} ms  {name[:110]}", flush=True)
+
+
+def profile_step(cfg, dev, params, opt_state):
+    """One more training step, under torch.profiler."""
+    step = make_train_step(LM(cfg, device=dev),
+                           AdamW(lr=cosine_with_warmup(3e-3, 1, TRAIN_STEPS)))
+    batch = to_device(next(iter(SyntheticLM(cfg.vocab, TRAIN_B, TRAIN_S, seed=1))), dev)
+    profile_report("train", lambda: step(params, opt_state, batch))
 
 
 def train_phase(dev):
@@ -577,8 +871,8 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     t = time.perf_counter()
-    reports = build(["rwkv6_scan", "flash_attention"])
-    print(f"[build] both kernels built in parallel in {time.perf_counter() - t:.1f} s",
+    reports = build(["rwkv6_scan", "flash_attention", "flash_decode"])
+    print(f"[build] all three kernels built in parallel in {time.perf_counter() - t:.1f} s",
           flush=True)
     for name, report in reports.items():
         print(f"[build] {name}:", flush=True)
@@ -590,18 +884,26 @@ def main() -> int:
     print(f"[build] flash_attention dynamic shared memory per block: "
           + ", ".join(f"D={d} {attn_smem_bytes(d)} bytes" for d in (32, 64, 128))
           + " (256 threads a block)", flush=True)
+    print(f"[build] flash_decode dynamic shared memory per block of the split pass: "
+          + ", ".join(f"g={g} D={d} {decode_smem_bytes(g, d)} bytes"
+                      for g, d in ((4, 128), (1, 64), (16, 128)))
+          + " (128 threads a block)", flush=True)
 
     worst, timing = kernel_phase(dev)
     attn_worst, attn_t = attention_phase(dev)
-    flash_attention.launches = 0
+    dec_worst, dec_t = decode_phase(dev)
+    flash_attention.launches = flash_decode.launches = 0
     model, params, launches = serve_phase(dev)
-    check(flash_attention.launches == 0, "the serving path launched the attention kernel")
-    fit_phase(model, params)
+    check(flash_attention.launches == 0 and flash_decode.launches == 0,
+          "the RWKV6 serving path launched an attention kernel")
+    fit_phase("fit", model, params, (rwkv6_scan,))
     del model, params
+    torch.cuda.empty_cache()
+    dec_launches = dense_phase(dev)
     torch.cuda.empty_cache()
     attn_launches, _ = train_phase(dev)
 
-    main_t = timing[512]
+    main_t, dec_main = timing[512], dec_t["served"]
     print(f"[done] {time.perf_counter() - t_start:.1f} s", flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": [{
@@ -628,6 +930,18 @@ def main() -> int:
         "bound_ms": attn_t["bound_ms"],
         "bound_by": attn_t["bound_by"],
         "library_ms": attn_t["library_ms"],
+    }, {
+        "name": "flash_decode",
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_decode.cu",
+        "replaces": "src/repro/kernels/flash_decode.py:76",
+        "launches": dec_launches,
+        "max_abs_err": dec_worst,
+        "ms": dec_main["ms"],
+        "plain_ms": dec_main["plain_ms"],
+        "bound_ms": dec_main["bound_ms"],
+        "bound_by": dec_main["bound_by"],
+        "library_ms": dec_main["library_ms"],
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -1,10 +1,11 @@
 """Ported-architecture registry: ``get_config(arch_id)`` returns the exact
 published ModelConfig; ``ARCHS`` lists every selectable ``--arch``.
 
-Ported so far: ``qwen1.5-0.5b`` (the ``dense`` family, trained through
-``launch/train.py``) and ``rwkv6-3b`` (the ``ssm`` family, served through
-``launch/serve.py`` and trainable).  The JAX package's eight other
-architectures are queued in ROADMAP.md ("Remaining model families").
+Ported so far: ``qwen1.5-0.5b`` and ``minitron-8b`` (the ``dense`` family,
+trained through ``launch/train.py`` and served with a KV cache through
+``launch/serve.py``) and ``rwkv6-3b`` (the ``ssm`` family, served and
+trainable).  The JAX package's seven other architectures are queued in
+ROADMAP.md ("Remaining model families").
 """
 from __future__ import annotations
 
@@ -12,11 +13,13 @@ import dataclasses
 from typing import Callable, Dict, List
 
 from ..models.config import ModelConfig
+from .minitron_8b import config as _minitron8
 from .qwen1_5_0_5b import config as _qwen05
 from .rwkv6_3b import config as _rwkv6
 
 ARCH_BUILDERS: Dict[str, Callable[[], ModelConfig]] = {
     "qwen1.5-0.5b": _qwen05,
+    "minitron-8b": _minitron8,
     "rwkv6-3b": _rwkv6,
 }
 

@@ -1,0 +1,139 @@
+"""Python wrapper for flash decode, a CUDA kernel for Hopper.
+
+The kernel (``csrc/flash_decode.cu``) replaces the JAX package's Pallas TPU
+kernel ``repro.kernels.flash_decode.flash_decode``: attention of one query
+token over a padded KV cache, the g = Hq/Hk query heads of a group sharing
+each K/V tile.  Its source comment says what bounds it on the H100 and how
+its design answers that.  :func:`flash_decode` checks its arguments,
+allocates the output and the split scratch, launches on PyTorch's current
+stream and raises if the launch fails.  It takes CUDA tensors only: CPU
+tensors go to the plain version through
+:func:`repro_torch.kernels.ops.decode_attention`.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import math
+from typing import Tuple
+
+import torch
+
+from .build import load
+
+__all__ = ["flash_decode", "check_decode_args", "split_plan", "smem_bytes"]
+
+_SUPPORTED_D = (32, 64, 128)
+_TILE = 64              # cache slots per tile of the kernel
+_BLOCKS_PER_SM = 8      # the split pass aims at this many blocks per SM
+
+
+def check_decode_args(q, k, v, lengths) -> None:
+    """Raise on any argument the kernel does not take: shapes, dtypes,
+    contiguity, alignment and devices."""
+    if q.dim() != 3:
+        raise ValueError(f"q must be (B, Hq, D), got {tuple(q.shape)}")
+    B, Hq, D = q.shape
+    if D not in _SUPPORTED_D:
+        raise ValueError(f"head size D={D} not in {_SUPPORTED_D}")
+    if k.dim() != 4 or k.shape[0] != B or k.shape[3] != D or k.shape[1] < 1:
+        raise ValueError(f"k must be (B, C, Hk, D) = ({B}, C, Hk, {D}), got {tuple(k.shape)}")
+    Hk = k.shape[2]
+    if Hk < 1 or Hq % Hk:
+        raise ValueError(f"Hq={Hq} must be a multiple of Hk={Hk}")
+    if tuple(v.shape) != tuple(k.shape):
+        raise ValueError(f"v must be {tuple(k.shape)}, got {tuple(v.shape)}")
+    if not 1 <= B <= 65535:
+        raise ValueError(f"B={B} must be in [1, 65535]")
+    if tuple(lengths.shape) != (B,) or lengths.dtype != torch.int32:
+        raise ValueError(f"lengths must be ({B},) int32, got {tuple(lengths.shape)} "
+                         f"{lengths.dtype}")
+    if q.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"q must be float32 or bfloat16, got {q.dtype}")
+    if k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError("q, k and v must share one dtype")
+    for name, a in (("q", q), ("k", k), ("v", v), ("lengths", lengths)):
+        if not a.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+        if a.device != q.device:
+            raise ValueError(f"{name} is on {a.device}, q on {q.device}")
+    for name, a in (("q", q), ("k", k), ("v", v)):
+        if a.data_ptr() % 16:
+            raise ValueError(f"{name} must start on a 16-byte boundary")
+
+
+def split_plan(B: int, Hk: int, C: int, n_sm: int) -> Tuple[int, int]:
+    """``(split_keys, nsplit)``: the cache axis cut into ``nsplit`` splits of
+    ``split_keys`` slots, a multiple of the kernel's 64-slot tile, so that
+    the ``B * Hk * nsplit`` blocks of the split pass come to about eight
+    per SM when the cache is full (three fit at once at the serving shape,
+    so short rows leave few SMs idle)."""
+    tiles = -(-C // _TILE)
+    want = max(1, min(tiles, -(-_BLOCKS_PER_SM * n_sm // (B * Hk))))
+    split_keys = _TILE * -(-tiles // want)
+    return split_keys, -(-C // split_keys)
+
+
+@functools.cache
+def _lib() -> ctypes.CDLL:
+    lib = load("flash_decode")
+    fn = lib.flash_decode_fwd
+    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_int]
+                   + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    lib.flash_decode_error_string.argtypes = [ctypes.c_int]
+    lib.flash_decode_error_string.restype = ctypes.c_char_p
+    lib.flash_decode_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.flash_decode_smem_bytes.restype = ctypes.c_int
+    return lib
+
+
+def smem_bytes(g: int, D: int) -> int:
+    """Dynamic shared memory one block of the split pass takes for ``g``
+    query heads per kv head at head size ``D`` (builds the kernel if
+    needed)."""
+    return _lib().flash_decode_smem_bytes(g, D)
+
+
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 lengths: torch.Tensor) -> torch.Tensor:
+    """Launch the decode kernel.  q ``(B,Hq,D)``, k and v ``(B,C,Hk,D)``, all
+    float32 or all bfloat16, contiguous, on one CUDA device; ``lengths``
+    ``(B,)`` int32 on the same device, each in ``[1, C]`` (only slots
+    ``j < lengths[b]`` count; the kernel reads no slot beyond).  D in
+    {32, 64, 128}, any C.  Returns ``(B,Hq,D)`` in q's dtype.
+    ``flash_decode.launches`` counts launches."""
+    check_decode_args(q, k, v, lengths)
+    if q.device.type != "cuda":
+        raise ValueError(
+            f"flash_decode launches a CUDA kernel; got tensors on {q.device} "
+            "(CPU tensors go through repro_torch.kernels.ops.decode_attention)"
+        )
+    B, Hq, D = q.shape
+    C, Hk = k.shape[1], k.shape[2]
+    split_keys, nsplit = split_plan(B, Hk, C, _sm_count(q.device.index or 0))
+    g = Hq // Hk
+    o = torch.empty_like(q)
+    part_acc = torch.empty((B, Hk, nsplit, g, D), dtype=torch.float32, device=q.device)
+    part_ml = torch.empty((B, Hk, nsplit, g, 2), dtype=torch.float32, device=q.device)
+    lib = _lib()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.flash_decode_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(), o.data_ptr(),
+            part_acc.data_ptr(), part_ml.data_ptr(), B, C, Hq, Hk, D, split_keys, nsplit,
+            1.0 / math.sqrt(D), int(q.dtype == torch.bfloat16), stream,
+        )
+    if err != 0:
+        msg = lib.flash_decode_error_string(err).decode()
+        raise RuntimeError(f"flash_decode launch failed: {msg} (cudaError {err})")
+    flash_decode.launches += 1
+    return o
+
+
+flash_decode.launches = 0

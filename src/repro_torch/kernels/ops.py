@@ -13,9 +13,10 @@ import torch
 
 from . import ref as _ref
 from .flash_attention import flash_attention as _flash_attention
+from .flash_decode import flash_decode as _flash_decode
 from .rwkv6_scan import rwkv6_scan as _rwkv6_scan
 
-__all__ = ["attention", "rwkv6"]
+__all__ = ["attention", "decode_attention", "rwkv6"]
 
 
 def attention(
@@ -27,6 +28,17 @@ def attention(
     if q.device.type == "cpu":
         return _ref.attention_ref(q, k, v, causal=causal, window=window)
     return _flash_attention(q, k, v, causal=causal, window=window)
+
+
+def decode_attention(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, lengths: torch.Tensor,
+) -> torch.Tensor:
+    """Single-token GQA decode over a padded cache.  q ``(B,Hq,D)``, k and v
+    ``(B,C,Hk,D)``, ``lengths`` ``(B,)`` int32 in ``[1, C]``; returns
+    ``(B,Hq,D)``; see :func:`repro_torch.kernels.ref.decode_attention_ref`."""
+    if q.device.type == "cpu":
+        return _ref.decode_attention_ref(q, k, v, lengths)
+    return _flash_decode(q, k, v, lengths)
 
 
 def rwkv6(

@@ -11,7 +11,7 @@ from typing import Optional, Tuple
 
 import torch
 
-__all__ = ["attention_ref", "rwkv6_ref"]
+__all__ = ["attention_ref", "decode_attention_ref", "rwkv6_ref"]
 
 
 def attention_ref(
@@ -43,6 +43,33 @@ def attention_ref(
     w = torch.softmax(logits, dim=-1).to(v.dtype)
     out = torch.einsum("bhgqk,bkhd->bqhgd", w, v)
     return out.reshape(B, S, Hq, D)
+
+
+def decode_attention_ref(
+    q: torch.Tensor,            # (B, Hq, D)       single query token
+    k: torch.Tensor,            # (B, C, Hk, D)    cache
+    v: torch.Tensor,            # (B, C, Hk, D)
+    lengths: torch.Tensor,      # (B,) valid cache lengths
+    *,
+    scale: Optional[float] = None,
+) -> torch.Tensor:
+    """Naive single-token GQA decode over a padded KV cache: scores in
+    float32, slots ``j >= lengths[b]`` masked to -1e30, softmax in float32,
+    the weights rounded to v's dtype before the product with v.  Returns
+    ``(B, Hq, D)``."""
+    B, Hq, D = q.shape
+    C, Hk = k.shape[1], k.shape[2]
+    g = Hq // Hk
+    scale = scale if scale is not None else 1.0 / math.sqrt(D)
+    qg = q.reshape(B, Hk, g, D)
+    f32 = torch.float32
+    logits = torch.einsum("bhgd,bkhd->bhgk", qg.to(f32), k.to(f32)) * scale
+    valid = torch.arange(C, device=q.device)[None, :] < lengths[:, None]     # (B, C)
+    logits = torch.where(valid[:, None, None, :], logits,
+                         torch.full((), -1e30, dtype=f32, device=q.device))
+    w = torch.softmax(logits, dim=-1).to(v.dtype)
+    out = torch.einsum("bhgk,bkhd->bhgd", w, v)
+    return out.reshape(B, Hq, D)
 
 
 def rwkv6_ref(

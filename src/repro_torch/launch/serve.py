@@ -25,7 +25,7 @@ from ..serve.engine import ServingEngine, measure_interference
 __all__ = ["main", "serve_demo"]
 
 
-def serve_demo(arch: str = "rwkv6-3b", n_requests: int = 64,
+def serve_demo(arch: str = "qwen1.5-0.5b", n_requests: int = 64,
                max_batch: int = 8, max_seq: int = 128, seed: int = 0,
                device: Optional[Union[str, torch.device]] = "cuda"):
     """The JAX ``serve_demo``'s parts 1-2 on a reduced config: batched
@@ -71,7 +71,7 @@ def serve_demo(arch: str = "rwkv6-3b", n_requests: int = 64,
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__)
-    ap.add_argument("--arch", default="rwkv6-3b", choices=ARCHS)
+    ap.add_argument("--arch", default="qwen1.5-0.5b", choices=ARCHS)
     ap.add_argument("--requests", type=int, default=64)
     ap.add_argument("--max-batch", type=int, default=8)
     ap.add_argument("--device", default="cuda")

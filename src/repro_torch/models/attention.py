@@ -1,21 +1,56 @@
-"""Grouped-query attention (GQA) without a cache: training and prefill from
-position 0.
+"""Grouped-query attention (GQA), with and without a KV cache.
 
-The counterpart of the GQA part of the JAX package's ``models/attention.py``.
-With no cache, no cross-attention source, a causal mask, no logit softcap
-and S > 1, attention goes through
-:func:`repro_torch.kernels.flash_attention.flash_attention_trainable`: the
-hand-written kernel on the card, ``attention_ref`` on the CPU, the oracle
-backward on both.  Unlike the JAX model this route needs no
-``attention_impl`` and no S % 128 test, since the kernel masks a ragged last
-tile.  What the route does not take (non-causal, a softcap, one token) goes
-through ``_mask_bias`` and ``_sdpa``, the JAX model's ``"xla"`` route, which
-computes the same function.
+The counterpart of the GQA part of the JAX package's ``models/attention.py``,
+with its cache layout: per layer ``{"k", "v": (B, C, Hk, D), "pos": (B, C)
+int32}``, ``pos`` holding each slot's absolute position (-1 = empty); a
+global cache writes position ``p`` at slot ``clip(p, 0, C-1)``, a windowed
+one is a ring buffer at ``p % C``.  The cache is written in place.
 
-Not ported yet: the KV cache (decode, ROADMAP.md slice 3), cross-attention
-(``kv_x``, ``cache_read_only``: the whisper family) and M-RoPE (the qwen2-vl
-family), both in ROADMAP.md "Remaining model families"; each raises
-``NotImplementedError``.
+Routes.  The JAX model sends only a causal prefill *without* a cache to its
+kernel and computes everything else with ``_mask_bias`` + ``_sdpa`` over
+the cache.  The port sends two more cases to kernels, where they compute
+the same function:
+
+* No cache (training), causal, no softcap, S > 1:
+  :func:`~repro_torch.kernels.flash_attention.flash_attention_trainable`
+  (the kernel on the card, ``attention_ref`` on the CPU, the oracle
+  backward on both).  It needs no ``attention_impl`` and no S % 128 test,
+  since the kernel masks a ragged last tile.
+
+The other two hold only where the caller vouches, with ``gapless=True``,
+that each row's new tokens are the next ones of the sequence its cache
+holds from position 0, with no gap, and that a call of more than one token
+starts that sequence: ``LM.prefill`` (positions ``0..S-1``, which
+``LM.backbone`` makes itself) and ``LM.decode_step`` (position ``p`` after
+``0..p-1``, as the ``ServingEngine`` drives it).  Any other call, such as a
+chunked prefill or a step at a position past a gap, takes the JAX route.
+
+* A global cache, no softcap, 1 < S <= C, gapless: a prefill from position
+  0.  It writes positions ``0..S-1``; every other slot holds -1 or a
+  position >= S, which causality masks, so attention over the cache is
+  causal attention over the S new tokens: the same kernel route, then the
+  write.
+* A global cache, no softcap, S == 1, gapless: a decode step at position
+  ``p``.  In every slot the ``ServingEngine`` decodes (a fresh request, a
+  reused slot that a splice has overwritten, an idle slot whose position
+  has run past C), slots ``[0, min(p + 1, C))`` hold positions <= p and the
+  others -1, so ``_mask_bias`` admits exactly those: this is
+  :func:`~repro_torch.kernels.ops.decode_attention` (the flash-decode kernel
+  on the card, ``decode_attention_ref`` on the CPU) with ``lengths =
+  min(pos + 1, C)``, after the write.
+
+``tests/test_torch_decode.py::test_cache_routes_equal_the_mask_bias_route``
+holds each cache route against ``_mask_bias`` + ``_sdpa`` over the same
+cache.  ``attn_fn`` and ``decode_fn`` replace the two kernels (the plain
+versions, to hold the kernels' path against them on the card).  What the
+routes do not take (non-causal, a softcap, one token without a cache, a
+windowed ring cache, a prefill longer than the cache, a cache not vouched
+gapless) goes through ``_mask_bias`` + ``_sdpa``, the JAX route.
+
+Not ported yet: a cache in another dtype than the model's (``kv_dtype``),
+cross-attention (``kv_x``, ``cache_read_only``: the whisper family) and
+M-RoPE (the qwen2-vl family), all in ROADMAP.md "Remaining model families";
+each raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -24,15 +59,17 @@ from typing import Callable, Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from ..kernels import ops
 from ..kernels.flash_attention import flash_attention_trainable
 from .config import ModelConfig
 from .layers import apply_rope, dense_apply, dense_init, torch_dtype
 
-__all__ = ["gqa_init", "gqa_apply", "AttnFn"]
+__all__ = ["gqa_init", "gqa_apply", "make_cache", "AttnFn", "DecodeFn"]
 
 NEG_INF = -1e30
 
 AttnFn = Callable[..., torch.Tensor]
+DecodeFn = Callable[[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor], torch.Tensor]
 
 
 def gqa_init(gen: torch.Generator, cfg: ModelConfig, device: torch.device,
@@ -44,6 +81,19 @@ def gqa_init(gen: torch.Generator, cfg: ModelConfig, device: torch.device,
         "wk": dense_init(gen, d, hk * hd, dt, device, bias=cfg.qkv_bias, layers=layers),
         "wv": dense_init(gen, d, hk * hd, dt, device, bias=cfg.qkv_bias, layers=layers),
         "wo": dense_init(gen, hq * hd, d, dt, device, layers=layers),
+    }
+
+
+def make_cache(cfg: ModelConfig, batch: int, capacity: int, n_layers: int,
+               device: torch.device, dtype: Optional[torch.dtype] = None) -> Dict:
+    """Stacked-over-layers KV cache (leading axis = layer), in ``kv_dtype``
+    or the model's dtype, every slot empty."""
+    dt = dtype or torch_dtype(cfg.kv_dtype or cfg.dtype)
+    shape = (n_layers, batch, capacity, cfg.n_kv_heads, cfg.head_dim)
+    return {
+        "k": torch.zeros(shape, dtype=dt, device=device),
+        "v": torch.zeros(shape, dtype=dt, device=device),
+        "pos": torch.full(shape[:3], -1, dtype=torch.int32, device=device),
     }
 
 
@@ -72,31 +122,45 @@ def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bias: torch.Tensor,
     return torch.einsum("bhgqk,bkhd->bqhgd", w, v)
 
 
+def _ring_write(cache: Dict, k: torch.Tensor, v: torch.Tensor, positions: torch.Tensor,
+                window: Optional[int]) -> None:
+    """Write the new keys, values and positions (B,S,...) in place at their
+    slots: ``p % C`` in a windowed ring cache, ``clip(p, 0, C-1)`` in a
+    global one."""
+    C = cache["k"].shape[1]
+    slots = positions % C if window is not None else positions.clamp(0, C - 1)
+    b_idx = torch.arange(slots.shape[0], device=slots.device)[:, None]
+    for key, new in (("k", k), ("v", v), ("pos", positions)):
+        cache[key][b_idx, slots] = new.to(cache[key].dtype)
+
+
 def gqa_apply(
     cfg: ModelConfig,
     p: Dict,
     x: torch.Tensor,                         # (B, S, d)
     positions: torch.Tensor,                 # (B, S) absolute positions
     *,
-    cache: Optional[Dict] = None,
+    cache: Optional[Dict] = None,            # per-layer cache (no layer axis)
     cache_read_only: bool = False,
     kv_x: Optional[torch.Tensor] = None,
     causal: bool = True,
     window: Optional[int] = None,
     position_ids: Optional[torch.Tensor] = None,
     attn_fn: Optional[AttnFn] = None,
-) -> Tuple[torch.Tensor, None]:
-    """Self-attention over ``x`` with no cache.  Returns ``(out (B,S,d),
-    None)``.  ``attn_fn`` replaces the kernel route's attention (the plain
-    version, to hold the kernel's path against it on the card)."""
-    if cache is not None or cache_read_only:
+    decode_fn: Optional[DecodeFn] = None,
+    gapless: bool = False,
+) -> Tuple[torch.Tensor, Optional[Dict]]:
+    """Self-attention over ``x``, reading and writing ``cache`` if one is
+    given.  Returns ``(out (B,S,d), cache)``; the cache is updated in place
+    (None without one).  ``gapless`` vouches that each row's tokens are
+    the next ones of its cached sequence from position 0, with no gap, and
+    that more than one token starts it; the kernel routes over a cache need
+    that.  ``attn_fn`` replaces the attention kernel's route and
+    ``decode_fn`` the decode kernel's (see the module docstring)."""
+    if cache_read_only or kv_x is not None:
         raise NotImplementedError(
-            "attention with a KV cache is not ported yet (ROADMAP.md, queue 1, "
-            "slice 3 and 'Remaining model families')")
-    if kv_x is not None:
-        raise NotImplementedError(
-            "cross-attention (kv_x) is not ported yet (ROADMAP.md, queue 1, "
-            "'Remaining model families': whisper)")
+            "cross-attention (kv_x, cache_read_only) is not ported yet (ROADMAP.md, "
+            "queue 1, 'Remaining model families': whisper)")
     if cfg.rope == "mrope" and position_ids is not None:
         raise NotImplementedError(
             "M-RoPE is not ported yet (ROADMAP.md, queue 1, 'Remaining model "
@@ -109,11 +173,26 @@ def gqa_apply(
     v = dense_apply(p["wv"], x).reshape(B, S, hk, hd)
     if cfg.rope != "none":
         q, k = apply_rope(q, k, positions, cfg.rope_theta)
+    if cache is not None:
+        if cache["k"].dtype != q.dtype:
+            raise NotImplementedError(
+                f"a KV cache in {cache['k'].dtype} under a {q.dtype} model (kv_dtype) is "
+                "not ported yet (ROADMAP.md, queue 1, 'Remaining model families')")
+        _ring_write(cache, k, v, positions, window)
 
-    if causal and cfg.attn_logit_softcap is None and S > 1:
+    kernel_ok = causal and cfg.attn_logit_softcap is None
+    over_cache = gapless and cache is not None and window is None
+    if kernel_ok and S > 1 and (cache is None or over_cache and S <= cache["k"].shape[1]):
         fn = attn_fn or flash_attention_trainable
         out = fn(q.contiguous(), k.contiguous(), v.contiguous(), causal=True, window=window)
+    elif kernel_ok and over_cache and S == 1:
+        lengths = (positions[:, 0] + 1).clamp(max=cache["k"].shape[1]).to(torch.int32)
+        out = (decode_fn or ops.decode_attention)(q[:, 0].contiguous(), cache["k"],
+                                                  cache["v"], lengths)
     else:
-        bias = _mask_bias(positions, positions, causal=causal, window=window)
+        k_pos = positions
+        if cache is not None:
+            k, v, k_pos = cache["k"], cache["v"], cache["pos"]
+        bias = _mask_bias(positions, k_pos, causal=causal, window=window)
         out = _sdpa(q.reshape(B, S, hk, hq // hk, hd), k, v, bias, cfg.attn_logit_softcap)
-    return dense_apply(p["wo"], out.reshape(B, S, hq * hd)), None
+    return dense_apply(p["wo"], out.reshape(B, S, hq * hd)), cache

@@ -6,8 +6,8 @@ parameters and states are stacked over a leading layer axis, as in the JAX
 package; a Python loop over layers takes the place of ``lax.scan``.
 
 Ported: the ``dense`` family (one ``"attn"`` segment of GQA + MLP blocks,
-trained without a cache) and the ``ssm`` family (one ``"rwkv"`` segment of
-RWKV6 blocks, served and trained).  The other families raise
+trained, and served with a KV cache) and the ``ssm`` family (one ``"rwkv"``
+segment of RWKV6 blocks, served and trained).  The other families raise
 ``NotImplementedError``; they are queued in ROADMAP.md ("Remaining model
 families").  Activation checkpointing (``remat`` other than ``"none"``) is
 queued too.
@@ -25,7 +25,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
-from .attention import AttnFn, gqa_apply, gqa_init
+from .attention import AttnFn, DecodeFn, gqa_apply, gqa_init, make_cache
 from .config import ModelConfig
 from .layers import embed_init, mlp_apply, mlp_init, norm_apply, norm_init, torch_dtype
 from .recurrent import MixFn, rwkv6_apply, rwkv6_init, rwkv6_state
@@ -76,26 +76,28 @@ class LM:
     Public surface (mirrors the JAX ``LM``):
       init(generator) -> params
       loss(params, batch) -> (scalar, metrics)           [training]
-      init_cache(batch, capacity) -> caches              [ssm only]
-      backbone(params, tokens, caches=None) -> (hidden, caches)
+      init_cache(batch, capacity) -> caches
+      backbone(params, tokens, positions=None, caches=None) -> (hidden, caches)
       logits(params, hidden) -> logits
       prefill(params, batch, caches) -> (last-token logits, caches)
-      decode_step(params, tokens, caches) -> (logits, caches)
+      decode_step(params, tokens, pos, caches) -> (logits, caches)
 
     Caches are updated in place and returned, where the JAX model returns
     new arrays (its engine donates the old ones).  ``mix_fn`` replaces the
-    WKV recurrence in every RWKV6 block and ``attn_fn`` the attention of
-    every GQA block, to hold the kernels' path against the plain versions
-    on the card.
+    WKV recurrence in every RWKV6 block, ``attn_fn`` the attention kernel
+    and ``decode_fn`` the decode kernel of every GQA block, to hold the
+    kernels' path against the plain versions on the card.
     """
 
     def __init__(self, cfg: ModelConfig, device: Optional[Union[str, torch.device]] = "cuda",
-                 mix_fn: Optional[MixFn] = None, attn_fn: Optional[AttnFn] = None):
+                 mix_fn: Optional[MixFn] = None, attn_fn: Optional[AttnFn] = None,
+                 decode_fn: Optional[DecodeFn] = None):
         self.cfg = cfg
         self.device = resolve_device(device)
         self.segments = build_segments(cfg)
         self.mix_fn = mix_fn
         self.attn_fn = attn_fn
+        self.decode_fn = decode_fn
 
     # ------------------------------------------------------------------ init --
     def _block_init(self, gen: torch.Generator, seg: Segment) -> Dict:
@@ -127,29 +129,43 @@ class LM:
 
     # ------------------------------------------------------------------ cache --
     def init_cache(self, batch: int, capacity: int) -> List[Dict[str, torch.Tensor]]:
-        """Per-segment states, stacked over layers.  RWKV6 state does not
-        grow with the sequence, so ``capacity`` is not needed for it."""
-        if any(seg.kind != "rwkv" for seg in self.segments):
-            raise NotImplementedError(
-                "the KV cache is not ported yet (ROADMAP.md, queue 1, slice 3)")
-        return [rwkv6_state(self.cfg, batch, seg.n, self.device) for seg in self.segments]
+        """Per-segment decode caches and states, stacked over layers: a KV
+        cache of ``capacity`` slots (a local-attention segment keeps at most
+        its window), or the RWKV6 state, which does not grow with the
+        sequence."""
+        caches = []
+        for seg in self.segments:
+            if seg.kind == "attn":
+                cap = min(capacity, seg.window) if seg.window else capacity
+                caches.append(make_cache(self.cfg, batch, cap, seg.n, self.device))
+            else:
+                caches.append(rwkv6_state(self.cfg, batch, seg.n, self.device))
+        return caches
 
     # ----------------------------------------------------------------- blocks --
-    def _apply_attn_block(self, seg: Segment, p, x, positions):
+    def _apply_attn_block(self, seg: Segment, p, x, positions, cache, gapless):
         cfg = self.cfg
         h = norm_apply(cfg, p["norm1"], x)
-        a, _ = gqa_apply(cfg, p["attn"], h, positions, causal=True,
-                         window=seg.window, attn_fn=self.attn_fn)
+        a, _ = gqa_apply(cfg, p["attn"], h, positions, cache=cache, causal=True,
+                         window=seg.window, attn_fn=self.attn_fn, decode_fn=self.decode_fn,
+                         gapless=gapless)
         x = x + a
         h2 = norm_apply(cfg, p["norm2"], x)
         return x + mlp_apply(cfg, p["ffn"], h2)
 
     # ----------------------------------------------------------------- driver --
-    def backbone(self, params, tokens: torch.Tensor, caches=None):
-        """Embed -> segments -> final norm.  Returns ``(hidden (B,S,d),
-        caches)``; with caches, each layer's new state is written into them
-        in place.  Attention runs from position 0 with no cache (training,
-        or a prefill that keeps no state)."""
+    def backbone(self, params, tokens: torch.Tensor, positions: Optional[torch.Tensor] = None,
+                 caches=None):
+        """Embed -> segments -> final norm.  ``positions`` (B,S) are the
+        tokens' absolute positions, ``0..S-1`` if not given; the RWKV6
+        segment carries its position in its state and reads none.  Returns
+        ``(hidden (B,S,d), caches)``; with caches, each layer's new state is
+        written into them in place.  Attention over a cache takes the
+        kernel route only for positions it makes itself (a prefill from 0);
+        given positions take the JAX route (``models/attention.py``)."""
+        return self._backbone(params, tokens, positions, caches, gapless=positions is None)
+
+    def _backbone(self, params, tokens, positions, caches, gapless: bool):
         cfg = self.cfg
         if caches is None and cfg.remat != "none":
             raise NotImplementedError(
@@ -157,23 +173,19 @@ class LM:
                 "follow-ups)")
         B, S = tokens.shape
         x = params["embed"]["embedding"][tokens]
-        positions = torch.arange(S, device=tokens.device).expand(B, S)
+        if positions is None:
+            positions = torch.arange(S, device=tokens.device).expand(B, S)
         for s, seg in enumerate(self.segments):
-            seg_p = params["segments"][s]
-            if seg.kind == "attn":
-                if caches is not None:
-                    raise NotImplementedError(
-                        "the KV cache is not ported yet (ROADMAP.md, queue 1, slice 3)")
-                for p in _unstack(seg_p, seg.n):
-                    x = self._apply_attn_block(seg, p, x, positions)
-                continue
             cache = caches[s] if caches is not None else None
-            for i, p in enumerate(_unstack(seg_p, seg.n)):
-                state = _layer(cache, i) if cache is not None else None
-                x, new = rwkv6_apply(cfg, p["block"], x, state, mix_fn=self.mix_fn)
-                if cache is not None:
+            for i, p in enumerate(_unstack(params["segments"][s], seg.n)):
+                layer = _layer(cache, i) if cache is not None else None
+                if seg.kind == "attn":
+                    x = self._apply_attn_block(seg, p, x, positions, layer, gapless)
+                    continue
+                x, new = rwkv6_apply(cfg, p["block"], x, layer, mix_fn=self.mix_fn)
+                if layer is not None:
                     for key, val in new.items():
-                        cache[key][i].copy_(val)
+                        layer[key].copy_(val)
         return norm_apply(cfg, params["final_norm"], x), caches
 
     # ------------------------------------------------------------------ heads --
@@ -222,12 +234,21 @@ class LM:
         return xent + MOE_AUX_WEIGHT * aux, {"xent": xent, "moe_aux": aux}
 
     def prefill(self, params, batch: Dict[str, torch.Tensor], caches):
-        """Bulk-process a prompt, filling caches.  Returns last-token logits."""
+        """Bulk-process a prompt from position 0, filling caches.  Returns
+        last-token logits."""
         hidden, caches = self.backbone(params, batch["tokens"], caches=caches)
         return self.logits(params, hidden[:, -1:, :])[:, 0], caches
 
-    def decode_step(self, params, tokens: torch.Tensor, caches):
-        """One decode step.  tokens: (B,).  The recurrent state carries the
-        position, so no position is passed."""
-        hidden, caches = self.backbone(params, tokens[:, None], caches=caches)
+    def decode_step(self, params, tokens: torch.Tensor, pos: torch.Tensor, caches):
+        """One decode step.  tokens: (B,), pos: (B,) absolute position of
+        each token (read by attention; the RWKV6 state carries its own).
+
+        The caller keeps the invariant the ``ServingEngine`` keeps: each
+        row's cache holds its sequence's positions ``0..pos-1`` with no gap
+        (written by ``prefill`` and the steps since; a position past the
+        cache's end is written to its last slot).  Attention then reads
+        slots ``[0, min(pos + 1, C))`` through the decode kernel.  Use
+        ``backbone`` with explicit positions for anything else."""
+        hidden, caches = self._backbone(params, tokens[:, None], pos[:, None], caches,
+                                        gapless=True)
         return self.logits(params, hidden)[:, 0], caches

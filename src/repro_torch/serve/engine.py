@@ -11,7 +11,10 @@ co-batched sequences.
 
 Where the JAX engine donates the old cache to each jitted call, this one
 updates the state tensors in place: the model writes each layer's new state
-into them, and a splice copies a request's state into its slot.
+into them, and a splice copies every leaf of a request's state into its
+slot.  As in the JAX engine, an on-device ``pos`` holds each slot's next
+position: set when a request is added, advanced for every slot, busy or
+idle, after each step.
 """
 from __future__ import annotations
 
@@ -49,6 +52,7 @@ class ServingEngine:
         self.caches = model.init_cache(max_batch, max_seq)
         self.slots = [_Slot() for _ in range(max_batch)]
         self.tokens = torch.zeros(max_batch, dtype=torch.long, device=self.device)
+        self.pos = torch.zeros(max_batch, dtype=torch.int32, device=self.device)
 
     # -- request lifecycle ------------------------------------------------------
     def free_slots(self) -> List[int]:
@@ -81,12 +85,14 @@ class ServingEngine:
         st.remaining = max_new_tokens
         st.generated = [first]
         self.tokens[slot] = first
+        self.pos[slot] = st.pos
         return slot
 
     @torch.inference_mode()
     def step(self) -> Dict[str, List[int]]:
         """One decode step for all slots; returns finished requests."""
-        logits, self.caches = self.model.decode_step(self.params, self.tokens, self.caches)
+        logits, self.caches = self.model.decode_step(self.params, self.tokens, self.pos,
+                                                     self.caches)
         nxt = torch.argmax(logits, dim=-1)
         finished: Dict[str, List[int]] = {}
         new_tokens = nxt.cpu().numpy()
@@ -101,6 +107,7 @@ class ServingEngine:
                 st.request_id = None
                 st.generated = None
         self.tokens = nxt
+        self.pos += 1
         return finished
 
 

@@ -35,7 +35,7 @@ from repro_torch.kernels.flash_attention import (
     flash_attention_trainable,
 )
 from repro_torch.models import params_from_jax, reduced
-from repro_torch.models.attention import gqa_apply
+from repro_torch.models.attention import gqa_apply, make_cache
 from repro_torch.models.layers import apply_rope, mlp_apply, norm_apply
 
 # the JAX package's kernel-sweep tolerances (tests/test_kernels.py)
@@ -184,7 +184,9 @@ def test_gqa_apply_says_where_unported_paths_are_queued(qwen_cfgs):
     p = {name: {"w": torch.zeros(cfg.d_model, cfg.d_model)} for name in ("wq", "wk", "wv", "wo")}
     x = torch.zeros(1, 4, cfg.d_model)
     pos = torch.arange(4)[None]
-    for kwargs in ({"cache": {}}, {"cache_read_only": True}, {"kv_x": x}):
+    kv_dtype = make_cache(cfg, 1, 8, 1, torch.device("cpu"), dtype=torch.bfloat16)
+    kv_dtype = {key: val[0] for key, val in kv_dtype.items()}  # another dtype than the model's
+    for kwargs in ({"cache": kv_dtype}, {"cache_read_only": True}, {"kv_x": x}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             gqa_apply(cfg, p, x, pos, **kwargs)
     mcfg = dataclasses.replace(cfg, rope="mrope")

@@ -11,7 +11,8 @@ import torch
 
 from repro_torch.kernels import ops
 from repro_torch.kernels.flash_attention import flash_attention, flash_attention_trainable
-from repro_torch.kernels.ref import attention_ref, rwkv6_ref
+from repro_torch.kernels.flash_decode import flash_decode
+from repro_torch.kernels.ref import attention_ref, decode_attention_ref, rwkv6_ref
 from repro_torch.kernels.rwkv6_scan import rwkv6_scan, rwkv6_scan_trainable
 
 # the tolerances of the JAX package's own kernel sweep (tests/test_kernels.py)
@@ -150,3 +151,80 @@ def test_trainable_wrappers_launch_the_kernels_and_give_oracle_gradients(cuda_de
     want = torch.autograd.grad(yr.sum(), [inp[key] for key in ("r", "k", "v", "w")])
     for got, ref in zip(gr, want):
         np.testing.assert_allclose(_np(got), _np(ref), atol=1e-5, rtol=1e-5)
+
+
+def _decode_inputs(seed, B, C, Hq, Hk, D, dtype, device, lengths):
+    rng = np.random.default_rng(seed)
+
+    def t(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(device).to(dtype)
+
+    lens = torch.tensor(lengths, dtype=torch.int32, device=device)
+    return t(B, Hq, D), t(B, C, Hk, D), t(B, C, Hk, D), lens
+
+
+# (B, C, Hq, Hk, D, lengths): the JAX sweep's shapes, GQA at the serving
+# shape, MHA, MQA, ragged C (not a multiple of the 64-slot tile), lengths 1
+# and C, and one slot of cache
+DECODE_CASES = [
+    (2, 512, 8, 2, 64, [1, 512]),
+    (3, 256, 4, 4, 128, [100, 256, 1]),
+    (1, 1024, 16, 1, 64, [777]),
+    (2, 256, 8, 8, 32, [256, 65]),
+    (8, 1024, 32, 8, 128, [65, 129, 81, 201, 513, 17, 34, 257]),
+    (2, 1000, 8, 1, 128, [1000, 999]),        # MQA, ragged C
+    (1, 70, 4, 4, 64, [70]),                  # MHA, ragged C
+    (2, 33, 8, 2, 32, [1, 33]),
+    (1, 1, 2, 1, 128, [1]),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,C,Hq,Hk,D,lengths", DECODE_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_kernel_matches_plain_version(cuda_device, B, C, Hq, Hk, D, lengths, dtype):
+    q, k, v, lens = _decode_inputs(11, B, C, Hq, Hk, D, dtype, cuda_device, lengths)
+    before = flash_decode.launches
+    out = ops.decode_attention(q, k, v, lens)
+    torch.cuda.synchronize()
+    assert flash_decode.launches == before + 1
+    ref = decode_attention_ref(q, k, v, lens)
+    assert out.dtype == dtype and out.shape == q.shape
+    np.testing.assert_allclose(_np(out), _np(ref), **ATTN_TOL[dtype])
+
+
+@pytest.mark.cuda
+def test_decode_kernel_reads_no_slot_past_the_length(cuda_device):
+    q, k, v, lens = _decode_inputs(12, 2, 300, 8, 2, 64, torch.float32, cuda_device, [100, 257])
+    out = flash_decode(q, k, v, lens)
+    k2, v2 = k.clone(), v.clone()
+    for b, n in enumerate((100, 257)):
+        k2[b, n:] = float("nan")
+        v2[b, n:] = float("nan")
+    out2 = flash_decode(q, k2, v2, lens)
+    torch.cuda.synchronize()
+    assert torch.equal(out, out2)
+
+
+@pytest.mark.cuda
+def test_decode_kernel_rejects_what_it_does_not_take(cuda_device):
+    q, k, v, lens = _decode_inputs(13, 2, 128, 8, 2, 64, torch.float32, cuda_device, [5, 9])
+    before = flash_decode.launches
+    with pytest.raises(TypeError):
+        flash_decode(q.half(), k.half(), v.half(), lens)
+    with pytest.raises(TypeError):
+        flash_decode(q, k.to(torch.bfloat16), v, lens)
+    with pytest.raises(ValueError, match="head size"):
+        flash_decode(q[..., :48].contiguous(), k[..., :48].contiguous(),
+                     v[..., :48].contiguous(), lens)
+    with pytest.raises(ValueError, match="multiple"):
+        flash_decode(q[:, :7].contiguous(), k, v, lens)
+    with pytest.raises(ValueError, match="lengths"):
+        flash_decode(q, k, v, lens.long())
+    with pytest.raises(ValueError, match="contiguous"):
+        flash_decode(q, k.transpose(1, 2).contiguous().transpose(1, 2), v, lens)
+    with pytest.raises(ValueError, match="on"):
+        flash_decode(q, k, v, lens.cpu())
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_decode(q.cpu(), k.cpu(), v.cpu(), lens.cpu())
+    assert flash_decode.launches == before

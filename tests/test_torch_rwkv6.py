@@ -232,7 +232,8 @@ def test_prefill_and_decode_match_jax(models, impl):
     for t in range(steps):
         pos = jnp.full((B,), S + t, jnp.int32)
         jl, jc = jmodel.decode_step(jparams, jnp.asarray(nxt[t], jnp.int32), pos, jc)
-        lg, caches = model.decode_step(params, torch.from_numpy(nxt[t]), caches)
+        lg, caches = model.decode_step(params, torch.from_numpy(nxt[t]),
+                                       torch.from_numpy(np.array(pos)), caches)
         np.testing.assert_allclose(_np(lg), np.asarray(jl), **TOL[impl])
     for key in caches[0]:
         np.testing.assert_allclose(_np(caches[0][key]), np.asarray(jc[0][key]), **TOL[impl])

@@ -21,6 +21,8 @@ from repro.serve.engine import ServingEngine as JaxServingEngine
 from repro_torch.configs import get_config
 from repro_torch.core.interference import fit_linear_interference
 from repro_torch.device import resolve_device
+from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.flash_decode import flash_decode
 from repro_torch.kernels.rwkv6_scan import rwkv6_scan
 from repro_torch.launch.serve import serve_demo
 from repro_torch.models import LM, params_from_jax, reduced
@@ -90,13 +92,14 @@ def test_fit_rejects_too_few_samples():
 
 
 def test_serve_demo_on_cpu():
-    before = rwkv6_scan.launches
+    kernels = (flash_attention, flash_decode, rwkv6_scan)
+    before = [kern.launches for kern in kernels]
     out = serve_demo(n_requests=10, max_batch=4, device="cpu")
     assert len(out["outputs"]) == 10
     assert all(0 <= t < 512 for toks in out["outputs"].values() for t in toks)
     m, c, r2 = out["interference"]
     assert np.isfinite([m, c, r2]).all()
-    assert rwkv6_scan.launches == before    # the CPU never reaches the kernel
+    assert [kern.launches for kern in kernels] == before   # the CPU reaches no kernel
 
 
 def test_import_isolation():
