@@ -1,9 +1,11 @@
 """Python wrapper for flash attention (forward), a CUDA kernel for Hopper,
 and its trainable form.
 
-The kernel (``csrc/flash_attention.cu``) replaces the JAX package's Pallas
-TPU kernel ``repro.kernels.flash_attention.flash_attention``; its source
-comment says what bounds it on the H100 and how its design answers that.
+The kernels (``csrc/flash_attention.cu``) replace the JAX package's Pallas
+TPU kernel ``repro.kernels.flash_attention.flash_attention``; the source
+comment says what bounds them on the H100 and how the design answers that.
+bfloat16 runs the tensor-core kernel (wgmma, TMA-fed K/V tiles, one K/V tile
+for a whole GQA group); float32 runs the SIMT kernel in full f32.
 :func:`flash_attention` checks its arguments, allocates the output, launches
 on PyTorch's current stream and raises if the launch fails.  It takes
 contiguous CUDA tensors only: CPU tensors go to the plain version through
@@ -28,9 +30,11 @@ from .build import load
 from .ref import attention_ref
 
 __all__ = ["flash_attention", "flash_attention_trainable", "check_attention_args",
-           "smem_bytes"]
+           "smem_bytes", "tile_plan"]
 
 _SUPPORTED_D = (32, 64, 128)
+# query rows a block of the bf16 kernel owns: one warpgroup's 64
+ROWS_PER_BLOCK = 64
 
 
 def check_attention_args(q, k, v, window: Optional[int] = None) -> None:
@@ -51,10 +55,10 @@ def check_attention_args(q, k, v, window: Optional[int] = None) -> None:
         raise ValueError(f"Hq={Hq} must be a multiple of Hk={Hk}")
     if tuple(v.shape) != tuple(k.shape):
         raise ValueError(f"v must be {tuple(k.shape)}, got {tuple(v.shape)}")
-    if B * Hq > 65535:
-        raise ValueError(f"B * Hq = {B * Hq} exceeds the grid's 65535")
     if q.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"q must be float32 or bfloat16, got {q.dtype}")
+    if q.dtype == torch.float32 and B * Hq > 65535:
+        raise ValueError(f"B * Hq = {B * Hq} exceeds the float32 kernel's grid of 65535")
     if k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError("q, k and v must share one dtype")
     for name, a in (("q", q), ("k", k), ("v", v)):
@@ -66,6 +70,19 @@ def check_attention_args(q, k, v, window: Optional[int] = None) -> None:
         raise ValueError(f"window must be >= 1, got {window}")
 
 
+def tile_plan(B: int, S: int, Hq: int, Hk: int) -> dict:
+    """How the bf16 kernel cuts the work into blocks of ROWS_PER_BLOCK query
+    rows: ``heads_per_block`` heads of one group (all g of them, up to 64)
+    times ``tokens_per_block`` token positions; ``head_chunks`` blocks cover
+    a group's heads, ``token_tiles`` cover S."""
+    g = Hq // Hk
+    hb = min(g, ROWS_PER_BLOCK)
+    T = ROWS_PER_BLOCK // hb
+    chunks, tiles = -(-g // hb), -(-S // T)
+    return dict(heads_per_block=hb, tokens_per_block=T, head_chunks=chunks,
+                token_tiles=tiles, blocks=B * Hk * chunks * tiles)
+
+
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = load("flash_attention")
@@ -75,15 +92,15 @@ def _lib() -> ctypes.CDLL:
     fn.restype = ctypes.c_int
     lib.flash_attention_error_string.argtypes = [ctypes.c_int]
     lib.flash_attention_error_string.restype = ctypes.c_char_p
-    lib.flash_attention_smem_bytes.argtypes = [ctypes.c_int]
+    lib.flash_attention_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
     lib.flash_attention_smem_bytes.restype = ctypes.c_int
     return lib
 
 
-def smem_bytes(D: int) -> int:
-    """Dynamic shared memory one block of the kernel takes at head size
-    ``D`` (builds the kernel if needed)."""
-    n = _lib().flash_attention_smem_bytes(D)
+def smem_bytes(D: int, dtype: torch.dtype = torch.bfloat16) -> int:
+    """Dynamic shared memory one block of the kernel for ``dtype`` takes at
+    head size ``D`` (builds the kernel if needed)."""
+    n = _lib().flash_attention_smem_bytes(D, int(dtype == torch.bfloat16))
     if n < 0:
         raise ValueError(f"no kernel built for D={D}")
     return n
@@ -96,31 +113,44 @@ def flash_attention(
     """Launch the attention kernel.  q ``(B,S,Hq,D)``, k and v ``(B,S,Hk,D)``,
     all float32 or all bfloat16, contiguous, on one CUDA device; D in
     {32, 64, 128}, any ``S >= 1``.  Returns ``(B,S,Hq,D)`` in q's dtype.
-    ``flash_attention.launches`` counts launches."""
+
+    bfloat16 launches the tensor-core kernel, float32 the SIMT kernel.
+    ``flash_attention.launches`` counts launches, ``wgmma_launches`` and
+    ``simt_launches`` each route's."""
     check_attention_args(q, k, v, window)
+    bf16 = q.dtype == torch.bfloat16
     if q.device.type != "cuda":
         raise ValueError(
             f"flash_attention launches a CUDA kernel; got tensors on {q.device} "
             "(CPU tensors go through repro_torch.kernels.ops.attention)"
         )
     B, S, Hq, D = q.shape
+    Hk = k.shape[2]
+    if bf16:   # TMA reads 16-byte aligned tensors; a view at an odd offset is copied
+        q, k, v = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (q, k, v))
     o = torch.empty_like(q)
     lib = _lib()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.flash_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            B, S, Hq, k.shape[2], D, 1.0 / math.sqrt(D), int(causal),
-            window or 0, int(q.dtype == torch.bfloat16), stream,
+            B, S, Hq, Hk, D, 1.0 / math.sqrt(D), int(causal),
+            window or 0, int(bf16), stream,
         )
     if err != 0:
         msg = lib.flash_attention_error_string(err).decode()
         raise RuntimeError(f"flash_attention launch failed: {msg} (cudaError {err})")
     flash_attention.launches += 1
+    if bf16:
+        flash_attention.wgmma_launches += 1
+    else:
+        flash_attention.simt_launches += 1
     return o
 
 
 flash_attention.launches = 0
+flash_attention.wgmma_launches = 0
+flash_attention.simt_launches = 0
 
 
 class _FlashAttention(torch.autograd.Function):

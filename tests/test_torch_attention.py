@@ -33,6 +33,7 @@ from repro_torch.kernels.flash_attention import (
     check_attention_args,
     flash_attention,
     flash_attention_trainable,
+    tile_plan,
 )
 from repro_torch.models import params_from_jax, reduced
 from repro_torch.models.attention import gqa_apply, make_cache
@@ -117,7 +118,28 @@ def test_kernel_wrapper_rejects_what_it_does_not_take():
     before = flash_attention.launches
     with pytest.raises(ValueError, match="CUDA"):
         flash_attention(q, k, v)           # the kernel takes CUDA tensors only
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_attention(*(t.bfloat16() for t in (q, k, v)))
     assert flash_attention.launches == before
+
+
+@pytest.mark.parametrize("B,S,Hq,Hk,want", [
+    (4, 2048, 16, 16, (1, 64, 1, 32, 2048)),    # the training shape
+    (1, 512, 32, 8, (4, 16, 1, 32, 256)),       # the dense prefill: 2 blocks on 128 SMs
+    (1, 100, 64, 1, (64, 1, 1, 100, 100)),      # g=64: one token of 64 heads a block
+    (2, 100, 6, 2, (3, 21, 1, 5, 20)),          # g=3: 63 of 64 rows busy
+    (1, 9, 160, 1, (64, 1, 3, 9, 27)),          # g > 64: three head chunks
+])
+def test_tile_plan_covers_every_row_once(B, S, Hq, Hk, want):
+    """The bf16 kernel's blocks: heads_per_block x tokens_per_block rows of
+    at most 64, head chunks covering each group's g heads and token tiles
+    covering S."""
+    plan = tile_plan(B, S, Hq, Hk)
+    keys = ("heads_per_block", "tokens_per_block", "head_chunks", "token_tiles", "blocks")
+    assert tuple(plan[key] for key in keys) == want
+    hb, T = plan["heads_per_block"], plan["tokens_per_block"]
+    assert hb * T <= 64 and hb * plan["head_chunks"] >= Hq // Hk
+    assert T * plan["token_tiles"] >= S > T * (plan["token_tiles"] - 1)
 
 
 # -- layers ------------------------------------------------------------------------

@@ -101,6 +101,22 @@ def _attn_inputs(seed, B, S, Hq, Hk, D, dtype, device):
     (1, 300, 4, 1, 128, False, 100),   # non-causal window
     (1, 2, 2, 1, 64, True, None),
     (1, 1, 2, 2, 32, True, None),
+    # one 64x64 tile, then S past a tile edge, a ragged last tile, and the
+    # training length; D=128 with g=4 (16 tokens x 4 heads a block) and D=64
+    # MHA (64 tokens a block)
+    (1, 64, 8, 2, 128, True, None),
+    (1, 65, 8, 2, 128, True, None),
+    (1, 127, 8, 2, 128, True, None),
+    (1, 2048, 8, 2, 128, True, None),
+    (1, 64, 2, 2, 64, True, None),
+    (1, 65, 2, 2, 64, True, None),
+    (1, 127, 2, 2, 64, True, None),
+    (1, 2048, 2, 2, 64, True, None),
+    (1, 300, 8, 2, 128, True, 100),    # window starting mid-tile, GQA
+    (2, 333, 2, 2, 64, True, 77),      # window starting mid-tile, MHA
+    (2, 100, 6, 2, 64, True, None),    # g=3: 21 tokens x 3 heads, 1 row idle
+    (1, 9, 160, 1, 32, True, None),    # g=160: three head chunks, the last partial
+    (1, 190, 16, 2, 32, False, None),  # non-causal GQA, D=32
 ])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_attention_kernel_matches_plain_version(cuda_device, B, S, Hq, Hk, D, causal,
@@ -113,6 +129,34 @@ def test_attention_kernel_matches_plain_version(cuda_device, B, S, Hq, Hk, D, ca
     ref = attention_ref(q, k, v, causal=causal, window=window)
     assert out.dtype == dtype and out.shape == q.shape
     np.testing.assert_allclose(_np(out), _np(ref), **ATTN_TOL[dtype])
+
+
+@pytest.mark.cuda
+def test_attention_routes_bf16_to_the_tensor_core_kernel(cuda_device):
+    """bf16 launches the wgmma kernel, float32 the SIMT kernel; each route
+    has its own count beside the total."""
+    for dtype, route in ((torch.bfloat16, "wgmma_launches"), (torch.float32, "simt_launches")):
+        q, k, v = _attn_inputs(14, 1, 96, 4, 2, 64, dtype, cuda_device)
+        counts = {name: getattr(flash_attention, name)
+                  for name in ("launches", "wgmma_launches", "simt_launches")}
+        ops.attention(q, k, v, causal=True)
+        torch.cuda.synchronize()
+        for name, before in counts.items():
+            assert getattr(flash_attention, name) == before + (name in ("launches", route))
+
+
+@pytest.mark.cuda
+def test_attention_kernel_takes_a_view_at_an_odd_offset(cuda_device):
+    """TMA needs 16-byte aligned tensors: a contiguous bf16 view that starts
+    one element into its storage still runs, and gives the same answer."""
+    q, k, v = _attn_inputs(16, 1, 100, 4, 2, 64, torch.bfloat16, cuda_device)
+    flat = torch.empty(q.numel() + 1, dtype=q.dtype, device=cuda_device)
+    odd = flat[1:].view(q.shape)
+    odd.copy_(q)
+    assert odd.is_contiguous() and odd.data_ptr() % 16
+    out = flash_attention(odd, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert torch.equal(out, flash_attention(q, k, v, causal=True))
 
 
 @pytest.mark.cuda
