@@ -9,10 +9,17 @@ Phases, each failing the run with a non-zero exit if anything is wrong:
              sm_90a in one parallel build and prints nvcc's register and
              shared-memory reports.
 3. kernels   holds each kernel against its plain PyTorch version on the
-             card at the main paths' shapes, and times both (and, for
-             attention and decode, ``scaled_dot_product_attention`` as a
-             yardstick); the bf16 attention kernel at the training shape
-             and at the dense prefill shape, with each step of its design.
+             card at the main paths' shapes (the WKV kernel also under a
+             strong decay; the bf16 attention, decode and WKV kernels also
+             against the plain version on their inputs cast up to float32),
+             and times both (and, for attention and decode,
+             ``scaled_dot_product_attention`` as a yardstick); the bf16
+             attention kernel at the training shape and at the dense
+             prefill shape, the WKV kernel at 128, 200 and 512 tokens (a
+             CUDA graph of calls, so the gaps between its three passes
+             count), and the host's time a call of each; checks by the
+             profiler that a call of attention or decode runs one kernel on
+             the card and a WKV call three.
 4. serve     serves requests through ``ServingEngine`` on full-width
              RWKV6-3B in bf16 (random weights from a seed) and checks that
              every prefill went through the WKV kernel, that the tokens are
@@ -36,8 +43,9 @@ Phases, each failing the run with a non-zero exit if anything is wrong:
              state restores leaf for leaf.
 
 The line before the last is a JSON object with each kernel's launches on
-its main path, its error against the plain version, its time, the plain
-version's time, its bound and the library call's time; the last line is
+its main path (calls of its wrapper), the kernels a call runs on the card,
+its error against the plain version, its time, the plain version's time,
+its bound and the library call's time; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Imports nothing of JAX and nothing of the JAX package.
 """
@@ -73,7 +81,8 @@ from repro_torch.kernels.flash_attention import tile_plan  # noqa: E402
 from repro_torch.kernels.flash_decode import flash_decode, split_plan  # noqa: E402
 from repro_torch.kernels.flash_decode import smem_bytes as decode_smem_bytes  # noqa: E402
 from repro_torch.kernels.ref import attention_ref, decode_attention_ref, rwkv6_ref  # noqa: E402
-from repro_torch.kernels.rwkv6_scan import chunk_for, rwkv6_scan, smem_bytes  # noqa: E402
+from repro_torch.kernels.rwkv6_scan import KERNELS_PER_CALL as WKV_KERNELS_PER_CALL  # noqa: E402
+from repro_torch.kernels.rwkv6_scan import kernel_chunk, rwkv6_scan, smem_bytes  # noqa: E402
 from repro_torch.launch.train import train  # noqa: E402
 from repro_torch.models import LM  # noqa: E402
 from repro_torch.models.layers import torch_dtype  # noqa: E402
@@ -86,6 +95,7 @@ from repro_torch.tree import tree_leaves, tree_map  # noqa: E402
 # Published peaks of one H100 SXM (NVIDIA data sheet, dense, at 700 W).
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+TF32_OPS_PER_S = 495e12
 BF16_OPS_PER_S = 989e12
 
 H, N = 40, 64                       # RWKV6-3B: 40 heads of size 64
@@ -96,6 +106,12 @@ KERNEL_TOL = {torch.float32: 2e-3, torch.bfloat16: 5e-2}
 # from the float32 plain logits within this factor of the plain bf16 path's.
 LOGITS_F32_TOL = 1e-3
 BF16_NOISE_FACTOR = 2.0
+# The bf16 WKV kernel also against rwkv6_ref on its inputs cast up to
+# float32: beyond the rounding of its bf16 y (half an ulp, at most 2^-8 of
+# |y|), at most this share of max |y|, room for its products' TF32 operands
+# (at most 2.4e-4 of max |y| at the kernel_phase shapes on an H100, so about
+# 2x that); S_T, whose update stays in f32, within the f32 KERNEL_TOL.
+WKV_BF16_UPCAST_TOL = 5e-4
 SERVE_PROMPTS = (64, 128, 80, 200, 512, 16, 33, 256, 97, 20)
 SERVE_NEW_TOKENS = (16, 32, 24, 20, 16, 32, 18, 28, 16, 24)
 
@@ -139,8 +155,8 @@ DECODE_CASES = (
 # launch finds its K and V outside the 50 MB L2 as a decode step does
 DECODE_TIMING_LAYERS = 16
 # The bf16 decode kernel also against decode_attention_ref on its inputs cast
-# up to float32 (no rounding of the weights, as in the kernel), abs: the
-# kernel's only rounding is then its bf16 output.
+# up to float32 (no rounding of the weights), abs: the kernel's roundings are
+# then its bf16 weights (as the plain bf16 path rounds them) and its output.
 DECODE_BF16_UPCAST_TOL = 1e-2
 DECODE_CHECK_STEPS = 4
 # Step 1 through the attention kernel against the same step through the
@@ -177,74 +193,140 @@ def time_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def wkv_inputs(B, T, dtype, gen, dev):
+def wkv_inputs(B, T, dtype, gen, dev, strong_decay=False):
+    """WKV inputs at the served model's heads; with ``strong_decay`` half the
+    channels decay as w = exp(-exp(x + 2)), so the cumulative log-decay of a
+    16-token sub-chunk falls below -87 and its exponential underflows in f32."""
     def randn(*shape):
         return torch.randn(shape, generator=gen, device=dev, dtype=torch.float32)
 
     r, k, v = randn(B, T, H, N) * 0.5, randn(B, T, H, N) * 0.5, randn(B, T, H, N)
     w = torch.exp(-torch.exp(randn(B, T, H, N) - 2.0))      # decay in (0, 1)
+    if strong_decay:
+        w[..., : N // 2] = torch.exp(-torch.exp(randn(B, T, H, N // 2) + 2.0))
     return dict(r=r.to(dtype), k=k.to(dtype), v=v.to(dtype), w=w,
                 u=randn(H, N) * 0.2, S0=randn(B, H, N, N) * 0.1)
 
 
-def wkv_cost(B: int, T: int, elem_bytes: int):
-    """(bytes, f32 operations) the chunked WKV scan needs for these shapes.
+def wkv_cost(B: int, T: int, elem_bytes: int, chunk: int, sub: int = 16):
+    """(bytes, SIMT operations, product operations) the WKV scan needs for
+    these shapes, counted as the kernel splits the work: chunks of ``chunk``
+    tokens, A factored over sub-chunks of ``sub``.
 
     Bytes: r, k, v and y in the activation dtype and w in f32, each read or
-    written once; u, S0 and S_T in f32.  Operations, per (b, h) and chunk of
-    L valid tokens: (r e^cum_exc) @ S; the decay-weighted A below the
-    diagonal (subtract, exp, two multiplies, add per term) and its u
-    diagonal; A @ v over i <= t; the state update; the log, cumsum and decay
-    factors.  A ragged last chunk counts its valid tokens only.
+    written once; u, S0 and S_T in f32 (the kernel's per-chunk scratch not
+    counted).  Per (b, h) and chunk of L valid tokens, SIMT operations
+    (f32 in both instantiations): the state increment (k e^{total-cum})^T v
+    and the carry S <- e^{total} S + dS; A's diagonal sub-chunk blocks
+    (subtract, exp, two multiplies, add a term below the diagonal; the u
+    term on it); the log, cumulative sum and decay factors.  Product
+    operations (TF32 tensor cores in bf16, SIMT in f32): (r e^{cum_exc}) @ S,
+    A's blocks below the diagonal sub-chunks as products of factors, and
+    A @ v over i <= t.  A ragged last chunk counts its valid tokens only.
     """
     nbytes = B * T * H * N * (4 * elem_bytes + 4) + H * N * 4 + 2 * B * H * N * N * 4
-    c = chunk_for(T)
-    ops = 0
-    for t0 in range(0, T, c):
-        L = min(c, T - t0)
-        below = L * (L - 1) // 2
-        ops += (2 * L * N * N + 5 * below * N + 3 * L * N
-                + 2 * (below + L) * N + 2 * L * N * N + N * N + 3 * L * N)
-    return nbytes, B * H * ops
+    simt = prod = 0
+    for t0 in range(0, T, chunk):
+        L = min(chunk, T - t0)
+        subs = [min(sub, L - s0) for s0 in range(0, L, sub)]
+        simt += 2 * L * N * N + 2 * N * N + 3 * L * N
+        simt += sum(5 * (l * (l - 1) // 2) * N + 3 * l * N for l in subs)
+        prod += 2 * L * N * N + 2 * (L * (L - 1) // 2 + L) * N
+        prod += sum(2 * subs[q] * subs[p] * N for q in range(len(subs)) for p in range(q))
+    return nbytes, B * H * simt, B * H * prod
+
+
+def wkv_bound(T: int, chunk: int):
+    """``(bound ms, bound_by, line)`` of the bf16 WKV scan at B=1: the larger
+    of its bytes over the memory rate and its operations over their rates,
+    SIMT at the f32 peak and the products at the TF32 peak, the larger of
+    the two (the pipes run side by side)."""
+    nbytes, simt, prod = wkv_cost(1, T, 2, chunk)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = max(simt / F32_OPS_PER_S, prod / TF32_OPS_PER_S) * 1e3
+    line = (f"{nbytes} bytes -> {t_bytes:.4f} ms, {simt} f32 SIMT ops -> "
+            f"{simt / F32_OPS_PER_S * 1e3:.4f} ms, {prod} TF32 product ops -> "
+            f"{prod / TF32_OPS_PER_S * 1e3:.4f} ms")
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations", line
+
+
+def pass_name(kernel: str) -> str:
+    """``state``, ``carry`` or ``output`` for a WKV pass's kernel name."""
+    m = re.search(r"rwkv6_(\w+?)_kernel", kernel)
+    return m.group(1) if m else kernel[:60]
 
 
 def kernel_phase(dev):
-    """The WKV kernel against its plain version at the main path's shapes."""
+    """The WKV kernel against its plain version at the main path's shapes
+    (the bf16 kernel also against the plain version on its inputs cast up
+    to float32), then its times at 128, 200 and 512 tokens."""
     gen = torch.Generator(device=dev).manual_seed(1)
     worst = 0.0
-    for B in (1, 8):
-        for T in (64, 128, 80, 512):
-            for dtype in (torch.float32, torch.bfloat16):
-                inp = wkv_inputs(B, T, dtype, gen, dev)
-                y, s = rwkv6_scan(**inp)
-                torch.cuda.synchronize()
-                yr, sr = rwkv6_ref(**inp)
-                tol = KERNEL_TOL[dtype]
-                errs = []
-                for got, want in ((y, yr), (s, sr)):
-                    got, want = got.float(), want.float()
-                    check(bool(torch.isfinite(got).all()), f"non-finite output B={B} T={T}")
-                    over = (got - want).abs() - (tol + tol * want.abs())
-                    errs.append(float((got - want).abs().max()))
-                    check(float(over.max()) <= 0, f"kernel disagrees B={B} T={T} {dtype}: "
-                          f"max abs err {errs[-1]:.3e} beyond {tol} abs+rel")
-                worst = max(worst, *errs)
-                print(f"[kernels] rwkv6_scan B={B} T={T} {str(dtype)[6:]} chunk={chunk_for(T)}: "
-                      f"max abs err y {errs[0]:.3e}, S_T {errs[1]:.3e} (tol {tol} abs+rel)",
-                      flush=True)
-    timing = {}
-    for T in (128, 512):
+    cases = [(B, T, False) for B in (1, 8) for T in (64, 128, 80, 512)] + [(1, 512, True)]
+    for B, T, strong in cases:
+        for dtype in (torch.float32, torch.bfloat16):
+            inp = wkv_inputs(B, T, dtype, gen, dev, strong_decay=strong)
+            if strong:
+                sub = float(torch.log(inp["w"][:, :16, :, : N // 2]).sum(1).min())
+                check(sub < -87, f"strong decay: a sub-chunk's log-decay {sub:.1f} >= -87")
+            y, s = rwkv6_scan(**inp)
+            torch.cuda.synchronize()
+            yr, sr = rwkv6_ref(**inp)
+            tol = KERNEL_TOL[dtype]
+            errs = []
+            for got, want in ((y, yr), (s, sr)):
+                got, want = got.float(), want.float()
+                check(bool(torch.isfinite(got).all()), f"non-finite output B={B} T={T}")
+                over = (got - want).abs() - (tol + tol * want.abs())
+                errs.append(float((got - want).abs().max()))
+                check(float(over.max()) <= 0, f"kernel disagrees B={B} T={T} {dtype}: "
+                      f"max abs err {errs[-1]:.3e} beyond {tol} abs+rel")
+            worst = max(worst, *errs)
+            upcast = ""
+            if dtype == torch.bfloat16:
+                yu, su = rwkv6_ref(**{**inp, **{key: inp[key].float() for key in "rkv"}})
+                scale = float(yu.abs().max())
+                beyond = float(((y.float() - yu).abs() - BF16_HALF_ULP * yu.abs()).max())
+                tol32 = KERNEL_TOL[torch.float32]
+                s_over = float(((s - su).abs() - (tol32 + tol32 * su.abs())).max())
+                case = f"B={B} T={T}{' strong decay' if strong else ''}"
+                check(beyond <= WKV_BF16_UPCAST_TOL * scale,
+                      f"bf16 WKV kernel {case}: y is {beyond:.3e} beyond its rounding from "
+                      f"the float32 plain version, beyond {WKV_BF16_UPCAST_TOL} of max |y| "
+                      f"{scale:.3f}")
+                check(s_over <= 0, f"bf16 WKV kernel {case}: S_T beyond {tol32} abs+rel of "
+                      f"the float32 plain version")
+                upcast = (f"; against the float32 plain version on these inputs y "
+                          f"{beyond:.3e} beyond 2^-8 of |y| = {beyond / scale:.3e} of max |y| "
+                          f"{scale:.3f} (tol {WKV_BF16_UPCAST_TOL} of it), S_T "
+                          f"{float((s - su).abs().max()):.3e} (tol {tol32} abs+rel)")
+                del yu, su
+            print(f"[kernels] rwkv6_scan B={B} T={T} {str(dtype)[6:]}"
+                  f"{' strong decay' if strong else ''}: max abs err y {errs[0]:.3e}, "
+                  f"S_T {errs[1]:.3e} (tol {tol} abs+rel){upcast}", flush=True)
+    timing, chunk = {}, kernel_chunk()
+    for T in (128, 200, 512):
         inp = wkv_inputs(1, T, torch.bfloat16, gen, dev)
-        ms = time_ms(lambda: rwkv6_scan(**inp), iters=50)
+        call = lambda: rwkv6_scan(**inp)   # noqa: E731
+        per_call = kernels_per_call(call)
+        check(per_call == WKV_KERNELS_PER_CALL,
+              f"one rwkv6_scan call ran {per_call} kernels on the card, not "
+              f"{WKV_KERNELS_PER_CALL}")
+        # a call's device time, its passes and the gaps between them, with
+        # the host's launch rate out of the way; and by pass
+        ms = graph_ms(call, calls=20)
+        passes = device_times(call, iters=50)
+        by_pass = ", ".join(f"{pass_name(name)} {t:.4f} ms" for name, t in passes.items())
         plain_ms = time_ms(lambda: rwkv6_ref(**inp), iters=3, warmup=1)
-        nbytes, ops = wkv_cost(1, T, 2)
-        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / F32_OPS_PER_S * 1e3
-        bound = max(t_bytes, t_ops)
-        timing[T] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound,
-                         bound_by="bytes" if t_bytes >= t_ops else "operations")
-        print(f"[kernels] rwkv6_scan B=1 T={T} H={H} N={N} bf16: {ms:.4f} ms; "
-              f"plain version {plain_ms:.3f} ms; bound {bound:.4f} ms "
-              f"({nbytes} bytes -> {t_bytes:.4f} ms, {ops} f32 ops -> {t_ops:.4f} ms), "
+        bound, bound_by, cost = wkv_bound(T, chunk)
+        us = host_us(call, ATTN_HOST_CALLS)
+        timing[T] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, host_us=us,
+                         bound_by=bound_by, kernels_per_call=per_call)
+        print(f"[kernels] rwkv6_scan B=1 T={T} H={H} N={N} bf16, {per_call} kernels on the "
+              f"card a call: {ms:.4f} ms a call (CUDA graph of 20 calls, by CUDA events; "
+              f"kernel time by pass: {by_pass}; gaps {ms - sum(passes.values()):.4f} ms), "
+              f"host {us:.2f} us a call; plain version {plain_ms:.3f} ms; bound {bound:.4f} ms "
+              f"({cost}; counted at the kernel's {chunk}-token chunks), "
               f"{100 * bound / ms:.1f}% of bound", flush=True)
     return worst, timing
 
@@ -329,6 +411,11 @@ def serve_phase(dev):
     lg = prefill_check("serve", model, params, prompt, "WKV kernel vs plain WKV",
                        mix_fn=rwkv6_ref)
     check(int(lg.argmax()) == done[rid][0], "prefill is not deterministic")
+    longest = max(requests, key=lambda req: len(req[1]))
+    engine = ServingEngine(model, params, max_batch=8, max_seq=1024)
+    engine.add_request(*longest)
+    profile_report("serve", lambda: engine.add_request(f"{longest[0]}-again", *longest[1:]))
+    del engine
     return model, params, launches
 
 
@@ -613,6 +700,8 @@ def attention_phase(dev):
         qt, kt, vt = (t.transpose(2, 3).contiguous() for t in (q, k, v))   # (n, B, H, S, D)
         timer = time_ms if clock == "events" else device_ms
         iters = 20 * n
+        per_call = kernels_per_call(lambda: flash_attention(q[0], k[0], v[0], causal=True))
+        check(per_call == 1, f"one flash_attention call ran {per_call} kernels on the card")
         ms = timer(layers(lambda i: flash_attention(q[i], k[i], v[i], causal=True), n), iters)
         plain_ms = timer(layers(lambda i: attention_ref(q[i], k[i], v[i], causal=True), n),
                          iters=3, warmup=1)
@@ -626,9 +715,10 @@ def attention_phase(dev):
         bound = max(t_bytes, t_ops)
         plan = tile_plan(B, S, Hq, Hk)
         timing[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound,
-                            bound_by="bytes" if t_bytes >= t_ops else "operations")
+                            bound_by="bytes" if t_bytes >= t_ops else "operations",
+                            kernels_per_call=per_call)
         print(f"[kernels] flash_attention {name} shape B={B} S={S} Hq={Hq} Hk={Hk} D={D} "
-              f"causal bf16, {clock} time ({plan['blocks']} blocks of {plan['tokens_per_block']} tokens x "
+              f"causal bf16, {per_call} kernel on the card a call, {clock} time ({plan['blocks']} blocks of {plan['tokens_per_block']} tokens x "
               f"{plan['heads_per_block']} heads): {ms:.4f} ms; "
               f"plain version {plain_ms:.3f} ms; scaled_dot_product_attention "
               f"{library_ms:.4f} ms (max abs diff from the plain version {lib_err:.3e}); bound "
@@ -697,11 +787,11 @@ def decode_cost(B, Hq, Hk, D, lengths, elem_bytes):
     return nbytes, 4 * D * Hq * n
 
 
-def device_ms(fn, iters: int, warmup: int = 3) -> float:
-    """Device time of ``fn`` per call: the card's kernel times over ``iters``
-    calls under torch.profiler, summed, over ``iters``.  Gaps between
-    kernels, which the host's launch rate sets for calls this short, are
-    not counted."""
+def device_times(fn, iters: int, warmup: int = 3) -> dict:
+    """Device time of ``fn`` per call by kernel name, in ms: the card's
+    kernel times over ``iters`` calls under torch.profiler, over ``iters``.
+    Gaps between kernels, which the host's launch rate sets for calls this
+    short, are not counted."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -709,10 +799,46 @@ def device_ms(fn, iters: int, warmup: int = 3) -> float:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    us = sum(e.time_range.elapsed_us() for e in prof.events()
-             if e.device_type == DeviceType.CUDA)
-    check(us > 0, "the profiler saw no device time")
-    return us / iters / 1e3
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / iters / 1e3
+    check(sum(by_name.values()) > 0, "the profiler saw no device time")
+    return by_name
+
+
+def kernels_per_call(fn) -> int:
+    """The kernels one call of ``fn`` runs on the card, by torch.profiler."""
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA)
+
+
+def graph_ms(fn, calls: int, replays: int = 10) -> float:
+    """Device time of ``fn`` per call with the host out of the way: ``calls``
+    calls captured in one CUDA graph, its replays timed by CUDA events.  The
+    gaps between dependent kernels count; the host's launch rate does not."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    ms = time_ms(graph.replay, replays) / calls
+    del graph
+    return ms
+
+
+def device_ms(fn, iters: int, warmup: int = 3) -> float:
+    """Device time of ``fn`` per call, all its kernels summed (``device_times``)."""
+    return sum(device_times(fn, iters, warmup).values())
 
 
 def decode_phase(dev):
@@ -776,6 +902,16 @@ def decode_phase(dev):
         bound = max(t_bytes, t_ops)
         timing[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound,
                             bound_by="bytes" if t_bytes >= t_ops else "operations")
+        if name == "served":
+            # one kernel on the card a call, and the host's time a call
+            per_call = kernels_per_call(lambda: flash_decode(q[0], k[0], v[0], lens))
+            check(per_call == 1, f"one flash_decode call ran {per_call} kernels on the card")
+            timing["kernels_per_call"] = per_call
+            timing["host_us"] = host_us(lambda: flash_decode(q[0], k[0], v[0], lens),
+                                        ATTN_HOST_CALLS)
+            print(f"[kernels] flash_decode {per_call} kernel on the card a call; host time per "
+                  f"call over {ATTN_HOST_CALLS} back-to-back calls {timing['host_us']:.2f} us",
+                  flush=True)
         print(f"[kernels] flash_decode B={B} C={C} Hq={Hq} Hk={Hk} D={D} bf16, lengths "
               f"{name} (sum {sum(lengths)}), (split_keys, nsplit) "
               f"{split_plan(B, Hk, C, torch.cuda.get_device_properties(0).multi_processor_count)}"
@@ -817,6 +953,7 @@ def step_one(cfg, dev, attn_fn, f32=False):
 PROFILE_GROUPS = (
     ("attention kernel", ("flash_attention_",)),
     ("decode kernel", ("flash_decode",)),
+    ("WKV kernel", ("rwkv6_",)),
     ("matrix products", ("gemm", "xmma", "nvjet", "cutlass", "Kernel2")),
     ("softmax", ("softmax",)),
     ("reductions", ("reduce",)),
@@ -1000,9 +1137,8 @@ def main() -> int:
         print(f"[build] {name}:", flush=True)
         for line in report.splitlines() or ["(library already built)"]:
             print(f"[build]   {line}", flush=True)
-    print(f"[build] rwkv6_scan dynamic shared memory per block at N={N}: "
-          f"chunk 64 {smem_bytes(N, 64)} bytes, chunk 16 {smem_bytes(N, 16)} bytes "
-          f"(256 threads a block)", flush=True)
+    print(f"[build] rwkv6_scan dynamic shared memory per block of its output pass at "
+          f"N={N}: {smem_bytes(N)} bytes (256 threads a block)", flush=True)
     print(f"[build] flash_attention dynamic shared memory per block: bf16 (wgmma) "
           + ", ".join(f"D={d} {attn_smem_bytes(d)} bytes" for d in (32, 64, 128))
           + "; f32 (SIMT) "
@@ -1011,10 +1147,16 @@ def main() -> int:
     for kern, regs, st, ld in ptxas_report(reports.get("flash_attention", "")):
         print(f"[build] flash_attention {kern}: {regs} registers, spill stores {st} bytes, "
               f"spill loads {ld} bytes", flush=True)
-    print(f"[build] flash_decode dynamic shared memory per block of the split pass: "
-          + ", ".join(f"g={g} D={d} {decode_smem_bytes(g, d)} bytes"
-                      for g, d in ((4, 128), (1, 64), (16, 128)))
+    print(f"[build] flash_decode dynamic shared memory per block: bf16 "
+          + ", ".join(f"D={d} {decode_smem_bytes(d)} bytes" for d in (32, 64, 128))
+          + "; f32 "
+          + ", ".join(f"D={d} {decode_smem_bytes(d, torch.float32)} bytes"
+                      for d in (32, 64, 128))
           + " (128 threads a block)", flush=True)
+    for name in ("rwkv6_scan", "flash_decode"):
+        for kern, regs, st, ld in ptxas_report(reports.get(name, "")):
+            print(f"[build] {name} {kern}: {regs} registers, spill stores {st} bytes, "
+                  f"spill loads {ld} bytes", flush=True)
 
     worst, timing = kernel_phase(dev)
     attn_worst, attn_t = attention_phase(dev)
@@ -1039,6 +1181,7 @@ def main() -> int:
         "source": "src/repro_torch/csrc/rwkv6_scan.cu",
         "replaces": "src/repro/kernels/rwkv6_scan.py:99",
         "launches": launches,
+        "kernels_per_call": main_t["kernels_per_call"],
         "max_abs_err": worst,
         "ms": main_t["ms"],
         "plain_ms": main_t["plain_ms"],
@@ -1051,6 +1194,7 @@ def main() -> int:
         "source": "src/repro_torch/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:97",
         "launches": attn_launches,
+        "kernels_per_call": attn_main["kernels_per_call"],
         "max_abs_err": attn_worst,
         "ms": attn_main["ms"],
         "plain_ms": attn_main["plain_ms"],
@@ -1063,6 +1207,7 @@ def main() -> int:
         "source": "src/repro_torch/csrc/flash_decode.cu",
         "replaces": "src/repro/kernels/flash_decode.py:76",
         "launches": dec_launches,
+        "kernels_per_call": dec_t["kernels_per_call"],
         "max_abs_err": dec_worst,
         "ms": dec_main["ms"],
         "plain_ms": dec_main["plain_ms"],

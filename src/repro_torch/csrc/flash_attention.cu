@@ -135,8 +135,11 @@ flash_attention_simt_kernel(const float* __restrict__ q, const float* __restrict
 
   const int tid = threadIdx.x;
   const int tx = tid % 16, ty = tid / 16;   // thread owns rows ty + 16a
-  const int qt = gridDim.x - 1 - blockIdx.x;
-  const int bh = blockIdx.y;                 // b * Hq + h
+  // one block a (query tile, b * Hq + h), all in gridDim.x so that any B * Hq
+  // runs; the heaviest tiles (the last under a causal mask) launch first
+  const int BH = gridDim.x / ((S + kBQ - 1) / kBQ);
+  const int qt = (S + kBQ - 1) / kBQ - 1 - (int)(blockIdx.x / BH);
+  const int bh = (int)(blockIdx.x % BH);     // b * Hq + h
   const int h = bh % Hq, b = bh / Hq;
   const int hk = h / (Hq / Hk);
   const int q0 = qt * kBQ;
@@ -281,8 +284,9 @@ cudaError_t launch_simt(const void* q, const void* k, const void* v, void* o, in
   static std::atomic<uint64_t> smem_set{0};
   const cudaError_t e = set_smem_once(flash_attention_simt_kernel<D>, smem, smem_set);
   if (e != cudaSuccess) return e;
-  const dim3 grid((S + kBQ - 1) / kBQ, B * Hq);
-  flash_attention_simt_kernel<D><<<grid, kThreads, smem, stream>>>(
+  const long long blocks = (long long)((S + kBQ - 1) / kBQ) * B * Hq;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  flash_attention_simt_kernel<D><<<(unsigned)blocks, kThreads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(o), S, Hq, Hk, scale, causal, window);
   return cudaGetLastError();
@@ -866,8 +870,8 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* o, i
 
 // q, o: (B, S, Hq, D); k, v: (B, S, Hk, D); all float32 (is_bf16 = 0) or all
 // bfloat16 (is_bf16 = 1), contiguous.  D in {32, 64, 128}, Hq % Hk == 0, any
-// S >= 1.  window <= 0 means no window.  float32 runs the SIMT kernel (B * Hq
-// <= 65535).  bfloat16 runs the wgmma kernel; q, k, v 16-byte aligned.
+// S >= 1.  window <= 0 means no window.  float32 runs the SIMT kernel, any
+// B * Hq.  bfloat16 runs the wgmma kernel; q, k, v 16-byte aligned.
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
                                    int B, int S, int Hq, int Hk, int D, float scale,
                                    int causal, int window, int is_bf16, void* stream) {
@@ -881,7 +885,6 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
       default: return cudaErrorInvalidValue;
     }
   }
-  if (B * Hq > 65535) return cudaErrorInvalidValue;
   switch (D) {
     case 32: return launch_simt<32>(q, k, v, o, B, S, Hq, Hk, scale, causal, window, st);
     case 64: return launch_simt<64>(q, k, v, o, B, S, Hq, Hk, scale, causal, window, st);

@@ -12,275 +12,531 @@
 //
 // with the online softmax of the TPU kernel: a running max m, running sum l
 // and accumulator acc per query head, all f32, and o = acc / max(l, 1e-30).
+// The scores are kept in base 2 (the scale times log2(e) in one multiply,
+// then exp2), which gives the same weights.
 //
 // What bounds it on this card.  One query token streams the valid part of
 // the cache once: at the serving shape (B=8, Hq=32, Hk=8, D=128, bf16, all
 // 1024 slots valid) k and v are 33.5 MB, 10.0 us at 3.35 TB/s, against
 // 4*D*Hq*sum(len) = 1.3e8 operations (0.14 us at the bf16 peak): it is bound
-// by bytes.  Reading each K/V tile once for all g heads of its group is what
-// keeps it there; the TPU kernel's layout does the same.
+// by bytes.  So the design keeps the loads streaming and spends as few
+// instructions as it can on each byte that lands.
 //
-// What the design does about it (simple and right first; fast is later work).
-//  * Split over C.  The TPU grid (B, Hk, kv_blocks) walks the kv blocks in
-//    order on one core, with m, l and acc in VMEM.  On Hopper (B, Hk) alone
-//    is 64 blocks at the serving shape, for 132 SMs, and each would stream
-//    its whole cache row alone.  So the cache axis is cut into splits of
-//    `split_keys` slots (a multiple of the 64-slot tile, chosen by the
-//    wrapper so that the grid holds a few blocks per SM): one block owns one
-//    (b, kv head, split), holds the g grouped queries and keeps the f32 m, l
-//    and acc of its part.  A second small pass merges the parts of each
-//    (b, q head) by their maxima, the split-K reduction the JAX docstring
-//    names as the GPU formulation.
-//  * The empty tail.  A split that starts at or beyond lengths[b] returns at
-//    once and the merge never reads it: slots past the length are never
-//    loaded (the TPU kernel reads and masks them).
-//  * Any C.  A ragged last tile is loaded as zeros past its end and masked,
-//    so C need not be a multiple of the tile.
-//  * Loads.  K and V tiles are read in 16-byte vectors, neighbouring threads
-//    on neighbouring addresses, converted to f32 in shared memory (k rows
-//    padded to D + 4 floats so the float4 reads of a quarter-warp hit
-//    distinct banks).  Both products are f32 FMAs; no rounding of P, so the
-//    f32 instantiation is full f32.  cp.async or TMA pipelining of the tiles
-//    and keeping them in bf16 are the steps that make it faster.
+// What the design does about it.
+//  * Splits of several tiles.  The cache axis of each (b, kv head) is cut
+//    into splits of `split_keys` slots, several 64-slot tiles each; the
+//    wrapper sizes them from the SM count so that a full cache gives about
+//    two blocks an SM, all resident at once.  A split that starts at or past
+//    lengths[b] returns at once, so a short row costs only its used splits
+//    and no slot past the length is ever read.  The grid is one dimension,
+//    (b, kv head, head chunk, split), so any B and Hk run.
+//  * A ring of cp.async stages.  K and V tiles land in shared memory in
+//    their own dtype through 16-byte cp.async copies, three stages deep in
+//    bf16 (two in f32), so the next tiles load while this one is in use.  A
+//    ragged last tile is zero-filled past its end and masked.  bf16 rows are
+//    stored with their 16-byte chunks XOR-swizzled by row, so the ldmatrix
+//    reads below hit eight distinct bank groups.
+//  * bfloat16: both products on the tensor cores (mma.sync m16n8k16).  The
+//    g grouped queries are the 16 rows of the A operand (padded with zeros;
+//    head chunks of 16 when g > 16), held in registers for the whole split.
+//    Each warp owns 16 slots of every tile: S = Q K^T with K through
+//    ldmatrix, the online softmax in registers (a row's 16 slots sit in one
+//    quad of lanes), P rounded to bf16 (as the plain version rounds its
+//    weights) and fed back from the S accumulators as the A operand of
+//    O += P V, V through ldmatrix.trans.  Each K and V element is read from
+//    shared memory once for all g heads.  mma.sync over the padded group
+//    was chosen over SIMT dot products in a slice of D because the SIMT
+//    form spends a shuffle reduction on every score and an f32 conversion
+//    on every element, more instructions than the bytes leave time for;
+//    the padding costs tensor-core time, of which this kernel uses little.
+//  * float32: the same splits, ring and merges with SIMT FMAs in full f32
+//    (no TF32): a lane owns D/32 elements of each head's query and
+//    accumulator (heads in chunks of 8), and each score is reduced across
+//    the warp's lanes.
+//  * One launch.  The warps of a block merge their (m, l, acc) in shared
+//    memory.  A row with one used split writes o at once; otherwise each
+//    block writes an f32 partial, and the last block of its (b, kv head,
+//    head chunk) to finish, counted by an int in scratch that it resets to
+//    0 itself, merges the partials by their maxima and writes o.  No host
+//    sync and no allocation, so a CUDA graph can capture the launch.
 //
 // Lengths are taken in [1, C]: a length above C counts as C, and a length
 // below 1 gives a zero output (the reference has no meaning for it).  The
-// kernels allocate nothing and launch on the stream they are given; the C
-// entry point returns cudaGetLastError() and the Python wrapper raises on it.
+// kernel allocates nothing and launches on the stream it is given; the C
+// entry point returns a cudaError_t and the Python wrapper raises on it.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
+
+#include <atomic>
+#include <type_traits>
 
 namespace {
 
 constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
-constexpr int kBK = 64;   // cache slots per tile
+constexpr int kBK = 64;                 // cache slots per tile; warp w owns 16w..16w+15
 constexpr float kNegInf = -1e30f;
-constexpr int kMaxSmem = 232448;
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+template <typename T> struct Cfg;
+template <> struct Cfg<__nv_bfloat16> {
+  static constexpr int kHeads = 16;     // rows of the mma A operand
+  static constexpr int kStages = 3;
+};
+template <> struct Cfg<float> {
+  static constexpr int kHeads = 8;
+  static constexpr int kStages = 2;
+};
+
+template <typename T, int D>
+__host__ __device__ constexpr int ring_bytes() {
+  return Cfg<T>::kStages * 2 * kBK * D * (int)sizeof(T);
+}
+template <typename T, int D>
+__host__ __device__ constexpr int merge_bytes() {
+  // each warp's acc (kHeads, D), m and l
+  return kWarps * Cfg<T>::kHeads * (D + 2) * (int)sizeof(float);
+}
+template <typename T, int D>
+__host__ __device__ constexpr int smem_bytes_for() {
+  return (ring_bytes<T, D>() > merge_bytes<T, D>() ? ring_bytes<T, D>() : merge_bytes<T, D>())
+         + 16;
+}
+
+// Raise `kernel`'s dynamic shared-memory limit to `smem` bytes on the current
+// device, once: `done` holds a bit for each device it was set on.  Setting it
+// once keeps the launch free of calls a CUDA graph capture would refuse.
+template <typename Kernel>
+cudaError_t set_smem_once(Kernel kernel, int smem, std::atomic<uint64_t>& done) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  const uint64_t bit = dev < 64 ? 1ull << dev : 0;
+  if (bit && (done.load() & bit)) return cudaSuccess;
+  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e == cudaSuccess) done.fetch_or(bit);
+  return e;
+}
+
 __device__ __forceinline__ void store_as(float* p, float x) { *p = x; }
 __device__ __forceinline__ void store_as(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
 
-// 16 bytes from p (16-byte aligned) as floats
-__device__ __forceinline__ void load16(const float* p, float* f) {
-  const float4 x = *reinterpret_cast<const float4*>(p);
-  f[0] = x.x; f[1] = x.y; f[2] = x.z; f[3] = x.w;
-}
-__device__ __forceinline__ void load16(const __nv_bfloat16* p, float* f) {
-  const uint4 u = *reinterpret_cast<const uint4*>(p);
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
-#pragma unroll
-  for (int t = 0; t < 4; ++t) {
-    const float2 x = __bfloat1622float2(h[t]);
-    f[2 * t] = x.x;
-    f[2 * t + 1] = x.y;
-  }
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// floats of dynamic shared memory for g grouped heads at head size D: the
-// queries, the k tile (rows padded to D + 4), the v tile, the scores, the
-// accumulators and m, l, alpha per head
-__host__ __device__ constexpr int smem_floats(int g, int D) {
-  return g * D + kBK * (D + 4) + kBK * D + g * kBK + g * D + 3 * g;
+// 16 bytes from global to shared memory; zeros when !valid (src unread)
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+  const int n = valid ? 16 : 0;
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(smem_u32(dst)), "l"(src), "r"(n) : "memory");
 }
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// Physical 16-byte chunk of logical chunk c in row r of a tile.  bf16 rows
+// are swizzled so the 8 rows an ldmatrix reads at one logical chunk fall in
+// 8 distinct 16-byte bank groups; f32 rows are read whole by a warp and are
+// not swizzled.
+template <typename T, int D>
+__device__ __forceinline__ int swz(int r, int c) {
+  if constexpr (std::is_same<T, float>::value) return c;
+  else if constexpr (D >= 64) return c ^ (r & 7);
+  else return c ^ ((r >> 1) & 3);
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t& r0, uint32_t& r1, uint32_t& r2,
+                                            uint32_t& r3, uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3) : "r"(addr) : "memory");
+}
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t& r0, uint32_t& r1, uint32_t& r2,
+                                                  uint32_t& r3, uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3) : "r"(addr) : "memory");
+}
+// c += a b: m16n8k16, bf16 operands, f32 accumulators
+__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a, uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+struct Args {
+  const void* q;
+  const void* k;
+  const void* v;
+  const int* lengths;
+  void* o;
+  float* part_acc;   // (rows, nsplit, kHeads, D), rows = B * Hk * HC
+  float* part_ml;    // (rows, nsplit, kHeads, 2)
+  int* counters;     // (rows,), zero between calls
+  int C, Hq, Hk, HC, split_keys, nsplit;
+  float scale_log2;  // 1/sqrt(D) * log2(e)
+};
+
+// One warp's running state over its slots of every tile of the split.
+template <typename T, int D> struct WarpState;
+
+// bfloat16: rows g and g + 8 of the mma tiles (g = lane / 4) are heads
+// h0 + g and h0 + g + 8; a lane holds columns 2t, 2t + 1 of each 8-wide
+// block (t = lane % 4).
+template <int D>
+struct WarpState<__nv_bfloat16, D> {
+  static constexpr int RB = D * 2;    // bytes a tile row
+  uint32_t qa[D / 16][4];             // Q as the A operand, one per 16-wide k step
+  float o[D / 8][4];                  // O accumulators, one per 8-wide block of D
+  float m[2], l[2];                   // rows g and g + 8; l is this lane's share
+
+  __device__ void init(const __nv_bfloat16* qh, int hb, int lane) {
+    const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int row = g + 8 * (e & 1), col = kk * 16 + 2 * t + 8 * (e >> 1);
+        qa[kk][e] = row < hb ? *reinterpret_cast<const uint32_t*>(qh + row * D + col) : 0u;
+      }
+#pragma unroll
+    for (int nd = 0; nd < D / 8; ++nd)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[nd][e] = 0.f;
+    m[0] = m[1] = kNegInf;
+    l[0] = l[1] = 0.f;
+  }
+
+  // one tile: this warp's slots 16w..16w+15, cache slots k0 + those, valid
+  // below k_end
+  __device__ void tile(const char* ks, const char* vs, int k0, int k_end, int warp, int lane,
+                       float scale_log2) {
+    const int t = lane & 3, mi = lane >> 3;
+    float s[2][4];
+#pragma unroll
+    for (int nb = 0; nb < 2; ++nb)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[nb][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      // matrices: (slots 0-7, d lo), (0-7, d hi), (8-15, d lo), (8-15, d hi)
+      const int row = 16 * warp + 8 * (mi >> 1) + (lane & 7);
+      const int ch = 2 * kk + (mi & 1);
+      uint32_t b0, b1, b2, b3;
+      ldmatrix_x4(b0, b1, b2, b3, smem_u32(ks + row * RB + swz<__nv_bfloat16, D>(row, ch) * 16));
+      mma_bf16(s[0], qa[kk], b0, b1);
+      mma_bf16(s[1], qa[kk], b2, b3);
+    }
+    float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+    for (int nb = 0; nb < 2; ++nb)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int j = k0 + 16 * warp + 8 * nb + 2 * t + (e & 1);
+        s[nb][e] = j < k_end ? s[nb][e] * scale_log2 : kNegInf;
+        mx[e >> 1] = fmaxf(mx[e >> 1], s[nb][e]);
+      }
+    float alpha[2];
+#pragma unroll
+    for (int rh = 0; rh < 2; ++rh) {
+      mx[rh] = fmaxf(mx[rh], __shfl_xor_sync(0xffffffffu, mx[rh], 1));
+      mx[rh] = fmaxf(mx[rh], __shfl_xor_sync(0xffffffffu, mx[rh], 2));
+      const float m_new = fmaxf(m[rh], mx[rh]);
+      alpha[rh] = exp2f(m[rh] - m_new);
+      m[rh] = m_new;
+      l[rh] *= alpha[rh];
+    }
+#pragma unroll
+    for (int nb = 0; nb < 2; ++nb)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int j = k0 + 16 * warp + 8 * nb + 2 * t + (e & 1);
+        const float p = j < k_end ? exp2f(s[nb][e] - m[e >> 1]) : 0.f;
+        s[nb][e] = p;
+        l[e >> 1] += p;
+      }
+    // the S accumulators of two 8-slot blocks are the A operand of one
+    // 16-slot k step
+    const uint32_t pa[4] = {pack_bf16(s[0][0], s[0][1]), pack_bf16(s[0][2], s[0][3]),
+                            pack_bf16(s[1][0], s[1][1]), pack_bf16(s[1][2], s[1][3])};
+#pragma unroll
+    for (int nd = 0; nd < D / 8; ++nd) {
+      o[nd][0] *= alpha[0];
+      o[nd][1] *= alpha[0];
+      o[nd][2] *= alpha[1];
+      o[nd][3] *= alpha[1];
+    }
+#pragma unroll
+    for (int nd = 0; nd < D / 8; nd += 2) {
+      // matrices: (slots 0-7, block nd), (8-15, nd), (0-7, nd+1), (8-15, nd+1)
+      const int row = 16 * warp + 8 * (mi & 1) + (lane & 7);
+      const int ch = nd + (mi >> 1);
+      uint32_t b0, b1, b2, b3;
+      ldmatrix_x4_trans(b0, b1, b2, b3,
+                        smem_u32(vs + row * RB + swz<__nv_bfloat16, D>(row, ch) * 16));
+      mma_bf16(o[nd], pa, b0, b1);
+      mma_bf16(o[nd + 1], pa, b2, b3);
+    }
+  }
+
+  // this warp's m, l and acc of heads < hb into shared memory
+  __device__ void finish(float* mo, float* mm, float* ml, int hb, int warp, int lane) {
+    constexpr int KH = Cfg<__nv_bfloat16>::kHeads;
+    const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+    for (int rh = 0; rh < 2; ++rh) {
+      l[rh] += __shfl_xor_sync(0xffffffffu, l[rh], 1);
+      l[rh] += __shfl_xor_sync(0xffffffffu, l[rh], 2);
+      const int row = g + 8 * rh;
+      if (row >= hb) continue;
+      float* dst = mo + (warp * KH + row) * D;
+#pragma unroll
+      for (int nd = 0; nd < D / 8; ++nd) {
+        dst[nd * 8 + 2 * t] = o[nd][2 * rh];
+        dst[nd * 8 + 2 * t + 1] = o[nd][2 * rh + 1];
+      }
+      if (t == 0) {
+        mm[warp * KH + row] = m[rh];
+        ml[warp * KH + row] = l[rh];
+      }
+    }
+  }
+};
+
+// float32: lane owns elements lane*VEC .. lane*VEC+VEC-1 of every head.
+template <int D>
+struct WarpState<float, D> {
+  static constexpr int KH = Cfg<float>::kHeads;
+  static constexpr int VEC = D / 32;
+  float qf[KH][VEC], acc[KH][VEC], m[KH], l[KH];
+  int hb;
+
+  __device__ void init(const float* qh, int hb_, int lane) {
+    hb = hb_;
+#pragma unroll
+    for (int i = 0; i < KH; ++i) {
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) {
+        qf[i][e] = i < hb ? qh[i * D + lane * VEC + e] : 0.f;
+        acc[i][e] = 0.f;
+      }
+      m[i] = kNegInf;
+      l[i] = 0.f;
+    }
+  }
+
+  __device__ void tile(const char* ks, const char* vs, int k0, int k_end, int warp, int lane,
+                       float scale_log2) {
+    const float* kf = reinterpret_cast<const float*>(ks);
+    const float* vf = reinterpret_cast<const float*>(vs);
+    for (int jj = 0; jj < 16; ++jj) {
+      const int r = 16 * warp + jj;
+      if (k0 + r >= k_end) break;                 // the same for the whole warp
+      float kv[VEC], vv[VEC];
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) {
+        kv[e] = kf[r * D + lane * VEC + e];
+        vv[e] = vf[r * D + lane * VEC + e];
+      }
+#pragma unroll
+      for (int i = 0; i < KH; ++i) {
+        if (i >= hb) break;
+        float s = 0.f;
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) s = fmaf(qf[i][e], kv[e], s);
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
+        s *= scale_log2;
+        const float m_new = fmaxf(m[i], s);
+        const float alpha = exp2f(m[i] - m_new);
+        const float p = exp2f(s - m_new);
+        l[i] = l[i] * alpha + p;
+        m[i] = m_new;
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) acc[i][e] = fmaf(p, vv[e], acc[i][e] * alpha);
+      }
+    }
+  }
+
+  __device__ void finish(float* mo, float* mm, float* ml, int hb_, int warp, int lane) {
+#pragma unroll
+    for (int i = 0; i < KH; ++i) {
+      if (i >= hb_) break;
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) mo[(warp * KH + i) * D + lane * VEC + e] = acc[i][e];
+      if (lane == 0) {
+        mm[warp * KH + i] = m[i];
+        ml[warp * KH + i] = l[i];
+      }
+    }
+  }
+};
 
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
-flash_decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                          const T* __restrict__ v, const int* __restrict__ lengths,
-                          float* __restrict__ part_acc, float* __restrict__ part_ml,
-                          int C, int Hq, int Hk, int split_keys, float scale) {
+flash_decode_kernel(const Args a) {
   static_assert(D % 32 == 0, "head size");
-  constexpr int PD = D + 4;                // padded row stride of the k tile
-  constexpr int VEC = 16 / sizeof(T);      // elements per 16-byte load
-  constexpr int VPR = D / VEC;             // vectors per row
+  constexpr int KH = Cfg<T>::kHeads;
+  constexpr int S = Cfg<T>::kStages;
+  constexpr int RB = D * (int)sizeof(T);        // bytes a tile row
+  constexpr int CPR = RB / 16;                  // 16-byte chunks a row
+  constexpr int TILE = kBK * RB;                // bytes a K or V tile
 
-  const int g = Hq / Hk;
-  const int split = blockIdx.x, hk = blockIdx.y, b = blockIdx.z;
-  const int len = min(lengths[b], C);
-  const int k_begin = split * split_keys;
-  if (k_begin >= len) return;              // the empty tail: never read
-  const int k_end = min(k_begin + split_keys, len);
+  const int split = (int)(blockIdx.x % a.nsplit);
+  const int rowid = (int)(blockIdx.x / a.nsplit);   // (b * Hk + hk) * HC + hc
+  const int hc = rowid % a.HC;
+  const int bh = rowid / a.HC;
+  const int hk = bh % a.Hk, b = bh / a.Hk;
+  const int g = a.Hq / a.Hk;
+  const int h0 = hk * g + hc * KH;                  // first q head of this block
+  const int hb = min(KH, g - hc * KH);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
 
-  extern __shared__ float4 smem4[];
-  float* q_s = reinterpret_cast<float*>(smem4);  // (g, D)
-  float* k_s = q_s + g * D;                      // (kBK, PD)
-  float* v_s = k_s + kBK * PD;                   // (kBK, D)
-  float* p_s = v_s + kBK * D;                    // (g, kBK) scores, then weights
-  float* acc_s = p_s + g * kBK;                  // (g, D)
-  float* m_s = acc_s + g * D;                    // (g)
-  float* l_s = m_s + g;                          // (g)
-  float* a_s = l_s + g;                          // (g) rescale of this tile
-
-  const int tid = threadIdx.x;
-  const int lane = tid % 32, warp = tid / 32;
-
-  // the group's g query heads are g * D neighbouring elements of q
-  const T* qg = q + ((long long)b * Hq + (long long)hk * g) * D;
-  for (int e = tid; e < g * D; e += kThreads) {
-    q_s[e] = to_f32(qg[e]);
-    acc_s[e] = 0.f;
-  }
-  for (int i = tid; i < g; i += kThreads) {
-    m_s[i] = kNegInf;
-    l_s[i] = 0.f;
-  }
-
-  const long long row = (long long)Hk * D;     // slot stride of k and v
-  const long long kv_off = (long long)b * C * row + (long long)hk * D;
-
-  for (int k0 = k_begin; k0 < k_end; k0 += kBK) {
-    const int nk = min(kBK, k_end - k0);       // valid slots in this tile
-    __syncthreads();  // the previous tile is done with k_s, v_s and p_s
-    for (int idx = tid; idx < kBK * VPR; idx += kThreads) {
-      const int r = idx / VPR, c = (idx % VPR) * VEC;
-      float kf[VEC], vf[VEC];
-      if (r < nk) {
-        const long long gi = kv_off + (k0 + r) * row + c;
-        load16(k + gi, kf);
-        load16(v + gi, vf);
-      } else {
-#pragma unroll
-        for (int t = 0; t < VEC; ++t) kf[t] = vf[t] = 0.f;
-      }
-#pragma unroll
-      for (int t = 0; t < VEC; ++t) {
-        k_s[r * PD + c + t] = kf[t];
-        v_s[r * D + c + t] = vf[t];
-      }
-    }
-    __syncthreads();
-
-    // 1) scores: thread owns slot j = tid % kBK of heads tid / kBK + 2i
-    for (int pi = tid; pi < g * kBK; pi += kThreads) {
-      const int i = pi / kBK, j = pi % kBK;
-      const float* qr = q_s + i * D;
-      const float* kr = k_s + j * PD;
-      float s = 0.f;
-#pragma unroll 8
-      for (int d = 0; d < D; d += 4) {
-        const float4 qa = *reinterpret_cast<const float4*>(qr + d);
-        const float4 kb = *reinterpret_cast<const float4*>(kr + d);
-        s = fmaf(qa.x, kb.x, s);
-        s = fmaf(qa.y, kb.y, s);
-        s = fmaf(qa.z, kb.z, s);
-        s = fmaf(qa.w, kb.w, s);
-      }
-      p_s[pi] = j < nk ? s * scale : kNegInf;
-    }
-    __syncthreads();
-
-    // 2) the online softmax update, one warp per head, two slots a lane
-    for (int i = warp; i < g; i += kWarps) {
-      const float s0 = p_s[i * kBK + lane], s1 = p_s[i * kBK + lane + 32];
-      float mx = fmaxf(s0, s1);
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_old = m_s[i];
-      const float m_new = fmaxf(m_old, mx);
-      const float p0 = lane < nk ? expf(s0 - m_new) : 0.f;
-      const float p1 = lane + 32 < nk ? expf(s1 - m_new) : 0.f;
-      p_s[i * kBK + lane] = p0;
-      p_s[i * kBK + lane + 32] = p1;
-      float rs = p0 + p1;
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        rs += __shfl_xor_sync(0xffffffffu, rs, off);
-      if (lane == 0) {
-        const float alpha = expf(m_old - m_new);
-        a_s[i] = alpha;
-        l_s[i] = l_s[i] * alpha + rs;
-        m_s[i] = m_new;
-      }
-    }
-    __syncthreads();
-
-    // 3) acc = alpha * acc + P V: thread owns elements tid + 128r of (g, D)
-    for (int e = tid; e < g * D; e += kThreads) {
-      const int i = e / D, d = e % D;
-      const float* pr = p_s + i * kBK;
-      float a = acc_s[e] * a_s[i];
-      for (int j = 0; j < nk; ++j) a = fmaf(pr[j], v_s[j * D + d], a);
-      acc_s[e] = a;
-    }
-  }
-  __syncthreads();
-
-  const long long part = (long long)(b * Hk + hk) * gridDim.x + split;
-  for (int e = tid; e < g * D; e += kThreads) part_acc[part * g * D + e] = acc_s[e];
-  for (int i = tid; i < g; i += kThreads) {
-    part_ml[(part * g + i) * 2] = m_s[i];
-    part_ml[(part * g + i) * 2 + 1] = l_s[i];
-  }
-}
-
-// One block per (q head, b): merges the used splits of that head by their
-// maxima and writes o.
-template <typename T>
-__global__ void flash_decode_merge_kernel(const float* __restrict__ part_acc,
-                                          const float* __restrict__ part_ml,
-                                          const int* __restrict__ lengths,
-                                          T* __restrict__ o, int C, int Hq, int Hk,
-                                          int D, int split_keys, int nsplit) {
-  const int h = blockIdx.x, b = blockIdx.y;
-  const int g = Hq / Hk, hk = h / g, i = h % g;
-  const int len = min(lengths[b], C);
-  T* out = o + ((long long)b * Hq + h) * D;
-  if (len < 1) {
-    for (int d = threadIdx.x; d < D; d += blockDim.x) store_as(out + d, 0.f);
+  const int len = min(a.lengths[b], a.C);
+  T* out = static_cast<T*>(a.o) + ((long long)b * a.Hq + h0) * D;
+  if (len < 1) {                                    // no valid slot: zeros
+    if (split == 0)
+      for (int e = tid; e < hb * D; e += kThreads) store_as(out + e, 0.f);
     return;
   }
-  const int used = (len + split_keys - 1) / split_keys;
-  const long long base = (long long)(b * Hk + hk) * nsplit;
-  float M = kNegInf;
-  for (int s = 0; s < used; ++s) M = fmaxf(M, part_ml[((base + s) * g + i) * 2]);
-  for (int d = threadIdx.x; d < D; d += blockDim.x) {
-    float acc = 0.f, L = 0.f;
-    for (int s = 0; s < used; ++s) {
-      const long long p = (base + s) * g + i;
-      const float w = expf(part_ml[p * 2] - M);
-      L = fmaf(w, part_ml[p * 2 + 1], L);
-      acc = fmaf(w, part_acc[p * D + d], acc);
+  const int k_begin = split * a.split_keys;
+  if (k_begin >= len) return;                       // the empty tail: never read
+  const int k_end = min(k_begin + a.split_keys, len);
+  const int used = (len + a.split_keys - 1) / a.split_keys;
+
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  unsigned char* smem = smem_raw;
+  const long long row = (long long)a.Hk * D;        // slot stride of k and v
+  const long long kv_off = (long long)b * a.C * row + (long long)hk * D;
+  const T* kg = static_cast<const T*>(a.k) + kv_off;
+  const T* vg = static_cast<const T*>(a.v) + kv_off;
+
+  auto load_tile = [&](int stage, int k0) {
+    unsigned char* ks = smem + stage * 2 * TILE;
+    unsigned char* vs = ks + TILE;
+    for (int idx = tid; idx < kBK * CPR; idx += kThreads) {
+      const int r = idx / CPR, c = idx % CPR;
+      const bool valid = k0 + r < k_end;
+      const long long off = valid ? (long long)(k0 + r) * row + c * (16 / (int)sizeof(T)) : 0;
+      const int dst = r * RB + swz<T, D>(r, c) * 16;
+      cp_async16(ks + dst, kg + off, valid);
+      cp_async16(vs + dst, vg + off, valid);
     }
-    store_as(out + d, acc / fmaxf(L, 1e-30f));
+  };
+
+  WarpState<T, D> st;
+  st.init(static_cast<const T*>(a.q) + ((long long)b * a.Hq + h0) * D, hb, lane);
+
+  const int ntiles = (k_end - k_begin + kBK - 1) / kBK;
+#pragma unroll
+  for (int s = 0; s < S - 1; ++s) {
+    if (s < ntiles) load_tile(s, k_begin + s * kBK);
+    cp_async_commit();
+  }
+  for (int it = 0; it < ntiles; ++it) {
+    cp_async_wait<S - 2>();   // tile `it` has landed, for this thread's copies
+    __syncthreads();          // for every thread's; and stage (it - 1) % S is free
+    const int nt = it + S - 1;
+    if (nt < ntiles) load_tile(nt % S, k_begin + nt * kBK);
+    cp_async_commit();
+    const unsigned char* ks = smem + (it % S) * 2 * TILE;
+    st.tile(reinterpret_cast<const char*>(ks), reinterpret_cast<const char*>(ks + TILE),
+            k_begin + it * kBK, k_end, warp, lane, a.scale_log2);
+  }
+  cp_async_wait<0>();
+  __syncthreads();            // the ring is free: it becomes the merge area
+
+  float* mo = reinterpret_cast<float*>(smem);       // (kWarps, KH, D)
+  float* mm = mo + kWarps * KH * D;                 // (kWarps, KH)
+  float* ml = mm + kWarps * KH;                     // (kWarps, KH)
+  int* flag = reinterpret_cast<int*>(ml + kWarps * KH);
+  st.finish(mo, mm, ml, hb, warp, lane);
+  __syncthreads();
+
+  // merge the warps; a row with one used split is done here
+  const long long part = (long long)rowid * a.nsplit + split;
+  for (int e = tid; e < hb * D; e += kThreads) {
+    const int i = e / D, d = e % D;
+    float M = kNegInf;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) M = fmaxf(M, mm[w * KH + i]);
+    float L = 0.f, acc = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      const float f = exp2f(mm[w * KH + i] - M);
+      L = fmaf(f, ml[w * KH + i], L);
+      acc = fmaf(f, mo[(w * KH + i) * D + d], acc);
+    }
+    if (used == 1) {
+      store_as(out + e, acc / fmaxf(L, 1e-30f));
+    } else {
+      a.part_acc[part * KH * D + e] = acc;
+      if (d == 0) {
+        a.part_ml[(part * KH + i) * 2] = M;
+        a.part_ml[(part * KH + i) * 2 + 1] = L;
+      }
+    }
+  }
+  if (used == 1) return;
+
+  // the last block of this row to finish merges the used splits
+  __threadfence();            // this thread's partial is visible device-wide
+  __syncthreads();
+  if (tid == 0) {
+    const int done = atomicAdd(a.counters + rowid, 1);
+    const int last = done == used - 1;
+    if (last) a.counters[rowid] = 0;   // every other block has counted: reset
+    *flag = last;
+  }
+  __syncthreads();
+  if (!*flag) return;
+  __threadfence();
+  const long long base = (long long)rowid * a.nsplit;
+  for (int e = tid; e < hb * D; e += kThreads) {
+    const int i = e / D;
+    float M = kNegInf;
+    for (int s = 0; s < used; ++s)
+      M = fmaxf(M, __ldcg(a.part_ml + ((base + s) * KH + i) * 2));
+    float L = 0.f, acc = 0.f;
+    for (int s = 0; s < used; ++s) {
+      const long long p = base + s;
+      const float f = exp2f(__ldcg(a.part_ml + (p * KH + i) * 2) - M);
+      L = fmaf(f, __ldcg(a.part_ml + (p * KH + i) * 2 + 1), L);
+      acc = fmaf(f, __ldcg(a.part_acc + p * KH * D + e), acc);
+    }
+    store_as(out + e, acc / fmaxf(L, 1e-30f));
   }
 }
 
 template <typename T, int D>
-cudaError_t launch(const void* q, const void* k, const void* v, const int* lengths,
-                   void* o, float* part_acc, float* part_ml, int B, int C, int Hq,
-                   int Hk, int split_keys, int nsplit, float scale, cudaStream_t st) {
-  const int smem = smem_floats(Hq / Hk, D) * (int)sizeof(float);
-  if (smem > kMaxSmem) return cudaErrorInvalidValue;
-  cudaError_t e = cudaFuncSetAttribute(flash_decode_split_kernel<T, D>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+cudaError_t launch(const Args& a, int B, cudaStream_t st) {
+  constexpr int smem = smem_bytes_for<T, D>();
+  static std::atomic<uint64_t> smem_set{0};
+  const cudaError_t e = set_smem_once(flash_decode_kernel<T, D>, smem, smem_set);
   if (e != cudaSuccess) return e;
-  flash_decode_split_kernel<T, D><<<dim3(nsplit, Hk, B), kThreads, smem, st>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      lengths, part_acc, part_ml, C, Hq, Hk, split_keys, scale);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return e;
-  flash_decode_merge_kernel<T><<<dim3(Hq, B), D, 0, st>>>(
-      part_acc, part_ml, lengths, static_cast<T*>(o), C, Hq, Hk, D, split_keys, nsplit);
+  const long long blocks = (long long)B * a.Hk * a.HC * a.nsplit;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  flash_decode_kernel<T, D><<<(unsigned)blocks, kThreads, smem, st>>>(a);
   return cudaGetLastError();
 }
 
 template <typename T>
-cudaError_t dispatch(const void* q, const void* k, const void* v, const int* lengths,
-                     void* o, float* part_acc, float* part_ml, int B, int C, int Hq,
-                     int Hk, int D, int split_keys, int nsplit, float scale,
-                     cudaStream_t st) {
+cudaError_t dispatch(const Args& a, int B, int D, cudaStream_t st) {
   switch (D) {
-    case 32: return launch<T, 32>(q, k, v, lengths, o, part_acc, part_ml, B, C, Hq, Hk,
-                                  split_keys, nsplit, scale, st);
-    case 64: return launch<T, 64>(q, k, v, lengths, o, part_acc, part_ml, B, C, Hq, Hk,
-                                  split_keys, nsplit, scale, st);
-    case 128: return launch<T, 128>(q, k, v, lengths, o, part_acc, part_ml, B, C, Hq, Hk,
-                                    split_keys, nsplit, scale, st);
+    case 32: return launch<T, 32>(a, B, st);
+    case 64: return launch<T, 64>(a, B, st);
+    case 128: return launch<T, 128>(a, B, st);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -289,33 +545,45 @@ cudaError_t dispatch(const void* q, const void* k, const void* v, const int* len
 
 // q, o: (B, Hq, D); k, v: (B, C, Hk, D); all float32 (is_bf16 = 0) or all
 // bfloat16 (is_bf16 = 1), contiguous and 16-byte aligned; lengths: (B,)
-// int32.  part_acc: (B, Hk, nsplit, g, D) and part_ml: (B, Hk, nsplit, g, 2)
-// float32 scratch, with nsplit * split_keys >= C and split_keys a multiple
-// of 64.  D in {32, 64, 128}, Hq % Hk == 0, Hk and B at most 65535.
+// int32.  Scratch, with HC = ceil(g / flash_decode_heads_per_block) and
+// rows = B * Hk * HC: part_acc (rows, nsplit, heads_per_block, D) and
+// part_ml (rows, nsplit, heads_per_block, 2) float32; counters (rows,) int32,
+// all zero before the first call (each call leaves them zero).
+// nsplit * split_keys >= C, split_keys a multiple of 64.  D in {32, 64, 128},
+// Hq % Hk == 0.  Calls that share scratch must be ordered on one stream.
 extern "C" int flash_decode_fwd(const void* q, const void* k, const void* v,
                                 const void* lengths, void* o, void* part_acc,
-                                void* part_ml, int B, int C, int Hq, int Hk, int D,
-                                int split_keys, int nsplit, float scale, int is_bf16,
+                                void* part_ml, void* counters, int B, int C, int Hq, int Hk,
+                                int D, int split_keys, int nsplit, float scale, int is_bf16,
                                 void* stream) {
-  if (B < 1 || C < 1 || Hq < 1 || Hk < 1 || Hq % Hk != 0 || B > 65535 || Hk > 65535 ||
-      split_keys < kBK || split_keys % kBK != 0 || nsplit < 1 ||
-      (long long)nsplit * split_keys < C)
+  if (B < 1 || C < 1 || Hq < 1 || Hk < 1 || Hq % Hk != 0 || split_keys < kBK ||
+      split_keys % kBK != 0 || nsplit < 1 || (long long)nsplit * split_keys < C)
     return cudaErrorInvalidValue;
+  const int kh = is_bf16 ? Cfg<__nv_bfloat16>::kHeads : Cfg<float>::kHeads;
+  const int g = Hq / Hk;
+  Args a{q, k, v, static_cast<const int*>(lengths), o, static_cast<float*>(part_acc),
+         static_cast<float*>(part_ml), static_cast<int*>(counters), C, Hq, Hk,
+         (g + kh - 1) / kh, split_keys, nsplit, scale * 1.4426950408889634f};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int* len = static_cast<const int*>(lengths);
-  float* pa = static_cast<float*>(part_acc);
-  float* pm = static_cast<float*>(part_ml);
-  if (is_bf16)
-    return dispatch<__nv_bfloat16>(q, k, v, len, o, pa, pm, B, C, Hq, Hk, D, split_keys,
-                                   nsplit, scale, st);
-  return dispatch<float>(q, k, v, len, o, pa, pm, B, C, Hq, Hk, D, split_keys, nsplit,
-                         scale, st);
+  if (is_bf16) return dispatch<__nv_bfloat16>(a, B, D, st);
+  return dispatch<float>(a, B, D, st);
 }
 
-// Dynamic shared memory one block of the split pass takes for g grouped
-// heads at head size D, in bytes.
-extern "C" int flash_decode_smem_bytes(int g, int D) {
-  return smem_floats(g, D) * (int)sizeof(float);
+// Query heads one block holds (the head chunk): bf16 16, float32 8.
+extern "C" int flash_decode_heads_per_block(int is_bf16) {
+  return is_bf16 ? Cfg<__nv_bfloat16>::kHeads : Cfg<float>::kHeads;
+}
+
+// Dynamic shared memory one block takes at head size D, in bytes; -1 if D
+// is not built.
+extern "C" int flash_decode_smem_bytes(int D, int is_bf16) {
+  switch (D) {
+    case 32: return is_bf16 ? smem_bytes_for<__nv_bfloat16, 32>() : smem_bytes_for<float, 32>();
+    case 64: return is_bf16 ? smem_bytes_for<__nv_bfloat16, 64>() : smem_bytes_for<float, 64>();
+    case 128:
+      return is_bf16 ? smem_bytes_for<__nv_bfloat16, 128>() : smem_bytes_for<float, 128>();
+    default: return -1;
+  }
 }
 
 extern "C" const char* flash_decode_error_string(int code) {

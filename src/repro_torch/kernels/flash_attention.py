@@ -57,8 +57,6 @@ def check_attention_args(q, k, v, window: Optional[int] = None) -> None:
         raise ValueError(f"v must be {tuple(k.shape)}, got {tuple(v.shape)}")
     if q.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"q must be float32 or bfloat16, got {q.dtype}")
-    if q.dtype == torch.float32 and B * Hq > 65535:
-        raise ValueError(f"B * Hq = {B * Hq} exceeds the float32 kernel's grid of 65535")
     if k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError("q, k and v must share one dtype")
     for name, a in (("q", q), ("k", k), ("v", v)):

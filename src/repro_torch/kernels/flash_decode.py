@@ -5,9 +5,12 @@ kernel ``repro.kernels.flash_decode.flash_decode``: attention of one query
 token over a padded KV cache, the g = Hq/Hk query heads of a group sharing
 each K/V tile.  Its source comment says what bounds it on the H100 and how
 its design answers that.  :func:`flash_decode` checks its arguments,
-allocates the output and the split scratch, launches on PyTorch's current
-stream and raises if the launch fails.  It takes CUDA tensors only: CPU
-tensors go to the plain version through
+allocates the output, launches one kernel on PyTorch's current stream and
+raises if the launch fails.  The split scratch (partials and the merge
+counters) is allocated once per (device, stream) and grown when a larger
+shape needs more, so an eager call allocates nothing else; a call captured in
+a CUDA graph takes a scratch of the graph's own, so a replay shares no
+counters with eager calls on another stream.  It takes CUDA tensors only: CPU tensors go to the plain version through
 :func:`repro_torch.kernels.ops.decode_attention`.
 """
 from __future__ import annotations
@@ -15,7 +18,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
-from typing import Tuple
+from typing import Dict, Tuple
 
 import torch
 
@@ -25,7 +28,7 @@ __all__ = ["flash_decode", "check_decode_args", "split_plan", "smem_bytes"]
 
 _SUPPORTED_D = (32, 64, 128)
 _TILE = 64              # cache slots per tile of the kernel
-_BLOCKS_PER_SM = 8      # the split pass aims at this many blocks per SM
+_BLOCKS_PER_SM = 2      # a full cache gives about this many blocks per SM, all resident
 
 
 def check_decode_args(q, k, v, lengths) -> None:
@@ -43,8 +46,8 @@ def check_decode_args(q, k, v, lengths) -> None:
         raise ValueError(f"Hq={Hq} must be a multiple of Hk={Hk}")
     if tuple(v.shape) != tuple(k.shape):
         raise ValueError(f"v must be {tuple(k.shape)}, got {tuple(v.shape)}")
-    if not 1 <= B <= 65535:
-        raise ValueError(f"B={B} must be in [1, 65535]")
+    if B < 1:
+        raise ValueError(f"B={B} must be >= 1")
     if tuple(lengths.shape) != (B,) or lengths.dtype != torch.int32:
         raise ValueError(f"lengths must be ({B},) int32, got {tuple(lengths.shape)} "
                          f"{lengths.dtype}")
@@ -65,9 +68,10 @@ def check_decode_args(q, k, v, lengths) -> None:
 def split_plan(B: int, Hk: int, C: int, n_sm: int) -> Tuple[int, int]:
     """``(split_keys, nsplit)``: the cache axis cut into ``nsplit`` splits of
     ``split_keys`` slots, a multiple of the kernel's 64-slot tile, so that
-    the ``B * Hk * nsplit`` blocks of the split pass come to about eight
-    per SM when the cache is full (three fit at once at the serving shape,
-    so short rows leave few SMs idle)."""
+    the ``B * Hk * nsplit`` blocks come to about two per SM when the cache
+    is full: two fit on an SM at once in bf16 at D=128, so a full cache is
+    one wave, and each split holds several tiles for its load ring to
+    overlap (four at the serving shape)."""
     tiles = -(-C // _TILE)
     want = max(1, min(tiles, -(-_BLOCKS_PER_SM * n_sm // (B * Hk))))
     split_keys = _TILE * -(-tiles // want)
@@ -78,21 +82,64 @@ def split_plan(B: int, Hk: int, C: int, n_sm: int) -> Tuple[int, int]:
 def _lib() -> ctypes.CDLL:
     lib = load("flash_decode")
     fn = lib.flash_decode_fwd
-    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_int]
+    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_int]
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     lib.flash_decode_error_string.argtypes = [ctypes.c_int]
     lib.flash_decode_error_string.restype = ctypes.c_char_p
     lib.flash_decode_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
     lib.flash_decode_smem_bytes.restype = ctypes.c_int
+    lib.flash_decode_heads_per_block.argtypes = [ctypes.c_int]
+    lib.flash_decode_heads_per_block.restype = ctypes.c_int
     return lib
 
 
-def smem_bytes(g: int, D: int) -> int:
-    """Dynamic shared memory one block of the split pass takes for ``g``
-    query heads per kv head at head size ``D`` (builds the kernel if
-    needed)."""
-    return _lib().flash_decode_smem_bytes(g, D)
+def smem_bytes(D: int, dtype: torch.dtype = torch.bfloat16) -> int:
+    """Dynamic shared memory one block of the kernel takes at head size
+    ``D`` for ``dtype`` (builds the kernel if needed)."""
+    return _lib().flash_decode_smem_bytes(D, int(dtype == torch.bfloat16))
+
+
+class _Scratch:
+    """The kernel's split scratch for one stream: f32 partials and their
+    (m, l), and the int32 merge counters, which start at zero and which
+    every call leaves at zero.  Grown when a call needs more."""
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self.acc = torch.empty(0, dtype=torch.float32, device=device)
+        self.ml = torch.empty(0, dtype=torch.float32, device=device)
+        self.counters = torch.zeros(0, dtype=torch.int32, device=device)
+
+    def get(self, n_acc: int, n_ml: int, n_rows: int):
+        if n_acc > self.acc.numel() or n_ml > self.ml.numel():
+            self.acc = torch.empty(max(n_acc, self.acc.numel()), dtype=torch.float32,
+                                   device=self.device)
+            self.ml = torch.empty(max(n_ml, self.ml.numel()), dtype=torch.float32,
+                                  device=self.device)
+        if n_rows > self.counters.numel():
+            self.counters = torch.zeros(n_rows, dtype=torch.int32, device=self.device)
+        return self.acc, self.ml, self.counters
+
+
+# eager calls' scratch, by (device, stream): calls on one stream are ordered,
+# so they may share one; calls on two streams may overlap, so they may not
+_SCRATCH: Dict[Tuple[torch.device, int], _Scratch] = {}
+
+
+def _scratch(device: torch.device) -> _Scratch:
+    """The scratch for a call on ``device``'s current stream.  Under CUDA
+    graph capture a new one, in the graph's memory pool, whose counters a
+    node of the graph zeroes before the kernel on every replay: a replay may
+    run beside eager calls, or beside another graph captured on the same
+    stream, and shares no scratch with either."""
+    if torch.cuda.is_current_stream_capturing():
+        return _Scratch(device)
+    key = (device, torch.cuda.current_stream(device).cuda_stream)
+    scratch = _SCRATCH.get(key)
+    if scratch is None:
+        scratch = _SCRATCH[key] = _Scratch(device)
+    return scratch
 
 
 @functools.cache
@@ -106,8 +153,10 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     float32 or all bfloat16, contiguous, on one CUDA device; ``lengths``
     ``(B,)`` int32 on the same device, each in ``[1, C]`` (only slots
     ``j < lengths[b]`` count; the kernel reads no slot beyond).  D in
-    {32, 64, 128}, any C.  Returns ``(B,Hq,D)`` in q's dtype.
-    ``flash_decode.launches`` counts launches."""
+    {32, 64, 128}, any C, any B and Hk.  Returns ``(B,Hq,D)`` in q's dtype.
+    One kernel launch a call; eager calls on one stream share the split
+    scratch, and a captured call has its own.  ``flash_decode.launches``
+    counts launches."""
     check_decode_args(q, k, v, lengths)
     if q.device.type != "cuda":
         raise ValueError(
@@ -117,17 +166,19 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     B, Hq, D = q.shape
     C, Hk = k.shape[1], k.shape[2]
     split_keys, nsplit = split_plan(B, Hk, C, _sm_count(q.device.index or 0))
-    g = Hq // Hk
-    o = torch.empty_like(q)
-    part_acc = torch.empty((B, Hk, nsplit, g, D), dtype=torch.float32, device=q.device)
-    part_ml = torch.empty((B, Hk, nsplit, g, 2), dtype=torch.float32, device=q.device)
+    is_bf16 = int(q.dtype == torch.bfloat16)
     lib = _lib()
+    kh = lib.flash_decode_heads_per_block(is_bf16)
+    rows = B * Hk * -(-(Hq // Hk) // kh)
+    part_acc, part_ml, counters = _scratch(q.device).get(
+        rows * nsplit * kh * D, rows * nsplit * kh * 2, rows)
+    o = torch.empty_like(q)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.flash_decode_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(), o.data_ptr(),
-            part_acc.data_ptr(), part_ml.data_ptr(), B, C, Hq, Hk, D, split_keys, nsplit,
-            1.0 / math.sqrt(D), int(q.dtype == torch.bfloat16), stream,
+            part_acc.data_ptr(), part_ml.data_ptr(), counters.data_ptr(), B, C, Hq, Hk, D,
+            split_keys, nsplit, 1.0 / math.sqrt(D), is_bf16, stream,
         )
     if err != 0:
         msg = lib.flash_decode_error_string(err).decode()

@@ -3,9 +3,10 @@
 The kernel (``csrc/rwkv6_scan.cu``) replaces the JAX package's Pallas TPU
 kernel ``repro.kernels.rwkv6_scan.rwkv6_scan``; its source comment says what
 bounds it on the H100 and how its design answers that.  This wrapper checks
-its arguments, allocates the outputs, launches on PyTorch's current stream
-and raises if the launch fails.  It takes CUDA tensors only: CPU tensors go
-to the plain version through :func:`repro_torch.kernels.ops.rwkv6`.
+its arguments, allocates the outputs and the per-chunk scratch (each chunk's
+state increment and decay), launches the kernel's three passes on PyTorch's
+current stream and raises if a launch fails.  It takes CUDA tensors only:
+CPU tensors go to the plain version through :func:`repro_torch.kernels.ops.rwkv6`.
 
 :func:`rwkv6_scan_trainable` is the counterpart of the JAX
 ``rwkv6_scan_trainable``: its forward is ``ops.rwkv6`` (on the card, the
@@ -25,20 +26,23 @@ from .build import load
 from .ref import rwkv6_ref
 
 __all__ = ["rwkv6_scan", "rwkv6_scan_trainable", "check_rwkv6_args", "chunk_for",
-           "smem_bytes"]
+           "kernel_chunk", "smem_bytes", "KERNELS_PER_CALL"]
 
 _SUPPORTED_N = (32, 64)
+KERNELS_PER_CALL = 3    # the state, carry and output passes
 
 
 def chunk_for(T: int) -> int:
     """Chunk length for a sequence of ``T`` tokens: 64 where it divides T,
-    else 16 with a masked ragged last chunk (the JAX model's rule)."""
+    else 16 with a masked ragged last chunk (the JAX model's rule).  The
+    CUDA kernel takes its own chunk length for every T, with a masked
+    ragged last chunk: the same function."""
     return 64 if T % 64 == 0 else 16
 
 
 def check_rwkv6_args(r, k, v, w, u, S0) -> None:
     """Raise on any argument the kernel does not take: shapes, dtypes,
-    contiguity and devices."""
+    contiguity, alignment and devices."""
     if r.dim() != 4:
         raise ValueError(f"r must be (B, T, H, N), got {tuple(r.shape)}")
     B, T, H, N = r.shape
@@ -65,28 +69,39 @@ def check_rwkv6_args(r, k, v, w, u, S0) -> None:
             raise ValueError(f"{name} must be contiguous")
         if a.device != r.device:
             raise ValueError(f"{name} is on {a.device}, r on {r.device}")
+    for name, a in (("r", r), ("k", k), ("v", v), ("w", w)):
+        if a.data_ptr() % 16:
+            raise ValueError(f"{name} must start on a 16-byte boundary")
 
 
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = load("rwkv6_scan")
     fn = lib.rwkv6_scan_fwd
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     lib.rwkv6_scan_error_string.argtypes = [ctypes.c_int]
     lib.rwkv6_scan_error_string.restype = ctypes.c_char_p
-    lib.rwkv6_scan_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.rwkv6_scan_smem_bytes.argtypes = [ctypes.c_int]
     lib.rwkv6_scan_smem_bytes.restype = ctypes.c_int
+    lib.rwkv6_scan_chunk.argtypes = []
+    lib.rwkv6_scan_chunk.restype = ctypes.c_int
     return lib
 
 
-def smem_bytes(N: int, chunk: int) -> int:
-    """Dynamic shared memory one block of the kernel takes at head size
-    ``N`` and chunk length ``chunk`` (builds the kernel if needed)."""
-    n = _lib().rwkv6_scan_smem_bytes(N, chunk)
+def smem_bytes(N: int) -> int:
+    """Dynamic shared memory one block of the kernel's output pass (its
+    largest) takes at head size ``N`` (builds the kernel if needed)."""
+    n = _lib().rwkv6_scan_smem_bytes(N)
     if n < 0:
-        raise ValueError(f"no kernel built for N={N}, chunk={chunk}")
+        raise ValueError(f"no kernel built for N={N}")
     return n
+
+
+def kernel_chunk() -> int:
+    """Tokens a chunk of the CUDA kernel, the same for every T (builds the
+    kernel if needed)."""
+    return _lib().rwkv6_scan_chunk()
 
 
 def rwkv6_scan(
@@ -96,7 +111,8 @@ def rwkv6_scan(
     """Launch the WKV kernel.  r, k, v ``(B,T,H,N)`` float32 or bfloat16;
     w ``(B,T,H,N)``, u ``(H,N)`` and S0 ``(B,H,N,N)`` float32, all contiguous
     on one CUDA device, any ``T >= 1``.  Returns ``(y (B,T,H,N) in r's dtype,
-    S_T (B,H,N,N) float32)``.  ``rwkv6_scan.launches`` counts launches."""
+    S_T (B,H,N,N) float32)``.  ``rwkv6_scan.launches`` counts calls, each
+    of which launches the kernel's ``KERNELS_PER_CALL`` passes."""
     check_rwkv6_args(r, k, v, w, u, S0)
     if r.device.type != "cuda":
         raise ValueError(
@@ -104,15 +120,19 @@ def rwkv6_scan(
             "(CPU tensors go through repro_torch.kernels.ops.rwkv6)"
         )
     B, T, H, N = r.shape
+    lib = _lib()
+    nch = -(-T // kernel_chunk())
     y = torch.empty_like(r)
     sT = torch.empty((B, H, N, N), dtype=torch.float32, device=r.device)
-    lib = _lib()
+    ds = torch.empty((B, H, nch, N, N), dtype=torch.float32, device=r.device)
+    decay = torch.empty((B, H, nch, N), dtype=torch.float32, device=r.device)
     with torch.cuda.device(r.device):
         stream = torch.cuda.current_stream(r.device).cuda_stream
         err = lib.rwkv6_scan_fwd(
             r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
             u.data_ptr(), S0.data_ptr(), y.data_ptr(), sT.data_ptr(),
-            B, T, H, N, chunk_for(T), int(r.dtype == torch.bfloat16), stream,
+            ds.data_ptr(), decay.data_ptr(), B, T, H, N,
+            int(r.dtype == torch.bfloat16), stream,
         )
     if err != 0:
         msg = lib.rwkv6_scan_error_string(err).decode()

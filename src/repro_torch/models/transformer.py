@@ -77,7 +77,7 @@ class LM:
       init(generator) -> params
       loss(params, batch) -> (scalar, metrics)           [training]
       init_cache(batch, capacity) -> caches
-      backbone(params, tokens, positions=None, caches=None) -> (hidden, caches)
+      backbone(params, tokens, positions=None, caches=None) -> (hidden, caches, aux)
       logits(params, hidden) -> logits
       prefill(params, batch, caches) -> (last-token logits, caches)
       decode_step(params, tokens, pos, caches) -> (logits, caches)
@@ -159,10 +159,13 @@ class LM:
         """Embed -> segments -> final norm.  ``positions`` (B,S) are the
         tokens' absolute positions, ``0..S-1`` if not given; the RWKV6
         segment carries its position in its state and reads none.  Returns
-        ``(hidden (B,S,d), caches)``; with caches, each layer's new state is
-        written into them in place.  Attention over a cache takes the
-        kernel route only for positions it makes itself (a prefill from 0);
-        given positions take the JAX route (``models/attention.py``)."""
+        ``(hidden (B,S,d), caches, aux)``, as the JAX ``backbone`` does; with
+        caches, each layer's new state is written into them in place.
+        ``aux`` is the auxiliary (MoE) loss summed over the layers, an f32
+        scalar on the device: 0, since no ported block has a router.
+        Attention over a cache takes the kernel route only for positions it
+        makes itself (a prefill from 0); given positions take the JAX route
+        (``models/attention.py``)."""
         return self._backbone(params, tokens, positions, caches, gapless=positions is None)
 
     def _backbone(self, params, tokens, positions, caches, gapless: bool):
@@ -186,7 +189,8 @@ class LM:
                 if layer is not None:
                     for key, val in new.items():
                         layer[key].copy_(val)
-        return norm_apply(cfg, params["final_norm"], x), caches
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        return norm_apply(cfg, params["final_norm"], x), caches, aux
 
     # ------------------------------------------------------------------ heads --
     def logits(self, params, hidden: torch.Tensor) -> torch.Tensor:
@@ -228,15 +232,14 @@ class LM:
         """batch: tokens (B,S), labels (B,S).  Returns ``(loss, {"xent",
         "moe_aux"})`` as the JAX model does (no MoE here, so the auxiliary
         loss is 0)."""
-        hidden, _ = self.backbone(params, batch["tokens"])
+        hidden, _, aux = self.backbone(params, batch["tokens"])
         xent = self._xent(params, hidden, batch["labels"])
-        aux = torch.zeros((), dtype=torch.float32, device=hidden.device)
         return xent + MOE_AUX_WEIGHT * aux, {"xent": xent, "moe_aux": aux}
 
     def prefill(self, params, batch: Dict[str, torch.Tensor], caches):
         """Bulk-process a prompt from position 0, filling caches.  Returns
         last-token logits."""
-        hidden, caches = self.backbone(params, batch["tokens"], caches=caches)
+        hidden, caches, _ = self.backbone(params, batch["tokens"], caches=caches)
         return self.logits(params, hidden[:, -1:, :])[:, 0], caches
 
     def decode_step(self, params, tokens: torch.Tensor, pos: torch.Tensor, caches):
@@ -249,6 +252,6 @@ class LM:
         cache's end is written to its last slot).  Attention then reads
         slots ``[0, min(pos + 1, C))`` through the decode kernel.  Use
         ``backbone`` with explicit positions for anything else."""
-        hidden, caches = self._backbone(params, tokens[:, None], pos[:, None], caches,
-                                        gapless=True)
+        hidden, caches, _ = self._backbone(params, tokens[:, None], pos[:, None], caches,
+                                           gapless=True)
         return self.logits(params, hidden)[:, 0], caches

@@ -20,6 +20,12 @@ TOL = {torch.float32: dict(atol=2e-3, rtol=2e-3), torch.bfloat16: dict(atol=5e-2
 # attention: the sweep's 3e-5 in f32 becomes 1e-4, as the card sums in
 # another order than the plain version's matmuls; bf16 keeps the sweep's 3e-2
 ATTN_TOL = {torch.float32: dict(atol=1e-4, rtol=1e-4), torch.bfloat16: dict(atol=3e-2, rtol=3e-2)}
+# the bf16 WKV kernel against the plain version on its inputs cast up to
+# float32: beyond half a bf16 ulp of y (at most 2^-8 of |y|), at most this
+# share of max |y|, room for its TF32 products (as chip_smoke.py holds it:
+# at most 2.4e-4 of max |y| measured on an H100, so about 2x that)
+BF16_HALF_ULP = 2.0 ** -8
+WKV_BF16_UPCAST_TOL = 5e-4
 
 
 @pytest.fixture
@@ -29,17 +35,23 @@ def cuda_device():
     return torch.device("cuda")
 
 
-def _wkv_inputs(seed, B, T, H, N, dtype, device):
+def _wkv_inputs(seed, B, T, H, N, dtype, device, strong_decay=False):
+    """WKV inputs; with ``strong_decay`` half the channels decay as
+    w = exp(-exp(x + 2)), so a 16-token sub-chunk's cumulative log-decay
+    falls below -87 and its exponential underflows in f32."""
     rng = np.random.default_rng(seed)
 
     def t(a):
         return torch.from_numpy(a.astype(np.float32)).to(device)
 
+    w = rng.uniform(0.2, 0.999, (B, T, H, N))
+    if strong_decay:
+        w[..., : N // 2] = np.exp(-np.exp(rng.standard_normal((B, T, H, N // 2)) + 2.0))
     return dict(
         r=t(rng.standard_normal((B, T, H, N)) * 0.5).to(dtype),
         k=t(rng.standard_normal((B, T, H, N)) * 0.5).to(dtype),
         v=t(rng.standard_normal((B, T, H, N))).to(dtype),
-        w=t(rng.uniform(0.2, 0.999, (B, T, H, N))),
+        w=t(w),
         u=t(rng.standard_normal((H, N)) * 0.2),
         S0=t(rng.standard_normal((B, H, N, N)) * 0.1),
     )
@@ -63,6 +75,53 @@ def test_rwkv6_kernel_matches_plain_version(cuda_device, B, T, H, N, dtype):
     assert y.dtype == dtype and s.dtype == torch.float32
     np.testing.assert_allclose(_np(y), _np(yr), **TOL[dtype])
     np.testing.assert_allclose(_np(s), _np(sr), **TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [1, 15, 16, 17, 200, 512])
+@pytest.mark.parametrize("B", [1, 8])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rwkv6_kernel_at_served_lengths(cuda_device, B, T, dtype):
+    """Lengths around the 16-token sub-chunk and the 64-token chunk, a served
+    prompt (200) and the longest (512), at batch 1 and 8."""
+    inp = _wkv_inputs(15, B, T, 3, 64, dtype, cuda_device)
+    y, s = rwkv6_scan(**inp)
+    torch.cuda.synchronize()
+    yr, sr = rwkv6_ref(**inp)
+    np.testing.assert_allclose(_np(y), _np(yr), **TOL[dtype])
+    np.testing.assert_allclose(_np(s), _np(sr), **TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [64, 200])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rwkv6_kernel_under_strong_decay(cuda_device, T, dtype):
+    """The factored A stays finite and right where e^{cum} underflows."""
+    inp = _wkv_inputs(16, 2, T, 4, 64, dtype, cuda_device, strong_decay=True)
+    assert float(torch.log(inp["w"][:, :16, :, :32]).sum(1).min()) < -87   # one sub-chunk
+    y, s = rwkv6_scan(**inp)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(y).all()) and bool(torch.isfinite(s).all())
+    yr, sr = rwkv6_ref(**inp)
+    np.testing.assert_allclose(_np(y), _np(yr), **TOL[dtype])
+    np.testing.assert_allclose(_np(s), _np(sr), **TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,strong_decay", [(64, False), (200, False), (512, False),
+                                            (200, True)])
+def test_rwkv6_bf16_kernel_against_the_float32_plain_version(cuda_device, T, strong_decay):
+    """The bf16 kernel (its products on the tensor cores in TF32) against the
+    plain version on its inputs cast up to float32: beyond the rounding of
+    its bf16 y (at most 2^-8 of |y|), within WKV_BF16_UPCAST_TOL of max |y|;
+    S_T, whose update stays in f32, within the f32 tolerance."""
+    inp = _wkv_inputs(17, 2, T, 4, 64, torch.bfloat16, cuda_device, strong_decay=strong_decay)
+    y, s = rwkv6_scan(**inp)
+    torch.cuda.synchronize()
+    yu, su = rwkv6_ref(**{**inp, **{key: inp[key].float() for key in ("r", "k", "v")}})
+    beyond = float(((y.float() - yu).abs() - BF16_HALF_ULP * yu.abs()).max())
+    assert beyond <= WKV_BF16_UPCAST_TOL * float(yu.abs().max())
+    np.testing.assert_allclose(_np(s), _np(su), **TOL[torch.float32])
 
 
 @pytest.mark.cuda
@@ -129,6 +188,16 @@ def test_attention_kernel_matches_plain_version(cuda_device, B, S, Hq, Hk, D, ca
     ref = attention_ref(q, k, v, causal=causal, window=window)
     assert out.dtype == dtype and out.shape == q.shape
     np.testing.assert_allclose(_np(out), _np(ref), **ATTN_TOL[dtype])
+
+
+@pytest.mark.cuda
+def test_f32_attention_kernel_takes_more_than_65535_heads(cuda_device):
+    """B * Hq = 65,568 rows of (b, head), past the 65535 of one grid axis."""
+    q, k, v = _attn_inputs(17, 2049, 4, 32, 32, 32, torch.float32, cuda_device)
+    out = flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    ref = attention_ref(q, k, v, causal=True)
+    np.testing.assert_allclose(_np(out), _np(ref), **ATTN_TOL[torch.float32])
 
 
 @pytest.mark.cuda
@@ -220,6 +289,8 @@ DECODE_CASES = [
     (1, 70, 4, 4, 64, [70]),                  # MHA, ragged C
     (2, 33, 8, 2, 32, [1, 33]),
     (1, 1, 2, 1, 128, [1]),
+    (4, 1000, 32, 8, 128, [1, 1000, 999, 517]),   # the serving heads: lengths 1, C, ragged
+    (2, 300, 40, 2, 64, [300, 130]),          # g=20: head chunks, the last partial
 ]
 
 
@@ -235,6 +306,81 @@ def test_decode_kernel_matches_plain_version(cuda_device, B, C, Hq, Hk, D, lengt
     ref = decode_attention_ref(q, k, v, lens)
     assert out.dtype == dtype and out.shape == q.shape
     np.testing.assert_allclose(_np(out), _np(ref), **ATTN_TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,C,Hq,Hk,D", [(66000, 3, 2, 1, 32), (1, 3, 70000, 70000, 32)])
+def test_decode_kernel_takes_any_batch_and_kv_heads(cuda_device, B, C, Hq, Hk, D):
+    """B and Hk past the 65535 of one grid axis."""
+    lengths = np.random.default_rng(18).integers(1, C + 1, B).tolist()
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v, lens = _decode_inputs(18, B, C, Hq, Hk, D, dtype, cuda_device, lengths)
+        out = flash_decode(q, k, v, lens)
+        torch.cuda.synchronize()
+        ref = decode_attention_ref(q, k, v, lens)
+        np.testing.assert_allclose(_np(out), _np(ref), **ATTN_TOL[dtype])
+
+
+@pytest.mark.cuda
+def test_decode_kernel_replays_in_a_cuda_graph(cuda_device):
+    """One launch a call, no allocation and no host sync: the call is captured
+    in a CUDA graph, and two replays on new inputs give the eager outputs.
+    The eager calls share one stream's scratch, which needs the merge
+    counters to reset themselves."""
+    B, C, Hq, Hk, D = 8, 1024, 32, 8, 128
+    q, k, v, lens = _decode_inputs(19, B, C, Hq, Hk, D, torch.bfloat16, cuda_device,
+                                   [1024, 65, 300, 1, 777, 1024, 512, 129])
+    flash_decode(q, k, v, lens)               # builds and sizes the scratch
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    before = flash_decode.launches
+    with torch.cuda.graph(graph):
+        out = flash_decode(q, k, v, lens)
+    assert flash_decode.launches == before + 1
+    for seed in (20, 21):
+        q2, k2, v2, _ = _decode_inputs(seed, B, C, Hq, Hk, D, torch.bfloat16, cuda_device,
+                                       [1] * B)
+        for dst, src in ((q, q2), (k, k2), (v, v2)):
+            dst.copy_(src)
+        graph.replay()
+        torch.cuda.synchronize()
+        eager = flash_decode(q, k, v, lens)
+        torch.cuda.synchronize()
+        assert torch.equal(out, eager)
+
+
+@pytest.mark.cuda
+def test_decode_graph_replays_beside_eager_calls_on_another_stream(cuda_device):
+    """Replays of a captured call on one stream beside eager calls on other
+    inputs on a second stream, each stream's work held back by a sleep
+    kernel until both are queued, so their kernels run at once: the graph
+    and the eager calls have their own split scratch, so each gives its own
+    inputs' output."""
+    B, C, Hq, Hk, D = 8, 1024, 32, 8, 128
+    q, k, v, lens = _decode_inputs(22, B, C, Hq, Hk, D, torch.bfloat16, cuda_device, [C] * B)
+    q2, k2, v2, lens2 = _decode_inputs(23, B, C, Hq, Hk, D, torch.bfloat16, cuda_device,
+                                       [C, 700, 1, 513, C, 64, 999, 300])
+    want, want2 = flash_decode(q, k, v, lens), flash_decode(q2, k2, v2, lens2)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = flash_decode(q, k, v, lens)
+    side1, side2 = torch.cuda.Stream(), torch.cuda.Stream()
+    got, got2 = [], []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        for side in (side1, side2):
+            with torch.cuda.stream(side):
+                torch.cuda._sleep(20_000_000)      # about 10 ms
+        for _ in range(20):
+            with torch.cuda.stream(side1):
+                graph.replay()
+                got.append(out.clone())
+            with torch.cuda.stream(side2):
+                got2.append(flash_decode(q2, k2, v2, lens2))
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, want) for a in got)
+    assert all(torch.equal(a, want2) for a in got2)
 
 
 @pytest.mark.cuda

@@ -103,6 +103,84 @@ def test_ref_state_carry_composes(split):
     np.testing.assert_allclose(_np(s2), _np(s_full), atol=1e-4)
 
 
+# -- the CUDA kernel's arithmetic, rehearsed in numpy ------------------------------
+def _factored_wkv(r, k, v, w, u, S0, chunk=32, sub=16):
+    """The WKV scan as the CUDA kernel computes it, in f32 numpy: 32-token
+    chunks with a masked ragged tail, log-decays in base 2 summed within
+    16-token sub-chunks only (a sum across sub-chunks adds sub-chunk totals,
+    so no two long prefix sums are subtracted); per chunk the state
+    increment and decay, then the carry, then y = A @ v + (r 2^{cum_exc}) @
+    S_start.  A's diagonal sub-blocks take an exponential per term; a block
+    below the diagonal (rows in sub-chunk q, columns in p < q) is
+    (r 2^{exc}) diag(2^{totals of p+1..q-1}) (k 2^{total(p) - cum})^T with
+    exc and cum within the row's and the column's sub-chunk, every factor
+    <= 1."""
+    f32 = np.float32
+    B, T, H, N = r.shape
+    nch, ns = -(-T // chunk), chunk // sub
+    pad = nch * chunk - T
+
+    def chunks(a, fill):
+        a = np.concatenate([a, np.full((B, pad, H, N), fill, f32)], 1) if pad else a
+        return a.reshape(B, nch, ns, sub, H, N).transpose(0, 4, 1, 2, 3, 5)   # b,h,c,q,t,n
+
+    rc, kc, vc = chunks(r, 0), chunks(k, 0), chunks(v, 0)
+    loc = np.cumsum(np.log2(np.maximum(chunks(w, 1), f32(1e-30))), axis=4, dtype=f32)
+    exc = np.concatenate([np.zeros_like(loc[..., :1, :]), loc[..., :-1, :]], 4)
+    tot = loc[..., -1, :]                                                   # b,h,c,q,n
+
+    def span(lo, hi):                       # log-decay of sub-chunks lo..hi-1
+        out = np.zeros_like(tot[..., 0, :])
+        for s in range(lo, hi):
+            out = out + tot[..., s, :]
+        return out
+
+    ds = sum(np.einsum("bhcin,bhcij->bhcnj", kc[..., q, :, :] * np.exp2(
+        (tot[..., q, None, :] - loc[..., q, :, :]) + span(q + 1, ns)[..., None, :]),
+        vc[..., q, :, :]) for q in range(ns))
+    starts, S = [], S0.astype(f32)
+    for c in range(nch):
+        starts.append(S)
+        S = np.exp2(span(0, ns)[:, :, c, :, None]) * S + ds[:, :, c]
+    start = np.stack(starts, 2)
+    ys = []
+    tri = np.arange(sub)
+    for q in range(ns):
+        rq, kq = rc[..., q, :, :], kc[..., q, :, :]
+        dec = np.exp2(np.minimum(exc[..., q, :, None, :] - loc[..., q, None, :, :], 0))
+        A = np.where(tri[:, None] > tri[None, :],
+                     np.einsum("bhctn,bhcin,bhctin->bhcti", rq, kq, dec), 0)
+        A[..., tri, tri] = np.einsum("bhctn,hn,bhctn->bhct", rq, u, kq)
+        y = np.einsum("bhcti,bhcij->bhctj", A, vc[..., q, :, :])
+        for p in range(q):
+            kp = kc[..., p, :, :] * np.exp2(tot[..., p, None, :] - loc[..., p, :, :])
+            link = np.exp2(span(p + 1, q))[..., None, :]
+            A = np.einsum("bhctn,bhcin->bhcti", rq * np.exp2(exc[..., q, :, :]) * link, kp)
+            y = y + np.einsum("bhcti,bhcij->bhctj", A, vc[..., p, :, :])
+        rt = rq * np.exp2(span(0, q)[..., None, :] + exc[..., q, :, :])
+        ys.append(y + np.einsum("bhctn,bhcnj->bhctj", rt, start))
+    y = np.stack(ys, 3).reshape(B, H, nch * chunk, N).transpose(0, 2, 1, 3)[:, :T]
+    return y, S
+
+
+@pytest.mark.parametrize("strong", [False, True])
+@pytest.mark.parametrize("B,T,H,N", [(1, 64, 2, 64), (2, 200, 2, 32), (1, 17, 3, 64),
+                                     (1, 512, 2, 64)])
+def test_factored_wkv_arithmetic_matches_jax_ref(B, T, H, N, strong):
+    """The kernel's factored A, held against the JAX reference in f32 on mild
+    decay and on a strong decay whose 16-token sub-chunks underflow."""
+    inp = _wkv_inputs(11, B, T, H, N)
+    if strong:
+        x = np.random.default_rng(12).standard_normal((B, T, H, N // 2))
+        inp["w"][..., : N // 2] = np.exp(-np.exp(x + 2.0)).astype(np.float32)
+        assert np.log(np.maximum(inp["w"][:, :16, :, : N // 2], 1e-30)).sum(1).min() < -87
+    y, s = _factored_wkv(**inp)
+    yj, sj = jax_rwkv6_ref(*(jnp.asarray(inp[key]) for key in ("r", "k", "v", "w", "u", "S0")))
+    assert np.isfinite(y).all() and np.isfinite(s).all()
+    np.testing.assert_allclose(y, np.asarray(yj), atol=1e-5, rtol=1e-5)
+    np.testing.assert_allclose(s, np.asarray(sj), atol=1e-5, rtol=1e-5)
+
+
 # -- the kernel's wrapper, as far as the CPU reaches it ---------------------------
 def test_ops_takes_plain_version_on_cpu_only():
     inp = _torch_wkv(_wkv_inputs(3, 1, 24, 2, 32))
@@ -210,9 +288,35 @@ def test_backbone_matches_jax(models, impl):
     B, S = 1, 64
     toks = np.random.default_rng(8).integers(0, cfg.vocab, (B, S))
     pos = jnp.broadcast_to(jnp.arange(S)[None], (B, S)).astype(jnp.int32)
-    jh, _, _ = JaxLM(_jax_cfg(jcfg, impl)).backbone(jparams, jnp.asarray(toks, jnp.int32), pos)
-    h, _ = LM(cfg, device="cpu").backbone(params, torch.from_numpy(toks))
+    jh, _, jaux = JaxLM(_jax_cfg(jcfg, impl)).backbone(jparams, jnp.asarray(toks, jnp.int32),
+                                                       pos)
+    h, _, aux = LM(cfg, device="cpu").backbone(params, torch.from_numpy(toks))
     np.testing.assert_allclose(_np(h), np.asarray(jh), **TOL[impl])
+    assert aux.dtype == torch.float32 and aux.shape == ()
+    np.testing.assert_array_equal(aux.numpy(), np.asarray(jaux))
+
+
+@pytest.mark.parametrize("with_caches", [False, True])
+def test_backbone_returns_aux_as_jax_does(models, with_caches):
+    """``backbone`` returns ``(hidden, caches, aux)``: ``aux`` the auxiliary
+    loss summed over the layers, an f32 scalar on the model's device equal
+    to the JAX one (0 with no router), and the one ``loss`` reports."""
+    jcfg, jparams, cfg, params = models
+    B, S = 2, 16
+    toks = np.random.default_rng(10).integers(0, cfg.vocab, (B, S))
+    jmodel, model = JaxLM(jcfg), LM(cfg, device="cpu")
+    pos = jnp.broadcast_to(jnp.arange(S)[None], (B, S)).astype(jnp.int32)
+    jc = jmodel.init_cache(B, S) if with_caches else None
+    caches = model.init_cache(B, S) if with_caches else None
+    _, _, jaux = jmodel.backbone(jparams, jnp.asarray(toks, jnp.int32), pos, caches=jc)
+    out = model.backbone(params, torch.from_numpy(toks), caches=caches)
+    assert len(out) == 3
+    aux = out[2]
+    assert aux.dtype == torch.float32 and aux.shape == () and aux.device == torch.device("cpu")
+    np.testing.assert_array_equal(aux.numpy(), np.asarray(jaux))
+    _, metrics = model.loss(params, {"tokens": torch.from_numpy(toks),
+                                     "labels": torch.from_numpy(toks)})
+    assert torch.equal(metrics["moe_aux"], aux)
 
 
 @pytest.mark.parametrize("impl", ["xla", "kernel_interpret"])
