@@ -41,8 +41,21 @@ Phases, each failing the run with a non-zero exit if anything is wrong:
              1 agrees with the same step through the plain attention (in
              bf16 and in a float32 copy), and that a checkpoint of the final
              state restores leaf for leaf.
+8. place     the IBDASH placement core through ``repro_torch.api``: the
+             four float64 decision kernels and the stable queue selection
+             against their plain numpy versions, bit for bit, at G=1024
+             rows and D=100,000 devices (exact ties, infeasible rows, +inf
+             entries), with their times; one wave on the 100,000-device
+             ``multi_tier`` fleet through ``orchestrate_batch`` for each
+             kernel-backed policy, equal to the same wave on the CPU and
+             launching its kernels; a 10,000-device wave equal to the
+             scalar ``batched=False`` path; and ``run_one`` at the paper's
+             100 devices and 1000 instances a cycle (``mix`` with a fused
+             burst, ``churn`` with ``replan``), equal to the same run on
+             the CPU instance for instance.  Prints a ``place`` JSON line.
 
-The line before the last is a JSON object with each kernel's launches on
+The ``place`` line comes before the ``kernels`` line.  The line before the
+last is a JSON object with each kernel's launches on
 its main path (calls of its wrapper), the kernels a call runs on the card,
 its error against the plain version, its time, the plain version's time,
 its bound and the library call's time; the last line is
@@ -71,7 +84,17 @@ from torch.profiler import ProfilerActivity, profile  # noqa: E402
 from torch.utils.checkpoint import checkpoint  # noqa: E402
 
 from repro_torch.ckpt.checkpoint import CheckpointManager  # noqa: E402
+from repro_torch.api import (  # noqa: E402
+    SimConfig,
+    make_cluster,
+    make_profile,
+    orchestrate_batch,
+    run_one,
+)
 from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.core import batched  # noqa: E402
+from repro_torch.sim.apps import APP_BUILDERS  # noqa: E402
+from repro_torch.sim.runner import policy_for  # noqa: E402
 from repro_torch.data.synthetic import SyntheticLM  # noqa: E402
 from repro_torch.data.pipeline import to_device  # noqa: E402
 from repro_torch.kernels.build import build  # noqa: E402
@@ -97,6 +120,8 @@ HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 TF32_OPS_PER_S = 495e12
 BF16_OPS_PER_S = 989e12
+# FP64 outside the tensor cores (same data sheet): the decision kernels' type.
+F64_OPS_PER_S = 34e12
 
 H, N = 40, 64                       # RWKV6-3B: 40 heads of size 64
 KERNEL_TOL = {torch.float32: 2e-3, torch.bfloat16: 5e-2}
@@ -1114,6 +1139,371 @@ def _leaves(tree):
     else:
         yield tree
 
+# -- phase 8: the placement core ------------------------------------------------
+PLACE_G, PLACE_D = 1024, 100_000        # decision kernels, bit for bit
+PLACE_WAVE_D, PLACE_WAVE_B = 100_000, 16    # a wave on the 100k-device fleet
+PLACE_SCALAR_D, PLACE_SCALAR_B = 10_000, 64  # a wave against the scalar path
+PLACE_SCHEMES = ("ibdash", "churn_aware", "lavea", "round_robin", "tier_escalation")
+PLACE_BUDGET = 4.0                      # tier_escalation's latency budget (s)
+PLACE_TIMED = 10                        # timed calls of each decision kernel
+# Each policy's kernels: a wave must launch each of these at least once.
+PLACE_KERNELS = {
+    "ibdash": (batched.select_queue, batched.ibdash_scan_kernel),
+    "churn_aware": (batched.select_queue, batched.ibdash_scan_kernel),
+    "lavea": (batched.lavea_kernel,),
+    "round_robin": (batched.round_robin_kernel,),
+    "tier_escalation": (batched.tier_escalation_kernel,),
+}
+# The JAX kernel each decision kernel takes the place of.
+PLACE_REPLACES = {
+    "select_queue": "src/repro/core/batched.py:581",
+    "ibdash_scan_kernel": "src/repro/core/batched.py:476",
+    "lavea_kernel": "src/repro/core/batched.py:521",
+    "round_robin_kernel": "src/repro/core/batched.py:525",
+    "tier_escalation_kernel": "src/repro/core/batched.py:531",
+}
+# run_one at the paper's fleet and burst (§V-G): 100 devices, 1000
+# instances a cycle, SimConfig's 20 cycles.  The fused burst plans each
+# cycle in one wave (the decision kernels run); churn with replan plans
+# each arrival as it comes (pools of a few rows take the scalar rule) and
+# costs 1.2-1.7 s of host time a cycle on the H100 machine (this phase's
+# own runs), so it is cut to 6 cycles to keep the phase near two minutes.
+PLACE_RUNS = (
+    dict(scenario="mix", fused_burst=True),
+    dict(scenario="churn", recovery="replan", n_cycles=6),
+)
+
+
+def decision_inputs(dev):
+    """Inputs of the decision kernels at G x D on the card, from seed 8:
+    half the rows integer-valued totals and queues (exact ties at every
+    minimum), half continuous; +inf in about 1% of the totals; every 97th
+    row wholly infeasible, every 89th with one feasible device, one row
+    all +inf but feasible; pf in [0, 1)."""
+    gen = torch.Generator(device=dev).manual_seed(8)
+    G, D = PLACE_G, PLACE_D
+    total = torch.rand(G, D, generator=gen, device=dev, dtype=torch.float64) * 50
+    ints = torch.randint(1, 200, (G // 2, D), generator=gen, device=dev).double()
+    total[: G // 2] = ints
+    total[torch.rand(G, D, generator=gen, device=dev) < 0.01] = float("inf")
+    total[5] = float("inf")
+    pf = torch.rand(G, D, generator=gen, device=dev, dtype=torch.float64)
+    queue = torch.randint(0, 6, (G, D), generator=gen, device=dev).double()
+    queue[G // 2:] += torch.rand(G - G // 2, D, generator=gen, device=dev, dtype=torch.float64)
+    feasible = torch.rand(G, D, generator=gen, device=dev) < 0.9
+    feasible[::97] = False
+    feasible[1::89] = False
+    feasible[1::89, 7] = True
+    tiers = torch.randint(0, 3, (D,), generator=gen, device=dev)
+    cursor = 12345
+    sizes = feasible.sum(dim=1)
+    before = torch.cumsum(sizes > 0, 0) - (sizes > 0).long()
+    targets = torch.where(sizes > 0, (cursor + before) % sizes.clamp(min=1), 0)
+    return dict(total=total, pf=pf, queue=queue, feasible=feasible, tiers=tiers,
+                targets=targets)
+
+
+def decision_bytes(name, G, D, k):
+    """Bytes each decision kernel must move at these shapes: every input read
+    once, every output written once."""
+    f64, i64 = 8, 8
+    return {
+        "select_queue": G * D * f64 + G * k * i64,
+        "ibdash_scan_kernel": 2 * G * k * f64 + G * i64 + G * (k - 1),
+        "lavea_kernel": G * D * f64 + G * D + G * i64,
+        "round_robin_kernel": G * D + 2 * G * i64,
+        "tier_escalation_kernel": G * D * f64 + G * D + D * i64 + G * i64,
+    }[name]
+
+
+def decision_ops(name, G, D, k, n_tiers):
+    """Float64 operations each decision kernel does on these inputs: the
+    comparisons of a sort (D log2 D a row), a masked select and a compare a
+    candidate for an argmin, a sum and a compare for the prefix count, and
+    the scan's dozen operations a row and step."""
+    return {
+        "select_queue": G * D * max(D.bit_length() - 1, 1),
+        "ibdash_scan_kernel": 12 * G * (k - 1),
+        "lavea_kernel": 2 * G * D,
+        "round_robin_kernel": 3 * G * D,
+        "tier_escalation_kernel": (n_tiers + 1) * 3 * G * D,
+    }[name]
+
+
+def decision_phase(dev):
+    """The decision kernels and the queue selection against their plain
+    numpy versions, bit for bit, then their device and host times."""
+    inp = decision_inputs(dev)
+    host = {key: val.cpu().numpy() for key, val in inp.items()}
+    G, D = PLACE_G, PLACE_D
+    gamma, alpha, beta = 3, 0.5, 0.1
+    k = min(gamma + 1, D - 1) + 1
+    n_tiers = int(host["tiers"].max()) + 1
+    masked = torch.where(inp["feasible"], inp["total"], float("inf"))
+    masked_h = np.where(host["feasible"], host["total"], np.inf)
+    order = batched.select_queue(masked, k)
+    order_h = order.cpu().numpy()
+    s_total = torch.gather(inp["total"], 1, order)
+    s_pf = torch.gather(inp["pf"], 1, order)
+    n_feas = inp["feasible"].sum(dim=1)
+    n_feas_h = host["feasible"].sum(axis=1)
+    calls = {
+        "select_queue": (lambda: batched.select_queue(masked, k),
+                         lambda: batched.select_queue_plain(masked_h, k)),
+        "ibdash_scan_kernel": (
+            lambda: batched.ibdash_scan_kernel(s_total, s_pf, n_feas, alpha, beta, gamma),
+            lambda: batched.ibdash_scan_plain(
+                np.take_along_axis(host["total"], order_h, 1),
+                np.take_along_axis(host["pf"], order_h, 1), n_feas_h, alpha, beta, gamma)),
+        "lavea_kernel": (lambda: batched.lavea_kernel(inp["queue"], inp["feasible"]),
+                         lambda: batched.lavea_plain(host["queue"], host["feasible"])),
+        "round_robin_kernel": (
+            lambda: batched.round_robin_kernel(inp["feasible"], inp["targets"]),
+            lambda: batched.round_robin_plain(host["feasible"], host["targets"])),
+        "tier_escalation_kernel": (
+            lambda: batched.tier_escalation_kernel(inp["total"], inp["feasible"], inp["tiers"],
+                                                   PLACE_BUDGET * 10, n_tiers),
+            lambda: batched.tier_escalation_plain(host["total"], host["feasible"], host["tiers"],
+                                                  PLACE_BUDGET * 10, n_tiers)),
+    }
+    out = {}
+    for name, (kern, plain) in calls.items():
+        got = kern().cpu().numpy()
+        t = time.perf_counter()
+        with np.errstate(invalid="ignore"):     # inf / inf in rows all +inf, as in numpy
+            want = plain()
+        plain_ms = (time.perf_counter() - t) * 1e3
+        check(got.shape == want.shape and got.dtype == want.dtype,
+              f"{name}: {got.shape} {got.dtype} against the plain {want.shape} {want.dtype}")
+        n_diff = int((got != want).sum())
+        check(n_diff == 0, f"{name} differs from its plain version at {n_diff} entries "
+                           f"(G={G}, D={D})")
+        ms = time_ms(kern, PLACE_TIMED)
+        busy = device_ms(kern, PLACE_TIMED)
+        us = host_us(kern, PLACE_TIMED)
+        nbytes = decision_bytes(name, G, D, k)
+        ops = decision_ops(name, G, D, k, n_tiers)
+        by_bytes, by_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / F64_OPS_PER_S * 1e3
+        bound = max(by_bytes, by_ops)
+        out[name] = dict(ms=ms, kernel_ms=busy, host_us=us, plain_ms=plain_ms, bound_ms=bound,
+                         bound_by="bytes" if by_bytes >= by_ops else "operations",
+                         bytes=nbytes, ops=ops, mismatches=n_diff)
+        print(f"[place] {name} G={G} D={D} float64: equal to its plain version at every "
+              f"entry ({got.size} outputs); {ms:.4f} ms a call by CUDA events "
+              f"({PLACE_TIMED} calls back to back), kernels' time {busy:.4f} ms, host "
+              f"{us:.1f} us a call; plain numpy version {plain_ms:.1f} ms; bound {bound:.4f} ms "
+              f"({nbytes:,} bytes at 3.35 TB/s: {by_bytes:.4f} ms; {ops:,} f64 operations at "
+              f"34 TFLOP/s: {by_ops:.4f} ms), {100 * bound / ms:.1f}% of bound", flush=True)
+    ties_ok = near_tie_check(dev, alpha, beta, gamma)
+    rows_inf = int((~host["feasible"]).all(axis=1).sum())
+    ties = int((host["total"][: G // 2] == host["total"][: G // 2].min(axis=1, keepdims=True))
+               .sum(axis=1).mean())
+    print(f"[place] decision inputs: {rows_inf} wholly infeasible rows, "
+          f"{int(np.isinf(host['total']).sum()):,} +inf totals, {ties} devices tied at each "
+          f"integer row's minimum on average; replicas accepted by the scan: "
+          f"{int(calls['ibdash_scan_kernel'][0]().sum())}; at line 34's exact ties "
+          f"{ties_ok}", flush=True)
+    del inp, masked, order, s_total, s_pf
+    torch.cuda.empty_cache()
+    return out
+
+
+def near_tie_check(dev, alpha, beta, gamma, G=PLACE_G, K=5) -> str:
+    """The scan kernel on rows whose first replica candidate sits at the
+    exact tie of Algorithm 1's line 34 (``w_new == w_s`` in exact
+    arithmetic), so only the rounding of the four float64 operations of
+    the weight update decides: a fused multiply-add on the card would flip
+    some rows.  Must equal the plain version."""
+    rng = np.random.default_rng(9)
+    best = rng.uniform(0.5, 3.0, G)
+    ratio = 1 + rng.integers(1, 20, (G, K - 1)) / 64
+    comb0 = rng.uniform(0.3, 0.9, G)
+    pf1 = 1 - alpha * (ratio[:, 0] - 1) / ((1 - alpha) * comb0)
+    s_total = np.concatenate([best[:, None], best[:, None] * ratio], axis=1)
+    s_pf = np.clip(np.concatenate([comb0[:, None], pf1[:, None],
+                                   rng.uniform(0, 1, (G, K - 2))], axis=1), 0.0, 1.0)
+    n_feas = np.full(G, K)
+    want = batched.ibdash_scan_plain(s_total, s_pf, n_feas, alpha, beta, gamma)
+    got = batched.ibdash_scan_kernel(
+        *(torch.from_numpy(a).to(dev) for a in (s_total, s_pf, n_feas)),
+        alpha, beta, gamma).cpu().numpy()
+    n_diff = int((got != want).sum())
+    check(n_diff == 0, f"ibdash_scan_kernel differs from its plain version at {n_diff} "
+                       f"entries on rows at line 34's exact ties")
+    return (f"{int(want[:, 0].sum())} of {G} rows accept their first candidate, "
+            f"equal to the plain version")
+
+
+def wave_apps(B, seed=1):
+    """B seeded application instances (the four paper apps) and their
+    arrival times over the paper's 1.5 s window, so every app's rows are
+    distinct context rows and every policy's pool reaches its kernel."""
+    rng = np.random.default_rng(seed)
+    builders = list(APP_BUILDERS.values())
+    apps = [builders[int(rng.integers(len(builders)))]().relabel(f"#{i}") for i in range(B)]
+    times = np.sort(rng.uniform(0.0, 1.5, B)).tolist()
+    return apps, times
+
+
+def same_plans(tag, got, want):
+    """Plans equal placement for placement, estimates included."""
+    check(len(got) == len(want), f"{tag}: {len(got)} plans against {len(want)}")
+    for a, b in zip(got, want):
+        check(a.feasible == b.feasible and a.infeasible_task == b.infeasible_task
+              and a.est_latency == b.est_latency and set(a.tasks) == set(b.tasks),
+              f"{tag}: plan of {a.app.name} differs")
+        for name, ta in a.tasks.items():
+            tb = b.tasks[name]
+            check([(r.did, r.est_exec, r.est_upload, r.est_transfer, r.pred_fail)
+                   for r in ta.replicas]
+                  == [(r.did, r.est_exec, r.est_upload, r.est_transfer, r.pred_fail)
+                      for r in tb.replicas]
+                  and ta.est_start == tb.est_start and ta.est_latency == tb.est_latency,
+                  f"{tag}: placement of {name} differs")
+
+
+def timed_decisions(policy) -> list:
+    """Wrap ``policy.decide_batch`` so the one entry of the returned list
+    sums its wall time (the decision kernels, their copies and the host's
+    fan-out of the decisions)."""
+    spent, inner = [0.0], policy.decide_batch
+
+    def decide_batch(batch):
+        t = time.perf_counter()
+        try:
+            return inner(batch)
+        finally:
+            spent[0] += time.perf_counter() - t
+
+    policy.decide_batch = decide_batch
+    return spent
+
+
+def forbid_dense(*_a, **_k):
+    raise RuntimeError("a dense (D, D) link matrix was built while planning a wave")
+
+
+def wave_phase(dev):
+    """One wave for each kernel-backed policy on the 100k-device multi-tier
+    fleet, on the card and on the CPU, and a 10k-device wave against the
+    scalar path."""
+    out = {}
+    for D, B in ((PLACE_WAVE_D, PLACE_WAVE_B), (PLACE_SCALAR_D, PLACE_SCALAR_B)):
+        t = time.perf_counter()
+        profile = make_profile(seed=0, device=dev)
+        cluster = make_cluster(profile, scenario="multi_tier", n_devices=D, seed=0,
+                               horizon=20.0, dt=0.5)
+        cluster.link_bw = forbid_dense
+        apps, times = wave_apps(B)
+        n_tasks = sum(app.n_tasks for app in apps)
+        print(f"[place] multi_tier fleet of {D:,} devices built in "
+              f"{time.perf_counter() - t:.1f} s; a wave of {B} apps ({n_tasks} tasks)", flush=True)
+        for scheme in PLACE_SCHEMES:
+            cfg = SimConfig(seed=0, latency_budget=PLACE_BUDGET, device=dev.type)
+            policy = policy_for(scheme, profile, cfg)
+            orchestrate_batch(apps, cluster, policy, times=times)        # warm-up
+            policy = policy_for(scheme, profile, cfg)
+            decide_s = timed_decisions(policy)
+            for kern in batched.DECISION_KERNELS:
+                kern.launches = 0
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            plans = orchestrate_batch(apps, cluster, policy, times=times)
+            wave_s = time.perf_counter() - t
+            launches = {kern.__name__: kern.launches for kern in batched.DECISION_KERNELS}
+            for kern in PLACE_KERNELS[scheme]:
+                check(kern.launches > 0, f"{scheme} wave at D={D} launched no {kern.__name__}")
+            if D == PLACE_WAVE_D:
+                ref = orchestrate_batch(apps, cluster, policy_for(
+                    scheme, profile, SimConfig(seed=0, latency_budget=PLACE_BUDGET,
+                                               device="cpu")), times=times)
+                same_plans(f"{scheme} wave at D={D}, cuda against cpu", plans, ref)
+                against = "the same wave on the CPU"
+                if scheme == "ibdash":     # the policy by name, on the call's device
+                    by_name = orchestrate_batch(apps, cluster, "ibdash", times=times,
+                                                device="cuda")
+                    same_plans(f"ibdash by name at D={D}", by_name, plans)
+                    against += " and to the policy given by name with device='cuda'"
+            else:
+                ref = orchestrate_batch(apps, cluster, policy_for(scheme, profile, cfg),
+                                        times=times, batched=False)
+                same_plans(f"{scheme} wave at D={D}, batched against scalar", plans, ref)
+                against = "the scalar batched=False path"
+            placed = sum(len(p.tasks) for p in plans)
+            out[f"{scheme}@{D}"] = dict(wave_ms=wave_s * 1e3, decide_ms=decide_s[0] * 1e3,
+                                        instances_per_s=B / wave_s,
+                                        tasks_per_s=placed / wave_s, launches=launches)
+            print(f"[place] {scheme} wave, D={D:,}, B={B}: {wave_s * 1e3:.1f} ms "
+                  f"({decide_s[0] * 1e3:.1f} ms of it in decide_batch), "
+                  f"{B / wave_s:.1f} instances/s, {placed / wave_s:.1f} tasks placed/s; "
+                  f"kernel calls {launches}; equal to {against}", flush=True)
+        del cluster
+    return out
+
+
+def run_phase(dev):
+    """run_one at the paper's scale on the card, held instance for instance
+    against the same run on the CPU."""
+    out = {}
+    for kw in PLACE_RUNS:
+        tag = ",".join(f"{k}={v}" for k, v in kw.items())
+        for kern in batched.DECISION_KERNELS:
+            kern.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        t = time.perf_counter()
+        res = run_one("ibdash", SimConfig(device="cuda", **kw))
+        wall = time.perf_counter() - t
+        launches = {kern.__name__: kern.launches for kern in batched.DECISION_KERNELS}
+        peak = torch.cuda.max_memory_allocated() - before
+        t = time.perf_counter()
+        ref = run_one("ibdash", SimConfig(device="cpu", **kw))
+        cpu_wall = time.perf_counter() - t
+        check(res.n == ref.n and np.array_equal(res.load_per_device, ref.load_per_device),
+              f"run_one {tag}: load per device differs between cuda and cpu")
+        check([dataclasses.astuple(r) for r in res.instances]
+              == [dataclasses.astuple(r) for r in ref.instances],
+              f"run_one {tag}: an instance record differs between cuda and cpu")
+        if kw.get("fused_burst"):
+            check(launches["ibdash_scan_kernel"] > 0, f"run_one {tag} launched no scan kernel")
+        check(np.isfinite(res.avg_service_time) and 0.0 <= res.prob_failure <= 1.0,
+              f"run_one {tag}: avg_service_time {res.avg_service_time}, "
+              f"prob_failure {res.prob_failure}")
+        cfg, full = SimConfig(**kw), SimConfig().n_cycles
+        cut = "uncut" if cfg.n_cycles == full else f"cut from {full} for time"
+        out[tag] = dict(n_cycles=cfg.n_cycles, instances=res.n,
+                        avg_service_time=res.avg_service_time, prob_failure=res.prob_failure,
+                        wall_s=wall, cpu_wall_s=cpu_wall, peak_bytes=peak, launches=launches)
+        print(f"[place] run_one ibdash {tag}: {cfg.n_devices} devices, {cfg.n_cycles} cycles "
+              f"of {cfg.instances_per_cycle} instances ({cut}), {res.n} instances; "
+              f"avg_service_time {res.avg_service_time:.6f} s, prob_failure "
+              f"{res.prob_failure:.6f}; {wall:.2f} s on cuda ({cpu_wall:.2f} s on cpu), "
+              f"peak device memory {peak / 2**20:.1f} MiB above what the process held "
+              f"before; kernel calls {launches}; equal "
+              f"to the CPU run instance for instance", flush=True)
+    return out
+
+
+def place_phase(dev):
+    """Phase 8: the decision kernels, waves and run_one; returns the place line."""
+    t = time.perf_counter()
+    kernels = decision_phase(dev)
+    waves = wave_phase(dev)
+    runs = run_phase(dev)
+    wave_launches = {}
+    for scheme in PLACE_SCHEMES:
+        for name, n in waves[f"{scheme}@{PLACE_WAVE_D}"]["launches"].items():
+            wave_launches[name] = wave_launches.get(name, 0) + n
+    line = {"place": {
+        "kernels": [dict(name=name, replaces=PLACE_REPLACES[name],
+                         launches=wave_launches[name], **vals)
+                    for name, vals in kernels.items()],
+        "waves": waves, "runs": runs, "G": PLACE_G, "D": PLACE_D,
+        "seconds": time.perf_counter() - t,
+    }}
+    print(f"[place] phase took {line['place']['seconds']:.1f} s", flush=True)
+    return line
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -1171,9 +1561,12 @@ def main() -> int:
     dec_launches = dense_phase(dev)
     torch.cuda.empty_cache()
     attn_launches, _ = train_phase(dev)
+    torch.cuda.empty_cache()
+    place = place_phase(dev)
 
     main_t, dec_main, attn_main = timing[512], dec_t["served"], attn_t["train"]
     print(f"[done] {time.perf_counter() - t_start:.1f} s", flush=True)
+    print(json.dumps(place), flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": [{
         "name": "rwkv6_scan",

@@ -9,6 +9,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.core import batched
 from repro_torch.kernels import ops
 from repro_torch.kernels.flash_attention import flash_attention, flash_attention_trainable
 from repro_torch.kernels.flash_decode import flash_decode
@@ -418,3 +419,100 @@ def test_decode_kernel_rejects_what_it_does_not_take(cuda_device):
     with pytest.raises(ValueError, match="CUDA"):
         flash_decode(q.cpu(), k.cpu(), v.cpu(), lens.cpu())
     assert flash_decode.launches == before
+
+
+def _decision_inputs(seed, G, D):
+    """Decision-kernel inputs on the host: integer-valued totals and queues
+    in half the rows (exact ties), +inf totals, a wholly infeasible row, a
+    row with one feasible device and a feasible row of +inf totals."""
+    rng = np.random.default_rng(seed)
+    total = rng.uniform(0.0, 50.0, (G, D))
+    total[: G // 2] = rng.integers(1, 30, (G // 2, D))
+    total[rng.random((G, D)) < 0.02] = np.inf
+    total[3] = np.inf
+    queue = rng.integers(0, 4, (G, D)).astype(np.float64)
+    feasible = rng.random((G, D)) < 0.85
+    feasible[0] = False
+    feasible[1] = False
+    feasible[1, D - 1] = True
+    sizes = feasible.sum(axis=1)
+    before = np.cumsum(sizes > 0) - (sizes > 0)
+    targets = np.where(sizes > 0, (7 + before) % np.maximum(sizes, 1), 0)
+    return dict(total=total, pf=rng.random((G, D)), queue=queue, feasible=feasible,
+                tiers=rng.integers(0, 3, D), targets=targets)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("G,D", [(8, 24), (33, 300), (256, 5000)])
+def test_decision_kernels_match_plain_versions_bit_for_bit(cuda_device, G, D):
+    """The four float64 decision kernels and the stable queue selection on
+    the card equal their plain numpy versions exactly (ties to the lowest
+    device id, first minimum of rows all +inf)."""
+    h = _decision_inputs(G * 1000 + D, G, D)
+    d = {key: torch.from_numpy(val).to(cuda_device) for key, val in h.items()}
+    alpha, beta, gamma = 0.4, 0.08, 3
+    k = min(gamma + 1, D - 1) + 1
+    masked = np.where(h["feasible"], h["total"], np.inf)
+    order = batched.select_queue(torch.from_numpy(masked).to(cuda_device), k).cpu().numpy()
+    assert np.array_equal(order, batched.select_queue_plain(masked, k))
+    s_total = np.take_along_axis(h["total"], order, 1)
+    s_pf = np.take_along_axis(h["pf"], order, 1)
+    n_feas = h["feasible"].sum(axis=1)
+    got = batched.ibdash_scan_kernel(
+        torch.from_numpy(s_total).to(cuda_device), torch.from_numpy(s_pf).to(cuda_device),
+        torch.from_numpy(n_feas).to(cuda_device), alpha, beta, gamma).cpu().numpy()
+    with np.errstate(invalid="ignore"):
+        assert np.array_equal(got, batched.ibdash_scan_plain(s_total, s_pf, n_feas,
+                                                             alpha, beta, gamma))
+    assert np.array_equal(batched.lavea_kernel(d["queue"], d["feasible"]).cpu().numpy(),
+                          batched.lavea_plain(h["queue"], h["feasible"]))
+    assert np.array_equal(
+        batched.round_robin_kernel(d["feasible"], d["targets"]).cpu().numpy(),
+        batched.round_robin_plain(h["feasible"], h["targets"]))
+    for budget in (10.0, np.inf):
+        assert np.array_equal(
+            batched.tier_escalation_kernel(d["total"], d["feasible"], d["tiers"], budget,
+                                           3).cpu().numpy(),
+            batched.tier_escalation_plain(h["total"], h["feasible"], h["tiers"], budget, 3))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("alpha", [0.3, 0.5, 0.7])
+def test_scan_kernel_rounds_as_numpy_at_exact_ties_on_the_card(cuda_device, alpha):
+    """Rows whose first replica candidate sits at line 34's exact tie: only
+    the rounding of the weight update decides, so a fused multiply-add on
+    the card would flip some of them."""
+    rng = np.random.default_rng(int(alpha * 10))
+    G, K = 4096, 5
+    best = rng.uniform(0.5, 3.0, G)
+    ratio = 1 + rng.integers(1, 20, (G, K - 1)) / 64
+    comb0 = rng.uniform(0.3, 0.9, G)
+    pf1 = 1 - alpha * (ratio[:, 0] - 1) / ((1 - alpha) * comb0)
+    s_total = np.concatenate([best[:, None], best[:, None] * ratio], axis=1)
+    s_pf = np.clip(np.concatenate([comb0[:, None], pf1[:, None],
+                                   rng.uniform(0, 1, (G, K - 2))], axis=1), 0.0, 1.0)
+    n_feas = np.full(G, K)
+    want = batched.ibdash_scan_plain(s_total, s_pf, n_feas, alpha, 0.1, 3)
+    assert 0 < want[:, 0].sum() < G
+    got = batched.ibdash_scan_kernel(
+        *(torch.from_numpy(a).to(cuda_device) for a in (s_total, s_pf, n_feas)),
+        alpha, 0.1, 3)
+    assert np.array_equal(got.cpu().numpy(), want)
+
+
+@pytest.mark.cuda
+def test_argmin_and_stable_sort_tie_breaks_on_the_card(cuda_device):
+    """What the decision kernels rely on: argmin takes the first minimum, of
+    a row all +inf too; argmax takes a uint8 mask's first 1; the stable sort
+    keeps equal keys in ascending index order."""
+    x = torch.tensor([[3.0, 1.0, 1.0, 2.0], [np.inf] * 4, [5.0, 5.0, 5.0, 5.0]],
+                     dtype=torch.float64, device=cuda_device)
+    assert torch.argmin(x, dim=1).tolist() == [1, 0, 0]
+    m = torch.tensor([[0, 1, 1], [0, 0, 0]], dtype=torch.uint8, device=cuda_device)
+    assert torch.argmax(m, dim=1).tolist() == [1, 0]
+    keys = torch.tensor([[2.0, 1.0, 2.0, 1.0, np.inf, 1.0, np.inf]] * 2, dtype=torch.float64,
+                        device=cuda_device)
+    assert torch.sort(keys, dim=1, stable=True).indices[0].tolist() == [1, 3, 5, 0, 2, 4, 6]
+    wide = torch.zeros(1, 100_000, dtype=torch.float64, device=cuda_device)
+    assert torch.equal(torch.sort(wide, dim=1, stable=True).indices[0],
+                       torch.arange(100_000, device=cuda_device))
