@@ -53,8 +53,25 @@ Phases, each failing the run with a non-zero exit if anything is wrong:
              100 devices and 1000 instances a cycle (``mix`` with a fused
              burst, ``churn`` with ``replan``), equal to the same run on
              the CPU instance for instance.  Prints a ``place`` JSON line.
+9. stream    the streaming service, the serving fleet and the exporters
+             through ``repro_torch``, each run on the card and on the CPU
+             and held equal (``==``; only the two wall-clock metrics
+             ``wave_plan_s`` and ``placements_per_sec`` left out):
+             ``benchmarks/bench_stream.py``'s overload point (100 devices,
+             Poisson arrivals at 240/s over 45 s, queue 256, waves of 30)
+             with admission and as the no-admission baseline, each equal
+             to the committed ``BENCH_stream.json`` (read as a file); the
+             admitted run once more traced, its attribution report,
+             summary and Chrome trace equal on both devices, the trace
+             valid and its instance ledger rebuilt from the JSON alone;
+             the fleet comparison of the JAX ``serve_demo`` (16 replicas, 600
+             requests over 8 s; ibdash, petrel, lavea, round_robin, then
+             ibdash fused, behind admission and under churn with replan)
+             fed by the dense phase's fit.  Every IBDASH ``decide_batch``
+             pool of at least ``BATCH_KERNEL_MIN_ROWS`` rows must launch
+             the queue and scan kernels once.  Prints a ``stream`` line.
 
-The ``place`` line comes before the ``kernels`` line.  The line before the
+The ``place`` and ``stream`` lines come before the ``kernels`` line.  The line before the
 last is a JSON object with each kernel's launches on
 its main path (calls of its wrapper), the kernels a call runs on the card,
 its error against the plain version, its time, the plain version's time,
@@ -64,6 +81,7 @@ Imports nothing of JAX and nothing of the JAX package.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import itertools
 import json
@@ -85,14 +103,35 @@ from torch.utils.checkpoint import checkpoint  # noqa: E402
 
 from repro_torch.ckpt.checkpoint import CheckpointManager  # noqa: E402
 from repro_torch.api import (  # noqa: E402
+    Orchestrator,
     SimConfig,
     make_cluster,
+    make_policy,
     make_profile,
     orchestrate_batch,
     run_one,
 )
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import batched  # noqa: E402
+from repro_torch.core.policy import IBDASHPolicy  # noqa: E402
+from repro_torch.obs import (  # noqa: E402
+    attribution_report,
+    format_report,
+    json_summary,
+    ledger_from_trace,
+    to_chrome_trace,
+    validate_chrome_trace,
+)
+from repro_torch.launch.serve import fleet_interference  # noqa: E402
+from repro_torch.serve.scheduler import ServingFleet  # noqa: E402
+from repro_torch.stream import (  # noqa: E402
+    AdmissionConfig,
+    StreamingOrchestrator,
+    default_streams,
+    WALL_CLOCK_METRICS,
+    poisson_arrivals,
+    without_wall_clock,
+)
 from repro_torch.sim.apps import APP_BUILDERS  # noqa: E402
 from repro_torch.sim.runner import policy_for  # noqa: E402
 from repro_torch.data.synthetic import SyntheticLM  # noqa: E402
@@ -525,13 +564,14 @@ def fit_phase(tag, model, params, prefill_kernels=(), step_kernels=()):
           f"c={c * 1e3:.4f} ms, R^2={r2:.4f}", flush=True)
     for k, dt in samples:
         print(f"[{tag}]   k={k}: {dt * 1e3:.3f} ms (fit {(m * k + c) * 1e3:.3f} ms)", flush=True)
+    return m, c, r2
 
 
 def dense_phase(dev):
     """Serve the requests on full-width Minitron-8B with a KV cache; then the
     prefill and decode checks, the interference fit and a profiled decode
     step on the same model.  Returns the decode kernel's launches in the
-    served set."""
+    served set and the fit ``(m, c, r2)``."""
     cfg = get_config(DENSE_ARCH)
     model = LM(cfg, device=dev)
     t0 = time.perf_counter()
@@ -577,13 +617,13 @@ def dense_phase(dev):
                        "attention kernel vs plain attention", attn_fn=attention_ref)
     check(int(lg.argmax()) == done[rid][0], "prefill is not deterministic")
     decode_check(model, params, requests, done)
-    fit_phase("dense", model, params, (flash_attention,), (flash_decode,))
+    fit = fit_phase("dense", model, params, (flash_attention,), (flash_decode,))
     engine = ServingEngine(model, params, max_batch=SERVE_B, max_seq=SERVE_C)
     for req in requests[:SERVE_B]:
         engine.add_request(*req)
     engine.step()
     profile_report("dense", engine.step)
-    return launches
+    return launches, fit
 
 
 def decode_check(model, params, requests, done):
@@ -1459,11 +1499,7 @@ def run_phase(dev):
         t = time.perf_counter()
         ref = run_one("ibdash", SimConfig(device="cpu", **kw))
         cpu_wall = time.perf_counter() - t
-        check(res.n == ref.n and np.array_equal(res.load_per_device, ref.load_per_device),
-              f"run_one {tag}: load per device differs between cuda and cpu")
-        check([dataclasses.astuple(r) for r in res.instances]
-              == [dataclasses.astuple(r) for r in ref.instances],
-              f"run_one {tag}: an instance record differs between cuda and cpu")
+        same_result(f"run_one {tag}", res, ref)
         if kw.get("fused_burst"):
             check(launches["ibdash_scan_kernel"] > 0, f"run_one {tag} launched no scan kernel")
         check(np.isfinite(res.avg_service_time) and 0.0 <= res.prob_failure <= 1.0,
@@ -1502,6 +1538,277 @@ def place_phase(dev):
         "seconds": time.perf_counter() - t,
     }}
     print(f"[place] phase took {line['place']['seconds']:.1f} s", flush=True)
+    return line
+
+# -- phase 9: the streaming service, the serving fleet and the exporters -------
+# benchmarks/bench_stream.py's overload point, with its constants: 100
+# devices of the mixed fleet, Poisson arrivals at 240/s over 45 s from seed
+# 7, a 256-deep admission queue, waves of at most 30 every 0.25 s tick, SLOs
+# of 6 s (critical) and 30 s (best effort); the baseline runs with no
+# admission and no wave cap.  Its committed results are read from the file.
+STREAM_D, STREAM_RATE, STREAM_HORIZON = 100, 240.0, 45.0
+STREAM_QUEUE_CAP, STREAM_WAVE_CAP, STREAM_TICK = 256, 30, 0.25
+STREAM_SLO = (6.0, 30.0)
+BENCH_STREAM = Path(__file__).resolve().parent / "BENCH_stream.json"
+# the deterministic columns of a BENCH_stream.json row (all but its wall
+# time and placement rate, which are read off the host's clock)
+BENCH_COLUMNS = ("n_arrivals", "shed_rate", "shed", "completed", "lost", "deadline_missed",
+                 "deadline_missed_critical", "p50_critical", "p99_critical", "p999_critical",
+                 "p99_best_effort")
+# The JAX serve_demo's fleet comparison (src/repro/launch/serve.py:64-76):
+# 16 replicas from seed 0, 600 requests over an 8 s window from seed 1; then
+# ibdash fused, behind the admission queue, and under churn with replan.
+FLEET_POLICIES = ("ibdash", "petrel", "lavea", "round_robin")
+FLEET_RUNS = tuple((pol, {}, {}) for pol in FLEET_POLICIES) + (
+    ("ibdash", {}, dict(fused=True)),
+    ("ibdash", {}, dict(admission=AdmissionConfig())),
+    ("ibdash", dict(churn=True, recovery="replan"), {}),
+)
+CPU = torch.device("cpu")
+
+
+@contextlib.contextmanager
+def ibdash_pools():
+    """Record the distinct-row count of every IBDASH-family ``decide_batch``
+    call while the block runs (degraded policies made inside the service
+    included): the calls whose pool reaches ``BATCH_KERNEL_MIN_ROWS`` must
+    each launch the queue and scan kernels once, the others take the
+    scalar rule."""
+    sizes, inner = [], IBDASHPolicy.decide_batch
+
+    def decide_batch(self, batch):
+        sizes.append(batch.n_distinct)
+        return inner(self, batch)
+
+    IBDASHPolicy.decide_batch = decide_batch
+    try:
+        yield sizes
+    finally:
+        IBDASHPolicy.decide_batch = inner
+
+
+def same_result(tag, a, b):
+    """Two SimResults agree instance for instance and device for device."""
+    check(a.n == b.n and np.array_equal(a.load_per_device, b.load_per_device),
+          f"{tag}: load per device differs between cuda and cpu")
+    check([dataclasses.astuple(r) for r in a.instances]
+          == [dataclasses.astuple(r) for r in b.instances],
+          f"{tag}: an instance record differs between cuda and cpu")
+    check(repr((a.avg_service_time, a.prob_failure)) == repr((b.avg_service_time, b.prob_failure)),
+          f"{tag}: average service time or failure rate differs between cuda and cpu")
+
+
+def same_stream(tag, a, b):
+    """Two StreamResults agree exactly, but for the wall-clock metrics."""
+    same_result(tag, a.result, b.result)
+    check(a.n_arrivals == b.n_arrivals and a.stats == b.stats,
+          f"{tag}: the engine's counters differ between cuda and cpu")
+    check([dataclasses.astuple(r) for r in a.shed_log]
+          == [dataclasses.astuple(r) for r in b.shed_log],
+          f"{tag}: the shed log differs between cuda and cpu")
+    check(json.dumps(without_wall_clock(a.metrics), sort_keys=True)
+          == json.dumps(without_wall_clock(b.metrics), sort_keys=True),
+          f"{tag}: a metric differs between cuda and cpu")
+
+
+def bench_row(res):
+    """A StreamResult in bench_stream.measure's columns."""
+    c = res.metrics["counters"]
+    return {
+        "n_arrivals": res.n_arrivals, "shed_rate": res.shed_rate, "shed": res.stats["shed"],
+        "completed": res.stats["completed"], "lost": res.stats["lost"],
+        "deadline_missed": c.get("deadline_missed", 0),
+        "deadline_missed_critical": c.get("deadline_missed_latency_critical", 0),
+        "p50_critical": res.p("p50", "latency_critical"),
+        "p99_critical": res.p("p99", "latency_critical"),
+        "p999_critical": res.p("p999", "latency_critical"),
+        "p99_best_effort": res.p("p99", "best_effort"),
+    }
+
+
+def counted_run(dev, fn):
+    """Run ``fn`` with the decision kernels' counts at 0 and IBDASH's pools
+    recorded; returns its result and what was counted (wall seconds, the
+    kernels' launches, the decide_batch calls and those at or above the
+    kernels' row threshold, and on the card the peak memory above what the
+    process held before)."""
+    for kern in batched.DECISION_KERNELS:
+        kern.launches = 0
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+    with ibdash_pools() as pools:
+        t = time.perf_counter()
+        out = fn()
+        wall = time.perf_counter() - t
+    counts = dict(
+        wall_s=wall, launches={kern.__name__: kern.launches for kern in batched.DECISION_KERNELS},
+        decide_batch_calls=len(pools),
+        kernel_pools=sum(g >= batched.BATCH_KERNEL_MIN_ROWS for g in pools),
+        peak_bytes=torch.cuda.max_memory_allocated() - before if dev.type == "cuda" else None)
+    if dev.type == "cuda":
+        check(counts["launches"]["ibdash_scan_kernel"] == counts["launches"]["select_queue"]
+              == counts["kernel_pools"],
+              f"{counts['kernel_pools']} IBDASH pools of at least "
+              f"{batched.BATCH_KERNEL_MIN_ROWS} rows, but {counts['launches']} kernel launches")
+    return out, counts
+
+
+def overload_run(dev, admission, trace=False):
+    """bench_stream.measure's overload point through the port's API on
+    ``dev``: returns the service and its result."""
+    profile = make_profile(seed=0, device=dev)
+    cluster = make_cluster(profile, scenario="stream", n_devices=STREAM_D, seed=0,
+                           horizon=STREAM_HORIZON * 6.0 + 120.0)
+    orch = Orchestrator(cluster, make_policy("ibdash", alpha=0.5, beta=0.1, gamma=3,
+                                             lats_model=profile.lats_model, device=dev),
+                        trace=trace)
+    arrivals = poisson_arrivals(default_streams(slo_critical=STREAM_SLO[0],
+                                                slo_best_effort=STREAM_SLO[1]),
+                                STREAM_RATE, STREAM_HORIZON, seed=7)
+    service = StreamingOrchestrator(
+        orch, admission=AdmissionConfig(queue_cap=STREAM_QUEUE_CAP) if admission else None,
+        wave_cap=STREAM_WAVE_CAP if admission else None, tick=STREAM_TICK)
+    return service, service.run(arrivals)
+
+
+def describe(counts) -> str:
+    peak = counts["peak_bytes"]
+    return (f"{counts['wall_s']:.2f} s, {counts['decide_batch_calls']} decide_batch calls "
+            f"({counts['kernel_pools']} pools of >= {batched.BATCH_KERNEL_MIN_ROWS} rows), "
+            f"kernel launches {counts['launches']}, peak device memory "
+            + (f"{peak / 2**20:.1f} MiB above what the process held before"
+               if peak is not None else "not measured (cpu)"))
+
+
+def overload_phase(cuda):
+    """(a) The overload point with and without admission, on the card and
+    on the CPU, equal to each other and to BENCH_stream.json."""
+    bench = json.loads(BENCH_STREAM.read_text())["results"]
+    out, results = {}, {}
+    for point, admission in (("overload", True), ("overload_baseline", False)):
+        runs = {}
+        for name, dev in (("cuda", cuda), ("cpu", CPU)):
+            (_, res), counts = counted_run(dev, lambda: overload_run(dev, admission))
+            runs[name] = res
+            counts["placements_per_sec"] = res.metrics["gauges"]["placements_per_sec"]
+            out.setdefault(point, {})[name] = counts
+            print(f"[stream] {point} on {name}: {res.n_arrivals} arrivals, shed "
+                  f"{res.stats['shed']}, completed {res.stats['completed']}, lost "
+                  f"{res.stats['lost']}, p99_critical {res.p('p99')!r}; "
+                  f"{counts['placements_per_sec']:.1f} placements/s; {describe(counts)}",
+                  flush=True)
+        same_stream(f"{point} run", runs["cuda"], runs["cpu"])
+        row, want = bench_row(runs["cuda"]), bench[point]
+        for col in BENCH_COLUMNS:
+            check(row[col] == want[col],
+                  f"{point}: {col} {row[col]!r} against BENCH_stream.json's {want[col]!r}")
+        out[point]["bench"] = row
+        results[point] = runs["cuda"]
+        print(f"[stream] {point}: equal on cuda and cpu (records, shed log, counters, every "
+              f"metric but {', '.join(WALL_CLOCK_METRICS)}) and to BENCH_stream.json in "
+              f"{len(BENCH_COLUMNS)} columns (shed {row['shed']}, completed {row['completed']}, "
+              f"lost {row['lost']}, p99_critical {row['p99_critical']!r})", flush=True)
+    return out, results["overload"]
+
+
+def export_phase(cuda, untraced):
+    """(b) The admitted overload once more, traced, on the card and on
+    the CPU: equal reports and summaries, the same Chrome trace string for
+    string, valid, and the ledger rebuilt from the exported JSON alone."""
+    docs = {}
+    for name, dev in (("cuda", cuda), ("cpu", CPU)):
+        t = time.perf_counter()
+        # trace=True: an empty Tracer() is falsy (it has a length), and the
+        # Orchestrator of both packages reads a falsy trace as "off"
+        service, res = overload_run(dev, True, trace=True)
+        run_s = time.perf_counter() - t
+        tracer = service.orch.trace
+        t = time.perf_counter()
+        report = attribution_report(tracer)
+        summary = json_summary(tracer, service.metrics)
+        summary["metrics"] = without_wall_clock(summary["metrics"])
+        text = json.dumps(to_chrome_trace(tracer))
+        docs[name] = (res, repr(report), format_report(report),
+                      json.dumps(summary, sort_keys=True), text)
+        print(f"[stream] traced overload on {name}: run {run_s:.2f} s, report and export "
+              f"{time.perf_counter() - t:.2f} s; {len(tracer.spans)} spans, Chrome trace "
+              f"{len(text)} bytes", flush=True)
+    check([dataclasses.astuple(dataclasses.replace(r, tid=-1))
+           for r in docs["cuda"][0].result.instances]
+          == [dataclasses.astuple(r) for r in untraced.result.instances],
+          "tracing changed an instance record of the overload run (trace ids aside)")
+    (res, report, text_report, summary, text), cpu_doc = docs["cuda"], docs["cpu"]
+    same_stream("traced overload", res, cpu_doc[0])
+    check(report == cpu_doc[1] and text_report == cpu_doc[2],
+          "attribution_report differs between cuda and cpu")
+    check(summary == cpu_doc[3], "json_summary differs between cuda and cpu")
+    check(text == cpu_doc[4], "the Chrome trace JSON differs between cuda and cpu")
+    n_events = validate_chrome_trace(json.loads(text))
+    ledger = ledger_from_trace(json.loads(text))
+    want = {"admitted": res.n_arrivals, "completed": res.stats["completed"],
+            "lost": res.stats["lost"], "shed": res.stats["shed"]}
+    check(ledger == want, f"ledger from the exported trace {ledger} against the run's {want}")
+    print(f"[stream] exports equal on cuda and cpu (attribution report, json_summary, "
+          f"Chrome trace string for string); {n_events} events valid; ledger from the trace "
+          f"alone {ledger}", flush=True)
+    return dict(events=n_events, trace_bytes=len(text), ledger=ledger)
+
+
+def fleet_phase(cuda, fit):
+    """(c) The serving fleet fed by the card's full-width dense fit, on the
+    card and on the CPU, equal run for run."""
+    m, c, r2 = fit
+    im = fleet_interference(m, c)
+    print(f"[stream] fleet interference from {DENSE_ARCH}'s fit on the card: m={m!r} s/seq"
+          + (" (below zero, taken as 0)" if m < 0 else "")
+          + f", c={c!r} s (R^2 {r2:.4f}); long requests 3m, 6c", flush=True)
+    out = {}
+    for pol, fleet_kw, run_kw in FLEET_RUNS:
+        tag = pol + "".join(f",{k}" for k in {**fleet_kw, **run_kw})
+        runs = {}
+        for name, dev in (("cuda", cuda), ("cpu", CPU)):
+            fleet = ServingFleet(im, policy=pol, n_replicas=16, seed=0, device=dev, **fleet_kw)
+            res, counts = counted_run(dev, lambda: fleet.run(
+                n_requests=600, arrival_window=8.0, seed=1, **run_kw))
+            runs[name] = (fleet, res)
+            counts.update(avg_latency_s=res.avg_service_time, failure_rate=res.prob_failure,
+                          device_down=fleet.engine.stats.device_down,
+                          replica_deaths=fleet.engine.stats.replica_deaths)
+            out.setdefault(tag, {})[name] = counts
+            print(f"[stream] fleet {tag} on {name}: avg latency "
+                  f"{res.avg_service_time * 1e3:.3f} ms, failure rate {res.prob_failure:.6f}, "
+                  f"{counts['device_down']} replica departures; {describe(counts)}", flush=True)
+        (fleet, res), (fleet_c, res_c) = runs["cuda"], runs["cpu"]
+        same_result(f"fleet {tag}", res, res_c)
+        check(fleet.engine.stats.as_dict() == fleet_c.engine.stats.as_dict(),
+              f"fleet {tag}: the engine's counters differ between cuda and cpu")
+        if "admission" in run_kw:
+            same_stream(f"fleet {tag}", res.stream, res_c.stream)
+        if run_kw.get("fused"):
+            check(out[tag]["cuda"]["launches"]["ibdash_scan_kernel"] > 0,
+                  f"fleet {tag} launched no scan kernel")
+        check(np.isfinite(res.avg_service_time) and 0.0 <= res.prob_failure <= 1.0,
+              f"fleet {tag}: avg latency {res.avg_service_time}, failure rate {res.prob_failure}")
+    print(f"[stream] {len(FLEET_RUNS)} fleet runs equal on cuda and cpu", flush=True)
+    return out
+
+
+def stream_phase(dev, fit):
+    """Phase 9: the overload point, its exports and the serving fleet, each
+    run on ``dev`` and on the CPU; returns the stream line."""
+    t = time.perf_counter()
+    overload, admitted = overload_phase(dev)
+    export = export_phase(dev, admitted)
+    fleet = fleet_phase(dev, fit)
+    launched = sum(runs["cuda"]["launches"]["ibdash_scan_kernel"]
+                   for runs in (*overload.values(), *fleet.values()))
+    check(launched > 0, "phase 9 launched no decision kernel on the card")
+    line = {"stream": {"overload": overload, "export": export, "fleet": fleet,
+                       "fit": dict(zip(("m", "c", "r2"), fit)),
+                       "seconds": time.perf_counter() - t}}
+    print(f"[stream] phase took {line['stream']['seconds']:.1f} s", flush=True)
     return line
 
 
@@ -1558,15 +1865,18 @@ def main() -> int:
     fit_phase("fit", model, params, (rwkv6_scan,))
     del model, params
     torch.cuda.empty_cache()
-    dec_launches = dense_phase(dev)
+    dec_launches, dense_fit = dense_phase(dev)
     torch.cuda.empty_cache()
     attn_launches, _ = train_phase(dev)
     torch.cuda.empty_cache()
     place = place_phase(dev)
+    torch.cuda.empty_cache()
+    stream = stream_phase(dev, dense_fit)
 
     main_t, dec_main, attn_main = timing[512], dec_t["served"], attn_t["train"]
     print(f"[done] {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps(place), flush=True)
+    print(json.dumps(stream), flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": [{
         "name": "rwkv6_scan",

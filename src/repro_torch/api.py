@@ -13,8 +13,9 @@ The same façade as the JAX package's ``repro.api``, with a ``device``:
     undoable for speculative what-if planning (alpha/gamma sweeps).
   * :class:`Orchestrator` — the online façade: ``submit(app, t)`` arrivals,
     ``step(until)`` the discrete-event clock forward, ``drain()`` to
-    quiescence.  ``sim.runner.run_one/run_grid/sweep_*`` are thin layers
-    over this class.
+    quiescence.  ``sim.runner.run_one/run_grid/sweep_*``,
+    ``serve.scheduler.ServingFleet`` and ``stream.StreamingOrchestrator``
+    are thin layers over this class.
 
 Quick tour::
 
@@ -28,10 +29,8 @@ Quick tour::
     res = orch.result("mix", horizon=15.0)
 
     res = run_one("ibdash", SimConfig(device="cpu", n_cycles=1))
-
-Not ported yet (ROADMAP.md): the serving fleet (``ServingFleet`` raises
-``NotImplementedError``), the streaming service, the attribution reports
-and trace exporters.
+    res = run_one("ibdash", SimConfig(scenario="stream", device="cpu"))
+    res.stream.shed_rate, res.stream.p("p99")           # the streaming service
 """
 from __future__ import annotations
 
@@ -112,7 +111,7 @@ __all__ = [
     "SimResult",
     # lazily re-exported (see __getattr__): run_one, run_grid, sweep_alpha,
     # sweep_gamma, SimConfig, make_profile, make_cluster,
-    # make_multi_tier_cluster
+    # make_multi_tier_cluster, ServingFleet
 ]
 
 
@@ -300,6 +299,7 @@ _LAZY = {
     "make_cluster": ("repro_torch.sim.profiles", "make_cluster"),
     "make_multi_tier_cluster": ("repro_torch.sim.profiles", "make_multi_tier_cluster"),
     "EdgeProfile": ("repro_torch.sim.profiles", "EdgeProfile"),
+    "ServingFleet": ("repro_torch.serve.scheduler", "ServingFleet"),
     "ChurnSchedule": ("repro_torch.sim.churn", "ChurnSchedule"),
     "ChurnEvent": ("repro_torch.sim.churn", "ChurnEvent"),
     "exponential_churn": ("repro_torch.sim.churn", "exponential_churn"),
@@ -311,45 +311,44 @@ _LAZY = {
     "periodic_windows": ("repro_torch.sim.churn", "periodic_windows"),
     "device_groups": ("repro_torch.sim.churn", "device_groups"),
     "SurvivalForecast": ("repro_torch.core.availability", "SurvivalForecast"),
-    # observability (repro_torch.obs): tracing and the engine's counters
+    # always-on streaming service (repro_torch.stream)
+    "StreamingOrchestrator": ("repro_torch.stream", "StreamingOrchestrator"),
+    "StreamResult": ("repro_torch.stream", "StreamResult"),
+    "AdmissionConfig": ("repro_torch.stream", "AdmissionConfig"),
+    "AdmissionController": ("repro_torch.stream", "AdmissionController"),
+    "PlacementLatencyEstimator": ("repro_torch.stream", "PlacementLatencyEstimator"),
+    "ShedRecord": ("repro_torch.stream", "ShedRecord"),
+    "SLOClass": ("repro_torch.stream", "SLOClass"),
+    "LATENCY_CRITICAL": ("repro_torch.stream", "LATENCY_CRITICAL"),
+    "BEST_EFFORT": ("repro_torch.stream", "BEST_EFFORT"),
+    "AppStream": ("repro_torch.stream", "AppStream"),
+    "Arrival": ("repro_torch.stream", "Arrival"),
+    "default_streams": ("repro_torch.stream", "default_streams"),
+    "poisson_arrivals": ("repro_torch.stream", "poisson_arrivals"),
+    "diurnal_arrivals": ("repro_torch.stream", "diurnal_arrivals"),
+    "trace_replay": ("repro_torch.stream", "trace_replay"),
+    "MetricsRegistry": ("repro_torch.stream", "MetricsRegistry"),
+    # observability (repro_torch.obs): tracing, attribution, exporters
     "Tracer": ("repro_torch.obs", "Tracer"),
     "Span": ("repro_torch.obs", "Span"),
     "SPAN_SCHEMA": ("repro_torch.obs", "SPAN_SCHEMA"),
     "EngineStats": ("repro_torch.obs", "EngineStats"),
     "ENGINE_COUNTERS": ("repro_torch.obs", "ENGINE_COUNTERS"),
-    "MetricsRegistry": ("repro_torch.obs", "MetricsRegistry"),
-}
-
-# Names of the JAX package's façade whose modules the port has not reached
-# yet, with where ROADMAP.md queues each.
-_NOT_PORTED = {
-    "ServingFleet": "serve/scheduler.py (ROADMAP.md, slice 5, item C.9)",
-    **{name: "stream/ (ROADMAP.md, slice 5, item C.8)" for name in (
-        "StreamingOrchestrator", "StreamResult", "AdmissionConfig",
-        "AdmissionController", "PlacementLatencyEstimator", "ShedRecord",
-        "SLOClass", "LATENCY_CRITICAL", "BEST_EFFORT", "AppStream", "Arrival",
-        "default_streams", "poisson_arrivals", "diurnal_arrivals",
-        "trace_replay",
-    )},
-    **{name: "obs/attribution.py and obs/export.py (ROADMAP.md, slice 5)"
-       for name in (
-           "attribution_report", "instance_breakdown", "format_report",
-           "to_chrome_trace", "ledger_from_trace", "validate_chrome_trace",
-           "json_summary",
-       )},
+    "attribution_report": ("repro_torch.obs", "attribution_report"),
+    "instance_breakdown": ("repro_torch.obs", "instance_breakdown"),
+    "format_report": ("repro_torch.obs", "format_report"),
+    "to_chrome_trace": ("repro_torch.obs", "to_chrome_trace"),
+    "ledger_from_trace": ("repro_torch.obs", "ledger_from_trace"),
+    "validate_chrome_trace": ("repro_torch.obs", "validate_chrome_trace"),
+    "json_summary": ("repro_torch.obs", "json_summary"),
 }
 
 
 def __getattr__(name: str):
-    """Lazy re-exports of the grid runners, so that ``repro_torch.api``
-    stays import-light and free of circular imports (the runners
-    themselves build :class:`Orchestrator` instances).  A name whose
-    module is not ported yet raises ``NotImplementedError`` saying where
-    it is queued."""
-    if name in _NOT_PORTED:
-        raise NotImplementedError(
-            f"repro_torch.api.{name}: {_NOT_PORTED[name]} is not ported yet"
-        )
+    """Lazy re-exports of the grid runners, the serving fleet and the
+    streaming service, so that ``repro_torch.api`` stays import-light and
+    free of circular imports (the runners themselves build
+    :class:`Orchestrator` instances)."""
     try:
         mod_name, attr = _LAZY[name]
     except KeyError:

@@ -2,16 +2,36 @@
 
   * :mod:`repro_torch.obs.tracing` — per-instance traces of structured,
     sim-clock-timestamped spans (:data:`SPAN_SCHEMA`), emitted by the
-    engine and the recovery strategies through a
+    engine / stream service / recovery strategies through a
     zero-overhead-when-disabled :class:`Tracer`;
   * :mod:`repro_torch.obs.metrics` — the counters / gauges /
-    exact-quantile histograms registry and :class:`EngineStats`, the
-    engine's typed counter ledger with the conservation identity checked
-    in one place.
+    exact-quantile histograms registry (:mod:`repro_torch.stream.metrics`
+    re-exports from here) and :class:`EngineStats`, the engine's typed
+    counter ledger with the conservation identity checked in one place;
+  * :mod:`repro_torch.obs.attribution` — predicted-vs-actual cost
+    attribution: critical-path breakdowns, Eq. (2) / P_f calibration per
+    policy / tier / device, slow- and lost-instance reports;
+  * :mod:`repro_torch.obs.export` — Chrome/Perfetto ``trace_event`` JSON
+    (device rows + instance flows) and summary exports, with the
+    instance ledger recomputable from the exported trace alone.
 
-The JAX package's attribution reports and trace exporters are not ported
-yet (ROADMAP.md, slice 5).
+Enable via ``Orchestrator(cluster, policy, trace=Tracer())`` or
+``SimConfig(trace=True)``.
 """
+from .attribution import (
+    attribution_report,
+    calibration,
+    format_report,
+    instance_breakdown,
+    lost_instances,
+    slow_instances,
+)
+from .export import (
+    json_summary,
+    ledger_from_trace,
+    to_chrome_trace,
+    validate_chrome_trace,
+)
 from .metrics import (
     ENGINE_COUNTERS,
     Counter,
@@ -33,4 +53,14 @@ __all__ = [
     "MetricsRegistry",
     "ENGINE_COUNTERS",
     "EngineStats",
+    "instance_breakdown",
+    "calibration",
+    "slow_instances",
+    "lost_instances",
+    "attribution_report",
+    "format_report",
+    "to_chrome_trace",
+    "ledger_from_trace",
+    "validate_chrome_trace",
+    "json_summary",
 ]

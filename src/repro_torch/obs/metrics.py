@@ -2,7 +2,7 @@
 histograms, the get-or-create registry, and the engine's typed counter
 view.
 
-This is the one home for metrics primitives — :mod:`repro.stream.metrics`
+This is the one home for metrics primitives — :mod:`repro_torch.stream.metrics`
 re-exports from here for backward compatibility.  Two kinds of consumer:
 
   * the **streaming service** registers free-form named series in a
@@ -240,7 +240,7 @@ class EngineStats:
         """``admitted == completed + lost + shed``; RuntimeError on drift —
         the regression guard for the counter bookkeeping (asserted by
         ``Engine.drain`` and recomputable from traces alone via
-        :func:`repro.obs.export.ledger_from_trace`)."""
+        :func:`repro_torch.obs.export.ledger_from_trace`)."""
         settled = self.completed + self.lost + self.shed
         if self.admitted != settled:
             raise RuntimeError(

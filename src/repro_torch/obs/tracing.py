@@ -21,7 +21,7 @@ Design constraints (the lint rules stay green):
     Eq. (2) terms (``pred_exec`` / ``pred_upload`` / ``pred_transfer``)
     and per-replica ``pred_fail`` from the very
     :class:`~repro_torch.core.orchestrator.Replica` the policy produced, so
-    :mod:`repro.obs.attribution` can score calibration without joining
+    :mod:`repro_torch.obs.attribution` can score calibration without joining
     back to planner state.
   * **literal span kinds** — call sites pass the ``kind`` as a string
     literal drawn from :data:`SPAN_SCHEMA`; the ``span-parity`` lint rule

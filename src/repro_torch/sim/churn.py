@@ -8,7 +8,7 @@ model into an explicit event stream the engine can react to:
 
   * :func:`exponential_churn` — per-device exponential leave/rejoin cycles
     from the fleet's Table-IV rates (or any per-device override, e.g. the
-    live lambda-MLE estimates of :class:`repro.ft.runtime.FleetMonitor`);
+    live lambda-MLE estimates of :class:`repro_torch.ft.runtime.FleetMonitor`);
   * :func:`deterministic_churn` — an explicit ``(t, did, kind)`` script
     (tests, adversarial what-if schedules);
   * :func:`trace_churn` — replay of an availability trace: timestamped
@@ -557,7 +557,7 @@ def churn_from_monitor(
     **kwargs,
 ) -> ChurnSchedule:
     """Generate churn at the failure rates a
-    :class:`repro.ft.runtime.FleetMonitor` estimated online.
+    :class:`repro_torch.ft.runtime.FleetMonitor` estimated online.
 
     The monitor's per-class lambda MLE (deaths / alive-exposure — the same
     :func:`~repro_torch.core.availability.fit_failure_rate` estimator the paper

@@ -145,7 +145,7 @@ SCENARIOS: Dict[str, np.ndarray] = {
     "correlated_churn": LAMBDA_PED,
     # The always-on streaming service runs over the standard mixed fleet;
     # what changes is the workload (open-loop arrivals through admission),
-    # handled in repro_torch.sim.runner / repro.stream.
+    # handled in repro_torch.sim.runner / repro_torch.stream.
     "stream": LAMBDA_MIX,
 }
 

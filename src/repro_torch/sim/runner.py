@@ -13,8 +13,8 @@ Every scheme is built through the policy registry
 (``make_policy(name, **kwargs)``) and driven online through the unified
 :class:`repro_torch.api.Orchestrator` façade — there is no per-scheme
 construction code here.  ``SimConfig.device`` says where the policies'
-decision kernels run (the card by default); the scenario ``stream`` waits
-for the streaming service's port (ROADMAP.md).
+decision kernels run (the card by default); the scenario ``stream`` drives
+the always-on streaming service (:mod:`repro_torch.stream`) there too.
 """
 from __future__ import annotations
 
@@ -89,7 +89,7 @@ class SimConfig:
     maintenance_period: float = 7.5     # one scripted drain per period...
     maintenance_duration: float = 5.0   # ...taking a group down this long
     maintenance_phase: float = 1.0      # first window start offset
-    # -- streaming service (scenario "stream"; not ported yet, run_one raises) ----
+    # -- streaming service (scenario "stream") ---------------------------------
     stream_rate: float = 120.0          # offered load, instances/sec
     stream_process: str = "poisson"     # "poisson" | "diurnal"
     stream_peak_rate: Optional[float] = None  # diurnal peak (None = 2x rate)
@@ -190,6 +190,66 @@ def make_churn(cfg: SimConfig, cluster) -> Optional["ChurnSchedule"]:
     )
 
 
+def _run_stream(cfg: SimConfig, scheme: str, profile: EdgeProfile) -> SimResult:
+    """Scenario ``"stream"``: open-loop arrivals through the always-on
+    service (:mod:`repro_torch.stream`) instead of the closed-loop cycle
+    burst, on ``cfg.device``.  The returned :class:`SimResult` carries the
+    full :class:`~repro_torch.stream.service.StreamResult` as ``res.stream``."""
+    from ..api import Orchestrator
+    from ..stream import (
+        AdmissionConfig,
+        StreamingOrchestrator,
+        default_streams,
+        diurnal_arrivals,
+        poisson_arrivals,
+    )
+
+    # Generous horizon: the no-admission baseline drains its backlog long
+    # after the last arrival.
+    cluster = make_cluster(
+        profile, scenario="stream", n_devices=cfg.n_devices, seed=cfg.seed,
+        horizon=cfg.horizon * 3.0 + 60.0, device=cfg.device,
+    )
+    churn = make_churn(cfg, cluster)
+    orch = Orchestrator(
+        cluster, policy_for(scheme, profile, cfg),
+        seed=cfg.seed, noise_sigma=cfg.noise_sigma,
+        churn=churn, recovery=cfg.recovery, salvage=cfg.salvage,
+        detection_delay=cfg.detection_delay, max_retries=cfg.max_retries,
+        trace=cfg.trace,
+    )
+    streams = default_streams(
+        slo_critical=cfg.slo_critical, slo_best_effort=cfg.slo_best_effort
+    )
+    if cfg.stream_process == "diurnal":
+        peak = cfg.stream_peak_rate or 2.0 * cfg.stream_rate
+        arrivals = diurnal_arrivals(
+            streams, cfg.stream_rate, peak, cfg.horizon,
+            period=cfg.stream_period, seed=cfg.seed + 7,
+        )
+    elif cfg.stream_process == "poisson":
+        arrivals = poisson_arrivals(
+            streams, cfg.stream_rate, cfg.horizon, seed=cfg.seed + 7,
+        )
+    else:
+        raise ValueError(f"unknown stream_process {cfg.stream_process!r}")
+    admission = (
+        AdmissionConfig(queue_cap=cfg.stream_queue_cap)
+        if cfg.stream_admission else None
+    )
+    service = StreamingOrchestrator(
+        orch, admission=admission, tick=cfg.stream_tick,
+        wave_cap=cfg.stream_wave,
+        metrics_interval=cfg.stream_metrics_interval,
+    )
+    stream_res = service.run(arrivals)
+    res = stream_res.result
+    res.stream = stream_res            # SimResult is a plain dataclass
+    if cfg.trace:
+        res.trace = orch.trace
+    return res
+
+
 def run_one(
     scheme: str,
     cfg: SimConfig,
@@ -197,12 +257,9 @@ def run_one(
 ) -> SimResult:
     from ..api import Orchestrator  # lazy: api sits above sim in the layering
 
-    if cfg.scenario == "stream":
-        raise NotImplementedError(
-            "scenario 'stream' runs the streaming service, whose module "
-            "stream/ is not ported yet (ROADMAP.md, slice 5, item C.8)"
-        )
     profile = profile or make_profile(seed=cfg.seed, device=cfg.device)
+    if cfg.scenario == "stream":
+        return _run_stream(cfg, scheme, profile)
     cluster = make_cluster(
         profile, scenario=cfg.scenario, n_devices=cfg.n_devices, seed=cfg.seed,
         horizon=cfg.horizon + 30.0, device=cfg.device,

@@ -516,3 +516,28 @@ def test_argmin_and_stable_sort_tie_breaks_on_the_card(cuda_device):
     wide = torch.zeros(1, 100_000, dtype=torch.float64, device=cuda_device)
     assert torch.equal(torch.sort(wide, dim=1, stable=True).indices[0],
                        torch.arange(100_000, device=cuda_device))
+
+
+@pytest.mark.cuda
+def test_admitted_stream_run_is_the_same_on_card_and_cpu(cuda_device):
+    """A small admitted streaming-service run through the port plans the
+    same on the card as on the CPU: records, shed log, counters and every
+    metric but the two read off the host's clock."""
+    import dataclasses
+    import json
+
+    from repro_torch.api import SimConfig, run_one
+    from repro_torch.stream import without_wall_clock
+
+    def run(device):
+        res = run_one("ibdash", SimConfig(
+            scenario="stream", device=device, n_devices=24, n_cycles=1, cycle_len=10.0,
+            stream_rate=60.0, stream_queue_cap=40, stream_wave=8))
+        s = res.stream
+        return ([dataclasses.astuple(r) for r in res.instances], s.stats,
+                [dataclasses.astuple(r) for r in s.shed_log],
+                json.dumps(without_wall_clock(s.metrics), sort_keys=True))
+
+    got, want = run("cuda"), run("cpu")
+    assert got == want
+    assert got[1]["shed"] > 0

@@ -27,6 +27,8 @@ from repro_torch.kernels.rwkv6_scan import rwkv6_scan
 from repro_torch.launch.serve import serve_demo
 from repro_torch.models import LM, params_from_jax, reduced
 from repro_torch.serve.engine import ServingEngine
+from repro_torch.serve.scheduler import ServingFleet, serving_interference_model
+from repro_torch.sim.runner import SimConfig, run_one
 
 ROOT = Path(__file__).resolve().parent.parent
 
@@ -96,6 +98,8 @@ def test_serve_demo_on_cpu():
     before = [kern.launches for kern in kernels]
     out = serve_demo(n_requests=10, max_batch=4, device="cpu")
     assert len(out["outputs"]) == 10
+    assert list(out["fleet"]) == ["ibdash", "petrel", "lavea", "round_robin"]
+    assert all(np.isfinite(lat) and 0.0 <= fail <= 1.0 for lat, fail in out["fleet"].values())
     assert all(0 <= t < 512 for toks in out["outputs"].values() for t in toks)
     m, c, r2 = out["interference"]
     assert np.isfinite([m, c, r2]).all()
@@ -119,7 +123,7 @@ def test_import_isolation():
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
-    assert int(res.stdout.split()[-1]) >= 56
+    assert int(res.stdout.split()[-1]) >= 67
 
 
 def test_entry_points_need_a_card_unless_told_cpu(monkeypatch):
@@ -133,6 +137,12 @@ def test_entry_points_need_a_card_unless_told_cpu(monkeypatch):
         serve_demo(n_requests=1)
     with pytest.raises(RuntimeError, match="CUDA"):
         params_from_jax({"w": np.zeros(2, np.float32)})
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ServingFleet(serving_interference_model(), n_replicas=4)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        run_one("ibdash", SimConfig(scenario="stream"))
+    assert ServingFleet(serving_interference_model(), n_replicas=4,
+                        device="cpu").cluster.device == torch.device("cpu")
     assert resolve_device("cpu") == torch.device("cpu")
     assert LM(cfg, device="cpu").device == torch.device("cpu")
 

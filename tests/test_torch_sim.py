@@ -140,10 +140,22 @@ def test_sim_config_carries_the_device():
 
 
 def test_unported_parts_say_where_they_are_queued():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        api.run_one("ibdash", api.SimConfig(scenario="stream", device="cpu", **SMALL))
+    """Every name of the JAX package's façade resolves to the port's own
+    object (none is a stub any more), and a CPU stream run returns its
+    StreamResult as ``res.stream``."""
+    import importlib
+
+    assert not hasattr(api, "_NOT_PORTED")
+    assert set(ref_api._LAZY) == set(api._LAZY)
+    for name, (mod, attr) in api._LAZY.items():
+        assert mod.startswith("repro_torch.")
+        obj = getattr(api, name)
+        assert obj is getattr(importlib.import_module(mod), attr)
+        assert getattr(obj, "__module__", "repro_torch").startswith("repro_torch")
     for name in ("ServingFleet", "StreamingOrchestrator", "to_chrome_trace"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            getattr(api, name)
+        assert getattr(api, name).__module__.startswith("repro_torch.")
+    res = api.run_one("ibdash", api.SimConfig(scenario="stream", device="cpu", **SMALL,
+                                              cycle_len=3.0, stream_rate=20.0))
+    assert res.scenario == "stream" and res.stream.n_arrivals == res.stream.stats["admitted"] > 0
     with pytest.raises(AttributeError):
         api.no_such_name
