@@ -70,12 +70,35 @@ Phases, each failing the run with a non-zero exit if anything is wrong:
              fed by the dense phase's fit.  Every IBDASH ``decide_batch``
              pool of at least ``BATCH_KERNEL_MIN_ROWS`` rows must launch
              the queue and scan kernels once.  Prints a ``stream`` line.
+10. moe     serves the same requests through ``ServingEngine`` on
+             full-width Qwen1.5-MoE-A2.7B in bf16 (24 layers, 60 experts
+             top-4 and 4 shared ones, 28.6 GB of weights; TF32 off, so the
+             router's product stays float32) and checks that every prefill
+             ran the attention kernel 24 times and every decode step the
+             decode kernel 24 times, that the tokens are valid ids and the
+             peak memory fits the card; holds both kernels layer by layer
+             on the path's own activations against their plain versions
+             (in bf16 and in float32), and the whole model's logits by RMS
+             distance, counting the (token, layer) expert sets that
+             differ (a rounding can flip a near tie, so equal routing is
+             not required); holds the sort dispatch against the einsum
+             dispatch on one layer with no drops; fits ``T = m*k + c``;
+             profiles a decode step beside its bound.  Then DeepSeek-V3 at published widths cut
+             to 4 layers (its 3 dense layers and the first MoE layer, all
+             256 experts) serves two requests without a kernel (MLA is
+             plain torch, as in the JAX model) and its absorbed MLA decode
+             is held against the expanded form layer by layer.  Prints a
+             ``moe`` line.
 
-The ``place`` and ``stream`` lines come before the ``kernels`` line.  The line before the
-last is a JSON object with each kernel's launches on
-its main path (calls of its wrapper), the kernels a call runs on the card,
-its error against the plain version, its time, the plain version's time,
-its bound and the library call's time; the last line is
+Phase 3 runs the attention and decode kernels also at the MoE path's
+heads (Hq = Hk = 16, D = 128) and at Command R+'s g = 12 (Hq = 96, Hk = 8).
+
+The ``place``, ``stream`` and ``moe`` lines come before the ``kernels``
+line.  The line before the last is a JSON object with each kernel's
+launches on its main paths (calls of its wrapper, by path and summed),
+the kernels a call runs on the card, its error against the plain version,
+its time, the plain version's time, its bound and the library call's time
+at its main shape and by shape; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Imports nothing of JAX and nothing of the JAX package.
 """
@@ -147,6 +170,8 @@ from repro_torch.kernels.rwkv6_scan import KERNELS_PER_CALL as WKV_KERNELS_PER_C
 from repro_torch.kernels.rwkv6_scan import kernel_chunk, rwkv6_scan, smem_bytes  # noqa: E402
 from repro_torch.launch.train import train  # noqa: E402
 from repro_torch.models import LM  # noqa: E402
+from repro_torch.models import moe as moe_module  # noqa: E402
+from repro_torch.models import transformer as transformer_module  # noqa: E402
 from repro_torch.models.layers import torch_dtype  # noqa: E402
 from repro_torch.optim.optimizers import AdamW, global_norm  # noqa: E402
 from repro_torch.optim.schedules import cosine_with_warmup  # noqa: E402
@@ -192,11 +217,15 @@ ATTN_TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
 BF16_HALF_ULP = 2.0 ** -8
 ATTN_BF16_UPCAST_TOL = 5e-3
 # (B, S, Hq, Hk, D, causal, window, dtypes): the training shape, the dense
-# serving path's longest prefill (Minitron-8B's GQA heads at D=128), and a
-# windowed, non-causal, ragged case at D=32
+# serving path's longest prefill (Minitron-8B's GQA heads at D=128), the MoE
+# serving path's (Qwen-MoE's 16 heads, g = 1: one head x 64 tokens a block),
+# Command R+'s g = 12 (12 heads x 5 tokens, 60 of 64 rows), and a windowed,
+# non-causal, ragged case at D=32
 ATTN_CASES = (
     (4, 2048, 16, 16, 64, True, None, (torch.bfloat16,)),
     (1, 512, 32, 8, 128, True, None, (torch.float32, torch.bfloat16)),
+    (1, 512, 16, 16, 128, True, None, (torch.float32, torch.bfloat16)),
+    (1, 300, 96, 8, 128, True, None, (torch.float32, torch.bfloat16)),
     (1, 200, 4, 2, 32, False, 128, (torch.float32, torch.bfloat16)),
 )
 TRAIN_ARCH, TRAIN_B, TRAIN_S, TRAIN_STEPS = "qwen1.5-0.5b", 4, 2048, 6
@@ -207,11 +236,14 @@ DENSE_ARCH, SERVE_B, SERVE_C = "minitron-8b", 8, 1024
 # summation order).  (B, C, Hq, Hk, D, lengths): the serving shape with the
 # lengths the first eight served prompts give at their first decode step
 # and with every slot valid, D=64 MHA, and MQA with a ragged C (not a
-# multiple of the 64-slot tile); lengths 1 and C.
+# multiple of the 64-slot tile); lengths 1 and C; the MoE serving path's
+# heads (g = 1, one head in the 16 mma rows) and Command R+'s g = 12.
 SERVE_LENGTHS = tuple(n + 1 for n in SERVE_PROMPTS[:SERVE_B])
 DECODE_CASES = (
     (SERVE_B, SERVE_C, 32, 8, 128, SERVE_LENGTHS),
     (SERVE_B, SERVE_C, 32, 8, 128, (SERVE_C,) * SERVE_B),
+    (SERVE_B, SERVE_C, 16, 16, 128, SERVE_LENGTHS),
+    (SERVE_B, SERVE_C, 96, 8, 128, SERVE_LENGTHS),
     (4, 512, 16, 16, 64, (1, 512, 300, 77)),
     (3, 1000, 16, 1, 128, (1, 1000, 999)),
 )
@@ -423,7 +455,7 @@ def serve(engine, requests):
     return done, prefill_s, step_s, time.perf_counter() - t_start
 
 
-def report_serve(tag, cfg, requests, done, prefill_s, step_s, wall):
+def report_serve(tag, cfg, requests, done, prefill_s, step_s, wall, batch=SERVE_B):
     """Check that every request got its tokens, each a valid id, and print
     the served set's times."""
     for rid, prompt, n_new in requests:
@@ -431,12 +463,13 @@ def report_serve(tag, cfg, requests, done, prefill_s, step_s, wall):
         check(len(toks) == n_new + 1, f"{rid}: {len(toks)} tokens, wanted {n_new + 1}")
         check(all(0 <= t < cfg.vocab for t in toks), f"{rid}: token id out of range")
     n_tok = sum(len(t) for t in done.values())
-    print(f"[{tag}] {len(requests)} requests (prompts {list(SERVE_PROMPTS)}), "
+    prompts = [len(prompt) for _, prompt, _ in requests]
+    print(f"[{tag}] {len(requests)} requests (prompts {prompts}), "
           f"{n_tok} tokens in {wall:.3f} s = {n_tok / wall:.1f} tok/s, "
-          f"{len(step_s)} decode steps at batch 8", flush=True)
+          f"{len(step_s)} decode steps at batch {batch}", flush=True)
     print(f"[{tag}] prefill ms per request: median {1e3 * np.median(prefill_s):.2f}, "
           f"by prompt length (in order, the first one cold) "
-          f"{[(n, round(1e3 * x, 2)) for n, x in zip(SERVE_PROMPTS, prefill_s)]}", flush=True)
+          f"{[(n, round(1e3 * x, 2)) for n, x in zip(prompts, prefill_s)]}", flush=True)
     print(f"[{tag}] decode step ms: median {1e3 * np.median(step_s):.2f}, "
           f"min {1e3 * min(step_s):.2f}, max {1e3 * max(step_s):.2f}", flush=True)
 
@@ -570,8 +603,8 @@ def fit_phase(tag, model, params, prefill_kernels=(), step_kernels=()):
 def dense_phase(dev):
     """Serve the requests on full-width Minitron-8B with a KV cache; then the
     prefill and decode checks, the interference fit and a profiled decode
-    step on the same model.  Returns the decode kernel's launches in the
-    served set and the fit ``(m, c, r2)``."""
+    step on the same model.  Returns the attention and the decode kernel's
+    launches in the served set and the fit ``(m, c, r2)``."""
     cfg = get_config(DENSE_ARCH)
     model = LM(cfg, device=dev)
     t0 = time.perf_counter()
@@ -623,7 +656,7 @@ def dense_phase(dev):
         engine.add_request(*req)
     engine.step()
     profile_report("dense", engine.step)
-    return launches, fit
+    return (attn_launches, launches), fit
 
 
 def decode_check(model, params, requests, done):
@@ -690,7 +723,8 @@ def attention_cost(B, S, Hq, Hk, D, elem_bytes, causal=True, window=None):
 # dense prefill shape, whose kernel takes less time than a call takes on the
 # host, by the device time torch.profiler sees (device_ms).
 ATTN_TIMED = (("train", TRAIN_B, TRAIN_S, 16, 16, 64, 1, "events"),
-              ("dense prefill", 1, 512, 32, 8, 128, 8, "device"))
+              ("dense prefill", 1, 512, 32, 8, 128, 8, "device"),
+              ("moe prefill", 1, 512, 16, 16, 128, 8, "device"))
 # the host's time per call is measured over this many back-to-back calls
 ATTN_HOST_CALLS = 200
 
@@ -942,52 +976,58 @@ def decode_phase(dev):
                   f"{list(lengths)} {str(dtype)[6:]}: max abs err {err:.3e} "
                   f"(tol {tol} abs+rel){upcast}", flush=True)
 
-    B, C, Hq, Hk, D, L = SERVE_B, SERVE_C, 32, 8, 128, DECODE_TIMING_LAYERS
-    bf16 = torch.bfloat16
-    q = torch.randn((L, B, Hq, D), generator=gen, device=dev).to(bf16)
-    k = torch.randn((L, B, C, Hk, D), generator=gen, device=dev).to(bf16)
-    v = torch.randn((L, B, C, Hk, D), generator=gen, device=dev).to(bf16)
-    kt, vt = (t.transpose(2, 3).contiguous() for t in (k, v))        # (L, B, Hk, C, D)
+    B, C, D, L = SERVE_B, SERVE_C, 128, DECODE_TIMING_LAYERS
     sdpa = torch.nn.functional.scaled_dot_product_attention
     timing = {}
-    for name, lengths in (("served", SERVE_LENGTHS), ("full", (C,) * B)):
-        lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
-        mask = (torch.arange(C, device=dev)[None, :] < lens[:, None])[:, None, None, :]
-        lib = sdpa(q[0][:, :, None], kt[0], vt[0], attn_mask=mask, enable_gqa=True)[:, :, 0]
-        lib_err = float((lib.float() - decode_attention_ref(q[0], k[0], v[0], lens).float())
-                        .abs().max())
+    # the dense serving path's heads (Minitron-8B, g = 4), then the MoE
+    # serving path's (Qwen-MoE, g = 1), each served and full
+    for path, Hq, Hk in (("", 32, 8), ("moe ", 16, 16)):
+        q = torch.randn((L, B, Hq, D), generator=gen, device=dev).to(torch.bfloat16)
+        k, v = (torch.randn((L, B, C, Hk, D), generator=gen, device=dev).to(torch.bfloat16)
+                for _ in range(2))
+        kt, vt = (t.transpose(2, 3).contiguous() for t in (k, v))    # (L, B, Hk, C, D)
+        for lengths_name, lengths in (("served", SERVE_LENGTHS), ("full", (C,) * B)):
+            name = path + lengths_name
+            lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+            mask = (torch.arange(C, device=dev)[None, :] < lens[:, None])[:, None, None, :]
+            lib = sdpa(q[0][:, :, None], kt[0], vt[0], attn_mask=mask,
+                       enable_gqa=True)[:, :, 0]
+            lib_err = float((lib.float() - decode_attention_ref(q[0], k[0], v[0], lens).float())
+                            .abs().max())
 
-        ms = device_ms(layers(lambda i: flash_decode(q[i], k[i], v[i], lens), L), 4 * L)
-        plain_ms = device_ms(layers(lambda i: decode_attention_ref(q[i], k[i], v[i], lens), L),
-                             L)
-        library_ms = device_ms(layers(lambda i: sdpa(q[i][:, :, None], kt[i], vt[i],
-                                                      attn_mask=mask, enable_gqa=True), L), 4 * L)
-        nbytes, ops = decode_cost(B, Hq, Hk, D, lengths, 2)
-        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / BF16_OPS_PER_S * 1e3
-        bound = max(t_bytes, t_ops)
-        timing[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound,
-                            bound_by="bytes" if t_bytes >= t_ops else "operations")
-        if name == "served":
-            # one kernel on the card a call, and the host's time a call
-            per_call = kernels_per_call(lambda: flash_decode(q[0], k[0], v[0], lens))
-            check(per_call == 1, f"one flash_decode call ran {per_call} kernels on the card")
-            timing["kernels_per_call"] = per_call
-            timing["host_us"] = host_us(lambda: flash_decode(q[0], k[0], v[0], lens),
-                                        ATTN_HOST_CALLS)
-            print(f"[kernels] flash_decode {per_call} kernel on the card a call; host time per "
-                  f"call over {ATTN_HOST_CALLS} back-to-back calls {timing['host_us']:.2f} us",
-                  flush=True)
-        print(f"[kernels] flash_decode B={B} C={C} Hq={Hq} Hk={Hk} D={D} bf16, lengths "
-              f"{name} (sum {sum(lengths)}), (split_keys, nsplit) "
-              f"{split_plan(B, Hk, C, torch.cuda.get_device_properties(0).multi_processor_count)}"
-              f": device {ms:.4f} ms a launch; plain version {plain_ms:.4f} ms; "
-              f"scaled_dot_product_attention {library_ms:.4f} ms (max abs diff from the plain "
-              f"version {lib_err:.3e}); bound {bound:.4f} ms ({nbytes} bytes -> "
-              f"{t_bytes:.4f} ms, {ops} bf16 ops -> {t_ops:.4f} ms), {100 * bound / ms:.1f}% "
-              f"of bound", flush=True)
-    del q, k, v, kt, vt
-    torch.cuda.empty_cache()
+            ms = device_ms(layers(lambda i: flash_decode(q[i], k[i], v[i], lens), L), 4 * L)
+            plain_ms = device_ms(layers(lambda i: decode_attention_ref(q[i], k[i], v[i], lens),
+                                        L), L)
+            library_ms = device_ms(layers(lambda i: sdpa(q[i][:, :, None], kt[i], vt[i],
+                                                          attn_mask=mask, enable_gqa=True), L),
+                                   4 * L)
+            nbytes, ops = decode_cost(B, Hq, Hk, D, lengths, 2)
+            t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / BF16_OPS_PER_S * 1e3
+            bound = max(t_bytes, t_ops)
+            timing[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound,
+                                bound_by="bytes" if t_bytes >= t_ops else "operations")
+            if name == "served":
+                # one kernel on the card a call, and the host's time a call
+                per_call = kernels_per_call(lambda: flash_decode(q[0], k[0], v[0], lens))
+                check(per_call == 1, f"one flash_decode call ran {per_call} kernels on the card")
+                timing["kernels_per_call"] = per_call
+                timing["host_us"] = host_us(lambda: flash_decode(q[0], k[0], v[0], lens),
+                                            ATTN_HOST_CALLS)
+                print(f"[kernels] flash_decode {per_call} kernel on the card a call; host time "
+                      f"per call over {ATTN_HOST_CALLS} back-to-back calls "
+                      f"{timing['host_us']:.2f} us", flush=True)
+            print(f"[kernels] flash_decode B={B} C={C} Hq={Hq} Hk={Hk} D={D} bf16, lengths "
+                  f"{lengths_name} (sum {sum(lengths)}), (split_keys, nsplit) "
+                  f"{split_plan(B, Hk, C, torch.cuda.get_device_properties(0).multi_processor_count)}"
+                  f": device {ms:.4f} ms a launch; plain version {plain_ms:.4f} ms; "
+                  f"scaled_dot_product_attention {library_ms:.4f} ms (max abs diff from the plain "
+                  f"version {lib_err:.3e}); bound {bound:.4f} ms ({nbytes} bytes -> "
+                  f"{t_bytes:.4f} ms, {ops} bf16 ops -> {t_ops:.4f} ms), {100 * bound / ms:.1f}% "
+                  f"of bound", flush=True)
+        del q, k, v, kt, vt
+        torch.cuda.empty_cache()
     return worst, timing
+
 
 
 def plain_attention(q, k, v, causal=True, window=None):
@@ -1812,6 +1852,440 @@ def stream_phase(dev, fit):
     return line
 
 
+# -- phase 10: the mixture of experts -----------------------------------------------
+MOE_ARCH, DSV3_ARCH, DSV3_LAYERS, DSV3_REQUESTS = "qwen2-moe-a2.7b", "deepseek-v3-671b", 4, 2
+# DeepSeek-V3's absorbed MLA decode against its expanded form, per layer on
+# the same inputs: in a float32 copy of the layer within this share of max
+# |out| (the two forms differ by summation order only, about 1e-6 of it);
+# in bf16 by the BF16_NOISE_FACTOR rule against the float32 expanded form.
+MLA_F32_TOL = 1e-4
+# The sort dispatch against the einsum dispatch on one Qwen-MoE layer with no
+# drops (capacity factor E / top_k, so C holds every claim): in a float32 copy
+# within this share of max |y| (the two sum the same products in another
+# order: scatter_add_ on the card adds in no fixed order); bf16 by the
+# BF16_NOISE_FACTOR rule against the float32 einsum route.
+DISPATCH_F32_TOL = 1e-4
+
+
+class LayerHold:
+    """An ``attn_fn`` or ``decode_fn`` for ``LM`` that runs the kernel and
+    returns its output, and on the same inputs (the path's own activations,
+    layer by layer) also runs the plain version, and both on the inputs
+    cast up to float32.  ``check`` holds every call as ``hold_logits``
+    holds logits: in float32 within LOGITS_F32_TOL of max |out|; in bf16 an
+    RMS distance from the float32 plain output at most BF16_NOISE_FACTOR
+    times the plain bf16 output's."""
+
+    def __init__(self, kernel, plain):
+        self.kernel, self.plain, self.rows = kernel, plain, []
+
+    def __call__(self, *args, **kw):
+        out = self.kernel(*args, **kw)
+        up = [a.float() if a.is_floating_point() else a for a in args]
+        p32 = self.plain(*up, **kw)
+        k32 = self.kernel(*up, **kw)
+        self.rows.append((float((k32 - p32).abs().max()), float(p32.abs().max()),
+                          _rms(out.float(), p32), _rms(self.plain(*args, **kw).float(), p32)))
+        return out
+
+    def check(self, tag, what):
+        check(len(self.rows) > 0, f"{what}: no call was held")
+        for i, (err32, scale, rms_kern, rms_plain) in enumerate(self.rows):
+            check(err32 <= LOGITS_F32_TOL * scale,
+                  f"{what}, call {i}: float32 kernel differs by {err32:.4e}, beyond "
+                  f"{LOGITS_F32_TOL} x {scale:.4f}")
+            check(rms_kern <= BF16_NOISE_FACTOR * rms_plain,
+                  f"{what}, call {i}: bf16 kernel is {rms_kern:.4e} RMS from float32, beyond "
+                  f"{BF16_NOISE_FACTOR} x the plain path's {rms_plain:.4e}")
+        rel32 = max(_ratio(r[0], r[1]) for r in self.rows)
+        ratio = max(_ratio(r[2], r[3]) for r in self.rows)
+        print(f"[{tag}] {what}: {len(self.rows)} calls held; float32 worst max abs diff "
+              f"{rel32:.3e} of max |out| (tol {LOGITS_F32_TOL}); bf16 worst RMS from float32 "
+              f"plain {ratio:.3f}x the plain bf16 path's (tol {BF16_NOISE_FACTOR}x)", flush=True)
+        return dict(calls=len(self.rows), f32_rel_err=rel32, bf16_rms_ratio=ratio)
+
+
+def _rms(a, b) -> float:
+    return float((a - b).square().mean().sqrt())
+
+
+def _ratio(a: float, b: float) -> float:
+    return a / b if b > 0 else (0.0 if a == 0 else float("inf"))
+
+
+def upcast_attention(q, k, v, causal=True, window=None):
+    """The plain attention with no rounding inside: attention_ref on the
+    inputs cast up to float32, rounded once to their dtype."""
+    return attention_ref(q.float(), k.float(), v.float(), causal=causal,
+                         window=window).to(q.dtype)
+
+
+def upcast_decode(q, k, v, lengths):
+    """decode_attention_ref on the inputs cast up, rounded once."""
+    return decode_attention_ref(q.float(), k.float(), v.float(), lengths).to(q.dtype)
+
+
+@contextlib.contextmanager
+def recording_routes(routes):
+    """Record each MoE layer's top-k expert sets (sorted) while in force."""
+    real = moe_module._router
+
+    def router(cfg, p, x2d):
+        gates, idx, probs = real(cfg, p, x2d)
+        routes.append(idx.sort(dim=-1).values)
+        return gates, idx, probs
+
+    moe_module._router = router
+    try:
+        yield routes
+    finally:
+        moe_module._router = real
+
+
+def route_flips(a, b, n_layers) -> tuple:
+    """(token, layer) rows whose top-k expert sets differ, the rows, and the
+    differing rows by layer (the records run layer by layer, call by call)."""
+    check(len(a) == len(b) > 0, "the two runs crossed different numbers of MoE layers")
+    flips = [int((x != y).any(-1).sum()) for x, y in zip(a, b)]
+    by_layer = [sum(flips[i::n_layers]) for i in range(n_layers)]
+    return sum(flips), sum(x.shape[0] for x in a), by_layer
+
+
+def moe_whole_model(model, params, requests, done):
+    """The whole model's logits through the kernels, the plain versions and
+    the plain versions without inner rounding (``upcast_*``), in bf16: one
+    prompt's prefill, then DECODE_CHECK_STEPS decode steps at batch SERVE_B
+    from one prefilled cache.  The kernels' logits must lie within
+    BF16_NOISE_FACTOR times the plain path's RMS distance from the upcast
+    path's; the (token, layer) top-k sets that differ between kernel and
+    plain are counted, not required equal (a rounding can flip a near tie)."""
+    cfg, dev = model.cfg, model.device
+    rid, prompt, _ = requests[4]
+    tokens = torch.tensor([prompt], device=dev)
+    routes, out = {}, {}
+    for name, hooks in (("kernel", {}), ("plain", dict(attn_fn=attention_ref)),
+                        ("upcast", dict(attn_fn=upcast_attention))):
+        m = LM(cfg, device=dev, **hooks)
+        with torch.inference_mode(), recording_routes([]) as rec:
+            lg, _ = m.prefill(params, {"tokens": tokens}, m.init_cache(1, len(prompt)))
+        out[name], routes[name] = lg.float(), rec
+    check(int(out["kernel"].argmax()) == done[rid][0], "prefill is not deterministic")
+
+    engine = ServingEngine(model, params, max_batch=SERVE_B, max_seq=SERVE_C)
+    for req in requests[:SERVE_B]:
+        engine.add_request(*req)
+    rng = np.random.default_rng(3)
+    feed = [engine.tokens.clone()] + [
+        torch.as_tensor(rng.integers(0, cfg.vocab, SERVE_B), device=dev)
+        for _ in range(DECODE_CHECK_STEPS - 1)]
+    pos0, caches0 = engine.pos.clone(), engine.caches
+    del engine
+    for name, fn in (("kernel", None), ("plain", decode_attention_ref),
+                     ("upcast", upcast_decode)):
+        m = LM(cfg, device=dev, decode_fn=fn)
+        caches = _tree_map(lambda t: t.clone(), caches0)
+        steps = []
+        with torch.inference_mode(), recording_routes([]) as rec:
+            for t in range(DECODE_CHECK_STEPS):
+                lg, caches = m.decode_step(params, feed[t], pos0 + t, caches)
+                steps.append(lg.float())
+        out["decode " + name], routes["decode " + name] = torch.stack(steps), rec
+        del caches
+    del caches0
+    torch.cuda.empty_cache()
+
+    line = {}
+    for what in ("", "decode "):
+        kern, plain, up = (out[what + n] for n in ("kernel", "plain", "upcast"))
+        check(bool(torch.isfinite(kern).all()), f"non-finite {what}logits")
+        rms_kern, rms_plain = _rms(kern, up), _rms(plain, up)
+        n_moe = cfg.n_layers - cfg.moe.n_dense_layers
+        flips, rows, by_layer = route_flips(routes[what + "kernel"], routes[what + "plain"],
+                                            n_moe)
+        flips_up, _, _ = route_flips(routes[what + "upcast"], routes[what + "plain"], n_moe)
+        agree = float((kern.argmax(-1) == plain.argmax(-1)).float().mean())
+        name = "decode" if what else "prefill"
+        label = (f"{DECODE_CHECK_STEPS} decode steps at batch {SERVE_B}" if what
+                 else f"prefill of {len(prompt)} tokens")
+        print(f"[moe] whole-model logits, {label}: RMS from the upcast plain path: kernel "
+              f"{rms_kern:.4e}, plain bf16 {rms_plain:.4e} (tol {BF16_NOISE_FACTOR}x); RMS "
+              f"kernel vs plain {_rms(kern, plain):.4e} (RMS of the logits "
+              f"{float(plain.square().mean().sqrt()):.4e}); greedy tokens agree "
+              f"{agree:.3f}; top-k sets that differ from the plain path's: kernel {flips}, "
+              f"upcast {flips_up} of {rows} (token, layer) rows; kernel's by layer "
+              f"{by_layer}", flush=True)
+        check(rms_kern <= BF16_NOISE_FACTOR * rms_plain,
+              f"{name} logits through the kernels are {rms_kern:.4e} RMS from the upcast plain "
+              f"path, beyond {BF16_NOISE_FACTOR} x the plain path's {rms_plain:.4e}")
+        line[name] = dict(rms_kernel=rms_kern, rms_plain=rms_plain, greedy_agree=agree,
+                          route_flips=flips, route_flips_upcast=flips_up, route_rows=rows,
+                          route_flips_by_layer=by_layer)
+    return line
+
+
+def dispatch_check(cfg, params, dev):
+    """The sort route of ``moe_apply`` against the served einsum route on
+    the first MoE layer's weights and a 512-token input drawn from a seed,
+    with the capacity raised so that neither drops a claim (the two routes
+    group and prioritise claims differently, so they agree only then)."""
+    m = cfg.moe
+    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+        m, capacity_factor=m.n_experts / m.top_k))
+    p16 = _tree_map(lambda t: t[0], params["segments"][-1]["ffn"])
+    gen = torch.Generator(device=dev).manual_seed(4)
+    x16 = torch.randn((1, 512, cfg.d_model), generator=gen, device=dev).to(torch.bfloat16)
+    out = {}
+    with torch.inference_mode():
+        for tag, c, p, x in (("16", cfg, p16, x16),
+                             ("32", dataclasses.replace(cfg, dtype="float32"),
+                              _tree_map(lambda t: t.float(), p16), x16.float())):
+            for route in ("einsum", "sort"):
+                out[tag, route] = moe_module.moe_apply(c, p, x, dispatch=route)[0].float()
+    e32 = out["32", "einsum"]
+    err32, scale = float((out["32", "sort"] - e32).abs().max()), float(e32.abs().max())
+    rms_sort, rms_einsum = _rms(out["16", "sort"], e32), _rms(out["16", "einsum"], e32)
+    print(f"[moe] sort dispatch vs einsum, one layer, 512 tokens, no drops: float32 max abs "
+          f"diff {err32:.3e} (max |y| {scale:.4f}, tol {DISPATCH_F32_TOL} of it); bf16 RMS from "
+          f"float32 einsum: sort {rms_sort:.4e}, einsum {rms_einsum:.4e} (tol "
+          f"{BF16_NOISE_FACTOR}x)", flush=True)
+    check(err32 <= DISPATCH_F32_TOL * scale,
+          f"float32 sort dispatch differs from einsum by {err32:.4e}")
+    check(rms_sort <= BF16_NOISE_FACTOR * rms_einsum,
+          f"bf16 sort dispatch is {rms_sort:.4e} RMS from float32 einsum, beyond "
+          f"{BF16_NOISE_FACTOR} x the bf16 einsum route's {rms_einsum:.4e}")
+    return dict(f32_rel_err=err32 / scale, bf16_rms_ratio=_ratio(rms_sort, rms_einsum))
+
+
+def moe_step_cost(cfg, params, lengths):
+    """(bytes, operations) of one decode step at batch len(lengths) with the
+    einsum dispatch, which sends its E*C rows (C = 1 at batch 8) through
+    every expert: every weight read once except the embedding (only the
+    batch's rows), the KV cache read up to each row's length and the new
+    entries written, the float32 logits written; operations: 2 per
+    multiply-add of every weight with the rows it meets (B tokens, E*C
+    expert rows) and 4*D per (query head, valid slot) pair a layer."""
+    B, m = len(lengths), cfg.moe
+    d, n = cfg.d_model, cfg.n_layers
+    C = max(int(np.ceil(B * m.top_k * m.capacity_factor / m.n_experts)), 1)
+    expert_params = 3 * d * m.d_expert * m.n_experts * (n - m.n_dense_layers)
+    all_params = sum(t.numel() for t in _leaves(params))
+    embed = cfg.vocab * d
+    kv = 2 * cfg.n_kv_heads * cfg.head_dim
+    nbytes = (2 * (all_params - embed + B * d) + 2 * kv * n * (int(sum(lengths)) + B)
+              + 4 * B * cfg.vocab)
+    ops = (2 * B * (all_params - embed - expert_params) + 2 * C * expert_params
+           + 4 * cfg.head_dim * cfg.n_heads * n * int(sum(lengths)))
+    return nbytes, ops
+
+
+def moe_phase(dev):
+    """Phase 10: serve the requests on full-width Qwen1.5-MoE-A2.7B, hold its
+    attention kernels layer by layer and the whole model's logits against
+    the plain versions, fit ``T = m*k + c``, profile a decode step; then
+    serve two requests on DeepSeek-V3 cut to 4 layers and hold its absorbed
+    MLA decode against the expanded form.  Returns the ``moe`` line and the
+    kernels' launches on the served set."""
+    t_phase = time.perf_counter()
+    check(not torch.backends.cuda.matmul.allow_tf32, "TF32 is on: the router must stay float32")
+    cfg = get_config(MOE_ARCH)
+    model = LM(cfg, device=dev)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    m = cfg.moe
+    print(f"[moe] {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, {cfg.n_heads} "
+          f"heads of {cfg.head_dim} ({cfg.n_kv_heads} kv), {m.n_experts} experts top-{m.top_k} "
+          f"of width {m.d_expert} + {m.n_shared_experts} shared, capacity factor "
+          f"{m.capacity_factor}, {m.dispatch} dispatch, vocab {cfg.vocab}, {cfg.dtype}; "
+          f"{n_params} parameters ({cfg.param_count()} by ModelConfig.param_count), "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB, init "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+    requests = serve_requests_for(cfg)
+    engine = ServingEngine(model, params, max_batch=SERVE_B, max_seq=SERVE_C)
+    torch.cuda.synchronize()
+    flash_attention.launches = flash_decode.launches = rwkv6_scan.launches = 0
+    flash_attention.wgmma_launches = flash_attention.simt_launches = 0
+    done, prefill_s, step_s, wall = serve(engine, requests)
+    attn_launches, launches = flash_attention.launches, flash_decode.launches
+    peak = torch.cuda.max_memory_allocated()
+    check(attn_launches == cfg.n_layers * len(requests),
+          f"flash_attention launched {attn_launches} times for {len(requests)} prefills "
+          f"of {cfg.n_layers} layers")
+    check(flash_attention.wgmma_launches == attn_launches,
+          f"of {attn_launches} bf16 attention launches {flash_attention.wgmma_launches} went "
+          f"through the tensor-core kernel")
+    check(launches == cfg.n_layers * len(step_s),
+          f"flash_decode launched {launches} times for {len(step_s)} decode steps "
+          f"of {cfg.n_layers} layers")
+    check(rwkv6_scan.launches == 0, "the MoE serving path launched the WKV kernel")
+    total = torch.cuda.get_device_properties(0).total_memory
+    check(peak < total, f"peak memory {peak} beyond the card's {total}")
+    report_serve("moe", cfg, requests, done, prefill_s, step_s, wall)
+    print(f"[moe] flash_attention launches {attn_launches} = {cfg.n_layers} layers x "
+          f"{len(requests)} prefills, all through the tensor-core kernel; flash_decode launches "
+          f"{launches} = {cfg.n_layers} layers x {len(step_s)} decode steps; peak memory "
+          f"{peak / 2**30:.2f} GiB (weights and the batch-8 cache included)", flush=True)
+    del engine
+    torch.cuda.empty_cache()
+
+    # the attention kernels layer by layer on the path's own activations
+    hold_a = LayerHold(flash_attention, attention_ref)
+    hold_d = LayerHold(flash_decode, decode_attention_ref)
+    held = ServingEngine(LM(cfg, device=dev, attn_fn=hold_a, decode_fn=hold_d), params,
+                         max_batch=SERVE_B, max_seq=SERVE_C)
+    for req in requests[:SERVE_B]:
+        held.add_request(*req)
+    for _ in range(DECODE_CHECK_STEPS):
+        held.step()
+    del held
+    torch.cuda.empty_cache()
+    layer_line = {
+        "flash_attention": hold_a.check("moe", f"flash_attention in every layer of "
+                                        f"{SERVE_B} prefills"),
+        "flash_decode": hold_d.check("moe", f"flash_decode in every layer of "
+                                     f"{DECODE_CHECK_STEPS} decode steps at batch {SERVE_B}"),
+    }
+    whole = moe_whole_model(model, params, requests, done)
+    sort_line = dispatch_check(cfg, params, dev)
+    fit = fit_phase("moe", model, params, (flash_attention,), (flash_decode,))
+
+    nbytes, ops = moe_step_cost(cfg, params, SERVE_LENGTHS)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / BF16_OPS_PER_S * 1e3
+    bound = max(t_bytes, t_ops)
+    step_ms = 1e3 * float(np.median(step_s))
+    print(f"[moe] decode-step bound at batch {SERVE_B} (first step's lengths): {nbytes} bytes "
+          f"-> {t_bytes:.3f} ms, {ops} ops at the bf16 peak -> {t_ops:.3f} ms; bound "
+          f"{bound:.3f} ms ({'bytes' if t_bytes >= t_ops else 'operations'}); median step "
+          f"{step_ms:.2f} ms = {100 * bound / step_ms:.1f}% of bound", flush=True)
+    engine = ServingEngine(model, params, max_batch=SERVE_B, max_seq=SERVE_C)
+    for req in requests[:SERVE_B]:
+        engine.add_request(*req)
+    engine.step()
+    profile_report("moe", engine.step)
+    del engine, model, params
+    torch.cuda.empty_cache()
+
+    n_tok = sum(len(t) for t in done.values())
+    line = {"moe": {
+        "arch": cfg.name, "params": n_params,
+        "prefill_ms": [1e3 * x for x in prefill_s], "prompts": list(SERVE_PROMPTS),
+        "step_ms_median": step_ms, "steps": len(step_s), "tokens_per_s": n_tok / wall,
+        "peak_gib": peak / 2**30, "step_bound_ms": bound,
+        "step_bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "launches": {"flash_attention": attn_launches, "flash_decode": launches},
+        "layer_check": layer_line, "whole_model": whole, "sort_vs_einsum": sort_line,
+        "fit": dict(zip(("m", "c", "r2"), fit)),
+        "deepseek": deepseek_part(dev),
+    }}
+    line["moe"]["seconds"] = time.perf_counter() - t_phase
+    print(f"[moe] phase took {line['moe']['seconds']:.1f} s", flush=True)
+    return line, attn_launches, launches
+
+
+@contextlib.contextmanager
+def holding_mla(rows):
+    """While in force every MLA decode step (one token over a cache) also
+    runs, on copies of the layer's cache, the absorbed and the expanded
+    form in bf16 and in a float32 copy of the layer, and records
+    (float32 max abs diff, max |out|, RMS of bf16 absorbed and of bf16
+    expanded from float32 expanded)."""
+    real = transformer_module.mla_apply
+
+    def mla(cfg, p, x, positions, *, cache=None, absorbed=None):
+        if cache is not None and x.shape[1] == 1:
+            cfg32 = dataclasses.replace(cfg, dtype="float32")
+            p32 = _tree_map(lambda t: t.float(), p)
+            outs = {}
+            for tag, c, pp, xx in (("16", cfg, p, x), ("32", cfg32, p32, x.float())):
+                for form in (True, False):
+                    kv = {key: val.to(torch.float32 if tag == "32" and val.is_floating_point()
+                                      else val.dtype, copy=True) for key, val in cache.items()}
+                    outs[tag, form] = real(c, pp, xx, positions, cache=kv,
+                                           absorbed=form)[0].float()
+            e32 = outs["32", False]
+            rows.append((float((outs["32", True] - e32).abs().max()), float(e32.abs().max()),
+                         _rms(outs["16", True], e32), _rms(outs["16", False], e32)))
+        return real(cfg, p, x, positions, cache=cache, absorbed=absorbed)
+
+    transformer_module.mla_apply = mla
+    try:
+        yield rows
+    finally:
+        transformer_module.mla_apply = real
+
+
+def deepseek_part(dev):
+    """DeepSeek-V3 at published widths, cut to its first DSV3_LAYERS layers
+    (the three dense ones and the first MoE layer, all 256 experts): serve
+    DSV3_REQUESTS requests (no kernel: MLA is plain torch, as in the JAX
+    model), then hold the absorbed decode against the expanded form layer
+    by layer over a few decode steps."""
+    cfg = dataclasses.replace(get_config(DSV3_ARCH), n_layers=DSV3_LAYERS)
+    model = LM(cfg, device=dev)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    m = cfg.moe
+    print(f"[moe] {cfg.name} cut to {cfg.n_layers} layers ({m.n_dense_layers} dense, "
+          f"{cfg.n_layers - m.n_dense_layers} MoE): d_model {cfg.d_model}, {cfg.n_heads} MLA "
+          f"heads (q rank {cfg.mla.q_lora_rank}, kv rank {cfg.mla.kv_lora_rank}), "
+          f"{m.n_experts} experts top-{m.top_k} of width {m.d_expert} + {m.n_shared_experts} "
+          f"shared, {m.router_act} router, vocab {cfg.vocab}, {cfg.dtype}; {n_params} "
+          f"parameters, {torch.cuda.memory_allocated() / 2**30:.2f} GiB, init "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    requests = serve_requests_for(cfg)[:DSV3_REQUESTS]
+    engine = ServingEngine(model, params, max_batch=DSV3_REQUESTS, max_seq=SERVE_C)
+    flash_attention.launches = flash_decode.launches = rwkv6_scan.launches = 0
+    done, prefill_s, step_s, wall = serve(engine, requests)
+    peak = torch.cuda.max_memory_allocated()
+    check(flash_attention.launches == flash_decode.launches == rwkv6_scan.launches == 0,
+          "the MLA serving path launched a kernel")
+    report_serve("moe", cfg, requests, done, prefill_s, step_s, wall, batch=DSV3_REQUESTS)
+    del engine
+
+    rows = []
+    engine = ServingEngine(model, params, max_batch=DSV3_REQUESTS, max_seq=SERVE_C)
+    for req in requests:
+        engine.add_request(*req)
+    with holding_mla(rows):
+        for _ in range(DECODE_CHECK_STEPS):
+            engine.step()
+    del engine, model, params
+    torch.cuda.empty_cache()
+    check(len(rows) == DECODE_CHECK_STEPS * cfg.n_layers,
+          f"{len(rows)} MLA decode calls held, wanted {DECODE_CHECK_STEPS * cfg.n_layers}")
+    for i, (err32, scale, rms_abs, rms_exp) in enumerate(rows):
+        check(err32 <= MLA_F32_TOL * scale,
+              f"MLA call {i}: float32 absorbed differs from expanded by {err32:.4e}, beyond "
+              f"{MLA_F32_TOL} x {scale:.4f}")
+        check(rms_abs <= BF16_NOISE_FACTOR * rms_exp,
+              f"MLA call {i}: bf16 absorbed is {rms_abs:.4e} RMS from float32 expanded, "
+              f"beyond {BF16_NOISE_FACTOR} x bf16 expanded's {rms_exp:.4e}")
+    rel32 = max(_ratio(r[0], r[1]) for r in rows)
+    ratio = max(_ratio(r[2], r[3]) for r in rows)
+    print(f"[moe] {cfg.name} absorbed MLA decode vs expanded, {len(rows)} (step, layer) calls "
+          f"on the path's own inputs: float32 worst max abs diff {rel32:.3e} of max |out| "
+          f"(tol {MLA_F32_TOL}); bf16 worst RMS from float32 expanded {ratio:.3f}x bf16 "
+          f"expanded's (tol {BF16_NOISE_FACTOR}x); peak memory {peak / 2**30:.2f} GiB",
+          flush=True)
+    n_tok = sum(len(t) for t in done.values())
+    return dict(arch=cfg.name, layers=cfg.n_layers, params=n_params, peak_gib=peak / 2**30,
+                prefill_ms=[1e3 * x for x in prefill_s],
+                step_ms_median=1e3 * float(np.median(step_s)), tokens_per_s=n_tok / wall,
+                mla_calls=len(rows), mla_f32_rel_err=rel32, mla_bf16_rms_ratio=ratio)
+
+
+# the per-shape numbers of a kernel's row in the kernels line
+SHAPE_KEYS = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card",
@@ -1865,18 +2339,24 @@ def main() -> int:
     fit_phase("fit", model, params, (rwkv6_scan,))
     del model, params
     torch.cuda.empty_cache()
-    dec_launches, dense_fit = dense_phase(dev)
+    (dense_attn_launches, dense_dec_launches), dense_fit = dense_phase(dev)
     torch.cuda.empty_cache()
     attn_launches, _ = train_phase(dev)
     torch.cuda.empty_cache()
     place = place_phase(dev)
     torch.cuda.empty_cache()
     stream = stream_phase(dev, dense_fit)
+    torch.cuda.empty_cache()
+    moe, moe_attn_launches, moe_dec_launches = moe_phase(dev)
 
     main_t, dec_main, attn_main = timing[512], dec_t["served"], attn_t["train"]
+    attn_by_path = {"dense": dense_attn_launches, "train": attn_launches,
+                    "moe": moe_attn_launches}
+    dec_by_path = {"dense": dense_dec_launches, "moe": moe_dec_launches}
     print(f"[done] {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps(place), flush=True)
     print(json.dumps(stream), flush=True)
+    print(json.dumps(moe), flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": [{
         "name": "rwkv6_scan",
@@ -1896,7 +2376,8 @@ def main() -> int:
         "route": "cuda",
         "source": "src/repro_torch/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:97",
-        "launches": attn_launches,
+        "launches": sum(attn_by_path.values()),
+        "launches_by_path": attn_by_path,
         "kernels_per_call": attn_main["kernels_per_call"],
         "max_abs_err": attn_worst,
         "ms": attn_main["ms"],
@@ -1904,12 +2385,14 @@ def main() -> int:
         "bound_ms": attn_main["bound_ms"],
         "bound_by": attn_main["bound_by"],
         "library_ms": attn_main["library_ms"],
+        "by_shape": {name: {key: attn_t[name][key] for key in SHAPE_KEYS} for name in attn_t},
     }, {
         "name": "flash_decode",
         "route": "cuda",
         "source": "src/repro_torch/csrc/flash_decode.cu",
         "replaces": "src/repro/kernels/flash_decode.py:76",
-        "launches": dec_launches,
+        "launches": sum(dec_by_path.values()),
+        "launches_by_path": dec_by_path,
         "kernels_per_call": dec_t["kernels_per_call"],
         "max_abs_err": dec_worst,
         "ms": dec_main["ms"],
@@ -1917,6 +2400,8 @@ def main() -> int:
         "bound_ms": dec_main["bound_ms"],
         "bound_by": dec_main["bound_by"],
         "library_ms": dec_main["library_ms"],
+        "by_shape": {name: {key: val[key] for key in SHAPE_KEYS}
+                     for name, val in dec_t.items() if isinstance(val, dict)},
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -47,6 +47,12 @@ routes do not take (non-causal, a softcap, one token without a cache, a
 windowed ring cache, a prefill longer than the cache, a cache not vouched
 gapless) goes through ``_mask_bias`` + ``_sdpa``, the JAX route.
 
+MLA (Multi-head Latent Attention, DeepSeek-V3) caches only the compressed
+latent ``ckv`` and the shared RoPE key ``krope`` (per layer ``{"ckv": (B,
+C, rank), "krope": (B, C, dr), "pos": (B, C)}``), and decodes in the
+*absorbed* form, in latent space.  It reaches no Pallas kernel in the JAX
+model, so it is plain torch here and takes no kernel route.
+
 Not ported yet: a cache in another dtype than the model's (``kv_dtype``),
 cross-attention (``kv_x``, ``cache_read_only``: the whisper family) and
 M-RoPE (the qwen2-vl family), all in ROADMAP.md "Remaining model families";
@@ -64,7 +70,8 @@ from ..kernels.flash_attention import flash_attention_trainable
 from .config import ModelConfig
 from .layers import apply_rope, dense_apply, dense_init, torch_dtype
 
-__all__ = ["gqa_init", "gqa_apply", "make_cache", "AttnFn", "DecodeFn"]
+__all__ = ["gqa_init", "gqa_apply", "make_cache", "mla_init", "mla_apply", "make_mla_cache",
+           "AttnFn", "DecodeFn"]
 
 NEG_INF = -1e30
 
@@ -196,3 +203,120 @@ def gqa_apply(
         bias = _mask_bias(positions, k_pos, causal=causal, window=window)
         out = _sdpa(q.reshape(B, S, hk, hq // hk, hd), k, v, bias, cfg.attn_logit_softcap)
     return dense_apply(p["wo"], out.reshape(B, S, hq * hd)), cache
+
+
+# ---------------------------------------------------------------------------
+# MLA (DeepSeek-V3)
+# ---------------------------------------------------------------------------
+def mla_init(gen: torch.Generator, cfg: ModelConfig, device: torch.device,
+             layers: Optional[int] = None) -> Dict:
+    m = cfg.mla
+    dt = torch_dtype(cfg.dtype)
+    d, H = cfg.d_model, cfg.n_heads
+    qk_head = m.qk_nope_head_dim + m.qk_rope_head_dim
+    lead = () if layers is None else (layers,)
+
+    def ones(n):
+        return {"scale": torch.ones(lead + (n,), dtype=dt, device=device)}
+
+    return {
+        "wdq": dense_init(gen, d, m.q_lora_rank, dt, device, layers=layers),
+        "q_norm": ones(m.q_lora_rank),
+        "wuq": dense_init(gen, m.q_lora_rank, H * qk_head, dt, device, layers=layers),
+        "wdkv": dense_init(gen, d, m.kv_lora_rank + m.qk_rope_head_dim, dt, device,
+                           layers=layers),
+        "kv_norm": ones(m.kv_lora_rank),
+        "wuk": dense_init(gen, m.kv_lora_rank, H * m.qk_nope_head_dim, dt, device,
+                          layers=layers),
+        "wuv": dense_init(gen, m.kv_lora_rank, H * m.v_head_dim, dt, device, layers=layers),
+        "wo": dense_init(gen, H * m.v_head_dim, d, dt, device, layers=layers),
+    }
+
+
+def make_mla_cache(cfg: ModelConfig, batch: int, capacity: int, n_layers: int,
+                   device: torch.device) -> Dict:
+    """Stacked-over-layers latent cache in the model's dtype, every slot empty."""
+    m = cfg.mla
+    dt = torch_dtype(cfg.dtype)
+    lead = (n_layers, batch, capacity)
+    return {
+        "ckv": torch.zeros(lead + (m.kv_lora_rank,), dtype=dt, device=device),
+        "krope": torch.zeros(lead + (m.qk_rope_head_dim,), dtype=dt, device=device),
+        "pos": torch.full(lead, -1, dtype=torch.int32, device=device),
+    }
+
+
+def _rms(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    xf = x.to(torch.float32)
+    y = xf * torch.rsqrt(xf.square().mean(dim=-1, keepdim=True) + eps)
+    return y.to(x.dtype) * scale
+
+
+def mla_apply(
+    cfg: ModelConfig,
+    p: Dict,
+    x: torch.Tensor,                         # (B, S, d)
+    positions: torch.Tensor,                 # (B, S) absolute positions
+    *,
+    cache: Optional[Dict] = None,            # per-layer latent cache (no layer axis)
+    absorbed: Optional[bool] = None,
+) -> Tuple[torch.Tensor, Optional[Dict]]:
+    """MLA attention.  ``absorbed=None`` picks as the JAX function does: the
+    expanded form for prefill and training (S > 1, or no cache), the
+    absorbed latent-space form for a decode step (S == 1 with a cache).
+    The cache is written in place at ``clip(p, 0, C-1)``."""
+    m = cfg.mla
+    B, S, _ = x.shape
+    H = cfg.n_heads
+    dn, dr, dv, rank = m.qk_nope_head_dim, m.qk_rope_head_dim, m.v_head_dim, m.kv_lora_rank
+    if absorbed is None:
+        absorbed = S == 1 and cache is not None
+    f32 = torch.float32
+
+    # -- queries
+    cq = _rms(dense_apply(p["wdq"], x), p["q_norm"]["scale"])
+    q = dense_apply(p["wuq"], cq).reshape(B, S, H, dn + dr)
+    q_nope, q_rope = q[..., :dn], q[..., dn:]
+
+    # -- compressed KV
+    dkv = dense_apply(p["wdkv"], x)
+    ckv = _rms(dkv[..., :rank], p["kv_norm"]["scale"])          # (B,S,rank)
+    # RoPE, decoupled: on q_rope and the one shared k_rope
+    q_rope, k_rope_new = apply_rope(q_rope, dkv[..., rank:][..., None, :], positions,
+                                    cfg.rope_theta)
+    k_rope_new = k_rope_new[..., 0, :]                          # (B,S,dr)
+
+    k_pos = positions
+    if cache is not None:
+        C = cache["ckv"].shape[1]
+        slots = positions.clamp(0, C - 1)
+        b_idx = torch.arange(B, device=x.device)[:, None]
+        for key, new in (("ckv", ckv), ("krope", k_rope_new), ("pos", positions)):
+            cache[key][b_idx, slots] = new.to(cache[key].dtype)
+        ckv_all, k_rope_all, k_pos = cache["ckv"], cache["krope"], cache["pos"]
+    else:
+        ckv_all, k_rope_all = ckv, k_rope_new
+
+    bias = _mask_bias(positions, k_pos, causal=True, window=None)
+    scale = 1.0 / np.sqrt(dn + dr)
+    wuk = p["wuk"]["w"].reshape(rank, H, dn)
+    wuv = p["wuv"]["w"].reshape(rank, H, dv)
+    s_rope = torch.einsum("bshd,bkd->bhsk", q_rope.to(f32), k_rope_all.to(f32))
+
+    if absorbed:
+        # q_nope . k_nope = (W_uk^T q_nope) . c_kv: stay in rank space
+        q_lat = torch.einsum("bshd,rhd->bshr", q_nope, wuk)     # (B,S,H,rank)
+        s_nope = torch.einsum("bshr,bkr->bhsk", q_lat.to(f32), ckv_all.to(f32))
+        logits = (s_nope + s_rope) * scale + bias[:, None, :, :]
+        w = torch.softmax(logits, dim=-1).to(x.dtype)
+        ctx_lat = torch.einsum("bhsk,bkr->bshr", w, ckv_all)     # (B,S,H,rank)
+        out = torch.einsum("bshr,rhd->bshd", ctx_lat, wuv)       # (B,S,H,dv)
+    else:
+        k_nope = torch.einsum("bkr,rhd->bkhd", ckv_all, wuk)     # (B,K,H,dn)
+        vv = torch.einsum("bkr,rhd->bkhd", ckv_all, wuv)         # (B,K,H,dv)
+        s_nope = torch.einsum("bshd,bkhd->bhsk", q_nope.to(f32), k_nope.to(f32))
+        logits = (s_nope + s_rope) * scale + bias[:, None, :, :]
+        w = torch.softmax(logits, dim=-1).to(x.dtype)
+        out = torch.einsum("bhsk,bkhd->bshd", w, vv)
+
+    return dense_apply(p["wo"], out.reshape(B, S, H * dv)), cache

@@ -6,11 +6,14 @@ parameters and states are stacked over a leading layer axis, as in the JAX
 package; a Python loop over layers takes the place of ``lax.scan``.
 
 Ported: the ``dense`` family (one ``"attn"`` segment of GQA + MLP blocks,
-trained, and served with a KV cache) and the ``ssm`` family (one ``"rwkv"``
-segment of RWKV6 blocks, served and trained).  The other families raise
-``NotImplementedError``; they are queued in ROADMAP.md ("Remaining model
-families").  Activation checkpointing (``remat`` other than ``"none"``) is
-queued too.
+trained, and served with a KV cache), the ``ssm`` family (one ``"rwkv"``
+segment of RWKV6 blocks, served and trained) and the ``moe`` family (an
+optional segment of ``n_dense_layers`` dense blocks, then a ``moe=True``
+segment whose blocks take a mixture of experts for their MLP; attention
+GQA or MLA; served, and its auxiliary load-balance loss flows through
+``LM.loss``).  The other families raise ``NotImplementedError``; they are
+queued in ROADMAP.md ("Remaining model families").  Activation
+checkpointing (``remat`` other than ``"none"``) is queued too.
 
 Parameters are plain dictionaries of tensors laid out like the JAX
 ``LM.init`` pytree, so :func:`repro_torch.models.convert.params_from_jax`
@@ -25,9 +28,11 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
-from .attention import AttnFn, DecodeFn, gqa_apply, gqa_init, make_cache
+from .attention import (AttnFn, DecodeFn, gqa_apply, gqa_init, make_cache, make_mla_cache,
+                        mla_apply, mla_init)
 from .config import ModelConfig
 from .layers import embed_init, mlp_apply, mlp_init, norm_apply, norm_init, torch_dtype
+from .moe import moe_apply, moe_init
 from .recurrent import MixFn, rwkv6_apply, rwkv6_init, rwkv6_state
 
 __all__ = ["Segment", "LM", "build_segments", "MOE_AUX_WEIGHT"]
@@ -39,12 +44,17 @@ MOE_AUX_WEIGHT = 0.01
 class Segment:
     kind: str                     # "attn" | "rwkv"
     n: int                        # layers
+    moe: bool = False             # a mixture of experts for the MLP ("attn")
     window: Optional[int] = None  # local-attention window ("attn")
 
 
 def build_segments(cfg: ModelConfig) -> List[Segment]:
     if cfg.family == "dense":
         return [Segment("attn", cfg.n_layers, window=cfg.attn_window)]
+    if cfg.family == "moe":
+        m, w = cfg.moe, cfg.attn_window
+        segs = [Segment("attn", m.n_dense_layers, window=w)] if m.n_dense_layers else []
+        return segs + [Segment("attn", cfg.n_layers - m.n_dense_layers, moe=True, window=w)]
     if cfg.family == "ssm" and cfg.recurrent is not None and cfg.recurrent.kind == "rwkv6":
         return [Segment("rwkv", cfg.n_layers)]
     raise NotImplementedError(
@@ -104,11 +114,12 @@ class LM:
         cfg, dev, n = self.cfg, self.device, seg.n
         if seg.kind == "rwkv":
             return {"block": rwkv6_init(gen, cfg, n, dev)}
+        attn = mla_init if cfg.attention == "mla" else gqa_init
         return {
             "norm1": norm_init(cfg, dev, layers=n),
             "norm2": norm_init(cfg, dev, layers=n),
-            "attn": gqa_init(gen, cfg, dev, layers=n),
-            "ffn": mlp_init(gen, cfg, dev, layers=n),
+            "attn": attn(gen, cfg, dev, layers=n),
+            "ffn": (moe_init if seg.moe else mlp_init)(gen, cfg, dev, layers=n),
         }
 
     def init(self, gen: torch.Generator) -> Dict:
@@ -131,11 +142,13 @@ class LM:
     def init_cache(self, batch: int, capacity: int) -> List[Dict[str, torch.Tensor]]:
         """Per-segment decode caches and states, stacked over layers: a KV
         cache of ``capacity`` slots (a local-attention segment keeps at most
-        its window), or the RWKV6 state, which does not grow with the
-        sequence."""
+        its window), MLA's latent cache, or the RWKV6 state, which does not
+        grow with the sequence."""
         caches = []
         for seg in self.segments:
-            if seg.kind == "attn":
+            if seg.kind == "attn" and self.cfg.attention == "mla":
+                caches.append(make_mla_cache(self.cfg, batch, capacity, seg.n, self.device))
+            elif seg.kind == "attn":
                 cap = min(capacity, seg.window) if seg.window else capacity
                 caches.append(make_cache(self.cfg, batch, cap, seg.n, self.device))
             else:
@@ -143,15 +156,21 @@ class LM:
         return caches
 
     # ----------------------------------------------------------------- blocks --
-    def _apply_attn_block(self, seg: Segment, p, x, positions, cache, gapless):
+    def _apply_attn_block(self, seg: Segment, p, x, positions, cache, gapless, aux):
         cfg = self.cfg
         h = norm_apply(cfg, p["norm1"], x)
-        a, _ = gqa_apply(cfg, p["attn"], h, positions, cache=cache, causal=True,
-                         window=seg.window, attn_fn=self.attn_fn, decode_fn=self.decode_fn,
-                         gapless=gapless)
+        if cfg.attention == "mla":
+            a, _ = mla_apply(cfg, p["attn"], h, positions, cache=cache)
+        else:
+            a, _ = gqa_apply(cfg, p["attn"], h, positions, cache=cache, causal=True,
+                             window=seg.window, attn_fn=self.attn_fn,
+                             decode_fn=self.decode_fn, gapless=gapless)
         x = x + a
         h2 = norm_apply(cfg, p["norm2"], x)
-        return x + mlp_apply(cfg, p["ffn"], h2)
+        if seg.moe:
+            f, aux_l = moe_apply(cfg, p["ffn"], h2)
+            return x + f, aux + aux_l
+        return x + mlp_apply(cfg, p["ffn"], h2), aux
 
     # ----------------------------------------------------------------- driver --
     def backbone(self, params, tokens: torch.Tensor, positions: Optional[torch.Tensor] = None,
@@ -162,7 +181,7 @@ class LM:
         ``(hidden (B,S,d), caches, aux)``, as the JAX ``backbone`` does; with
         caches, each layer's new state is written into them in place.
         ``aux`` is the auxiliary (MoE) loss summed over the layers, an f32
-        scalar on the device: 0, since no ported block has a router.
+        scalar on the device (0 without a mixture of experts).
         Attention over a cache takes the kernel route only for positions it
         makes itself (a prefill from 0); given positions take the JAX route
         (``models/attention.py``)."""
@@ -178,18 +197,18 @@ class LM:
         x = params["embed"]["embedding"][tokens]
         if positions is None:
             positions = torch.arange(S, device=tokens.device).expand(B, S)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for s, seg in enumerate(self.segments):
             cache = caches[s] if caches is not None else None
             for i, p in enumerate(_unstack(params["segments"][s], seg.n)):
                 layer = _layer(cache, i) if cache is not None else None
                 if seg.kind == "attn":
-                    x = self._apply_attn_block(seg, p, x, positions, layer, gapless)
+                    x, aux = self._apply_attn_block(seg, p, x, positions, layer, gapless, aux)
                     continue
                 x, new = rwkv6_apply(cfg, p["block"], x, layer, mix_fn=self.mix_fn)
                 if layer is not None:
                     for key, val in new.items():
                         layer[key].copy_(val)
-        aux = torch.zeros((), dtype=torch.float32, device=x.device)
         return norm_apply(cfg, params["final_norm"], x), caches, aux
 
     # ------------------------------------------------------------------ heads --
@@ -230,8 +249,9 @@ class LM:
     def loss(self, params, batch: Dict[str, torch.Tensor]
              ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """batch: tokens (B,S), labels (B,S).  Returns ``(loss, {"xent",
-        "moe_aux"})`` as the JAX model does (no MoE here, so the auxiliary
-        loss is 0)."""
+        "moe_aux"})`` as the JAX model does: the cross-entropy plus
+        ``MOE_AUX_WEIGHT`` times the auxiliary loss summed over the MoE
+        layers (0 without them)."""
         hidden, _, aux = self.backbone(params, batch["tokens"])
         xent = self._xent(params, hidden, batch["labels"])
         return xent + MOE_AUX_WEIGHT * aux, {"xent": xent, "moe_aux": aux}

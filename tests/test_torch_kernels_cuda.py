@@ -177,6 +177,13 @@ def _attn_inputs(seed, B, S, Hq, Hk, D, dtype, device):
     (2, 100, 6, 2, 64, True, None),    # g=3: 21 tokens x 3 heads, 1 row idle
     (1, 9, 160, 1, 32, True, None),    # g=160: three head chunks, the last partial
     (1, 190, 16, 2, 32, False, None),  # non-causal GQA, D=32
+    # the MoE serving path's heads (qwen2-moe-a2.7b, g=1: one head x 64 tokens
+    # a block) at its longest prefill and a ragged one, and command-r-plus's
+    # g=12 (12 heads x 5 tokens, 60 of 64 rows)
+    (1, 512, 16, 16, 128, True, None),
+    (1, 97, 16, 16, 128, True, None),
+    (1, 300, 96, 8, 128, True, None),
+    (1, 65, 96, 8, 128, True, None),
 ])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_attention_kernel_matches_plain_version(cuda_device, B, S, Hq, Hk, D, causal,
@@ -292,6 +299,10 @@ DECODE_CASES = [
     (1, 1, 2, 1, 128, [1]),
     (4, 1000, 32, 8, 128, [1, 1000, 999, 517]),   # the serving heads: lengths 1, C, ragged
     (2, 300, 40, 2, 64, [300, 130]),          # g=20: head chunks, the last partial
+    # the MoE serving path's decode (g=1: one head in 16 mma rows) at its
+    # first step's lengths, and command-r-plus's g=12
+    (8, 1024, 16, 16, 128, [65, 129, 81, 201, 513, 17, 34, 257]),
+    (4, 1024, 96, 8, 128, [1, 1024, 700, 33]),
 ]
 
 

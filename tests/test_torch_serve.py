@@ -150,9 +150,11 @@ def test_entry_points_need_a_card_unless_told_cpu(monkeypatch):
 def test_unported_families_say_where_they_are_queued():
     cfg = reduced(get_config("rwkv6-3b"))
     import dataclasses
-    from repro_torch.models import MoEConfig
+    from repro_torch.models import RecurrentConfig
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        LM(dataclasses.replace(cfg, family="moe", moe=MoEConfig(n_experts=4, d_expert=64)),
+        LM(dataclasses.replace(cfg, family="hybrid",
+                               recurrent=RecurrentConfig(kind="rglru",
+                                                         pattern=("rec", "rec", "attn"))),
            device="cpu")
     with pytest.raises(KeyError, match="ROADMAP"):
-        get_config("olmo-1b")
+        get_config("whisper-tiny")
