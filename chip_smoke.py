@@ -89,12 +89,30 @@ Phases, each failing the run with a non-zero exit if anything is wrong:
              plain torch, as in the JAX model) and its absorbed MLA decode
              is held against the expanded form layer by layer.  Prints a
              ``moe`` line.
+11. hybrid  serves the same requests through ``ServingEngine`` on
+             full-width RecurrentGemma-9B in bf16 (38 layers: 26 RG-LRU
+             blocks and 12 local-attention blocks with MQA at D = 256 over
+             a 2048-slot ring; 17.2 GB of weights) and checks that every
+             prefill ran the attention kernel 12 times and every decode
+             step the decode kernel 12 times, that the tokens are valid ids
+             and the peak memory fits the card; holds both kernels layer by
+             layer on the path's own activations (bf16 and float32) and the
+             whole model's logits by RMS distance; holds one layer's RG-LRU
+             scan against the sequential recurrence in float64; serves one
+             request of 2000 tokens and 96 new ones through a second engine
+             (ring of 2048 slots), 48 decode steps after the wrap, and holds
+             the decode kernel layer by layer at a step after it; fits
+             ``T = m*k + c``; profiles a decode step beside its bound.
+             Prints a ``hybrid`` line.
 
 Phase 3 runs the attention and decode kernels also at the MoE path's
-heads (Hq = Hk = 16, D = 128) and at Command R+'s g = 12 (Hq = 96, Hk = 8).
+heads (Hq = Hk = 16, D = 128), at Command R+'s g = 12 (Hq = 96, Hk = 8) and
+at RecurrentGemma's (Hq = 16, Hk = 1, D = 256, window 2048: the hybrid
+prefill, the family's training length S = 4096 and the decode at the
+served lengths, a full cache and past the ring's wrap).
 
-The ``place``, ``stream`` and ``moe`` lines come before the ``kernels``
-line.  The line before the last is a JSON object with each kernel's
+The ``place``, ``stream``, ``moe`` and ``hybrid`` lines come before the
+``kernels`` line.  The line before the last is a JSON object with each kernel's
 launches on its main paths (calls of its wrapper, by path and summed),
 the kernels a call runs on the card, its error against the plain version,
 its time, the plain version's time, its bound and the library call's time
@@ -171,6 +189,7 @@ from repro_torch.kernels.rwkv6_scan import kernel_chunk, rwkv6_scan, smem_bytes 
 from repro_torch.launch.train import train  # noqa: E402
 from repro_torch.models import LM  # noqa: E402
 from repro_torch.models import moe as moe_module  # noqa: E402
+from repro_torch.models import recurrent as recurrent_module  # noqa: E402
 from repro_torch.models import transformer as transformer_module  # noqa: E402
 from repro_torch.models.layers import torch_dtype  # noqa: E402
 from repro_torch.optim.optimizers import AdamW, global_norm  # noqa: E402
@@ -219,14 +238,20 @@ ATTN_BF16_UPCAST_TOL = 5e-3
 # (B, S, Hq, Hk, D, causal, window, dtypes): the training shape, the dense
 # serving path's longest prefill (Minitron-8B's GQA heads at D=128), the MoE
 # serving path's (Qwen-MoE's 16 heads, g = 1: one head x 64 tokens a block),
-# Command R+'s g = 12 (12 heads x 5 tokens, 60 of 64 rows), and a windowed,
-# non-causal, ragged case at D=32
+# Command R+'s g = 12 (12 heads x 5 tokens, 60 of 64 rows), a windowed,
+# non-causal, ragged case at D=32, and RecurrentGemma's heads (MQA, g = 16:
+# 4 tokens x 16 heads a block, D=256, window 2048) at the hybrid serving
+# path's longest prefill and at the family's training length, where the
+# window masks (the JAX package's own kernel route for it)
+HYBRID_WINDOW = 2048
 ATTN_CASES = (
     (4, 2048, 16, 16, 64, True, None, (torch.bfloat16,)),
     (1, 512, 32, 8, 128, True, None, (torch.float32, torch.bfloat16)),
     (1, 512, 16, 16, 128, True, None, (torch.float32, torch.bfloat16)),
     (1, 300, 96, 8, 128, True, None, (torch.float32, torch.bfloat16)),
     (1, 200, 4, 2, 32, False, 128, (torch.float32, torch.bfloat16)),
+    (1, 512, 16, 1, 256, True, HYBRID_WINDOW, (torch.float32, torch.bfloat16)),
+    (1, 4096, 16, 1, 256, True, HYBRID_WINDOW, (torch.float32, torch.bfloat16)),
 )
 TRAIN_ARCH, TRAIN_B, TRAIN_S, TRAIN_STEPS = "qwen1.5-0.5b", 4, 2048, 6
 
@@ -237,7 +262,9 @@ DENSE_ARCH, SERVE_B, SERVE_C = "minitron-8b", 8, 1024
 # lengths the first eight served prompts give at their first decode step
 # and with every slot valid, D=64 MHA, and MQA with a ragged C (not a
 # multiple of the 64-slot tile); lengths 1 and C; the MoE serving path's
-# heads (g = 1, one head in the 16 mma rows) and Command R+'s g = 12.
+# heads (g = 1, one head in the 16 mma rows), Command R+'s g = 12, and the
+# hybrid serving path's (RecurrentGemma: MQA, g = 16 fills the 16 mma rows,
+# D=256) served, full, and past its 2048-slot ring's wrap.
 SERVE_LENGTHS = tuple(n + 1 for n in SERVE_PROMPTS[:SERVE_B])
 DECODE_CASES = (
     (SERVE_B, SERVE_C, 32, 8, 128, SERVE_LENGTHS),
@@ -246,6 +273,9 @@ DECODE_CASES = (
     (SERVE_B, SERVE_C, 96, 8, 128, SERVE_LENGTHS),
     (4, 512, 16, 16, 64, (1, 512, 300, 77)),
     (3, 1000, 16, 1, 128, (1, 1000, 999)),
+    (SERVE_B, SERVE_C, 16, 1, 256, SERVE_LENGTHS),
+    (SERVE_B, SERVE_C, 16, 1, 256, (SERVE_C,) * SERVE_B),
+    (1, HYBRID_WINDOW, 16, 1, 256, (HYBRID_WINDOW,)),
 )
 # the decode kernel is timed over this many layers' caches in turn, so each
 # launch finds its K and V outside the 50 MB L2 as a decode step does
@@ -577,16 +607,17 @@ def prefill_check(tag, model, params, prompt, what, **plain):
     return kern16
 
 
-def fit_phase(tag, model, params, prefill_kernels=(), step_kernels=()):
+def fit_phase(tag, model, params, prefill_kernels=(), step_kernels=(), per_call=None):
     """Fit ``T = m*k + c`` with ``measure_interference`` and check that each
     probe prefill launched every kernel of ``prefill_kernels`` and each
-    probe step every kernel of ``step_kernels``, once a layer."""
+    probe step every kernel of ``step_kernels`` ``per_call`` times (once a
+    layer unless given)."""
     sizes, warmup, iters = (1, 2, 4, 8), 3, 10
     for kern in (*prefill_kernels, *step_kernels):
         kern.launches = 0
     m, c, r2, samples = measure_interference(
         model, params, batch_sizes=sizes, max_seq=SERVE_C, iters=iters, warmup=warmup)
-    n = model.cfg.n_layers
+    n = per_call or model.cfg.n_layers
     for kern, calls, what in ([(k, sum(sizes), "probe prefills") for k in prefill_kernels]
                               + [(k, len(sizes) * (warmup + iters), "probe steps")
                                  for k in step_kernels]):
@@ -722,9 +753,12 @@ def attention_cost(B, S, Hq, Hk, D, elem_bytes, causal=True, window=None):
 # The training shape is timed by CUDA events over back-to-back launches; the
 # dense prefill shape, whose kernel takes less time than a call takes on the
 # host, by the device time torch.profiler sees (device_ms).
-ATTN_TIMED = (("train", TRAIN_B, TRAIN_S, 16, 16, 64, 1, "events"),
-              ("dense prefill", 1, 512, 32, 8, 128, 8, "device"),
-              ("moe prefill", 1, 512, 16, 16, 128, 8, "device"))
+# (name, B, S, Hq, Hk, D, window, copies, clock)
+ATTN_TIMED = (("train", TRAIN_B, TRAIN_S, 16, 16, 64, None, 1, "events"),
+              ("dense prefill", 1, 512, 32, 8, 128, None, 8, "device"),
+              ("moe prefill", 1, 512, 16, 16, 128, None, 8, "device"),
+              ("hybrid prefill", 1, 512, 16, 1, 256, HYBRID_WINDOW, 8, "device"),
+              ("hybrid train", 1, 4096, 16, 1, 256, HYBRID_WINDOW, 1, "events"))
 # the host's time per call is measured over this many back-to-back calls
 ATTN_HOST_CALLS = 200
 
@@ -793,23 +827,32 @@ def attention_phase(dev):
 
     sdpa = torch.nn.functional.scaled_dot_product_attention
     timing = {}
-    for name, B, S, Hq, Hk, D, n, clock in ATTN_TIMED:
+    for name, B, S, Hq, Hk, D, window, n, clock in ATTN_TIMED:
         q, k, v = (torch.randn((n, B, S, H_, D), generator=gen, device=dev).to(torch.bfloat16)
                    for H_ in (Hq, Hk, Hk))
         qt, kt, vt = (t.transpose(2, 3).contiguous() for t in (q, k, v))   # (n, B, H, S, D)
         timer = time_ms if clock == "events" else device_ms
         iters = 20 * n
-        per_call = kernels_per_call(lambda: flash_attention(q[0], k[0], v[0], causal=True))
+        # the library call: causal, or a causal band where the window masks
+        if window is not None and window < S:
+            pos = torch.arange(S, device=dev)
+            band = (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None] - window)
+            lib_kw = dict(attn_mask=band, enable_gqa=Hq != Hk)
+        else:
+            lib_kw = dict(is_causal=True, enable_gqa=Hq != Hk)
+        per_call = kernels_per_call(lambda: flash_attention(q[0], k[0], v[0], causal=True,
+                                                            window=window))
         check(per_call == 1, f"one flash_attention call ran {per_call} kernels on the card")
-        ms = timer(layers(lambda i: flash_attention(q[i], k[i], v[i], causal=True), n), iters)
-        plain_ms = timer(layers(lambda i: attention_ref(q[i], k[i], v[i], causal=True), n),
+        ms = timer(layers(lambda i: flash_attention(q[i], k[i], v[i], causal=True,
+                                                    window=window), n), iters)
+        plain_ms = timer(layers(lambda i: attention_ref(q[i], k[i], v[i], causal=True,
+                                                        window=window), n),
                          iters=3, warmup=1)
-        library_ms = timer(layers(lambda i: sdpa(qt[i], kt[i], vt[i], is_causal=True,
-                                                 enable_gqa=Hq != Hk), n), iters)
-        lib_err = float((sdpa(qt[0], kt[0], vt[0], is_causal=True, enable_gqa=Hq != Hk)
-                         .transpose(1, 2).float()
-                         - attention_ref(q[0], k[0], v[0], causal=True).float()).abs().max())
-        nbytes, ops = attention_cost(B, S, Hq, Hk, D, 2)
+        library_ms = timer(layers(lambda i: sdpa(qt[i], kt[i], vt[i], **lib_kw), n), iters)
+        lib_err = float((sdpa(qt[0], kt[0], vt[0], **lib_kw).transpose(1, 2).float()
+                         - attention_ref(q[0], k[0], v[0], causal=True, window=window).float()
+                         ).abs().max())
+        nbytes, ops = attention_cost(B, S, Hq, Hk, D, 2, window=window)
         t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / BF16_OPS_PER_S * 1e3
         bound = max(t_bytes, t_ops)
         plan = tile_plan(B, S, Hq, Hk)
@@ -817,7 +860,7 @@ def attention_phase(dev):
                             bound_by="bytes" if t_bytes >= t_ops else "operations",
                             kernels_per_call=per_call)
         print(f"[kernels] flash_attention {name} shape B={B} S={S} Hq={Hq} Hk={Hk} D={D} "
-              f"causal bf16, {per_call} kernel on the card a call, {clock} time ({plan['blocks']} blocks of {plan['tokens_per_block']} tokens x "
+              f"causal window={window} bf16, {per_call} kernel on the card a call, {clock} time ({plan['blocks']} blocks of {plan['tokens_per_block']} tokens x "
               f"{plan['heads_per_block']} heads): {ms:.4f} ms; "
               f"plain version {plain_ms:.3f} ms; scaled_dot_product_attention "
               f"{library_ms:.4f} ms (max abs diff from the plain version {lib_err:.3e}); bound "
@@ -886,6 +929,27 @@ def decode_cost(B, Hq, Hk, D, lengths, elem_bytes):
     return nbytes, 4 * D * Hq * n
 
 
+# torch.profiler now and then misses device events of a profile on an H100
+# (in whole runs of this script: every event of one 0.26 ms attention call,
+# one of a WKV call's three kernels, each seen by other profiles of the same
+# call); a profile that saw none is taken again, and a call's kernels are
+# the most that this many profiles of it saw
+PROFILE_TRIES = 3
+
+
+def device_events(fn, calls: int) -> list:
+    """The card's events of ``calls`` calls of ``fn`` under torch.profiler."""
+    for _ in range(PROFILE_TRIES):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        if events:
+            return events
+    return []
+
+
 def device_times(fn, iters: int, warmup: int = 3) -> dict:
     """Device time of ``fn`` per call by kernel name, in ms: the card's
     kernel times over ``iters`` calls under torch.profiler, over ``iters``.
@@ -894,26 +958,19 @@ def device_times(fn, iters: int, warmup: int = 3) -> dict:
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
     by_name = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / iters / 1e3
+    for e in device_events(fn, iters):
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / iters / 1e3
     check(sum(by_name.values()) > 0, "the profiler saw no device time")
     return by_name
 
 
 def kernels_per_call(fn) -> int:
-    """The kernels one call of ``fn`` runs on the card, by torch.profiler."""
+    """The kernels one call of ``fn`` runs on the card, by torch.profiler:
+    the most that PROFILE_TRIES profiles of one call saw."""
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    return sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA)
+    return max(len(device_events(fn, 1)) for _ in range(PROFILE_TRIES))
 
 
 def graph_ms(fn, calls: int, replays: int = 10) -> float:
@@ -976,12 +1033,13 @@ def decode_phase(dev):
                   f"{list(lengths)} {str(dtype)[6:]}: max abs err {err:.3e} "
                   f"(tol {tol} abs+rel){upcast}", flush=True)
 
-    B, C, D, L = SERVE_B, SERVE_C, 128, DECODE_TIMING_LAYERS
+    B, C, L = SERVE_B, SERVE_C, DECODE_TIMING_LAYERS
     sdpa = torch.nn.functional.scaled_dot_product_attention
     timing = {}
-    # the dense serving path's heads (Minitron-8B, g = 4), then the MoE
-    # serving path's (Qwen-MoE, g = 1), each served and full
-    for path, Hq, Hk in (("", 32, 8), ("moe ", 16, 16)):
+    # the dense serving path's heads (Minitron-8B, g = 4), the MoE serving
+    # path's (Qwen-MoE, g = 1) and the hybrid's (RecurrentGemma, g = 16 at
+    # D=256), each served and full
+    for path, Hq, Hk, D in (("", 32, 8, 128), ("moe ", 16, 16, 128), ("hybrid ", 16, 1, 256)):
         q = torch.randn((L, B, Hq, D), generator=gen, device=dev).to(torch.bfloat16)
         k, v = (torch.randn((L, B, C, Hk, D), generator=gen, device=dev).to(torch.bfloat16)
                 for _ in range(2))
@@ -1018,7 +1076,7 @@ def decode_phase(dev):
                       f"{timing['host_us']:.2f} us", flush=True)
             print(f"[kernels] flash_decode B={B} C={C} Hq={Hq} Hk={Hk} D={D} bf16, lengths "
                   f"{lengths_name} (sum {sum(lengths)}), (split_keys, nsplit) "
-                  f"{split_plan(B, Hk, C, torch.cuda.get_device_properties(0).multi_processor_count)}"
+                  f"{split_plan(B, Hk, C, torch.cuda.get_device_properties(0).multi_processor_count, D)}"
                   f": device {ms:.4f} ms a launch; plain version {plain_ms:.4f} ms; "
                   f"scaled_dot_product_attention {library_ms:.4f} ms (max abs diff from the plain "
                   f"version {lib_err:.3e}); bound {bound:.4f} ms ({nbytes} bytes -> "
@@ -1951,22 +2009,22 @@ def route_flips(a, b, n_layers) -> tuple:
     return sum(flips), sum(x.shape[0] for x in a), by_layer
 
 
-def moe_whole_model(model, params, requests, done):
-    """The whole model's logits through the kernels, the plain versions and
-    the plain versions without inner rounding (``upcast_*``), in bf16: one
-    prompt's prefill, then DECODE_CHECK_STEPS decode steps at batch SERVE_B
-    from one prefilled cache.  The kernels' logits must lie within
-    BF16_NOISE_FACTOR times the plain path's RMS distance from the upcast
-    path's; the (token, layer) top-k sets that differ between kernel and
-    plain are counted, not required equal (a rounding can flip a near tie)."""
+def path_logits(model, params, requests, done, recorder=None):
+    """The whole model's logits through the kernels ("kernel"), the plain
+    versions ("plain") and the plain versions without inner rounding
+    ("upcast", ``upcast_*``), in bf16: one prompt's prefill, then
+    DECODE_CHECK_STEPS decode steps at batch SERVE_B from one prefilled
+    cache (keys ``"decode " + name``).  ``recorder(list)``, a context
+    manager, records what each run sees.  Returns ``(logits, records)``."""
     cfg, dev = model.cfg, model.device
+    record = recorder or contextlib.nullcontext
     rid, prompt, _ = requests[4]
     tokens = torch.tensor([prompt], device=dev)
     routes, out = {}, {}
     for name, hooks in (("kernel", {}), ("plain", dict(attn_fn=attention_ref)),
                         ("upcast", dict(attn_fn=upcast_attention))):
         m = LM(cfg, device=dev, **hooks)
-        with torch.inference_mode(), recording_routes([]) as rec:
+        with torch.inference_mode(), record([]) as rec:
             lg, _ = m.prefill(params, {"tokens": tokens}, m.init_cache(1, len(prompt)))
         out[name], routes[name] = lg.float(), rec
     check(int(out["kernel"].argmax()) == done[rid][0], "prefill is not deterministic")
@@ -1985,7 +2043,7 @@ def moe_whole_model(model, params, requests, done):
         m = LM(cfg, device=dev, decode_fn=fn)
         caches = _tree_map(lambda t: t.clone(), caches0)
         steps = []
-        with torch.inference_mode(), recording_routes([]) as rec:
+        with torch.inference_mode(), record([]) as rec:
             for t in range(DECODE_CHECK_STEPS):
                 lg, caches = m.decode_step(params, feed[t], pos0 + t, caches)
                 steps.append(lg.float())
@@ -1993,33 +2051,51 @@ def moe_whole_model(model, params, requests, done):
         del caches
     del caches0
     torch.cuda.empty_cache()
+    return out, routes
 
+
+def hold_path_logits(tag, kern, plain, up, label, name):
+    """The kernel path's logits within BF16_NOISE_FACTOR times the plain
+    path's RMS distance from the upcast path's.  Returns the two RMS
+    distances and the share of greedy tokens kernel and plain agree on."""
+    check(bool(torch.isfinite(kern).all()), f"non-finite {name} logits")
+    rms_kern, rms_plain = _rms(kern, up), _rms(plain, up)
+    agree = float((kern.argmax(-1) == plain.argmax(-1)).float().mean())
+    print(f"[{tag}] whole-model logits, {label}: RMS from the upcast plain path: kernel "
+          f"{rms_kern:.4e}, plain bf16 {rms_plain:.4e} (tol {BF16_NOISE_FACTOR}x); RMS "
+          f"kernel vs plain {_rms(kern, plain):.4e} (RMS of the logits "
+          f"{float(plain.square().mean().sqrt()):.4e}); greedy tokens agree {agree:.3f}",
+          flush=True)
+    check(rms_kern <= BF16_NOISE_FACTOR * rms_plain,
+          f"{name} logits through the kernels are {rms_kern:.4e} RMS from the upcast plain "
+          f"path, beyond {BF16_NOISE_FACTOR} x the plain path's {rms_plain:.4e}")
+    return dict(rms_kernel=rms_kern, rms_plain=rms_plain, greedy_agree=agree)
+
+
+def moe_whole_model(model, params, requests, done):
+    """The whole model's logits through the kernels, the plain versions and
+    the plain versions without inner rounding (``path_logits``), held by
+    ``hold_path_logits``; the (token, layer) top-k sets that differ between
+    kernel and plain are counted, not required equal (a rounding can flip a
+    near tie)."""
+    cfg = model.cfg
+    out, routes = path_logits(model, params, requests, done, recorder=recording_routes)
     line = {}
     for what in ("", "decode "):
         kern, plain, up = (out[what + n] for n in ("kernel", "plain", "upcast"))
-        check(bool(torch.isfinite(kern).all()), f"non-finite {what}logits")
-        rms_kern, rms_plain = _rms(kern, up), _rms(plain, up)
         n_moe = cfg.n_layers - cfg.moe.n_dense_layers
         flips, rows, by_layer = route_flips(routes[what + "kernel"], routes[what + "plain"],
                                             n_moe)
         flips_up, _, _ = route_flips(routes[what + "upcast"], routes[what + "plain"], n_moe)
-        agree = float((kern.argmax(-1) == plain.argmax(-1)).float().mean())
         name = "decode" if what else "prefill"
         label = (f"{DECODE_CHECK_STEPS} decode steps at batch {SERVE_B}" if what
-                 else f"prefill of {len(prompt)} tokens")
-        print(f"[moe] whole-model logits, {label}: RMS from the upcast plain path: kernel "
-              f"{rms_kern:.4e}, plain bf16 {rms_plain:.4e} (tol {BF16_NOISE_FACTOR}x); RMS "
-              f"kernel vs plain {_rms(kern, plain):.4e} (RMS of the logits "
-              f"{float(plain.square().mean().sqrt()):.4e}); greedy tokens agree "
-              f"{agree:.3f}; top-k sets that differ from the plain path's: kernel {flips}, "
+                 else f"prefill of {len(requests[4][1])} tokens")
+        held = hold_path_logits("moe", kern, plain, up, label, name)
+        print(f"[moe] {label}: top-k sets that differ from the plain path's: kernel {flips}, "
               f"upcast {flips_up} of {rows} (token, layer) rows; kernel's by layer "
               f"{by_layer}", flush=True)
-        check(rms_kern <= BF16_NOISE_FACTOR * rms_plain,
-              f"{name} logits through the kernels are {rms_kern:.4e} RMS from the upcast plain "
-              f"path, beyond {BF16_NOISE_FACTOR} x the plain path's {rms_plain:.4e}")
-        line[name] = dict(rms_kernel=rms_kern, rms_plain=rms_plain, greedy_agree=agree,
-                          route_flips=flips, route_flips_upcast=flips_up, route_rows=rows,
-                          route_flips_by_layer=by_layer)
+        line[name] = dict(held, route_flips=flips, route_flips_upcast=flips_up,
+                          route_rows=rows, route_flips_by_layer=by_layer)
     return line
 
 
@@ -2282,6 +2358,262 @@ def deepseek_part(dev):
                 mla_calls=len(rows), mla_f32_rel_err=rel32, mla_bf16_rms_ratio=ratio)
 
 
+# -- phase 11: the hybrid family ---------------------------------------------------
+HYBRID_ARCH = "recurrentgemma-9b"
+# the JAX LM.init's tree at full width, by jax.eval_shape (38 layers: 26 RG-LRU
+# blocks and 12 local-attention blocks, each with its GeGLU MLP; the tied
+# 256000 x 4096 embedding)
+HYBRID_PARAMS = 8_578_519_040
+# One layer's RG-LRU scan (ceil(log2 S) float32 doubling steps) against the
+# sequential recurrence in float64 on the same (a, b): max |difference|
+# within this share of max |h|.  Each doubling step rounds each term by a few
+# ulps (6e-8); a channel with a near 1 sums ~1/(1-a) terms of mixed sign, so
+# the error can reach sqrt(1000) ~ 30 times that of |h|: about 3e-5.
+RGLRU_SCAN_TOL = 1e-4
+# Past the window: one request of RING_PROMPT tokens and RING_NEW new ones
+# through a ring of HYBRID_WINDOW slots (max_seq twice the window), so
+# RING_PROMPT + RING_NEW - HYBRID_WINDOW = 48 decode steps run after the
+# wrap; the step at RING_HOLD_POS is held layer by layer.
+RING_PROMPT, RING_NEW, RING_HOLD_POS = 2000, 96, 2060
+
+
+@contextlib.contextmanager
+def recording_scans(rows):
+    """While in force, the (a, b) of every RG-LRU scan (``linear_scan``)."""
+    real = recurrent_module.linear_scan
+
+    def scan(a, b):
+        rows.append((a.clone(), b.clone()))
+        return real(a, b)
+
+    recurrent_module.linear_scan = scan
+    try:
+        yield rows
+    finally:
+        recurrent_module.linear_scan = real
+
+
+def scan_check(model, params, prompt):
+    """The first RG-LRU layer's scan of one prompt's prefill through the
+    kernels, on its own (a, b), against the sequential recurrence in
+    float64."""
+    dev = model.device
+    with torch.inference_mode(), recording_scans([]) as rows:
+        model.prefill(params, {"tokens": torch.tensor([prompt], device=dev)},
+                      model.init_cache(1, len(prompt)))
+    n_rec = sum(seg.n * seg.n_rec for seg in model.segments)
+    check(len(rows) == n_rec, f"{len(rows)} RG-LRU scans in a prefill of {n_rec} blocks")
+    a, b = rows[0]
+    del rows
+    got = recurrent_module.linear_scan(a, b).double()
+    a64, b64 = a.double(), b.double()
+    ref, h = torch.empty_like(a64), torch.zeros_like(a64[:, 0])
+    for t in range(a.shape[1]):
+        h = a64[:, t] * h + b64[:, t]
+        ref[:, t] = h
+    err, scale = float((got - ref).abs().max()), float(ref.abs().max())
+    print(f"[hybrid] RG-LRU scan of layer 0, {a.shape[1]} tokens x {a.shape[2]} channels, on "
+          f"the path's own (a, b) (a in [{float(a.min()):.4f}, {float(a.max()):.4f}]): float32 "
+          f"doubling scan vs sequential float64 max abs diff {err:.3e} (max |h| "
+          f"{scale:.4f}, tol {RGLRU_SCAN_TOL} of it)", flush=True)
+    check(err <= RGLRU_SCAN_TOL * scale,
+          f"the RG-LRU scan differs from the float64 recurrence by {err:.3e}, beyond "
+          f"{RGLRU_SCAN_TOL} x {scale:.4f}")
+    return dict(tokens=a.shape[1], max_abs_err=err, max_abs_h=scale)
+
+
+def ring_check(model, params, n_attn):
+    """One request past the window: a RING_PROMPT-token prefill into a
+    HYBRID_WINDOW-slot ring, then RING_NEW decode steps, 48 of them after
+    the wrap; the step at RING_HOLD_POS held layer by layer (its decode
+    calls all at lengths = HYBRID_WINDOW)."""
+    cfg, dev = model.cfg, model.device
+    prompt = np.random.default_rng(5).integers(0, cfg.vocab, RING_PROMPT).tolist()
+    engine = ServingEngine(model, params, max_batch=1, max_seq=2 * HYBRID_WINDOW)
+    check(engine.caches[0]["attn"]["k"].shape[2] == HYBRID_WINDOW,
+          "the ring is not the window wide")
+    hold, seen = LayerHold(flash_decode, decode_attention_ref), []
+
+    def held(q, k, v, lengths):
+        seen.append(lengths.tolist())
+        return hold(q, k, v, lengths)
+
+    held_model = LM(cfg, device=dev, decode_fn=held)
+    flash_attention.launches = flash_decode.launches = 0
+    t = time.perf_counter()
+    engine.add_request("ring", prompt, RING_NEW)
+    torch.cuda.synchronize()
+    prefill_ms = 1e3 * (time.perf_counter() - t)
+    check(flash_attention.launches == n_attn,
+          f"a {RING_PROMPT}-token prefill launched flash_attention {flash_attention.launches} "
+          f"times, wanted {n_attn}")
+    done, steps, after_wrap = {}, 0, 0
+    while engine.active:
+        pos = engine.slots[0].pos
+        engine.model = held_model if pos == RING_HOLD_POS else model
+        done.update(engine.step())
+        steps, after_wrap = steps + 1, after_wrap + (pos >= HYBRID_WINDOW)
+    engine.model = model
+    ring_pos = engine.caches[0]["attn"]["pos"]
+    toks = done["ring"]
+    check(len(toks) == RING_NEW + 1 and all(0 <= x < cfg.vocab for x in toks),
+          "the request past the window did not get its tokens")
+    check(after_wrap == RING_PROMPT + RING_NEW - HYBRID_WINDOW,
+          f"{after_wrap} decode steps after the wrap")
+    # the held step also runs the kernel once a layer on its inputs cast up
+    check(flash_decode.launches == n_attn * (steps + 1),
+          f"flash_decode launched {flash_decode.launches} times for {steps} steps")
+    check(seen == [[HYBRID_WINDOW]] * n_attn, f"the held step's lengths were {seen}")
+    check(int(ring_pos.max()) == RING_PROMPT + RING_NEW - 1
+          and int(ring_pos.min()) == RING_PROMPT + RING_NEW - HYBRID_WINDOW,
+          "the ring does not hold the last window of positions")
+    line = hold.check("hybrid", f"flash_decode past the ring's wrap (position {RING_HOLD_POS}, "
+                                f"lengths {HYBRID_WINDOW}), every layer")
+    del engine
+    torch.cuda.empty_cache()
+    print(f"[hybrid] past the window: prefill of {RING_PROMPT} tokens {prefill_ms:.2f} ms "
+          f"(flash_attention {n_attn} launches), {steps} decode steps, {after_wrap} after the "
+          f"wrap; ring positions {int(ring_pos.min())}..{int(ring_pos.max())}", flush=True)
+    return dict(prompt=RING_PROMPT, steps=steps, steps_after_wrap=after_wrap,
+                prefill_ms=prefill_ms, hold=line)
+
+
+def hybrid_step_cost(cfg, params, lengths, n_attn, n_rec):
+    """(bytes, operations) of one decode step at batch len(lengths): every
+    weight read once (the tied embedding is the lm_head), each attention
+    layer's ring read up to each row's length and the new entries written,
+    each RG-LRU block's state (h in float32, the conv window in bf16) read
+    and written, the float32 logits written; operations: 2 per
+    multiply-add of every weight with the batch's tokens and 4*D per (query
+    head, valid slot) pair an attention layer."""
+    B = len(lengths)
+    all_params = sum(t.numel() for t in _leaves(params))
+    W, cw = cfg.recurrent.lru_width, cfg.recurrent.conv_width
+    kv = 2 * cfg.n_kv_heads * cfg.head_dim
+    nbytes = (2 * all_params + 2 * kv * n_attn * (int(sum(lengths)) + B)
+              + 2 * n_rec * B * (4 * W + 2 * (cw - 1) * W) + 4 * B * cfg.vocab)
+    ops = 2 * B * all_params + 4 * cfg.head_dim * cfg.n_heads * n_attn * int(sum(lengths))
+    return nbytes, ops
+
+
+def hybrid_phase(dev):
+    """Phase 11: serve the requests on full-width RecurrentGemma-9B, hold its
+    attention kernels layer by layer and the whole model's logits against
+    the plain versions, one RG-LRU scan against the float64 recurrence,
+    serve one request past the window, fit ``T = m*k + c``, profile a decode
+    step.  Returns the ``hybrid`` line and the kernels' launches on the
+    served set."""
+    t_phase = time.perf_counter()
+    cfg = get_config(HYBRID_ARCH)
+    model = LM(cfg, device=dev)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    n_attn = sum(seg.n for seg in model.segments if seg.has_attn)
+    n_rec = sum(seg.n * seg.n_rec for seg in model.segments)
+    r = cfg.recurrent
+    print(f"[hybrid] {cfg.name}: {cfg.n_layers} layers ({n_rec} RG-LRU of width "
+          f"{r.lru_width}, conv {r.conv_width}; {n_attn} local attention, window "
+          f"{cfg.attn_window}), d_model {cfg.d_model}, {cfg.n_heads} heads of {cfg.head_dim} "
+          f"({cfg.n_kv_heads} kv), GeGLU d_ff {cfg.d_ff}, vocab {cfg.vocab}, {cfg.dtype}; "
+          f"{n_params} parameters, {torch.cuda.memory_allocated() / 2**30:.2f} GiB, init "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    check(n_params == HYBRID_PARAMS, f"{n_params} parameters, the JAX tree has {HYBRID_PARAMS}")
+
+    requests = serve_requests_for(cfg)
+    engine = ServingEngine(model, params, max_batch=SERVE_B, max_seq=SERVE_C)
+    torch.cuda.synchronize()
+    flash_attention.launches = flash_decode.launches = rwkv6_scan.launches = 0
+    flash_attention.wgmma_launches = flash_attention.simt_launches = 0
+    done, prefill_s, step_s, wall = serve(engine, requests)
+    attn_launches, launches = flash_attention.launches, flash_decode.launches
+    peak = torch.cuda.max_memory_allocated()
+    check(attn_launches == n_attn * len(requests),
+          f"flash_attention launched {attn_launches} times for {len(requests)} prefills "
+          f"of {n_attn} attention layers")
+    check(flash_attention.wgmma_launches == attn_launches,
+          f"of {attn_launches} bf16 attention launches {flash_attention.wgmma_launches} went "
+          f"through the tensor-core kernel")
+    check(launches == n_attn * len(step_s),
+          f"flash_decode launched {launches} times for {len(step_s)} decode steps "
+          f"of {n_attn} attention layers")
+    check(rwkv6_scan.launches == 0, "the hybrid serving path launched the WKV kernel")
+    total = torch.cuda.get_device_properties(0).total_memory
+    check(peak < total, f"peak memory {peak} beyond the card's {total}")
+    report_serve("hybrid", cfg, requests, done, prefill_s, step_s, wall)
+    print(f"[hybrid] flash_attention launches {attn_launches} = {n_attn} layers x "
+          f"{len(requests)} prefills, all through the tensor-core kernel at D={cfg.head_dim}; "
+          f"flash_decode launches {launches} = {n_attn} layers x {len(step_s)} decode steps; "
+          f"peak memory {peak / 2**30:.2f} GiB (weights and the batch-8 state included)",
+          flush=True)
+    del engine
+    torch.cuda.empty_cache()
+
+    # the attention kernels layer by layer on the path's own activations
+    hold_a = LayerHold(flash_attention, attention_ref)
+    hold_d = LayerHold(flash_decode, decode_attention_ref)
+    held = ServingEngine(LM(cfg, device=dev, attn_fn=hold_a, decode_fn=hold_d), params,
+                         max_batch=SERVE_B, max_seq=SERVE_C)
+    for req in requests[:SERVE_B]:
+        held.add_request(*req)
+    for _ in range(DECODE_CHECK_STEPS):
+        held.step()
+    del held
+    torch.cuda.empty_cache()
+    layer_line = {
+        "flash_attention": hold_a.check("hybrid", f"flash_attention in every layer of "
+                                        f"{SERVE_B} prefills"),
+        "flash_decode": hold_d.check("hybrid", f"flash_decode in every layer of "
+                                     f"{DECODE_CHECK_STEPS} decode steps at batch {SERVE_B}"),
+    }
+    out, _ = path_logits(model, params, requests, done)
+    whole = {}
+    for what, label in (("", f"prefill of {len(requests[4][1])} tokens"),
+                        ("decode ", f"{DECODE_CHECK_STEPS} decode steps at batch {SERVE_B}")):
+        name = "decode" if what else "prefill"
+        whole[name] = hold_path_logits("hybrid", *(out[what + n] for n in
+                                                    ("kernel", "plain", "upcast")), label, name)
+    del out
+    scan = scan_check(model, params, requests[4][1])
+    ring = ring_check(model, params, n_attn)
+    fit = fit_phase("hybrid", model, params, (flash_attention,), (flash_decode,),
+                    per_call=n_attn)
+
+    nbytes, ops = hybrid_step_cost(cfg, params, SERVE_LENGTHS, n_attn, n_rec)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / BF16_OPS_PER_S * 1e3
+    bound = max(t_bytes, t_ops)
+    step_ms = 1e3 * float(np.median(step_s))
+    print(f"[hybrid] decode-step bound at batch {SERVE_B} (first step's lengths): {nbytes} "
+          f"bytes -> {t_bytes:.3f} ms, {ops} ops at the bf16 peak -> {t_ops:.3f} ms; bound "
+          f"{bound:.3f} ms ({'bytes' if t_bytes >= t_ops else 'operations'}); median step "
+          f"{step_ms:.2f} ms = {100 * bound / step_ms:.1f}% of bound", flush=True)
+    engine = ServingEngine(model, params, max_batch=SERVE_B, max_seq=SERVE_C)
+    for req in requests[:SERVE_B]:
+        engine.add_request(*req)
+    engine.step()
+    profile_report("hybrid", engine.step)
+    del engine, model, params
+    torch.cuda.empty_cache()
+
+    n_tok = sum(len(t) for t in done.values())
+    line = {"hybrid": {
+        "arch": cfg.name, "params": n_params,
+        "prefill_ms": [1e3 * x for x in prefill_s], "prompts": list(SERVE_PROMPTS),
+        "step_ms_median": step_ms, "steps": len(step_s), "tokens_per_s": n_tok / wall,
+        "peak_gib": peak / 2**30, "step_bound_ms": bound,
+        "step_bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "launches": {"flash_attention": attn_launches, "flash_decode": launches},
+        "layer_check": layer_line, "whole_model": whole, "rglru_scan": scan,
+        "past_the_window": ring, "fit": dict(zip(("m", "c", "r2"), fit)),
+    }}
+    line["hybrid"]["seconds"] = time.perf_counter() - t_phase
+    print(f"[hybrid] phase took {line['hybrid']['seconds']:.1f} s", flush=True)
+    return line, attn_launches, launches
+
+
 # the per-shape numbers of a kernel's row in the kernels line
 SHAPE_KEYS = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")
 
@@ -2311,18 +2643,20 @@ def main() -> int:
     print(f"[build] rwkv6_scan dynamic shared memory per block of its output pass at "
           f"N={N}: {smem_bytes(N)} bytes (256 threads a block)", flush=True)
     print(f"[build] flash_attention dynamic shared memory per block: bf16 (wgmma) "
-          + ", ".join(f"D={d} {attn_smem_bytes(d)} bytes" for d in (32, 64, 128))
+          + ", ".join(f"D={d} {attn_smem_bytes(d)} bytes" for d in (32, 64, 128, 256))
           + "; f32 (SIMT) "
-          + ", ".join(f"D={d} {attn_smem_bytes(d, torch.float32)} bytes" for d in (32, 64, 128))
-          + " (bf16: 160 threads a block, two blocks an SM; f32: 256 threads)", flush=True)
+          + ", ".join(f"D={d} {attn_smem_bytes(d, torch.float32)} bytes"
+                      for d in (32, 64, 128, 256))
+          + " (bf16: 160 threads a block, two blocks an SM, one at D=256; f32: 256 "
+          "threads)", flush=True)
     for kern, regs, st, ld in ptxas_report(reports.get("flash_attention", "")):
         print(f"[build] flash_attention {kern}: {regs} registers, spill stores {st} bytes, "
               f"spill loads {ld} bytes", flush=True)
     print(f"[build] flash_decode dynamic shared memory per block: bf16 "
-          + ", ".join(f"D={d} {decode_smem_bytes(d)} bytes" for d in (32, 64, 128))
+          + ", ".join(f"D={d} {decode_smem_bytes(d)} bytes" for d in (32, 64, 128, 256))
           + "; f32 "
           + ", ".join(f"D={d} {decode_smem_bytes(d, torch.float32)} bytes"
-                      for d in (32, 64, 128))
+                      for d in (32, 64, 128, 256))
           + " (128 threads a block)", flush=True)
     for name in ("rwkv6_scan", "flash_decode"):
         for kern, regs, st, ld in ptxas_report(reports.get(name, "")):
@@ -2348,15 +2682,19 @@ def main() -> int:
     stream = stream_phase(dev, dense_fit)
     torch.cuda.empty_cache()
     moe, moe_attn_launches, moe_dec_launches = moe_phase(dev)
+    torch.cuda.empty_cache()
+    hybrid, hybrid_attn_launches, hybrid_dec_launches = hybrid_phase(dev)
 
     main_t, dec_main, attn_main = timing[512], dec_t["served"], attn_t["train"]
     attn_by_path = {"dense": dense_attn_launches, "train": attn_launches,
-                    "moe": moe_attn_launches}
-    dec_by_path = {"dense": dense_dec_launches, "moe": moe_dec_launches}
+                    "moe": moe_attn_launches, "hybrid": hybrid_attn_launches}
+    dec_by_path = {"dense": dense_dec_launches, "moe": moe_dec_launches,
+                   "hybrid": hybrid_dec_launches}
     print(f"[done] {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps(place), flush=True)
     print(json.dumps(stream), flush=True)
     print(json.dumps(moe), flush=True)
+    print(json.dumps(hybrid), flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": [{
         "name": "rwkv6_scan",

@@ -34,8 +34,10 @@
 //    operand stored (keys, D), read with the transpose bit.  The softmax
 //    scale and log2(e) are folded into one FMA before ex2.  A row's scores
 //    live in one quad of lanes, so its max takes two shuffles.  BN = 128
-//    keys a kv tile at D = 32 and 64, 64 at D = 128, where S, P and O would
-//    not fit the registers with no spill.
+//    keys a kv tile at D = 32 and 64, 64 at D = 128 and 256, where S, P and
+//    O would not fit the registers with no spill.  At D = 256 (RecurrentGemma)
+//    O += P V is one m64n256k16 a k step, its accumulator 128 registers a
+//    thread.
 //  * TMA loads.  One producer thread asks the Tensor Memory Accelerator for
 //    each tile through tensor maps that view each (B,S,H,D) tensor as a 4-D
 //    (D, H, S, B) array.  Tiles land in shared memory with the 128-byte
@@ -47,8 +49,9 @@
 //    zeros; those keys are masked and those query rows are not stored, so
 //    any S >= 1 runs.
 //  * Warp specialisation.  A block is one consumer warpgroup (64 query
-//    rows) and one producer warp, and two blocks share an SM, so one
-//    block's first loads and last stores overlap the other's work.  In the
+//    rows) and one producer warp, and two blocks share an SM (one at
+//    D = 256: its Q tile and K and V rings take 161 KB), so one block's
+//    first loads and last stores overlap the other's work.  In the
 //    consumer, P V of the previous kv tile runs on the tensor cores while
 //    the softmax of this tile runs beside it.  (Blocks of two consumer
 //    warpgroups and a producer warpgroup, one an SM, measured slower, and
@@ -71,7 +74,8 @@
 //  exponentials after the wait for P V, so the two do not overlap.
 
 // float32: `flash_attention_simt_kernel`, kept in full f32 so the float32
-// checks hold at 1e-4 (tensor cores in f32 would mean TF32).  One block owns
+// checks hold at 1e-4 (tensor cores in f32 would mean TF32).  Its tiles take
+// 211 KB of shared memory at D = 256, so one block an SM there.  One block owns
 // 64 query rows of one (b, q head) and loops over the kv tiles the masks let
 // in, heaviest tiles first, with f32 FMAs from shared memory for both
 // products (4x4 score and 4x(D/16) output register tiles per thread).
@@ -297,7 +301,6 @@ cudaError_t launch_simt(const void* q, const void* k, const void* v, void* o, in
 constexpr int kRows = 64;         // query rows per block: one consumer warpgroup
 constexpr int kConsumers = 128;   // its threads
 constexpr int kTcThreads = 160;   // and one producer warp
-constexpr int kBlocksPerSM = 2;
 constexpr int kStages = 2;        // depth of the K ring and of the V ring
 constexpr float kLog2e = 1.4426950408889634f;
 
@@ -311,10 +314,17 @@ struct Tile {
   static constexpr uint32_t kLayout = PW == 128 ? 1u : 2u;   // wgmma: 128B / 64B swizzle
 };
 
-// kv tile width at head size D: 64 at D=128 keeps S, P and O in the
-// consumers' registers with no spill
+// kv tile width at head size D: 64 at D=128 and D=256 keeps S, P and O in
+// the consumers' registers (at D=256 the O accumulator alone is 128 a thread)
 template <int D>
-constexpr int tc_block_n() { return D == 128 ? 64 : 128; }
+constexpr int tc_block_n() { return D >= 128 ? 64 : 128; }
+
+// blocks an SM holds: two below D=256; at D=256 one, since a block's Q tile
+// and two-stage K and V rings take 161 KB of shared memory and its O
+// accumulator needs the registers that one block a SM leaves (up to 255 a
+// thread)
+template <int D>
+constexpr int tc_blocks_per_sm() { return D == 256 ? 1 : 2; }
 
 template <int D, int BN>
 constexpr int tc_smem_bytes() {
@@ -542,6 +552,65 @@ __device__ __forceinline__ void wgmma_rs<128>(float (&d)[64], const uint32_t (&a
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+template <>
+__device__ __forceinline__ void wgmma_rs<256>(float (&d)[128], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, "
+      "%88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, "
+      "%104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, "
+      "%120, %121, %122, %123, %124, %125, %126, %127"
+      "}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
+        "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]),
+        "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]),
+        "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
+        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]),
+        "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]),
+        "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
 // One block: 64 query rows (T tokens x hb heads of kv head hk) against the
 // kv tiles the masks let in.  Tensor maps view q, k, v as (D, H, S, B).
 struct TcParams {
@@ -559,7 +628,7 @@ struct TcParams {
 // consumer, P V of the previous kv tile runs on the tensor cores while the
 // softmax of this tile runs beside it.
 template <int D, int BN>
-__global__ void __launch_bounds__(kTcThreads, kBlocksPerSM)
+__global__ void __launch_bounds__(kTcThreads, tc_blocks_per_sm<D>())
 flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                              const __grid_constant__ CUtensorMap tm_k,
                              const __grid_constant__ CUtensorMap tm_v, const TcParams p) {
@@ -869,7 +938,7 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* o, i
 }  // namespace
 
 // q, o: (B, S, Hq, D); k, v: (B, S, Hk, D); all float32 (is_bf16 = 0) or all
-// bfloat16 (is_bf16 = 1), contiguous.  D in {32, 64, 128}, Hq % Hk == 0, any
+// bfloat16 (is_bf16 = 1), contiguous.  D in {32, 64, 128, 256}, Hq % Hk == 0, any
 // S >= 1.  window <= 0 means no window.  float32 runs the SIMT kernel, any
 // B * Hq.  bfloat16 runs the wgmma kernel; q, k, v 16-byte aligned.
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
@@ -882,6 +951,7 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
       case 32: return launch_wgmma<32>(q, k, v, o, B, S, Hq, Hk, scale, causal, window, st);
       case 64: return launch_wgmma<64>(q, k, v, o, B, S, Hq, Hk, scale, causal, window, st);
       case 128: return launch_wgmma<128>(q, k, v, o, B, S, Hq, Hk, scale, causal, window, st);
+      case 256: return launch_wgmma<256>(q, k, v, o, B, S, Hq, Hk, scale, causal, window, st);
       default: return cudaErrorInvalidValue;
     }
   }
@@ -889,6 +959,7 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
     case 32: return launch_simt<32>(q, k, v, o, B, S, Hq, Hk, scale, causal, window, st);
     case 64: return launch_simt<64>(q, k, v, o, B, S, Hq, Hk, scale, causal, window, st);
     case 128: return launch_simt<128>(q, k, v, o, B, S, Hq, Hk, scale, causal, window, st);
+    case 256: return launch_simt<256>(q, k, v, o, B, S, Hq, Hk, scale, causal, window, st);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -901,6 +972,7 @@ extern "C" int flash_attention_smem_bytes(int D, int is_bf16) {
     case 32: return is_bf16 ? tc_smem_bytes<32, tc_block_n<32>()>() : simt_smem_bytes<32>();
     case 64: return is_bf16 ? tc_smem_bytes<64, tc_block_n<64>()>() : simt_smem_bytes<64>();
     case 128: return is_bf16 ? tc_smem_bytes<128, tc_block_n<128>()>() : simt_smem_bytes<128>();
+    case 256: return is_bf16 ? tc_smem_bytes<256, tc_block_n<256>()>() : simt_smem_bytes<256>();
     default: return -1;
   }
 }

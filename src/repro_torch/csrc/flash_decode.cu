@@ -32,10 +32,13 @@
 //    (b, kv head, head chunk, split), so any B and Hk run.
 //  * A ring of cp.async stages.  K and V tiles land in shared memory in
 //    their own dtype through 16-byte cp.async copies, three stages deep in
-//    bf16 (two in f32), so the next tiles load while this one is in use.  A
-//    ragged last tile is zero-filled past its end and masked.  bf16 rows are
-//    stored with their 16-byte chunks XOR-swizzled by row, so the ldmatrix
-//    reads below hit eight distinct bank groups.
+//    bf16 (two in f32, and in bf16 at D = 256, where a 64-slot K tile is
+//    32 KB; f32 tiles hold 32 slots at D = 256), so the next tiles load
+//    while this one is in use.  At D = 256 one block fills an SM's shared
+//    memory (128 KB of ring).  A ragged last tile is zero-filled past its
+//    end and masked.  bf16 rows are stored with their 16-byte chunks
+//    XOR-swizzled by row, so the ldmatrix reads below hit eight distinct
+//    bank groups.
 //  * bfloat16: both products on the tensor cores (mma.sync m16n8k16).  The
 //    g grouped queries are the 16 rows of the A operand (padded with zeros;
 //    head chunks of 16 when g > 16), held in registers for the whole split.
@@ -57,7 +60,8 @@
 //    memory.  A row with one used split writes o at once; otherwise each
 //    block writes an f32 partial, and the last block of its (b, kv head,
 //    head chunk) to finish, counted by an int in scratch that it resets to
-//    0 itself, merges the partials by their maxima and writes o.  No host
+//    0 itself, merges the partials by their maxima (each head's weight a
+//    split computed once, into shared memory) and writes o.  No host
 //    sync and no allocation, so a CUDA graph can capture the launch.
 //
 // Lengths are taken in [1, C]: a length above C counts as C, and a length
@@ -76,22 +80,31 @@ namespace {
 
 constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
-constexpr int kBK = 64;                 // cache slots per tile; warp w owns 16w..16w+15
+constexpr int kBK = 64;                 // cache slots a split is a multiple of
 constexpr float kNegInf = -1e30f;
 
 template <typename T> struct Cfg;
 template <> struct Cfg<__nv_bfloat16> {
   static constexpr int kHeads = 16;     // rows of the mma A operand
-  static constexpr int kStages = 3;
 };
 template <> struct Cfg<float> {
   static constexpr int kHeads = 8;
-  static constexpr int kStages = 2;
+};
+
+// The ring at head size D: kRows cache slots a tile (warp w owns rows
+// kRows/4 * w ..), kStages tiles of K and of V.  bf16 keeps 64-slot tiles
+// (16 slots a warp, the mma's n); three stages below D=256, two at D=256,
+// where a 64-slot tile of K is 32 KB.  f32 takes two stages, of 32-slot
+// tiles at D=256, where a 64-slot tile of K would be 64 KB.
+template <typename T, int D> struct Geo {
+  static constexpr bool kF32 = std::is_same<T, float>::value;
+  static constexpr int kRows = kF32 && D == 256 ? 32 : kBK;
+  static constexpr int kStages = kF32 || D == 256 ? 2 : 3;
 };
 
 template <typename T, int D>
 __host__ __device__ constexpr int ring_bytes() {
-  return Cfg<T>::kStages * 2 * kBK * D * (int)sizeof(T);
+  return Geo<T, D>::kStages * 2 * Geo<T, D>::kRows * D * (int)sizeof(T);
 }
 template <typename T, int D>
 __host__ __device__ constexpr int merge_bytes() {
@@ -196,6 +209,7 @@ template <typename T, int D> struct WarpState;
 // block (t = lane % 4).
 template <int D>
 struct WarpState<__nv_bfloat16, D> {
+  static_assert(Geo<__nv_bfloat16, D>::kRows == 4 * 16, "a warp owns 16 slots of a tile");
   static constexpr int RB = D * 2;    // bytes a tile row
   uint32_t qa[D / 16][4];             // Q as the A operand, one per 16-wide k step
   float o[D / 8][4];                  // O accumulators, one per 8-wide block of D
@@ -318,6 +332,7 @@ struct WarpState<__nv_bfloat16, D> {
 template <int D>
 struct WarpState<float, D> {
   static constexpr int KH = Cfg<float>::kHeads;
+  static constexpr int RW = Geo<float, D>::kRows / kWarps;   // slots a warp owns a tile
   static constexpr int VEC = D / 32;
   float qf[KH][VEC], acc[KH][VEC], m[KH], l[KH];
   int hb;
@@ -340,8 +355,8 @@ struct WarpState<float, D> {
                        float scale_log2) {
     const float* kf = reinterpret_cast<const float*>(ks);
     const float* vf = reinterpret_cast<const float*>(vs);
-    for (int jj = 0; jj < 16; ++jj) {
-      const int r = 16 * warp + jj;
+    for (int jj = 0; jj < RW; ++jj) {
+      const int r = RW * warp + jj;
       if (k0 + r >= k_end) break;                 // the same for the whole warp
       float kv[VEC], vv[VEC];
 #pragma unroll
@@ -388,10 +403,11 @@ __global__ void __launch_bounds__(kThreads)
 flash_decode_kernel(const Args a) {
   static_assert(D % 32 == 0, "head size");
   constexpr int KH = Cfg<T>::kHeads;
-  constexpr int S = Cfg<T>::kStages;
+  constexpr int S = Geo<T, D>::kStages;
+  constexpr int BK = Geo<T, D>::kRows;          // cache slots a tile
   constexpr int RB = D * (int)sizeof(T);        // bytes a tile row
   constexpr int CPR = RB / 16;                  // 16-byte chunks a row
-  constexpr int TILE = kBK * RB;                // bytes a K or V tile
+  constexpr int TILE = BK * RB;                 // bytes a K or V tile
 
   const int split = (int)(blockIdx.x % a.nsplit);
   const int rowid = (int)(blockIdx.x / a.nsplit);   // (b * Hk + hk) * HC + hc
@@ -425,7 +441,7 @@ flash_decode_kernel(const Args a) {
   auto load_tile = [&](int stage, int k0) {
     unsigned char* ks = smem + stage * 2 * TILE;
     unsigned char* vs = ks + TILE;
-    for (int idx = tid; idx < kBK * CPR; idx += kThreads) {
+    for (int idx = tid; idx < BK * CPR; idx += kThreads) {
       const int r = idx / CPR, c = idx % CPR;
       const bool valid = k0 + r < k_end;
       const long long off = valid ? (long long)(k0 + r) * row + c * (16 / (int)sizeof(T)) : 0;
@@ -438,21 +454,21 @@ flash_decode_kernel(const Args a) {
   WarpState<T, D> st;
   st.init(static_cast<const T*>(a.q) + ((long long)b * a.Hq + h0) * D, hb, lane);
 
-  const int ntiles = (k_end - k_begin + kBK - 1) / kBK;
+  const int ntiles = (k_end - k_begin + BK - 1) / BK;
 #pragma unroll
   for (int s = 0; s < S - 1; ++s) {
-    if (s < ntiles) load_tile(s, k_begin + s * kBK);
+    if (s < ntiles) load_tile(s, k_begin + s * BK);
     cp_async_commit();
   }
   for (int it = 0; it < ntiles; ++it) {
     cp_async_wait<S - 2>();   // tile `it` has landed, for this thread's copies
     __syncthreads();          // for every thread's; and stage (it - 1) % S is free
     const int nt = it + S - 1;
-    if (nt < ntiles) load_tile(nt % S, k_begin + nt * kBK);
+    if (nt < ntiles) load_tile(nt % S, k_begin + nt * BK);
     cp_async_commit();
     const unsigned char* ks = smem + (it % S) * 2 * TILE;
     st.tile(reinterpret_cast<const char*>(ks), reinterpret_cast<const char*>(ks + TILE),
-            k_begin + it * kBK, k_end, warp, lane, a.scale_log2);
+            k_begin + it * BK, k_end, warp, lane, a.scale_log2);
   }
   cp_async_wait<0>();
   __syncthreads();            // the ring is free: it becomes the merge area
@@ -500,28 +516,56 @@ flash_decode_kernel(const Args a) {
     *flag = last;
   }
   __syncthreads();
-  if (!*flag) return;
+  const bool merges = *flag;
+  __syncthreads();            // every thread has read the flag: the area is free
+  if (!merges) return;
   __threadfence();
+  // each head's weight for each used split, 2^(m_s - M), and its sum L,
+  // once a head into shared memory (the warps' merge area is free again),
+  // so each element below reads one partial a split
   const long long base = (long long)rowid * a.nsplit;
-  for (int e = tid; e < hb * D; e += kThreads) {
-    const int i = e / D;
+  float* fs = reinterpret_cast<float*>(smem);       // (used, KH)
+  float* Ls = fs + used * KH;                       // (KH)
+  for (int i = tid; i < hb; i += kThreads) {
     float M = kNegInf;
     for (int s = 0; s < used; ++s)
       M = fmaxf(M, __ldcg(a.part_ml + ((base + s) * KH + i) * 2));
-    float L = 0.f, acc = 0.f;
+    float L = 0.f;
     for (int s = 0; s < used; ++s) {
-      const long long p = base + s;
-      const float f = exp2f(__ldcg(a.part_ml + (p * KH + i) * 2) - M);
-      L = fmaf(f, __ldcg(a.part_ml + (p * KH + i) * 2 + 1), L);
-      acc = fmaf(f, __ldcg(a.part_acc + p * KH * D + e), acc);
+      const long long p = (base + s) * KH + i;
+      const float f = exp2f(__ldcg(a.part_ml + p * 2) - M);
+      fs[s * KH + i] = f;
+      L = fmaf(f, __ldcg(a.part_ml + p * 2 + 1), L);
     }
-    store_as(out + e, acc / fmaxf(L, 1e-30f));
+    Ls[i] = L;
+  }
+  __syncthreads();
+  // splits outermost: a thread's EPT loads of one split are independent, so
+  // they are in flight together
+  constexpr int EPT = (KH * D + kThreads - 1) / kThreads;   // elements a thread
+  float acc[EPT];
+#pragma unroll
+  for (int j = 0; j < EPT; ++j) acc[j] = 0.f;
+  for (int s = 0; s < used; ++s) {
+    const float* part = a.part_acc + (base + s) * KH * D;
+#pragma unroll
+    for (int j = 0; j < EPT; ++j) {
+      const int e = tid + j * kThreads;
+      if (e < hb * D) acc[j] = fmaf(fs[s * KH + e / D], __ldcg(part + e), acc[j]);
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < EPT; ++j) {
+    const int e = tid + j * kThreads;
+    if (e < hb * D) store_as(out + e, acc[j] / fmaxf(Ls[e / D], 1e-30f));
   }
 }
 
 template <typename T, int D>
 cudaError_t launch(const Args& a, int B, cudaStream_t st) {
   constexpr int smem = smem_bytes_for<T, D>();
+  // the cross-split merge keeps a weight a (split, head) in shared memory
+  if ((a.nsplit + 1) * Cfg<T>::kHeads * (int)sizeof(float) > smem) return cudaErrorInvalidValue;
   static std::atomic<uint64_t> smem_set{0};
   const cudaError_t e = set_smem_once(flash_decode_kernel<T, D>, smem, smem_set);
   if (e != cudaSuccess) return e;
@@ -537,6 +581,7 @@ cudaError_t dispatch(const Args& a, int B, int D, cudaStream_t st) {
     case 32: return launch<T, 32>(a, B, st);
     case 64: return launch<T, 64>(a, B, st);
     case 128: return launch<T, 128>(a, B, st);
+    case 256: return launch<T, 256>(a, B, st);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -549,7 +594,7 @@ cudaError_t dispatch(const Args& a, int B, int D, cudaStream_t st) {
 // rows = B * Hk * HC: part_acc (rows, nsplit, heads_per_block, D) and
 // part_ml (rows, nsplit, heads_per_block, 2) float32; counters (rows,) int32,
 // all zero before the first call (each call leaves them zero).
-// nsplit * split_keys >= C, split_keys a multiple of 64.  D in {32, 64, 128},
+// nsplit * split_keys >= C, split_keys a multiple of 64.  D in {32, 64, 128, 256},
 // Hq % Hk == 0.  Calls that share scratch must be ordered on one stream.
 extern "C" int flash_decode_fwd(const void* q, const void* k, const void* v,
                                 const void* lengths, void* o, void* part_acc,
@@ -582,6 +627,8 @@ extern "C" int flash_decode_smem_bytes(int D, int is_bf16) {
     case 64: return is_bf16 ? smem_bytes_for<__nv_bfloat16, 64>() : smem_bytes_for<float, 64>();
     case 128:
       return is_bf16 ? smem_bytes_for<__nv_bfloat16, 128>() : smem_bytes_for<float, 128>();
+    case 256:
+      return is_bf16 ? smem_bytes_for<__nv_bfloat16, 256>() : smem_bytes_for<float, 256>();
     default: return -1;
   }
 }

@@ -32,7 +32,7 @@ from .ref import attention_ref
 __all__ = ["flash_attention", "flash_attention_trainable", "check_attention_args",
            "smem_bytes", "tile_plan"]
 
-_SUPPORTED_D = (32, 64, 128)
+_SUPPORTED_D = (32, 64, 128, 256)
 # query rows a block of the bf16 kernel owns: one warpgroup's 64
 ROWS_PER_BLOCK = 64
 
@@ -110,7 +110,7 @@ def flash_attention(
 ) -> torch.Tensor:
     """Launch the attention kernel.  q ``(B,S,Hq,D)``, k and v ``(B,S,Hk,D)``,
     all float32 or all bfloat16, contiguous, on one CUDA device; D in
-    {32, 64, 128}, any ``S >= 1``.  Returns ``(B,S,Hq,D)`` in q's dtype.
+    {32, 64, 128, 256}, any ``S >= 1``.  Returns ``(B,S,Hq,D)`` in q's dtype.
 
     bfloat16 launches the tensor-core kernel, float32 the SIMT kernel.
     ``flash_attention.launches`` counts launches, ``wgmma_launches`` and

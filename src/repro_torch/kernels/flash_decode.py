@@ -26,9 +26,14 @@ from .build import load
 
 __all__ = ["flash_decode", "check_decode_args", "split_plan", "smem_bytes"]
 
-_SUPPORTED_D = (32, 64, 128)
+_SUPPORTED_D = (32, 64, 128, 256)
 _TILE = 64              # cache slots per tile of the kernel
 _BLOCKS_PER_SM = 2      # a full cache gives about this many blocks per SM, all resident
+# At D=256 one block fills an SM, and a split of one or two tiles spends
+# more on its fixed costs and the merge than its ring overlaps: splits of
+# four tiles were among the fastest at RecurrentGemma's decode shapes on an
+# H100 (21.6-28.5 us against 25.4-65.0 us for one tile; PERF.md, §6).
+_MIN_TILES = {256: 4}
 
 
 def check_decode_args(q, k, v, lengths) -> None:
@@ -65,16 +70,16 @@ def check_decode_args(q, k, v, lengths) -> None:
             raise ValueError(f"{name} must start on a 16-byte boundary")
 
 
-def split_plan(B: int, Hk: int, C: int, n_sm: int) -> Tuple[int, int]:
+def split_plan(B: int, Hk: int, C: int, n_sm: int, D: int = 128) -> Tuple[int, int]:
     """``(split_keys, nsplit)``: the cache axis cut into ``nsplit`` splits of
-    ``split_keys`` slots, a multiple of the kernel's 64-slot tile, so that
-    the ``B * Hk * nsplit`` blocks come to about two per SM when the cache
-    is full: two fit on an SM at once in bf16 at D=128, so a full cache is
-    one wave, and each split holds several tiles for its load ring to
-    overlap (four at the serving shape)."""
+    ``split_keys`` slots, a multiple of the kernel's 64-slot tile and at
+    least ``_MIN_TILES`` tiles at head size ``D``, so that the ``B * Hk * nsplit`` blocks come
+    to about two per SM when the cache is full: two fit on an SM at once in
+    bf16 at D=128, so a full cache is one wave, and each split holds several
+    tiles for its load ring to overlap (four at the serving shape)."""
     tiles = -(-C // _TILE)
     want = max(1, min(tiles, -(-_BLOCKS_PER_SM * n_sm // (B * Hk))))
-    split_keys = _TILE * -(-tiles // want)
+    split_keys = _TILE * max(-(-tiles // want), min(_MIN_TILES.get(D, 1), tiles))
     return split_keys, -(-C // split_keys)
 
 
@@ -153,7 +158,7 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     float32 or all bfloat16, contiguous, on one CUDA device; ``lengths``
     ``(B,)`` int32 on the same device, each in ``[1, C]`` (only slots
     ``j < lengths[b]`` count; the kernel reads no slot beyond).  D in
-    {32, 64, 128}, any C, any B and Hk.  Returns ``(B,Hq,D)`` in q's dtype.
+    {32, 64, 128, 256}, any C, any B and Hk.  Returns ``(B,Hq,D)`` in q's dtype.
     One kernel launch a call; eager calls on one stream share the split
     scratch, and a captured call has its own.  ``flash_decode.launches``
     counts launches."""
@@ -165,7 +170,7 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         )
     B, Hq, D = q.shape
     C, Hk = k.shape[1], k.shape[2]
-    split_keys, nsplit = split_plan(B, Hk, C, _sm_count(q.device.index or 0))
+    split_keys, nsplit = split_plan(B, Hk, C, _sm_count(q.device.index or 0), D)
     is_bf16 = int(q.dtype == torch.bfloat16)
     lib = _lib()
     kh = lib.flash_decode_heads_per_block(is_bf16)

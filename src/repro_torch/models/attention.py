@@ -25,27 +25,38 @@ starts that sequence: ``LM.prefill`` (positions ``0..S-1``, which
 ``0..p-1``, as the ``ServingEngine`` drives it).  Any other call, such as a
 chunked prefill or a step at a position past a gap, takes the JAX route.
 
-* A global cache, no softcap, 1 < S <= C, gapless: a prefill from position
-  0.  It writes positions ``0..S-1``; every other slot holds -1 or a
+* A cache, no softcap, 1 < S <= C, gapless: a prefill from position 0.
+  It writes positions ``0..S-1`` (at slots ``0..S-1``, in a global cache
+  and in a ring alike, since S <= C); every other slot holds -1 or a
   position >= S, which causality masks, so attention over the cache is
-  causal attention over the S new tokens: the same kernel route, then the
-  write.
-* A global cache, no softcap, S == 1, gapless: a decode step at position
-  ``p``.  In every slot the ``ServingEngine`` decodes (a fresh request, a
-  reused slot that a splice has overwritten, an idle slot whose position
-  has run past C), slots ``[0, min(p + 1, C))`` hold positions <= p and the
-  others -1, so ``_mask_bias`` admits exactly those: this is
+  causal attention over the S new tokens: the same kernel route, with the
+  window (which masks nothing there: S <= C <= window), then the write.
+* A cache, no softcap, S == 1, gapless: a decode step at position ``p``.
+  In every slot the ``ServingEngine`` decodes (a fresh request, a reused
+  slot that a splice has overwritten, an idle slot whose position has run
+  past C), slots ``[0, min(p + 1, C))`` hold positions <= p and the others
+  -1 or positions > p, so ``_mask_bias`` admits exactly those: this is
   :func:`~repro_torch.kernels.ops.decode_attention` (the flash-decode kernel
   on the card, ``decode_attention_ref`` on the CPU) with ``lengths =
-  min(pos + 1, C)``, after the write.
+  min(pos + 1, C)``, after the write.  In a global cache a position past
+  the end is written to the last slot.  A windowed cache is a ring of C =
+  ``min(capacity, window)`` slots written at ``p % C``: before the wrap it
+  is a global cache; once a gapless row has passed C, its C slots hold
+  positions ``p-C+1 .. p`` (slot order is not position order, and
+  attention does not care), every one inside the window since C <= window,
+  so ``lengths = C`` admits exactly what ``_mask_bias`` does.  A ring wider
+  than its window (a cache made elsewhere) takes the JAX route.
 
 ``tests/test_torch_decode.py::test_cache_routes_equal_the_mask_bias_route``
-holds each cache route against ``_mask_bias`` + ``_sdpa`` over the same
-cache.  ``attn_fn`` and ``decode_fn`` replace the two kernels (the plain
-versions, to hold the kernels' path against them on the card).  What the
-routes do not take (non-causal, a softcap, one token without a cache, a
-windowed ring cache, a prefill longer than the cache, a cache not vouched
-gapless) goes through ``_mask_bias`` + ``_sdpa``, the JAX route.
+holds each cache route, global and ring, against ``_mask_bias`` + ``_sdpa``
+over the same cache.  ``attn_fn`` and ``decode_fn`` replace the two kernels
+(the plain versions, to hold the kernels' path against them on the card).
+What the routes do not take (non-causal, a softcap, one token without a
+cache, a prefill longer than the cache, a cache not vouched gapless) goes
+through ``_mask_bias`` + ``_sdpa``, the JAX route.  A prefill longer than a
+ring writes S positions into C slots, so the early queries lose their keys
+and duplicate slots scatter in no fixed order, as in the JAX model
+(ROADMAP.md, "Known reference faults").
 
 MLA (Multi-head Latent Attention, DeepSeek-V3) caches only the compressed
 latent ``ckv`` and the shared RoPE key ``krope`` (per layer ``{"ckv": (B,
@@ -68,7 +79,7 @@ import torch
 from ..kernels import ops
 from ..kernels.flash_attention import flash_attention_trainable
 from .config import ModelConfig
-from .layers import apply_rope, dense_apply, dense_init, torch_dtype
+from .layers import Layers, apply_rope, dense_apply, dense_init, torch_dtype
 
 __all__ = ["gqa_init", "gqa_apply", "make_cache", "mla_init", "mla_apply", "make_mla_cache",
            "AttnFn", "DecodeFn"]
@@ -80,7 +91,7 @@ DecodeFn = Callable[[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor], to
 
 
 def gqa_init(gen: torch.Generator, cfg: ModelConfig, device: torch.device,
-             layers: Optional[int] = None) -> Dict:
+             layers: Layers = None) -> Dict:
     dt = torch_dtype(cfg.dtype)
     d, hq, hk, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     return {
@@ -188,7 +199,8 @@ def gqa_apply(
         _ring_write(cache, k, v, positions, window)
 
     kernel_ok = causal and cfg.attn_logit_softcap is None
-    over_cache = gapless and cache is not None and window is None
+    over_cache = (gapless and cache is not None
+                  and (window is None or cache["k"].shape[1] <= window))
     if kernel_ok and S > 1 and (cache is None or over_cache and S <= cache["k"].shape[1]):
         fn = attn_fn or flash_attention_trainable
         out = fn(q.contiguous(), k.contiguous(), v.contiguous(), causal=True, window=window)

@@ -4,13 +4,16 @@ and rotary embeddings.
 Plain functions on tensors, with parameters held in dictionaries laid out
 as in the JAX package's ``models/layers.py``, so JAX weights load as they
 are.  The ``*_init`` functions take ``layers=n`` to stack ``n`` blocks' leaves
-over a leading layer axis, as the JAX model's ``vmap``-ed init does.
+over a leading layer axis, as the JAX model's ``vmap``-ed init does, or a
+tuple of leading axes (a hybrid group's ``(groups, blocks)``); matrices are
+drawn one at a time (:func:`stacked_normal`), so no float32 copy of a whole
+stack is made.
 M-RoPE comes with the qwen2-vl family (ROADMAP.md, "Remaining model
 families").
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -19,7 +22,8 @@ import torch.nn.functional as F
 from .config import ModelConfig
 
 __all__ = [
-    "torch_dtype", "dense_init", "dense_apply", "norm_init", "norm_apply",
+    "torch_dtype", "Layers", "lead_axes", "stacked_normal", "dense_init", "dense_apply",
+    "norm_init", "norm_apply",
     "activation", "mlp_init", "mlp_apply", "embed_init", "rope_freqs",
     "apply_rope",
 ]
@@ -33,20 +37,40 @@ def torch_dtype(name: str) -> torch.dtype:
     return dt
 
 
-def _lead(layers: Optional[int]) -> Tuple[int, ...]:
-    return () if layers is None else (layers,)
+Layers = Optional[Union[int, Tuple[int, ...]]]
+
+
+def lead_axes(layers: Layers) -> Tuple[int, ...]:
+    """The leading stack axes ``layers`` names: none, one or a tuple."""
+    if layers is None:
+        return ()
+    return tuple(layers) if isinstance(layers, tuple) else (layers,)
+
+
+def stacked_normal(gen: torch.Generator, lead: Tuple[int, ...], shape: Tuple[int, ...],
+                   scale: float, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """A ``lead + shape`` tensor of normal draws times ``scale`` in ``dtype``,
+    drawn one ``shape`` matrix at a time so that no float32 copy of the whole
+    stack is ever made: Qwen-MoE's stacked ``wi`` is (24, 60, 2048, 1408),
+    16.6 GB in float32."""
+    out = torch.empty(lead + shape, dtype=dtype, device=device)
+    flat = out.view((-1,) + shape)
+    for i in range(flat.shape[0]):
+        flat[i] = (torch.randn(shape, generator=gen, dtype=torch.float32, device=device)
+                   * scale).to(dtype)
+    return out
 
 
 # -- dense ----------------------------------------------------------------------
 def dense_init(gen: torch.Generator, in_dim: int, out_dim: int, dtype: torch.dtype,
                device: torch.device, bias: bool = False, scale: Optional[float] = None,
-               layers: Optional[int] = None) -> Dict[str, torch.Tensor]:
+               layers: Layers = None) -> Dict[str, torch.Tensor]:
+    """``w`` (in_dim, out_dim) ~ N(0, 1) * scale (1/sqrt(in_dim) unless
+    given), stacked over ``layers`` one matrix at a time."""
     scale = scale if scale is not None else 1.0 / np.sqrt(in_dim)
-    shape = _lead(layers) + (in_dim, out_dim)
-    w = torch.randn(shape, generator=gen, dtype=torch.float32, device=device) * scale
-    p = {"w": w.to(dtype)}
+    p = {"w": stacked_normal(gen, lead_axes(layers), (in_dim, out_dim), scale, dtype, device)}
     if bias:
-        p["b"] = torch.zeros(_lead(layers) + (out_dim,), dtype=dtype, device=device)
+        p["b"] = torch.zeros(lead_axes(layers) + (out_dim,), dtype=dtype, device=device)
     return p
 
 
@@ -59,12 +83,12 @@ def dense_apply(p: Dict[str, torch.Tensor], x: torch.Tensor) -> torch.Tensor:
 
 # -- normalisation ----------------------------------------------------------------
 def norm_init(cfg: ModelConfig, device: torch.device, dim: Optional[int] = None,
-              layers: Optional[int] = None) -> Dict[str, torch.Tensor]:
+              layers: Layers = None) -> Dict[str, torch.Tensor]:
     dim = dim or cfg.d_model
     dt = torch_dtype(cfg.dtype)
     if cfg.norm == "nonparametric":        # OLMo-style non-parametric LN
         return {}
-    shape = _lead(layers) + (dim,)
+    shape = lead_axes(layers) + (dim,)
     p = {"scale": torch.ones(shape, dtype=dt, device=device)}
     if cfg.norm == "layernorm":            # with bias
         p["bias"] = torch.zeros(shape, dtype=dt, device=device)
@@ -102,7 +126,7 @@ def activation(name: str) -> Callable[[torch.Tensor], torch.Tensor]:
 
 
 def mlp_init(gen: torch.Generator, cfg: ModelConfig, device: torch.device,
-             d_ff: Optional[int] = None, layers: Optional[int] = None) -> Dict:
+             d_ff: Optional[int] = None, layers: Layers = None) -> Dict:
     d_ff = d_ff or cfg.d_ff
     dt = torch_dtype(cfg.dtype)
     p = {"wi": dense_init(gen, cfg.d_model, d_ff, dt, device, layers=layers)}

@@ -45,25 +45,11 @@ import torch
 import torch.nn.functional as F
 
 from .config import ModelConfig
-from .layers import activation, dense_apply, torch_dtype
+from .layers import activation, dense_apply, stacked_normal, torch_dtype
 
 __all__ = ["moe_init", "moe_apply", "SORT_GROUPS"]
 
 SORT_GROUPS = 32   # the JAX package's sort groups (aligned with its dp extent)
-
-
-def _stacked_normal(gen: torch.Generator, lead: Tuple[int, ...], shape: Tuple[int, ...],
-                    scale: float, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
-    """A ``lead + shape`` tensor of normal draws times ``scale`` in ``dtype``,
-    drawn one ``shape`` matrix at a time so that no float32 copy of the whole
-    stack is ever made: Qwen-MoE's stacked ``wi`` is (24, 60, 2048, 1408),
-    16.6 GB in float32."""
-    out = torch.empty(lead + shape, dtype=dtype, device=device)
-    flat = out.view((-1,) + shape)
-    for i in range(flat.shape[0]):
-        flat[i] = (torch.randn(shape, generator=gen, dtype=torch.float32, device=device)
-                   * scale).to(dtype)
-    return out
 
 
 def moe_init(gen: torch.Generator, cfg: ModelConfig, device: torch.device,
@@ -77,19 +63,19 @@ def moe_init(gen: torch.Generator, cfg: ModelConfig, device: torch.device,
     d, E, f = cfg.d_model, m.n_experts, m.d_expert
     lead = () if layers is None else (layers,)
     p = {
-        "router": {"w": _stacked_normal(gen, lead, (d, E), 1.0 / np.sqrt(d), dt, device)},
+        "router": {"w": stacked_normal(gen, lead, (d, E), 1.0 / np.sqrt(d), dt, device)},
         "experts": {
-            "wi": _stacked_normal(gen, lead + (E,), (d, f), 1.0 / np.sqrt(d), dt, device),
-            "wg": _stacked_normal(gen, lead + (E,), (d, f), 1.0 / np.sqrt(d), dt, device),
-            "wo": _stacked_normal(gen, lead + (E,), (f, d), 1.0 / np.sqrt(f), dt, device),
+            "wi": stacked_normal(gen, lead + (E,), (d, f), 1.0 / np.sqrt(d), dt, device),
+            "wg": stacked_normal(gen, lead + (E,), (d, f), 1.0 / np.sqrt(d), dt, device),
+            "wo": stacked_normal(gen, lead + (E,), (f, d), 1.0 / np.sqrt(f), dt, device),
         },
     }
     if m.n_shared_experts:
         fs = m.n_shared_experts * f
         p["shared"] = {
-            "wi": {"w": _stacked_normal(gen, lead, (d, fs), 1.0 / np.sqrt(d), dt, device)},
-            "wg": {"w": _stacked_normal(gen, lead, (d, fs), 1.0 / np.sqrt(d), dt, device)},
-            "wo": {"w": _stacked_normal(gen, lead, (fs, d), 1.0 / np.sqrt(fs), dt, device)},
+            "wi": {"w": stacked_normal(gen, lead, (d, fs), 1.0 / np.sqrt(d), dt, device)},
+            "wg": {"w": stacked_normal(gen, lead, (d, fs), 1.0 / np.sqrt(d), dt, device)},
+            "wo": {"w": stacked_normal(gen, lead, (fs, d), 1.0 / np.sqrt(fs), dt, device)},
         }
     return p
 

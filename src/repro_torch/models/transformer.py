@@ -7,11 +7,14 @@ package; a Python loop over layers takes the place of ``lax.scan``.
 
 Ported: the ``dense`` family (one ``"attn"`` segment of GQA + MLP blocks,
 trained, and served with a KV cache), the ``ssm`` family (one ``"rwkv"``
-segment of RWKV6 blocks, served and trained) and the ``moe`` family (an
+segment of RWKV6 blocks, served and trained), the ``moe`` family (an
 optional segment of ``n_dense_layers`` dense blocks, then a ``moe=True``
 segment whose blocks take a mixture of experts for their MLP; attention
 GQA or MLA; served, and its auxiliary load-balance loss flows through
-``LM.loss``).  The other families raise ``NotImplementedError``; they are
+``LM.loss``) and the ``hybrid`` family (RecurrentGemma: ``"group"``
+segments of ``n_rec`` RG-LRU blocks, then a local-attention block when
+``has_attn``; for 38 layers, (rec, rec, attn) x 12 then (rec, rec) x 1;
+served).  The other families raise ``NotImplementedError``; they are
 queued in ROADMAP.md ("Remaining model families").  Activation
 checkpointing (``remat`` other than ``"none"``) is queued too.
 
@@ -24,6 +27,8 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Any, Dict, List, Optional, Tuple, Union
 
+import dataclasses
+
 import torch
 from torch.utils.checkpoint import checkpoint
 
@@ -33,7 +38,8 @@ from .attention import (AttnFn, DecodeFn, gqa_apply, gqa_init, make_cache, make_
 from .config import ModelConfig
 from .layers import embed_init, mlp_apply, mlp_init, norm_apply, norm_init, torch_dtype
 from .moe import moe_apply, moe_init
-from .recurrent import MixFn, rwkv6_apply, rwkv6_init, rwkv6_state
+from .recurrent import (MixFn, rglru_apply, rglru_init, rglru_state, rwkv6_apply, rwkv6_init,
+                        rwkv6_state)
 
 __all__ = ["Segment", "LM", "build_segments", "MOE_AUX_WEIGHT"]
 
@@ -42,10 +48,12 @@ MOE_AUX_WEIGHT = 0.01
 
 @dataclass(frozen=True)
 class Segment:
-    kind: str                     # "attn" | "rwkv"
-    n: int                        # layers
+    kind: str                     # "attn" | "rwkv" | "group"
+    n: int                        # layers, or groups for "group"
     moe: bool = False             # a mixture of experts for the MLP ("attn")
-    window: Optional[int] = None  # local-attention window ("attn")
+    window: Optional[int] = None  # local-attention window ("attn", "group")
+    n_rec: int = 0                # recurrent blocks per group ("group")
+    has_attn: bool = True         # the group ends in an attention block ("group")
 
 
 def build_segments(cfg: ModelConfig) -> List[Segment]:
@@ -57,6 +65,14 @@ def build_segments(cfg: ModelConfig) -> List[Segment]:
         return segs + [Segment("attn", cfg.n_layers - m.n_dense_layers, moe=True, window=w)]
     if cfg.family == "ssm" and cfg.recurrent is not None and cfg.recurrent.kind == "rwkv6":
         return [Segment("rwkv", cfg.n_layers)]
+    if cfg.family == "hybrid" and cfg.recurrent is not None and cfg.recurrent.kind == "rglru":
+        pat, w = cfg.recurrent.pattern, cfg.attn_window
+        n_rec = sum(1 for kind in pat if kind == "rec")
+        groups, tail = divmod(cfg.n_layers, len(pat))
+        segs = [Segment("group", groups, window=w, n_rec=n_rec, has_attn="attn" in pat)]
+        if tail:
+            segs.append(Segment("group", 1, window=w, n_rec=tail, has_attn=False))
+        return segs
     raise NotImplementedError(
         f"family {cfg.family!r} is not ported yet; see ROADMAP.md, queue 1, "
         "'Remaining model families'"
@@ -114,6 +130,22 @@ class LM:
         cfg, dev, n = self.cfg, self.device, seg.n
         if seg.kind == "rwkv":
             return {"block": rwkv6_init(gen, cfg, n, dev)}
+        if seg.kind == "group":
+            lead = (n, seg.n_rec)
+            p = {"rec": {
+                "norm1": norm_init(cfg, dev, layers=lead),
+                "rec": rglru_init(gen, cfg, dev, layers=lead),
+                "norm2": norm_init(cfg, dev, layers=lead),
+                "ffn": mlp_init(gen, cfg, dev, layers=lead),
+            }}
+            if seg.has_attn:
+                p["attn"] = {
+                    "norm1": norm_init(cfg, dev, layers=n),
+                    "norm2": norm_init(cfg, dev, layers=n),
+                    "attn": gqa_init(gen, cfg, dev, layers=n),
+                    "ffn": mlp_init(gen, cfg, dev, layers=n),
+                }
+            return p
         attn = mla_init if cfg.attention == "mla" else gqa_init
         return {
             "norm1": norm_init(cfg, dev, layers=n),
@@ -139,21 +171,36 @@ class LM:
         return params
 
     # ------------------------------------------------------------------ cache --
-    def init_cache(self, batch: int, capacity: int) -> List[Dict[str, torch.Tensor]]:
+    def init_cache(self, batch: int, capacity: int) -> List[Dict[str, Any]]:
         """Per-segment decode caches and states, stacked over layers: a KV
         cache of ``capacity`` slots (a local-attention segment keeps at most
-        its window), MLA's latent cache, or the RWKV6 state, which does not
-        grow with the sequence."""
-        caches = []
+        its window, as a ring), MLA's latent cache, the RWKV6 state, or a
+        group's ``{"rec": RG-LRU states (groups, n_rec, B, ...), "attn": KV
+        ring (groups, B, ...)}``; the recurrent states do not grow with the
+        sequence.  :meth:`cache_batch_axes` says where the batch axis is."""
+        cfg, dev = self.cfg, self.device
+        caches: List[Dict[str, Any]] = []
         for seg in self.segments:
-            if seg.kind == "attn" and self.cfg.attention == "mla":
-                caches.append(make_mla_cache(self.cfg, batch, capacity, seg.n, self.device))
+            cap = min(capacity, seg.window) if seg.window else capacity
+            if seg.kind == "attn" and cfg.attention == "mla":
+                caches.append(make_mla_cache(cfg, batch, capacity, seg.n, dev))
             elif seg.kind == "attn":
-                cap = min(capacity, seg.window) if seg.window else capacity
-                caches.append(make_cache(self.cfg, batch, cap, seg.n, self.device))
+                caches.append(make_cache(cfg, batch, cap, seg.n, dev))
+            elif seg.kind == "group":
+                cache = {"rec": rglru_state(cfg, batch, (seg.n, seg.n_rec), dev)}
+                if seg.has_attn:
+                    cache["attn"] = make_cache(cfg, batch, cap, seg.n, dev)
+                caches.append(cache)
             else:
-                caches.append(rwkv6_state(self.cfg, batch, seg.n, self.device))
+                caches.append(rwkv6_state(cfg, batch, seg.n, dev))
         return caches
+
+    def cache_batch_axes(self) -> List[Any]:
+        """The batch axis of every leaf of :meth:`init_cache`'s caches, one
+        entry a segment: an int for every leaf below it, or a dictionary by
+        key.  Axis 1 under the layer axis; 2 for a group's RG-LRU states,
+        stacked over (groups, blocks)."""
+        return [{"rec": 2, "attn": 1} if seg.kind == "group" else 1 for seg in self.segments]
 
     # ----------------------------------------------------------------- blocks --
     def _apply_attn_block(self, seg: Segment, p, x, positions, cache, gapless, aux):
@@ -172,6 +219,31 @@ class LM:
             return x + f, aux + aux_l
         return x + mlp_apply(cfg, p["ffn"], h2), aux
 
+    def _apply_rec_block(self, p, x, state):
+        """One RG-LRU block with its GeGLU MLP; a new state is written into
+        ``state`` in place."""
+        cfg = self.cfg
+        h = norm_apply(cfg, p["norm1"], x)
+        r, new = rglru_apply(cfg, p["rec"], h, state)
+        if state is not None:
+            for key, val in new.items():
+                state[key].copy_(val)
+        x = x + r
+        h2 = norm_apply(cfg, p["norm2"], x)
+        return x + mlp_apply(cfg, p["ffn"], h2)
+
+    def _apply_group(self, seg: Segment, p, x, positions, cache, gapless, aux):
+        """A hybrid group: ``n_rec`` RG-LRU blocks, then (``has_attn``) a
+        local-attention block over the group's KV ring."""
+        for j, pj in enumerate(_unstack(p["rec"], seg.n_rec)):
+            state = _layer(cache["rec"], j) if cache is not None else None
+            x = self._apply_rec_block(pj, x, state)
+        if seg.has_attn:
+            kv = cache["attn"] if cache is not None else None
+            x, aux = self._apply_attn_block(dataclasses.replace(seg, moe=False), p["attn"], x,
+                                            positions, kv, gapless, aux)
+        return x, aux
+
     # ----------------------------------------------------------------- driver --
     def backbone(self, params, tokens: torch.Tensor, positions: Optional[torch.Tensor] = None,
                  caches=None):
@@ -181,7 +253,8 @@ class LM:
         ``(hidden (B,S,d), caches, aux)``, as the JAX ``backbone`` does; with
         caches, each layer's new state is written into them in place.
         ``aux`` is the auxiliary (MoE) loss summed over the layers, an f32
-        scalar on the device (0 without a mixture of experts).
+        scalar on the device (0 without a mixture of experts).  The RG-LRU
+        blocks carry their state and read no position.
         Attention over a cache takes the kernel route only for positions it
         makes itself (a prefill from 0); given positions take the JAX route
         (``models/attention.py``)."""
@@ -204,6 +277,9 @@ class LM:
                 layer = _layer(cache, i) if cache is not None else None
                 if seg.kind == "attn":
                     x, aux = self._apply_attn_block(seg, p, x, positions, layer, gapless, aux)
+                    continue
+                if seg.kind == "group":
+                    x, aux = self._apply_group(seg, p, x, positions, layer, gapless, aux)
                     continue
                 x, new = rwkv6_apply(cfg, p["block"], x, layer, mix_fn=self.mix_fn)
                 if layer is not None:
@@ -264,13 +340,15 @@ class LM:
 
     def decode_step(self, params, tokens: torch.Tensor, pos: torch.Tensor, caches):
         """One decode step.  tokens: (B,), pos: (B,) absolute position of
-        each token (read by attention; the RWKV6 state carries its own).
+        each token (read by attention; the RWKV6 and RG-LRU states carry
+        their own).
 
         The caller keeps the invariant the ``ServingEngine`` keeps: each
         row's cache holds its sequence's positions ``0..pos-1`` with no gap
-        (written by ``prefill`` and the steps since; a position past the
-        cache's end is written to its last slot).  Attention then reads
-        slots ``[0, min(pos + 1, C))`` through the decode kernel.  Use
+        (written by ``prefill`` and the steps since; a position past a
+        global cache's end is written to its last slot, a ring cache wraps).
+        Attention then reads slots ``[0, min(pos + 1, C))`` through the
+        decode kernel.  Use
         ``backbone`` with explicit positions for anything else."""
         hidden, caches, _ = self._backbone(params, tokens[:, None], pos[:, None], caches,
                                            gapless=True)

@@ -12,7 +12,12 @@ co-batched sequences.
 Where the JAX engine donates the old cache to each jitted call, this one
 updates the state tensors in place: the model writes each layer's new state
 into them, and a splice copies every leaf of a request's state into its
-slot.  As in the JAX engine, an on-device ``pos`` holds each slot's next
+slot, along the batch axis the model names for it
+(``LM.cache_batch_axes``): axis 1 under a layer axis, axis 2 for a hybrid
+group's RG-LRU states, stacked over (groups, blocks).  (The JAX engine
+splices every leaf along axis 1, which for a group's RG-LRU states is the
+block axis: it serves the hybrid family wrongly; ROADMAP.md, "Known
+reference faults".)  As in the JAX engine, an on-device ``pos`` holds each slot's next
 position: set when a request is added, advanced for every slot, busy or
 idle, after each step.
 """
@@ -30,6 +35,17 @@ from ..device import synchronize
 from ..models.transformer import LM
 
 __all__ = ["ServingEngine", "measure_interference"]
+
+
+def _splice(full, one, axis, slot: int) -> None:
+    """Copy batch row 0 of every leaf of ``one`` into row ``slot`` of the
+    same leaf of ``full``, in place.  ``axis`` is the batch axis, an int for
+    every leaf below it or a dictionary by key (``LM.cache_batch_axes``)."""
+    if isinstance(full, dict):
+        for key in full:
+            _splice(full[key], one[key], axis[key] if isinstance(axis, dict) else axis, slot)
+    else:
+        full.select(axis, slot).copy_(one.select(axis, 0))
 
 
 @dataclass
@@ -75,9 +91,8 @@ class ServingEngine:
         logits, tmp_cache = self.model.prefill(
             self.params, {"tokens": prompt}, tmp_cache)
         # splice the single-request state into this slot, in place
-        for full, one in zip(self.caches, tmp_cache):
-            for key in full:
-                full[key][:, slot].copy_(one[key][:, 0])
+        for full, one, axis in zip(self.caches, tmp_cache, self.model.cache_batch_axes()):
+            _splice(full, one, axis, slot)
         first = int(torch.argmax(logits[0]))
         st = self.slots[slot]
         st.request_id = request_id

@@ -67,6 +67,7 @@ def _np(t):
     (1, 256, 4, 1, 32, True, 128),
     (1, 128, 8, 2, 64, False, None),
     (1, 200, 4, 4, 128, False, 64),
+    (1, 128, 16, 1, 256, True, 64),       # RecurrentGemma's heads: MQA, D=256, a window
 ])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_ops_attention_matches_jax_kernel_and_ref(B, S, Hq, Hk, D, causal, window, dtype):
@@ -129,6 +130,7 @@ def test_kernel_wrapper_rejects_what_it_does_not_take():
     (1, 100, 64, 1, (64, 1, 1, 100, 100)),      # g=64: one token of 64 heads a block
     (2, 100, 6, 2, (3, 21, 1, 5, 20)),          # g=3: 63 of 64 rows busy
     (1, 9, 160, 1, (64, 1, 3, 9, 27)),          # g > 64: three head chunks
+    (1, 512, 16, 1, (16, 4, 1, 128, 128)),      # RecurrentGemma's prefill: 4 tokens x 16 heads
 ])
 def test_tile_plan_covers_every_row_once(B, S, Hq, Hk, want):
     """The bf16 kernel's blocks: heads_per_block x tokens_per_block rows of

@@ -58,6 +58,7 @@ def _np(t):
     (3, 256, 4, 4, 128),
     (1, 1024, 16, 1, 64),
     (2, 256, 8, 8, 32),
+    (2, 256, 16, 1, 256),      # RecurrentGemma's heads: MQA with g = 16, D=256
 ])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_decode_attention_matches_jax_kernel_and_ref(B, C, Hq, Hk, D, dtype):
@@ -127,6 +128,15 @@ def test_split_plan_covers_the_cache(B, Hk, C, n_sm):
     assert B * Hk * nsplit >= min(2 * n_sm, B * Hk * -(-C // 64)) // 2
 
 
+@pytest.mark.parametrize("B,Hk,C,want", [
+    (8, 1, 1024, (256, 4)),      # RecurrentGemma's decode: four tiles a split
+    (1, 1, 2048, (256, 8)),      # past its ring's wrap
+    (1, 1, 100, (128, 1)),       # a cache shorter than four tiles: one split
+])
+def test_split_plan_holds_four_tiles_at_d256(B, Hk, C, want):
+    assert split_plan(B, Hk, C, 132, D=256) == want
+
+
 # -- the cache routes of gqa_apply against the JAX model's mask-bias route ------------
 @pytest.fixture(scope="module")
 def attn_pair():
@@ -166,21 +176,36 @@ def _never(*args, **kwargs):
 
 
 C_ROUTE = 16
-# name -> (cache rows, query positions (B, S)); C_ROUTE slots per row
+# name -> (cache rows, query positions (B, S), window); C_ROUTE slots per
+# row; a window makes the cache a ring written at p % C
 ROUTE_CASES = {
     # fresh slots: a prompt of P tokens at slots 0..P-1, decode at P
-    "fresh": ([[(i, i) for i in range(5)], [(i, i) for i in range(11)]], [[5], [11]]),
+    "fresh": ([[(i, i) for i in range(5)], [(i, i) for i in range(11)]], [[5], [11]], None),
     # a reused slot: slots past the new request's prompt still hold an older,
     # longer request's entries (positions above the query's)
     "reused": ([[(i, i) for i in range(13)], [(i, i) for i in range(3)] +
-                [(i, i) for i in range(3, 9)]], [[4], [3]]),
+                [(i, i) for i in range(3, 9)]], [[4], [3]], None),
     # an idle slot run past C: every slot full, the last one rewritten by
     # each clipped write; the query sees all C slots
     "idle past C": ([[(i, i) for i in range(C_ROUTE - 1)] + [(C_ROUTE - 1, 20)]] * 2,
-                    [[21], [C_ROUTE + 40]]),
+                    [[21], [C_ROUTE + 40]], None),
     # a prefill of S tokens from position 0 into a cache that holds an older
     # request's entries at positions >= S
-    "prefill": ([[(i, i) for i in range(14)], []], [list(range(6))] * 2),
+    "prefill": ([[(i, i) for i in range(14)], []], [list(range(6))] * 2, None),
+    # a ring (window = C) before its wrap: a global cache in all but name
+    "ring before wrap": ([[(i, i) for i in range(5)], [(i, i) for i in range(15)]],
+                         [[5], [15]], C_ROUTE),
+    # a ring past its wrap: the last C positions, out of slot order; the
+    # write at p % C replaces the oldest, and every slot is in the window
+    "ring past wrap": ([[(p % C_ROUTE, p) for p in range(5, 21)],
+                        [(p % C_ROUTE, p) for p in range(24, 40)]], [[21], [40]], C_ROUTE),
+    # an idle slot run past C in a ring narrower than its window (capacity
+    # below the window), one row far past the wrap, one at p = C exactly
+    "ring idle past C": ([[(p % C_ROUTE, p) for p in range(84, 100)],
+                          [(p, p) for p in range(C_ROUTE)]], [[100], [C_ROUTE]], 40),
+    # a prefill from position 0 into a ring that holds an older request's
+    # entries
+    "ring prefill": ([[(i, i) for i in range(14)], []], [list(range(6))] * 2, C_ROUTE),
 }
 
 
@@ -188,10 +213,11 @@ ROUTE_CASES = {
 def test_cache_routes_equal_the_mask_bias_route(attn_pair, case):
     """The port's decode route (``ops.decode_attention`` with lengths =
     min(pos + 1, C)) and prefill route (``flash_attention_trainable`` over
-    the new tokens) equal the JAX model's ``_mask_bias`` + ``_sdpa`` over the
-    same cache, and leave the same cache behind."""
+    the new tokens), over a global cache and over a ring, equal the JAX
+    model's ``_mask_bias`` + ``_sdpa`` over the same cache, and leave the
+    same cache behind."""
     jcfg, jp, cfg, p = attn_pair
-    rows, positions = ROUTE_CASES[case]
+    rows, positions, window = ROUTE_CASES[case]
     cache = _cache_rows(cfg, C_ROUTE, rows, seed=4)
     positions = np.asarray(positions, np.int32)
     B, S = positions.shape
@@ -208,8 +234,8 @@ def test_cache_routes_equal_the_mask_bias_route(attn_pair, case):
         return ops.attention(q, k, v, causal=causal, window=window)
 
     got, new = gqa_apply(cfg, p, _t(x), torch.from_numpy(positions), cache=tcache,
-                         attn_fn=attn_fn, decode_fn=decode_fn, gapless=True)
-    want, jnew = jax_gqa_apply(jcfg, jp, jnp.asarray(x), jnp.asarray(positions),
+                         window=window, attn_fn=attn_fn, decode_fn=decode_fn, gapless=True)
+    want, jnew = jax_gqa_apply(jcfg, jp, jnp.asarray(x), jnp.asarray(positions), window=window,
                                cache={key: jnp.asarray(val) for key, val in cache.items()})
     if S == 1:
         assert seen == [np.minimum(positions[:, 0] + 1, C_ROUTE).tolist()]
@@ -221,11 +247,18 @@ def test_cache_routes_equal_the_mask_bias_route(attn_pair, case):
 
 
 def test_windowed_cache_and_softcap_take_the_jax_route(attn_pair):
+    """A softcap, and a prefill longer than its ring (12 positions into 8
+    slots: later positions overwrite earlier ones in the same slot, both
+    sides writing in position order on the CPU), take ``_mask_bias`` +
+    ``_sdpa`` and equal the JAX model."""
     jcfg, jp, cfg, p = attn_pair
-    cache = _cache_rows(cfg, 8, [[(i % 8, i) for i in range(5, 12)]], seed=6)
-    x = np.random.default_rng(7).standard_normal((1, 1, cfg.d_model)).astype(np.float32)
-    pos = np.asarray([[12]], np.int32)
-    for window, softcap in ((8, None), (None, 30.0)):
+    rng = np.random.default_rng(7)
+    softcap_case = (_cache_rows(cfg, 8, [[(i, i) for i in range(5)]], seed=6),
+                    np.asarray([[5]], np.int32), None, 30.0)
+    ring_case = (_cache_rows(cfg, 8, [[]], seed=6), np.arange(12, dtype=np.int32)[None], 8,
+                 None)
+    for cache, pos, window, softcap in (softcap_case, ring_case):
+        x = rng.standard_normal((1, pos.shape[1], cfg.d_model)).astype(np.float32)
         jc = dataclasses.replace(jcfg, attn_logit_softcap=softcap)
         c = dataclasses.replace(cfg, attn_logit_softcap=softcap)
         got, new = gqa_apply(c, p, _t(x), torch.from_numpy(pos), window=window,

@@ -184,6 +184,13 @@ def _attn_inputs(seed, B, S, Hq, Hk, D, dtype, device):
     (1, 97, 16, 16, 128, True, None),
     (1, 300, 96, 8, 128, True, None),
     (1, 65, 96, 8, 128, True, None),
+    # RecurrentGemma's heads (MQA, g=16: 4 tokens x 16 heads a block, D=256)
+    # at its served prefill with its 2048-token window, a window that masks
+    # (starting mid-tile, S ragged), a non-causal case and two kv heads
+    (1, 512, 16, 1, 256, True, 2048),
+    (1, 1100, 16, 1, 256, True, 300),
+    (1, 70, 16, 1, 256, False, None),
+    (2, 129, 32, 2, 256, True, 64),
 ])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_attention_kernel_matches_plain_version(cuda_device, B, S, Hq, Hk, D, causal,
@@ -303,6 +310,13 @@ DECODE_CASES = [
     # first step's lengths, and command-r-plus's g=12
     (8, 1024, 16, 16, 128, [65, 129, 81, 201, 513, 17, 34, 257]),
     (4, 1024, 96, 8, 128, [1, 1024, 700, 33]),
+    # RecurrentGemma's decode (MQA, g=16 fills the 16 mma rows, D=256) at its
+    # first step's lengths, past the ring's wrap (every slot valid), a ragged
+    # C and two kv heads
+    (8, 1024, 16, 1, 256, [65, 129, 81, 201, 513, 17, 34, 257]),
+    (1, 2048, 16, 1, 256, [2048]),
+    (3, 100, 16, 1, 256, [1, 100, 37]),
+    (2, 300, 32, 2, 256, [300, 64]),
 ]
 
 

@@ -148,13 +148,11 @@ def test_entry_points_need_a_card_unless_told_cpu(monkeypatch):
 
 
 def test_unported_families_say_where_they_are_queued():
-    cfg = reduced(get_config("rwkv6-3b"))
+    cfg = reduced(get_config("qwen1.5-0.5b"))
     import dataclasses
-    from repro_torch.models import RecurrentConfig
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        LM(dataclasses.replace(cfg, family="hybrid",
-                               recurrent=RecurrentConfig(kind="rglru",
-                                                         pattern=("rec", "rec", "attn"))),
-           device="cpu")
-    with pytest.raises(KeyError, match="ROADMAP"):
-        get_config("whisper-tiny")
+    for family in ("audio", "vlm"):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            LM(dataclasses.replace(cfg, family=family), device="cpu")
+    for arch in ("whisper-tiny", "qwen2-vl-72b"):
+        with pytest.raises(KeyError, match="ROADMAP"):
+            get_config(arch)
