@@ -104,14 +104,42 @@ Phases, each failing the run with a non-zero exit if anything is wrong:
              the decode kernel layer by layer at a step after it; fits
              ``T = m*k + c``; profiles a decode step beside its bound.
              Prints a ``hybrid`` line.
+12. vlm-audio (a) serves the same requests through ``ServingEngine`` on
+             Qwen2-VL-72B at published width (64 query heads of 128 over 8
+             kv heads, QKV bias, d_ff 29568, vocab 152064) cut to 24 of
+             its 80 layers (47.1 GB of bf16 weights; text: RoPE on
+             positions, which is M-RoPE for text), checks every prefill
+             ran the attention kernel 24 times and every decode step the
+             decode kernel 24 times at g = 8, holds both kernels layer by
+             layer and the whole model's logits as phase 10 does, then one
+             prefill and 4 decode steps with image-then-text M-RoPE ids
+             (t, h and w differ) held the same way, and profiles a decode
+             step beside its bound; (b) trains it cut to 4 layers (B=1,
+             S=2048, 4 AdamW steps through ``make_train_step`` on the
+             trainer's batches with text ``position_ids``): the kernel in
+             every layer's forward, finite losses, step 1 against the
+             plain attention as phase 7 holds it; (c) trains Whisper-tiny
+             uncut through ``train()`` (B=8, S=448, Whisper's decoder
+             context, 6 steps; zero frames) as phase 7 trains; (d) decodes
+             Whisper-tiny through ``LM.prefill`` (the encoder over 8 x
+             1500 frames from a seed, a 4-token prompt) and 60 greedy
+             ``LM.decode_step``s over a 448-slot self cache and the
+             1500-slot cross cache: the attention kernel 4 times a
+             prefill, the decode kernel 4 times a step (D = 64, g = 1),
+             both held layer by layer and the whole model's logits.  The
+             encoder and cross-attention are plain torch, as the JAX
+             model leaves them to XLA.  Prints a ``vlm_audio`` line.
 
 Phase 3 runs the attention and decode kernels also at the MoE path's
 heads (Hq = Hk = 16, D = 128), at Command R+'s g = 12 (Hq = 96, Hk = 8) and
 at RecurrentGemma's (Hq = 16, Hk = 1, D = 256, window 2048: the hybrid
 prefill, the family's training length S = 4096 and the decode at the
-served lengths, a full cache and past the ring's wrap).
+served lengths, a full cache and past the ring's wrap), at Whisper's
+decoder (Hq = Hk = 6, D = 64: training at B=8, S=448, decode over its
+448-slot cache) and at Qwen2-VL's (Hq = 64, Hk = 8, D = 128: training at
+S = 2048, decode at the serving shape).
 
-The ``place``, ``stream``, ``moe`` and ``hybrid`` lines come before the
+The ``place``, ``stream``, ``moe``, ``hybrid`` and ``vlm_audio`` lines come before the
 ``kernels`` line.  The line before the last is a JSON object with each kernel's
 launches on its main paths (calls of its wrapper, by path and summed),
 the kernels a call runs on the card, its error against the plain version,
@@ -186,7 +214,7 @@ from repro_torch.kernels.flash_decode import smem_bytes as decode_smem_bytes  # 
 from repro_torch.kernels.ref import attention_ref, decode_attention_ref, rwkv6_ref  # noqa: E402
 from repro_torch.kernels.rwkv6_scan import KERNELS_PER_CALL as WKV_KERNELS_PER_CALL  # noqa: E402
 from repro_torch.kernels.rwkv6_scan import kernel_chunk, rwkv6_scan, smem_bytes  # noqa: E402
-from repro_torch.launch.train import train  # noqa: E402
+from repro_torch.launch.train import frontend_stubs, train  # noqa: E402
 from repro_torch.models import LM  # noqa: E402
 from repro_torch.models import moe as moe_module  # noqa: E402
 from repro_torch.models import recurrent as recurrent_module  # noqa: E402
@@ -242,7 +270,10 @@ ATTN_BF16_UPCAST_TOL = 5e-3
 # non-causal, ragged case at D=32, and RecurrentGemma's heads (MQA, g = 16:
 # 4 tokens x 16 heads a block, D=256, window 2048) at the hybrid serving
 # path's longest prefill and at the family's training length, where the
-# window masks (the JAX package's own kernel route for it)
+# window masks (the JAX package's own kernel route for it); Whisper's decoder
+# (MHA, g = 1, D=64) at its training shape (S = 448, a ragged last tile of
+# 64 tokens over 6 heads), and Qwen2-VL's heads (g = 8, D=128) at its
+# training length
 HYBRID_WINDOW = 2048
 ATTN_CASES = (
     (4, 2048, 16, 16, 64, True, None, (torch.bfloat16,)),
@@ -252,6 +283,8 @@ ATTN_CASES = (
     (1, 200, 4, 2, 32, False, 128, (torch.float32, torch.bfloat16)),
     (1, 512, 16, 1, 256, True, HYBRID_WINDOW, (torch.float32, torch.bfloat16)),
     (1, 4096, 16, 1, 256, True, HYBRID_WINDOW, (torch.float32, torch.bfloat16)),
+    (8, 448, 6, 6, 64, True, None, (torch.float32, torch.bfloat16)),
+    (1, 2048, 64, 8, 128, True, None, (torch.float32, torch.bfloat16)),
 )
 TRAIN_ARCH, TRAIN_B, TRAIN_S, TRAIN_STEPS = "qwen1.5-0.5b", 4, 2048, 6
 
@@ -264,8 +297,14 @@ DENSE_ARCH, SERVE_B, SERVE_C = "minitron-8b", 8, 1024
 # multiple of the 64-slot tile); lengths 1 and C; the MoE serving path's
 # heads (g = 1, one head in the 16 mma rows), Command R+'s g = 12, and the
 # hybrid serving path's (RecurrentGemma: MQA, g = 16 fills the 16 mma rows,
-# D=256) served, full, and past its 2048-slot ring's wrap.
+# D=256) served, full, and past its 2048-slot ring's wrap; Whisper's decoder
+# (MHA, g = 1, D=64) over its 448-slot self cache, and the vlm serving path's
+# (Qwen2-VL, g = 8) served.
 SERVE_LENGTHS = tuple(n + 1 for n in SERVE_PROMPTS[:SERVE_B])
+WHISPER_C = 448                    # Whisper's decoder context: its self cache
+WHISPER_PROMPT, WHISPER_NEW = 4, 60
+# the lengths of phase 12's last Whisper decode step, every row at its end
+WHISPER_LENGTHS = (WHISPER_PROMPT + WHISPER_NEW,) * SERVE_B
 DECODE_CASES = (
     (SERVE_B, SERVE_C, 32, 8, 128, SERVE_LENGTHS),
     (SERVE_B, SERVE_C, 32, 8, 128, (SERVE_C,) * SERVE_B),
@@ -276,6 +315,8 @@ DECODE_CASES = (
     (SERVE_B, SERVE_C, 16, 1, 256, SERVE_LENGTHS),
     (SERVE_B, SERVE_C, 16, 1, 256, (SERVE_C,) * SERVE_B),
     (1, HYBRID_WINDOW, 16, 1, 256, (HYBRID_WINDOW,)),
+    (SERVE_B, WHISPER_C, 6, 6, 64, (1, 64, WHISPER_C, 200, 5, 300, 447, 33)),
+    (SERVE_B, SERVE_C, 64, 8, 128, SERVE_LENGTHS),
 )
 # the decode kernel is timed over this many layers' caches in turn, so each
 # launch finds its K and V outside the 50 MB L2 as a decode step does
@@ -758,7 +799,9 @@ ATTN_TIMED = (("train", TRAIN_B, TRAIN_S, 16, 16, 64, None, 1, "events"),
               ("dense prefill", 1, 512, 32, 8, 128, None, 8, "device"),
               ("moe prefill", 1, 512, 16, 16, 128, None, 8, "device"),
               ("hybrid prefill", 1, 512, 16, 1, 256, HYBRID_WINDOW, 8, "device"),
-              ("hybrid train", 1, 4096, 16, 1, 256, HYBRID_WINDOW, 1, "events"))
+              ("hybrid train", 1, 4096, 16, 1, 256, HYBRID_WINDOW, 1, "events"),
+              ("whisper train", 8, WHISPER_C, 6, 6, 64, None, 8, "device"),
+              ("vlm train", 1, 2048, 64, 8, 128, None, 1, "events"))
 # the host's time per call is measured over this many back-to-back calls
 ATTN_HOST_CALLS = 200
 
@@ -1033,18 +1076,24 @@ def decode_phase(dev):
                   f"{list(lengths)} {str(dtype)[6:]}: max abs err {err:.3e} "
                   f"(tol {tol} abs+rel){upcast}", flush=True)
 
-    B, C, L = SERVE_B, SERVE_C, DECODE_TIMING_LAYERS
+    B, L = SERVE_B, DECODE_TIMING_LAYERS
     sdpa = torch.nn.functional.scaled_dot_product_attention
     timing = {}
     # the dense serving path's heads (Minitron-8B, g = 4), the MoE serving
-    # path's (Qwen-MoE, g = 1) and the hybrid's (RecurrentGemma, g = 16 at
-    # D=256), each served and full
-    for path, Hq, Hk, D in (("", 32, 8, 128), ("moe ", 16, 16, 128), ("hybrid ", 16, 1, 256)):
+    # path's (Qwen-MoE, g = 1), the hybrid's (RecurrentGemma, g = 16 at
+    # D=256), the vlm's (Qwen2-VL, g = 8) and Whisper's decoder (g = 1 at
+    # D=64 over its 448-slot cache, served at the lengths of its last decode
+    # step), each served and full
+    for path, C, served, Hq, Hk, D in (("", SERVE_C, SERVE_LENGTHS, 32, 8, 128),
+                                       ("moe ", SERVE_C, SERVE_LENGTHS, 16, 16, 128),
+                                       ("hybrid ", SERVE_C, SERVE_LENGTHS, 16, 1, 256),
+                                       ("vlm ", SERVE_C, SERVE_LENGTHS, 64, 8, 128),
+                                       ("whisper ", WHISPER_C, WHISPER_LENGTHS, 6, 6, 64)):
         q = torch.randn((L, B, Hq, D), generator=gen, device=dev).to(torch.bfloat16)
         k, v = (torch.randn((L, B, C, Hk, D), generator=gen, device=dev).to(torch.bfloat16)
                 for _ in range(2))
         kt, vt = (t.transpose(2, 3).contiguous() for t in (k, v))    # (L, B, Hk, C, D)
-        for lengths_name, lengths in (("served", SERVE_LENGTHS), ("full", (C,) * B)):
+        for lengths_name, lengths in (("served", served), ("full", (C,) * B)):
             name = path + lengths_name
             lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
             mask = (torch.arange(C, device=dev)[None, :] < lens[:, None])[:, None, None, :]
@@ -1096,15 +1145,17 @@ def plain_attention(q, k, v, causal=True, window=None):
                       causal=causal, window=window)
 
 
-def step_one(cfg, dev, attn_fn, f32=False):
+def step_one(cfg, dev, attn_fn, f32=False, shape=(TRAIN_B, TRAIN_S)):
     """Loss and gradient norm of the first training step of ``train()``
-    (bf16 weights from seed 0, the stream's first batch) through ``attn_fn``
-    (None: the kernel), in bf16 or in a float32 copy of the same weights."""
+    (bf16 weights from seed 0, the stream's first batch of ``shape`` with
+    the model's front-end stubs) through ``attn_fn`` (None: the kernel), in
+    bf16 or in a float32 copy of the same weights."""
     params = LM(cfg, device=dev).init(torch.Generator(device=dev).manual_seed(0))
     if f32:
         cfg = dataclasses.replace(cfg, dtype="float32")
         params = tree_map(lambda t: t.float(), params)
-    batch = to_device(next(iter(SyntheticLM(cfg.vocab, TRAIN_B, TRAIN_S, seed=0))), dev)
+    batch = to_device(frontend_stubs(cfg, next(iter(SyntheticLM(cfg.vocab, *shape, seed=0)))),
+                      dev)
     loss, _, grads = value_and_grad(LM(cfg, device=dev, attn_fn=attn_fn), params, batch)
     gnorm = float(global_norm(grads))
     del params, grads
@@ -1167,32 +1218,38 @@ def profile_report(tag, fn):
         print(f"[{tag}]   kernel {us / 1e3:9.3f} ms  {name[:110]}", flush=True)
 
 
-def profile_step(cfg, dev, params, opt_state):
+def profile_step(cfg, dev, params, opt_state, tag="train", shape=(TRAIN_B, TRAIN_S),
+                 steps=TRAIN_STEPS):
     """One more training step, under torch.profiler."""
     step = make_train_step(LM(cfg, device=dev),
-                           AdamW(lr=cosine_with_warmup(3e-3, 1, TRAIN_STEPS)))
-    batch = to_device(next(iter(SyntheticLM(cfg.vocab, TRAIN_B, TRAIN_S, seed=1))), dev)
-    profile_report("train", lambda: step(params, opt_state, batch))
+                           AdamW(lr=cosine_with_warmup(3e-3, 1, steps)))
+    batch = to_device(frontend_stubs(cfg, next(iter(SyntheticLM(cfg.vocab, *shape, seed=1)))),
+                      dev)
+    profile_report(tag, lambda: step(params, opt_state, batch))
 
 
-def train_phase(dev):
-    cfg = get_config(TRAIN_ARCH)
-    print(f"[train] {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+def train_phase(dev, tag="train", arch=TRAIN_ARCH, B=TRAIN_B, S=TRAIN_S, steps=TRAIN_STEPS):
+    """Train full-width ``arch`` through ``repro_torch.launch.train.train``;
+    check the kernel's launches (one a causal self-attention layer a forward
+    pass), finite losses, a checkpoint restored leaf for leaf and step 1
+    against the plain attention.  Returns the launches, the peak memory and
+    the numbers for a JSON line."""
+    cfg = get_config(arch)
+    print(f"[{tag}] {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
           f"{cfg.n_heads} heads of {cfg.head_dim} ({cfg.n_kv_heads} kv), d_ff {cfg.d_ff}, "
-          f"vocab {cfg.vocab}, {cfg.dtype}; B={TRAIN_B} S={TRAIN_S}, {TRAIN_STEPS} steps",
+          f"vocab {cfg.vocab}, {cfg.dtype}; B={B} S={S}, {steps} steps",
           flush=True)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as tmp:
         flash_attention.launches = rwkv6_scan.launches = 0
         flash_attention.wgmma_launches = flash_attention.simt_launches = 0
-        out = train(TRAIN_ARCH, use_reduced=False, steps=TRAIN_STEPS, batch=TRAIN_B,
-                    seq=TRAIN_S, ckpt_dirs=[str(Path(tmp) / "run")], log_every=1,
-                    device=dev)
+        out = train(arch, use_reduced=False, steps=steps, batch=B, seq=S,
+                    ckpt_dirs=[str(Path(tmp) / "run")], log_every=1, device=dev)
         launches = flash_attention.launches
         peak = torch.cuda.max_memory_allocated()
-        check(launches == cfg.n_layers * TRAIN_STEPS,
-              f"flash_attention launched {launches} times for {TRAIN_STEPS} forward "
+        check(launches == cfg.n_layers * steps,
+              f"flash_attention launched {launches} times for {steps} forward "
               f"passes of {cfg.n_layers} layers")
         check(flash_attention.wgmma_launches == launches and flash_attention.simt_launches == 0,
               f"of {launches} bf16 attention launches {flash_attention.wgmma_launches} went "
@@ -1201,55 +1258,60 @@ def train_phase(dev):
         check(bool(np.isfinite(out["losses"]).all() and np.isfinite(out["grad_norms"]).all()),
               f"non-finite loss or gradient norm: {out['losses']} {out['grad_norms']}")
         n_params = sum(t.numel() for t in tree_leaves(out["params"]))
-        print(f"[train] {n_params} parameters", flush=True)
+        print(f"[{tag}] {n_params} parameters", flush=True)
         step_ms = 1e3 * np.asarray(out["step_s"])
-        print(f"[train] losses {[round(x, 5) for x in out['losses']]}; gradient norms "
+        print(f"[{tag}] losses {[round(x, 5) for x in out['losses']]}; gradient norms "
               f"{[round(x, 5) for x in out['grad_norms']]}", flush=True)
-        print(f"[train] step ms {[round(float(x), 2) for x in step_ms]} (the first cold): "
+        print(f"[{tag}] step ms {[round(float(x), 2) for x in step_ms]} (the first cold): "
               f"median {np.median(step_ms):.2f}, min {step_ms.min():.2f}, "
-              f"max {step_ms.max():.2f}; {TRAIN_B * TRAIN_S / np.median(step_ms) * 1e3:.1f} "
+              f"max {step_ms.max():.2f}; {B * S / np.median(step_ms) * 1e3:.1f} "
               f"tokens/s at the median; peak memory {peak / 2**30:.2f} GiB; "
               f"flash_attention launches {launches} = {cfg.n_layers} layers x "
-              f"{TRAIN_STEPS} forward passes, all through the tensor-core kernel", flush=True)
+              f"{steps} forward passes, all through the tensor-core kernel", flush=True)
 
-        profile_step(cfg, dev, out["params"], out["opt_state"])
+        profile_step(cfg, dev, out["params"], out["opt_state"], tag, (B, S), steps)
         state = (out["params"], out["opt_state"])
         mgr = CheckpointManager(replica_dirs=[str(Path(tmp) / "final")])
         t = time.perf_counter()
-        mgr.save(state, TRAIN_STEPS)
+        mgr.save(state, steps)
         back, step, _ = mgr.restore(state)
         same = all(torch.equal(a, b) and a.dtype == b.dtype
                    for a, b in zip(tree_leaves(back), tree_leaves(state)))
         n_leaves = len(tree_leaves(state))
-        check(step == TRAIN_STEPS and same, "the restored checkpoint differs from the state")
-        print(f"[train] checkpoint of the final state ({n_leaves} leaves, "
+        check(step == steps and same, "the restored checkpoint differs from the state")
+        print(f"[{tag}] checkpoint of the final state ({n_leaves} leaves, "
               f"{sum(x.numel() * x.element_size() for x in tree_leaves(state)) / 2**30:.2f} GiB) "
               f"saved and restored leaf for leaf equal in {time.perf_counter() - t:.1f} s",
               flush=True)
         kern16 = (out["losses"][0], out["grad_norms"][0])
+        summary = dict(arch=cfg.name, params=n_params, batch=B, seq=S, losses=out["losses"],
+                       grad_norms=out["grad_norms"], step_ms=step_ms.tolist(),
+                       step_ms_median=float(np.median(step_ms)), peak_gib=peak / 2**30,
+                       launches=launches, checkpoint_leaves=n_leaves)
         del out, state, back
         torch.cuda.empty_cache()
 
-    step1_check(cfg, dev, kern16)
-    return launches, peak
+    summary["step1"] = step1_check(cfg, dev, kern16, tag, (B, S))
+    return launches, peak, summary
 
 
-def step1_check(cfg, dev, kern16):
+def step1_check(cfg, dev, kern16, tag="train", shape=(TRAIN_B, TRAIN_S)):
     """Step 1 through the kernel against the plain attention, same weights
     and batch.  In a float32 copy: loss and gradient norm within
     TRAIN_F32_RTOL.  In bf16 both paths round every activation, so the
     kernel's bf16 step is held against the float32 plain step: its distance
     may be at most BF16_NOISE_FACTOR times the plain bf16 step's own
-    distance, or 2^-9 (half a bf16 ulp) of the value, whichever is larger."""
-    plain16 = step_one(cfg, dev, plain_attention)
-    kern32 = step_one(cfg, dev, None, f32=True)
-    plain32 = step_one(cfg, dev, plain_attention, f32=True)
+    distance, or 2^-9 (half a bf16 ulp) of the value, whichever is larger.
+    Returns the four (loss, gradient norm) pairs."""
+    plain16 = step_one(cfg, dev, plain_attention, shape=shape)
+    kern32 = step_one(cfg, dev, None, f32=True, shape=shape)
+    plain32 = step_one(cfg, dev, plain_attention, f32=True, shape=shape)
     for i, name in enumerate(("loss", "gradient norm")):
         ref = plain32[i]
         err32 = abs(kern32[i] - ref)
         d_kern, d_plain = abs(kern16[i] - ref), abs(plain16[i] - ref)
         allowed = max(BF16_NOISE_FACTOR * d_plain, 2.0 ** -9 * abs(ref))
-        print(f"[train] step 1 {name}: kernel bf16 {kern16[i]:.6f}, plain bf16 "
+        print(f"[{tag}] step 1 {name}: kernel bf16 {kern16[i]:.6f}, plain bf16 "
               f"{plain16[i]:.6f}, kernel f32 {kern32[i]:.6f}, plain f32 {ref:.6f}; f32 "
               f"rel diff {err32 / abs(ref):.3e} (tol {TRAIN_F32_RTOL}); bf16 distance from "
               f"plain f32: kernel {d_kern:.3e}, plain {d_plain:.3e} (allowed {allowed:.3e})",
@@ -1258,6 +1320,7 @@ def step1_check(cfg, dev, kern16):
               f"float32 step 1 {name}: kernel {kern32[i]} vs plain {ref}")
         check(d_kern <= allowed, f"bf16 step 1 {name}: kernel {kern16[i]} is {d_kern:.3e} "
               f"from the float32 plain step, beyond {allowed:.3e}")
+    return dict(kernel_bf16=kern16, plain_bf16=plain16, kernel_f32=kern32, plain_f32=plain32)
 
 
 def _tree_map(fn, tree):
@@ -2154,6 +2217,68 @@ def moe_step_cost(cfg, params, lengths):
     return nbytes, ops
 
 
+def serve_and_hold(tag, model, params, n_attn):
+    """Serve the requests through ``ServingEngine(SERVE_B, SERVE_C)``, the
+    kernels' counts set to 0 just before: check that every prefill ran the
+    attention kernel ``n_attn`` times, all through the tensor-core kernel,
+    and every decode step the decode kernel ``n_attn`` times, that no WKV
+    kernel ran, that the tokens are valid ids and the peak memory fits the
+    card; then hold both kernels layer by layer on the path's own
+    activations over SERVE_B prefills and DECODE_CHECK_STEPS decode steps.
+    Returns ``(requests, done, prefill_s, step_s, wall, launches, peak,
+    layer_line)``, ``launches`` the two kernels' on the served set."""
+    cfg, dev = model.cfg, model.device
+    requests = serve_requests_for(cfg)
+    engine = ServingEngine(model, params, max_batch=SERVE_B, max_seq=SERVE_C)
+    torch.cuda.synchronize()
+    flash_attention.launches = flash_decode.launches = rwkv6_scan.launches = 0
+    flash_attention.wgmma_launches = flash_attention.simt_launches = 0
+    done, prefill_s, step_s, wall = serve(engine, requests)
+    attn_launches, launches = flash_attention.launches, flash_decode.launches
+    peak = torch.cuda.max_memory_allocated()
+    check(attn_launches == n_attn * len(requests),
+          f"flash_attention launched {attn_launches} times for {len(requests)} prefills "
+          f"of {n_attn} attention layers")
+    check(flash_attention.wgmma_launches == attn_launches,
+          f"of {attn_launches} bf16 attention launches {flash_attention.wgmma_launches} went "
+          f"through the tensor-core kernel")
+    check(launches == n_attn * len(step_s),
+          f"flash_decode launched {launches} times for {len(step_s)} decode steps "
+          f"of {n_attn} attention layers")
+    check(rwkv6_scan.launches == 0, f"the {tag} serving path launched the WKV kernel")
+    total = torch.cuda.get_device_properties(0).total_memory
+    check(peak < total, f"peak memory {peak} beyond the card's {total}")
+    report_serve(tag, cfg, requests, done, prefill_s, step_s, wall)
+    print(f"[{tag}] flash_attention launches {attn_launches} = {n_attn} layers x "
+          f"{len(requests)} prefills, all through the tensor-core kernel at g = "
+          f"{cfg.n_heads // cfg.n_kv_heads}, D={cfg.head_dim}; flash_decode launches "
+          f"{launches} = {n_attn} layers x {len(step_s)} decode steps; peak memory "
+          f"{peak / 2**30:.2f} GiB (weights and the batch-{SERVE_B} state included)",
+          flush=True)
+    del engine
+    torch.cuda.empty_cache()
+
+    hold_a = LayerHold(flash_attention, attention_ref)
+    hold_d = LayerHold(flash_decode, decode_attention_ref)
+    held = ServingEngine(LM(cfg, device=dev, attn_fn=hold_a, decode_fn=hold_d), params,
+                         max_batch=SERVE_B, max_seq=SERVE_C)
+    for req in requests[:SERVE_B]:
+        held.add_request(*req)
+    for _ in range(DECODE_CHECK_STEPS):
+        held.step()
+    del held
+    torch.cuda.empty_cache()
+    layer_line = {
+        "flash_attention": hold_a.check(tag, f"flash_attention in every layer of "
+                                             f"{SERVE_B} prefills"),
+        "flash_decode": hold_d.check(tag, f"flash_decode in every layer of "
+                                          f"{DECODE_CHECK_STEPS} decode steps at batch "
+                                          f"{SERVE_B}"),
+    }
+    return (requests, done, prefill_s, step_s, wall, (attn_launches, launches), peak,
+            layer_line)
+
+
 def moe_phase(dev):
     """Phase 10: serve the requests on full-width Qwen1.5-MoE-A2.7B, hold its
     attention kernels layer by layer and the whole model's logits against
@@ -2180,51 +2305,8 @@ def moe_phase(dev):
           f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB, init "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
 
-    requests = serve_requests_for(cfg)
-    engine = ServingEngine(model, params, max_batch=SERVE_B, max_seq=SERVE_C)
-    torch.cuda.synchronize()
-    flash_attention.launches = flash_decode.launches = rwkv6_scan.launches = 0
-    flash_attention.wgmma_launches = flash_attention.simt_launches = 0
-    done, prefill_s, step_s, wall = serve(engine, requests)
-    attn_launches, launches = flash_attention.launches, flash_decode.launches
-    peak = torch.cuda.max_memory_allocated()
-    check(attn_launches == cfg.n_layers * len(requests),
-          f"flash_attention launched {attn_launches} times for {len(requests)} prefills "
-          f"of {cfg.n_layers} layers")
-    check(flash_attention.wgmma_launches == attn_launches,
-          f"of {attn_launches} bf16 attention launches {flash_attention.wgmma_launches} went "
-          f"through the tensor-core kernel")
-    check(launches == cfg.n_layers * len(step_s),
-          f"flash_decode launched {launches} times for {len(step_s)} decode steps "
-          f"of {cfg.n_layers} layers")
-    check(rwkv6_scan.launches == 0, "the MoE serving path launched the WKV kernel")
-    total = torch.cuda.get_device_properties(0).total_memory
-    check(peak < total, f"peak memory {peak} beyond the card's {total}")
-    report_serve("moe", cfg, requests, done, prefill_s, step_s, wall)
-    print(f"[moe] flash_attention launches {attn_launches} = {cfg.n_layers} layers x "
-          f"{len(requests)} prefills, all through the tensor-core kernel; flash_decode launches "
-          f"{launches} = {cfg.n_layers} layers x {len(step_s)} decode steps; peak memory "
-          f"{peak / 2**30:.2f} GiB (weights and the batch-8 cache included)", flush=True)
-    del engine
-    torch.cuda.empty_cache()
-
-    # the attention kernels layer by layer on the path's own activations
-    hold_a = LayerHold(flash_attention, attention_ref)
-    hold_d = LayerHold(flash_decode, decode_attention_ref)
-    held = ServingEngine(LM(cfg, device=dev, attn_fn=hold_a, decode_fn=hold_d), params,
-                         max_batch=SERVE_B, max_seq=SERVE_C)
-    for req in requests[:SERVE_B]:
-        held.add_request(*req)
-    for _ in range(DECODE_CHECK_STEPS):
-        held.step()
-    del held
-    torch.cuda.empty_cache()
-    layer_line = {
-        "flash_attention": hold_a.check("moe", f"flash_attention in every layer of "
-                                        f"{SERVE_B} prefills"),
-        "flash_decode": hold_d.check("moe", f"flash_decode in every layer of "
-                                     f"{DECODE_CHECK_STEPS} decode steps at batch {SERVE_B}"),
-    }
+    (requests, done, prefill_s, step_s, wall, (attn_launches, launches), peak,
+     layer_line) = serve_and_hold("moe", model, params, cfg.n_layers)
     whole = moe_whole_model(model, params, requests, done)
     sort_line = dispatch_check(cfg, params, dev)
     fit = fit_phase("moe", model, params, (flash_attention,), (flash_decode,))
@@ -2523,52 +2605,8 @@ def hybrid_phase(dev):
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     check(n_params == HYBRID_PARAMS, f"{n_params} parameters, the JAX tree has {HYBRID_PARAMS}")
 
-    requests = serve_requests_for(cfg)
-    engine = ServingEngine(model, params, max_batch=SERVE_B, max_seq=SERVE_C)
-    torch.cuda.synchronize()
-    flash_attention.launches = flash_decode.launches = rwkv6_scan.launches = 0
-    flash_attention.wgmma_launches = flash_attention.simt_launches = 0
-    done, prefill_s, step_s, wall = serve(engine, requests)
-    attn_launches, launches = flash_attention.launches, flash_decode.launches
-    peak = torch.cuda.max_memory_allocated()
-    check(attn_launches == n_attn * len(requests),
-          f"flash_attention launched {attn_launches} times for {len(requests)} prefills "
-          f"of {n_attn} attention layers")
-    check(flash_attention.wgmma_launches == attn_launches,
-          f"of {attn_launches} bf16 attention launches {flash_attention.wgmma_launches} went "
-          f"through the tensor-core kernel")
-    check(launches == n_attn * len(step_s),
-          f"flash_decode launched {launches} times for {len(step_s)} decode steps "
-          f"of {n_attn} attention layers")
-    check(rwkv6_scan.launches == 0, "the hybrid serving path launched the WKV kernel")
-    total = torch.cuda.get_device_properties(0).total_memory
-    check(peak < total, f"peak memory {peak} beyond the card's {total}")
-    report_serve("hybrid", cfg, requests, done, prefill_s, step_s, wall)
-    print(f"[hybrid] flash_attention launches {attn_launches} = {n_attn} layers x "
-          f"{len(requests)} prefills, all through the tensor-core kernel at D={cfg.head_dim}; "
-          f"flash_decode launches {launches} = {n_attn} layers x {len(step_s)} decode steps; "
-          f"peak memory {peak / 2**30:.2f} GiB (weights and the batch-8 state included)",
-          flush=True)
-    del engine
-    torch.cuda.empty_cache()
-
-    # the attention kernels layer by layer on the path's own activations
-    hold_a = LayerHold(flash_attention, attention_ref)
-    hold_d = LayerHold(flash_decode, decode_attention_ref)
-    held = ServingEngine(LM(cfg, device=dev, attn_fn=hold_a, decode_fn=hold_d), params,
-                         max_batch=SERVE_B, max_seq=SERVE_C)
-    for req in requests[:SERVE_B]:
-        held.add_request(*req)
-    for _ in range(DECODE_CHECK_STEPS):
-        held.step()
-    del held
-    torch.cuda.empty_cache()
-    layer_line = {
-        "flash_attention": hold_a.check("hybrid", f"flash_attention in every layer of "
-                                        f"{SERVE_B} prefills"),
-        "flash_decode": hold_d.check("hybrid", f"flash_decode in every layer of "
-                                     f"{DECODE_CHECK_STEPS} decode steps at batch {SERVE_B}"),
-    }
+    (requests, done, prefill_s, step_s, wall, (attn_launches, launches), peak,
+     layer_line) = serve_and_hold("hybrid", model, params, n_attn)
     out, _ = path_logits(model, params, requests, done)
     whole = {}
     for what, label in (("", f"prefill of {len(requests[4][1])} tokens"),
@@ -2612,6 +2650,364 @@ def hybrid_phase(dev):
     line["hybrid"]["seconds"] = time.perf_counter() - t_phase
     print(f"[hybrid] phase took {line['hybrid']['seconds']:.1f} s", flush=True)
     return line, attn_launches, launches
+
+
+# -- phase 12: the vlm and audio families --------------------------------------
+VLM_ARCH = "qwen2-vl-72b"
+# 80 layers of bf16 weights are 145 GB: served cut to 24 layers (47.1 GB),
+# trained cut to 4 (weights, gradients and two bf16 AdamW moments 48.0 GB)
+VLM_SERVE_LAYERS, VLM_TRAIN_LAYERS = 24, 4
+VLM_TRAIN_B, VLM_TRAIN_S, VLM_TRAIN_STEPS = 1, 2048, 4
+# the JAX LM.init's tree at full width, by jax.eval_shape: the embedding,
+# lm_head and final norm, and each layer (GQA with its QKV bias, SwiGLU)
+VLM_OUTER_PARAMS, VLM_LAYER_PARAMS = 2_491_424_768, 877_684_736
+# The M-RoPE check: a prompt of MROPE_TEXT text tokens, an image of
+# MROPE_GRID = (t, h, w) merged patches, then text, its ids laid out as
+# Qwen2-VL's get_rope_index lays them out
+MROPE_TEXT, MROPE_GRID = 16, (1, 16, 24)
+WHISPER_ARCH, WHISPER_PARAMS = "whisper-tiny", 36_448_128
+WHISPER_TRAIN_B, WHISPER_TRAIN_STEPS = 8, 6
+
+
+def mrope_ids(n, dev):
+    """(3, 1, n) M-RoPE ids of MROPE_TEXT text tokens (all three streams
+    0..MROPE_TEXT-1), a t x h x w image (each stream its own grid index plus
+    MROPE_TEXT), then text counting on from one past the largest id so far,
+    as Qwen2-VL's get_rope_index gives them."""
+    t, h, w = MROPE_GRID
+    text0 = np.broadcast_to(np.arange(MROPE_TEXT), (3, MROPE_TEXT))
+    ti, hi, wi = np.meshgrid(np.arange(t), np.arange(h), np.arange(w), indexing="ij")
+    img = np.stack([ti.ravel(), hi.ravel(), wi.ravel()]) + MROPE_TEXT
+    rest = n - MROPE_TEXT - img.shape[1]
+    check(rest > 0, f"a prompt of {n} ids leaves no text after the image")
+    text1 = np.broadcast_to(img.max() + 1 + np.arange(rest), (3, rest))
+    ids = np.concatenate([text0, img, text1], axis=1)[:, None, :]
+    return torch.as_tensor(ids, dtype=torch.int32, device=dev)
+
+
+def held_prefill_decode(tag, model, params, batch, capacity, feed, what, step_ids=None):
+    """One prefill of ``batch`` into a cache of ``capacity`` slots, then a
+    decode step for each token row of ``feed`` (with ``step_ids[t]``, (3, B,
+    1) M-RoPE ids, if given), through four models on the same weights: the
+    kernels with ``LayerHold`` on both (every attention call held layer by
+    layer on the path's own activations), the kernels alone (their launches
+    counted), the plain versions, and the plain versions without inner
+    rounding; the whole model's logits held by ``hold_path_logits``.
+    Returns ``(line, launches of the kernels' run (prefill, decode), the
+    kernels' prefill logits)``."""
+    cfg, dev = model.cfg, model.device
+    B, S = batch["tokens"].shape
+    hold_a = LayerHold(flash_attention, attention_ref)
+    hold_d = LayerHold(flash_decode, decode_attention_ref)
+    runs = (("held", dict(attn_fn=hold_a, decode_fn=hold_d)), ("kernel", {}),
+            ("plain", dict(attn_fn=attention_ref, decode_fn=decode_attention_ref)),
+            ("upcast", dict(attn_fn=upcast_attention, decode_fn=upcast_decode)))
+    out, launches = {}, None
+    for name, hooks in runs:
+        m = LM(cfg, device=dev, **hooks)
+        flash_attention.launches = flash_decode.launches = 0
+        with torch.inference_mode():
+            lg, caches = m.prefill(params, batch, m.init_cache(B, capacity))
+            n_prefill = flash_attention.launches
+            steps = []
+            for t, tok in enumerate(feed):
+                pos = torch.full((B,), S + t, dtype=torch.int32, device=dev)
+                ids = None if step_ids is None else step_ids[t]
+                lg_t, caches = m.decode_step(params, tok, pos, caches, ids)
+                steps.append(lg_t.float())
+        if name == "kernel":
+            launches = (n_prefill, flash_decode.launches)
+        out[name], out["decode " + name] = lg.float(), torch.stack(steps)
+        del caches, m
+        torch.cuda.empty_cache()
+    line = {
+        "flash_attention": hold_a.check(tag, f"flash_attention in every layer of the {what} "
+                                             f"prefill"),
+        "flash_decode": hold_d.check(tag, f"flash_decode in every layer of {len(feed)} {what} "
+                                          f"decode steps at batch {B}"),
+    }
+    for key, label in (("", f"{what} prefill of {S} tokens at batch {B}"),
+                       ("decode ", f"{len(feed)} {what} decode steps at batch {B}")):
+        name = "decode" if key else "prefill"
+        line[name] = hold_path_logits(tag, *(out[key + n] for n in ("kernel", "plain", "upcast")),
+                                      label, f"{what} {name}")
+    return line, launches, out["kernel"]
+
+
+def dense_step_cost(cfg, params, lengths):
+    """(bytes, operations) of one decode step at batch len(lengths) of a
+    model whose embedding is a lookup table apart from its lm_head: every
+    weight read once except the embedding (only the batch's rows), the KV
+    cache read up to each row's length and the new entries written, the
+    float32 logits written; operations: 2 per multiply-add of every weight
+    but the embedding with the batch's tokens and 4*D per (query head,
+    valid slot) pair a layer."""
+    B, d, n = len(lengths), cfg.d_model, cfg.n_layers
+    weights = sum(t.numel() for t in _leaves(params)) - cfg.vocab * d
+    kv = 2 * cfg.n_kv_heads * cfg.head_dim
+    nbytes = 2 * (weights + B * d) + 2 * kv * n * (int(sum(lengths)) + B) + 4 * B * cfg.vocab
+    ops = 2 * B * weights + 4 * cfg.head_dim * cfg.n_heads * n * int(sum(lengths))
+    return nbytes, ops
+
+
+def vlm_serve_part(dev):
+    """(a) Serve the requests on Qwen2-VL-72B at published width cut to
+    VLM_SERVE_LAYERS layers (text: RoPE on positions, the M-RoPE of text),
+    hold both kernels layer by layer and the whole model's logits; then one
+    prefill and DECODE_CHECK_STEPS decode steps with image-then-text M-RoPE
+    ids, held the same way.  Returns the part's line and the kernels'
+    launches on the served set."""
+    cfg = dataclasses.replace(get_config(VLM_ARCH), n_layers=VLM_SERVE_LAYERS)
+    model = LM(cfg, device=dev)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    print(f"[vlm] {cfg.name} cut to {cfg.n_layers} layers: d_model {cfg.d_model}, "
+          f"{cfg.n_heads} heads of {cfg.head_dim} ({cfg.n_kv_heads} kv, QKV bias), SwiGLU d_ff "
+          f"{cfg.d_ff}, vocab {cfg.vocab}, M-RoPE sections {cfg.mrope_sections}, {cfg.dtype}; "
+          f"{n_params} parameters, {torch.cuda.memory_allocated() / 2**30:.2f} GiB, init "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    want = VLM_OUTER_PARAMS + cfg.n_layers * VLM_LAYER_PARAMS
+    check(n_params == want, f"{n_params} parameters, the JAX tree has {want}")
+
+    (requests, done, prefill_s, step_s, wall, (attn_launches, launches), peak,
+     layer_line) = serve_and_hold("vlm", model, params, cfg.n_layers)
+    out, _ = path_logits(model, params, requests, done)
+    whole = {}
+    for what, label in (("", f"prefill of {len(requests[4][1])} tokens"),
+                        ("decode ", f"{DECODE_CHECK_STEPS} decode steps at batch {SERVE_B}")):
+        name = "decode" if what else "prefill"
+        whole[name] = hold_path_logits("vlm", *(out[what + n] for n in
+                                                 ("kernel", "plain", "upcast")), label, name)
+    text_logits = out["kernel"]
+    del out
+
+    # M-RoPE on the card: image-grid ids, then text
+    prompt = requests[4][1]
+    S = len(prompt)
+    ids = mrope_ids(S + DECODE_CHECK_STEPS, dev)
+    rng = np.random.default_rng(4)
+    feed = [torch.as_tensor(rng.integers(0, cfg.vocab, 1), device=dev)
+            for _ in range(DECODE_CHECK_STEPS)]
+    batch = {"tokens": torch.tensor([prompt], device=dev), "position_ids": ids[:, :, :S]}
+    mrope, (n_pre, n_dec), mrope_logits = held_prefill_decode(
+        "vlm", model, params, batch, S + DECODE_CHECK_STEPS, feed, "M-RoPE",
+        step_ids=[ids[:, :, S + t:S + t + 1] for t in range(DECODE_CHECK_STEPS)])
+    check(n_pre == cfg.n_layers and n_dec == cfg.n_layers * DECODE_CHECK_STEPS,
+          f"the M-RoPE prefill launched flash_attention {n_pre} times and its "
+          f"{DECODE_CHECK_STEPS} decode steps flash_decode {n_dec} times")
+    moved = _rms(mrope_logits, text_logits)
+    check(moved > 0, "the M-RoPE ids did not change the prefill's logits")
+    t, h, w = MROPE_GRID
+    print(f"[vlm] M-RoPE: {MROPE_TEXT} text tokens, a {t}x{h}x{w} image, then text ({S} ids, "
+          f"the largest {int(ids.max())}); flash_attention {n_pre} launches in the prefill, "
+          f"flash_decode {n_dec} in {DECODE_CHECK_STEPS} steps; RMS of the prefill logits from "
+          f"the same prompt's text prefill {moved:.4e}", flush=True)
+    mrope["rms_from_text_prefill"] = moved
+
+    nbytes, ops = dense_step_cost(cfg, params, SERVE_LENGTHS)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / BF16_OPS_PER_S * 1e3
+    bound = max(t_bytes, t_ops)
+    step_ms = 1e3 * float(np.median(step_s))
+    print(f"[vlm] decode-step bound at batch {SERVE_B} (first step's lengths): {nbytes} bytes "
+          f"-> {t_bytes:.3f} ms, {ops} ops at the bf16 peak -> {t_ops:.3f} ms; bound "
+          f"{bound:.3f} ms ({'bytes' if t_bytes >= t_ops else 'operations'}); median step "
+          f"{step_ms:.2f} ms = {100 * bound / step_ms:.1f}% of bound", flush=True)
+    engine = ServingEngine(model, params, max_batch=SERVE_B, max_seq=SERVE_C)
+    for req in requests[:SERVE_B]:
+        engine.add_request(*req)
+    engine.step()
+    profile_report("vlm", engine.step)
+    del engine, model, params
+    torch.cuda.empty_cache()
+    n_tok = sum(len(t) for t in done.values())
+    line = dict(arch=cfg.name, layers=cfg.n_layers, params=n_params,
+                prefill_ms=[1e3 * x for x in prefill_s], prompts=list(SERVE_PROMPTS),
+                step_ms_median=step_ms, steps=len(step_s), tokens_per_s=n_tok / wall,
+                peak_gib=peak / 2**30, step_bound_ms=bound,
+                step_bound_by="bytes" if t_bytes >= t_ops else "operations",
+                launches={"flash_attention": attn_launches, "flash_decode": launches},
+                layer_check=layer_line, whole_model=whole, mrope=mrope)
+    return line, attn_launches, launches
+
+
+def vlm_train_part(dev):
+    """(b) Train Qwen2-VL-72B at published width cut to VLM_TRAIN_LAYERS
+    layers through ``make_train_step`` (AdamW on the trainer's schedule), on
+    the stream's batches with the trainer's text ``position_ids``; check the
+    kernel's launches, finite losses and step 1 against the plain
+    attention.  Returns the part's line and the launches."""
+    cfg = dataclasses.replace(get_config(VLM_ARCH), n_layers=VLM_TRAIN_LAYERS)
+    B, S, steps = VLM_TRAIN_B, VLM_TRAIN_S, VLM_TRAIN_STEPS
+    model = LM(cfg, device=dev)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+    n_params = sum(t.numel() for t in _leaves(params))
+    want = VLM_OUTER_PARAMS + cfg.n_layers * VLM_LAYER_PARAMS
+    check(n_params == want, f"{n_params} parameters, the JAX tree has {want}")
+    optimizer = AdamW(lr=cosine_with_warmup(3e-3, warmup=max(steps // 10, 1), total=steps))
+    step_fn = make_train_step(model, optimizer)
+    opt_state = optimizer.init(params)
+    print(f"[vlm] {cfg.name} cut to {cfg.n_layers} layers for training: {n_params} parameters; "
+          f"B={B} S={S}, {steps} AdamW steps; weights and state "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB", flush=True)
+    stream = iter(SyntheticLM(cfg.vocab, B, S, seed=0))
+    flash_attention.launches = rwkv6_scan.launches = flash_decode.launches = 0
+    flash_attention.wgmma_launches = flash_attention.simt_launches = 0
+    losses, gnorms, step_s = [], [], []
+    for _ in range(steps):
+        batch = to_device(frontend_stubs(cfg, next(stream)), dev)
+        t = time.perf_counter()
+        params, opt_state, metrics = step_fn(params, opt_state, batch)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t)
+        losses.append(float(metrics["loss"]))
+        gnorms.append(float(metrics["grad_norm"]))
+    launches = flash_attention.launches
+    peak = torch.cuda.max_memory_allocated()
+    total = torch.cuda.get_device_properties(0).total_memory
+    check(peak < total, f"peak memory {peak} beyond the card's {total}")
+    check(sorted(batch) == ["labels", "position_ids", "tokens"],
+          f"the train batch holds {sorted(batch)}")
+    check(launches == cfg.n_layers * steps,
+          f"flash_attention launched {launches} times for {steps} forward passes of "
+          f"{cfg.n_layers} layers")
+    check(flash_attention.wgmma_launches == launches,
+          f"of {launches} bf16 attention launches {flash_attention.wgmma_launches} went "
+          f"through the tensor-core kernel")
+    check(rwkv6_scan.launches == flash_decode.launches == 0,
+          "the vlm training path launched another kernel")
+    check(bool(np.isfinite(losses).all() and np.isfinite(gnorms).all()),
+          f"non-finite loss or gradient norm: {losses} {gnorms}")
+    step_ms = 1e3 * np.asarray(step_s)
+    print(f"[vlm] train losses {[round(x, 5) for x in losses]}; gradient norms "
+          f"{[round(x, 5) for x in gnorms]}; step ms {[round(float(x), 2) for x in step_ms]} "
+          f"(the first cold), median {np.median(step_ms):.2f}; "
+          f"{B * S / np.median(step_ms) * 1e3:.1f} tokens/s at the median; peak memory "
+          f"{peak / 2**30:.2f} GiB (of {total / 2**30:.2f}); "
+          f"flash_attention launches {launches} = {cfg.n_layers} layers x {steps} forward "
+          f"passes, all through the tensor-core kernel (g = {cfg.n_heads // cfg.n_kv_heads}, "
+          f"D={cfg.head_dim})", flush=True)
+    del params, opt_state, step_fn, model, batch, metrics
+    torch.cuda.empty_cache()
+    step1 = step1_check(cfg, dev, (losses[0], gnorms[0]), "vlm", (B, S))
+    line = dict(arch=cfg.name, layers=cfg.n_layers, cut="published width, "
+                f"{VLM_TRAIN_LAYERS} of {get_config(VLM_ARCH).n_layers} layers",
+                params=n_params, batch=B, seq=S, losses=losses, grad_norms=gnorms,
+                step_ms=step_ms.tolist(), step_ms_median=float(np.median(step_ms)),
+                peak_gib=peak / 2**30, launches=launches, step1=step1)
+    return line, launches
+
+
+def whisper_decode_part(dev):
+    """(d) Decode Whisper-tiny through ``LM.prefill`` (the encoder over
+    SERVE_B x 1500 frames drawn from a seed, a WHISPER_PROMPT-token prompt)
+    and WHISPER_NEW greedy ``LM.decode_step``s over a WHISPER_C-slot self
+    cache and the 1500-slot cross cache; check the kernels' launches and the
+    tokens, then hold both kernels layer by layer and the whole model's
+    logits over a prefill and DECODE_CHECK_STEPS steps.  Returns the part's
+    line and the launches."""
+    cfg = get_config(WHISPER_ARCH)
+    model = LM(cfg, device=dev)
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+    n_params = sum(t.numel() for t in _leaves(params))
+    check(n_params == WHISPER_PARAMS, f"{n_params} parameters, the JAX tree has {WHISPER_PARAMS}")
+    B = SERVE_B
+    gen = torch.Generator(device=dev).manual_seed(1)
+    frames = torch.randn((B, cfg.enc_len, cfg.d_model), generator=gen, device=dev)
+    rng = np.random.default_rng(2)
+    prompt = torch.as_tensor(rng.integers(0, cfg.vocab, (B, WHISPER_PROMPT)), device=dev)
+    batch = {"tokens": prompt, "frames": frames}
+    flash_attention.launches = flash_decode.launches = rwkv6_scan.launches = 0
+    flash_attention.wgmma_launches = flash_attention.simt_launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.inference_mode():
+        caches = model.init_cache(B, WHISPER_C)
+        t = time.perf_counter()
+        lg, caches = model.prefill(params, batch, caches)
+        torch.cuda.synchronize()
+        prefill_ms = 1e3 * (time.perf_counter() - t)
+        check(flash_attention.launches == cfg.n_layers,
+              f"the prefill launched flash_attention {flash_attention.launches} times")
+        toks, step_s = [lg.argmax(-1)], []
+        for i in range(WHISPER_NEW):
+            pos = torch.full((B,), WHISPER_PROMPT + i, dtype=torch.int32, device=dev)
+            t = time.perf_counter()
+            lg, caches = model.decode_step(params, toks[-1], pos, caches)
+            toks.append(lg.argmax(-1))
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t)
+    attn_launches, launches = flash_attention.launches, flash_decode.launches
+    peak = torch.cuda.max_memory_allocated()
+    check(flash_attention.wgmma_launches == attn_launches,
+          "a bf16 attention launch missed the tensor-core kernel")
+    check(launches == cfg.n_layers * WHISPER_NEW,
+          f"flash_decode launched {launches} times for {WHISPER_NEW} steps of {cfg.n_layers} "
+          f"layers")
+    check(rwkv6_scan.launches == 0, "the whisper decode path launched the WKV kernel")
+    out = torch.stack(toks, 1)
+    check(bool(((out >= 0) & (out < cfg.vocab)).all()), "a decoded token id is out of range")
+    self_pos = caches[1]["self"]["pos"]
+    check(int(self_pos.max()) == WHISPER_PROMPT + WHISPER_NEW - 1
+          and int(caches[1]["cross"]["pos"].max()) == cfg.enc_len - 1,
+          "the self and cross caches do not hold the positions written")
+    del caches
+    step_ms = 1e3 * np.asarray(step_s)
+    print(f"[whisper] {cfg.name}: {cfg.n_layers} + {cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"{cfg.n_heads} heads of {cfg.head_dim}, vocab {cfg.vocab}, {cfg.dtype}; {n_params} "
+          f"parameters; decode at batch {B}: prefill of {WHISPER_PROMPT} tokens over "
+          f"{cfg.enc_len} frames (the encoder included) {prefill_ms:.2f} ms; {WHISPER_NEW} "
+          f"greedy steps over a {WHISPER_C}-slot self cache and the {cfg.enc_len}-slot cross "
+          f"cache: median {np.median(step_ms):.2f} ms, min {step_ms.min():.2f}, max "
+          f"{step_ms.max():.2f}; {B * WHISPER_NEW / step_ms.sum() * 1e3:.1f} tokens/s over the "
+          f"steps; flash_attention {attn_launches} launches, flash_decode {launches} = "
+          f"{cfg.n_layers} layers x {WHISPER_NEW} steps (D={cfg.head_dim}, g = 1); peak memory "
+          f"{peak / 2**30:.2f} GiB", flush=True)
+    print(f"[whisper] greedy tokens of row 0: {out[0].tolist()}", flush=True)
+
+    feed = [torch.as_tensor(rng.integers(0, cfg.vocab, B), device=dev)
+            for _ in range(DECODE_CHECK_STEPS)]
+    held, (n_pre, n_dec), _ = held_prefill_decode("whisper", model, params, batch, WHISPER_C,
+                                                  feed, "whisper")
+    check(n_pre == cfg.n_layers and n_dec == cfg.n_layers * DECODE_CHECK_STEPS,
+          f"the held run launched flash_attention {n_pre} and flash_decode {n_dec} times")
+    del model, params
+    torch.cuda.empty_cache()
+    line = dict(arch=cfg.name, params=n_params, batch=B, frames=cfg.enc_len,
+                prompt=WHISPER_PROMPT, steps=WHISPER_NEW, prefill_ms=prefill_ms,
+                step_ms_median=float(np.median(step_ms)), peak_gib=peak / 2**30,
+                launches={"flash_attention": attn_launches, "flash_decode": launches},
+                check=held)
+    return line, attn_launches, launches
+
+
+def vlm_audio_phase(dev):
+    """Phase 12: (a) serve Qwen2-VL-72B cut to 24 layers, and run M-RoPE on
+    the card; (b) train it cut to 4 layers; (c) train Whisper-tiny uncut
+    through ``train()``; (d) decode Whisper-tiny through the model.  Returns
+    the ``vlm_audio`` line and each path's kernel launches."""
+    t_phase = time.perf_counter()
+    serve_line, vlm_attn, vlm_dec = vlm_serve_part(dev)
+    torch.cuda.empty_cache()
+    train_line, vlm_train = vlm_train_part(dev)
+    torch.cuda.empty_cache()
+    whisper_train, _, whisper_train_line = train_phase(
+        dev, "whisper", WHISPER_ARCH, WHISPER_TRAIN_B, WHISPER_C, WHISPER_TRAIN_STEPS)
+    torch.cuda.empty_cache()
+    decode_line, whisper_attn, whisper_dec = whisper_decode_part(dev)
+    line = {"vlm_audio": {"vlm_serve": serve_line, "vlm_train": train_line,
+                          "whisper_train": whisper_train_line, "whisper_decode": decode_line}}
+    line["vlm_audio"]["seconds"] = time.perf_counter() - t_phase
+    print(f"[vlm-audio] phase took {line['vlm_audio']['seconds']:.1f} s", flush=True)
+    attn = {"vlm serve": vlm_attn, "vlm train": vlm_train, "whisper train": whisper_train,
+            "whisper decode": whisper_attn}
+    dec = {"vlm serve": vlm_dec, "whisper decode": whisper_dec}
+    return line, attn, dec
 
 
 # the per-shape numbers of a kernel's row in the kernels line
@@ -2675,7 +3071,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     (dense_attn_launches, dense_dec_launches), dense_fit = dense_phase(dev)
     torch.cuda.empty_cache()
-    attn_launches, _ = train_phase(dev)
+    attn_launches, _, _ = train_phase(dev)
     torch.cuda.empty_cache()
     place = place_phase(dev)
     torch.cuda.empty_cache()
@@ -2684,17 +3080,20 @@ def main() -> int:
     moe, moe_attn_launches, moe_dec_launches = moe_phase(dev)
     torch.cuda.empty_cache()
     hybrid, hybrid_attn_launches, hybrid_dec_launches = hybrid_phase(dev)
+    torch.cuda.empty_cache()
+    vlm_audio, vlm_audio_attn, vlm_audio_dec = vlm_audio_phase(dev)
 
     main_t, dec_main, attn_main = timing[512], dec_t["served"], attn_t["train"]
     attn_by_path = {"dense": dense_attn_launches, "train": attn_launches,
-                    "moe": moe_attn_launches, "hybrid": hybrid_attn_launches}
+                    "moe": moe_attn_launches, "hybrid": hybrid_attn_launches, **vlm_audio_attn}
     dec_by_path = {"dense": dense_dec_launches, "moe": moe_dec_launches,
-                   "hybrid": hybrid_dec_launches}
+                   "hybrid": hybrid_dec_launches, **vlm_audio_dec}
     print(f"[done] {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps(place), flush=True)
     print(json.dumps(stream), flush=True)
     print(json.dumps(moe), flush=True)
     print(json.dumps(hybrid), flush=True)
+    print(json.dumps(vlm_audio), flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": [{
         "name": "rwkv6_scan",

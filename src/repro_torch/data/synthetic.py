@@ -47,14 +47,21 @@ class SyntheticLM:
 def materialize_batch(cfg: ModelConfig, batch: int, seq_len: int, seed: int = 0,
                       mode: str = "train") -> Dict[str, np.ndarray]:
     """One concrete host batch of the stream.  mode: "train" (tokens and
-    labels) or "prefill" (tokens).  The audio frames and M-RoPE position
-    ids of the JAX version come with those families (ROADMAP.md)."""
-    if cfg.enc_dec or cfg.needs_position_ids:
-        raise NotImplementedError(
-            f"{cfg.name}: audio frames and M-RoPE positions are not ported yet "
-            "(ROADMAP.md, queue 1, 'Remaining model families')")
+    labels) or "prefill" (tokens).  The front-end stubs come as in the JAX
+    version, the same values for the same seed: an ``audio`` model's
+    ``frames`` (B, enc_len, d_model), standard normal draws of their own
+    generator from ``seed``, in float32 (or the model's dtype when that is
+    not bfloat16, which numpy lacks); a ``vlm`` model's M-RoPE
+    ``position_ids`` (3, B, S), ``0..S-1`` in all three streams (text)."""
+    rng = np.random.default_rng(seed)
     b = next(iter(SyntheticLM(cfg.vocab, batch, seq_len, seed=seed)))
     out = {"tokens": b["tokens"]}
     if mode == "train":
         out["labels"] = b["labels"]
+    if cfg.enc_dec:
+        frames = rng.standard_normal((batch, cfg.enc_len, cfg.d_model), dtype=np.float32)
+        out["frames"] = frames.astype(cfg.dtype if cfg.dtype != "bfloat16" else "float32")
+    if cfg.needs_position_ids:
+        pos = np.broadcast_to(np.arange(seq_len, dtype=np.int32), (3, batch, seq_len))
+        out["position_ids"] = np.ascontiguousarray(pos)
     return out

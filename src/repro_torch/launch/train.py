@@ -3,8 +3,11 @@
 The counterpart of the JAX package's ``launch/train.py``, without a mesh or
 shardings: synthetic-but-learnable LM data through the ``Prefetcher``, the
 train step (AdamW on a cosine schedule with warmup), replicated
-checkpointing on the Young/Daly cadence, and crash-restart resume.  On the
-card every attention layer's forward runs the flash-attention kernel.
+checkpointing on the Young/Daly cadence, and crash-restart resume.  Every
+architecture trains: an ``audio`` model's batches carry zero ``frames`` and
+a ``vlm`` model's text ``position_ids``, as in the JAX trainer
+(:func:`frontend_stubs`).  On the card every causal self-attention layer's
+forward runs the flash-attention kernel.
 
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu --steps 20
   PYTHONPATH=src python -m repro_torch.launch.train --full --batch 4 --seq 2048
@@ -33,12 +36,26 @@ from ..optim.optimizers import AdamW
 from ..optim.schedules import cosine_with_warmup
 from ..train.step import make_train_step
 
-__all__ = ["train", "main"]
+__all__ = ["train", "frontend_stubs", "main"]
 
 
 def _default_ckpt_dirs() -> Sequence[str]:
     root = os.path.join(tempfile.gettempdir(), "repro_torch_ckpt")
     return (os.path.join(root, "a"), os.path.join(root, "b"))
+
+
+def frontend_stubs(cfg, batch: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
+    """A stream batch with the model's front-end stubs added, as the JAX
+    trainer adds them: M-RoPE ``position_ids`` (3, B, S), ``0..S-1`` in all
+    three streams, for a model that needs them, and zero ``frames`` (B,
+    enc_len, d_model) in float32 for an encoder-decoder model."""
+    B, S = batch["tokens"].shape
+    batch = dict(batch)
+    if cfg.needs_position_ids:
+        batch["position_ids"] = np.broadcast_to(np.arange(S, dtype=np.int32), (3, B, S)).copy()
+    if cfg.enc_dec:
+        batch["frames"] = np.zeros((B, cfg.enc_len, cfg.d_model), dtype=np.float32)
+    return batch
 
 
 def train(
@@ -84,7 +101,8 @@ def train(
         except FileNotFoundError:
             print("[train] no checkpoint found; starting fresh")
 
-    data = Prefetcher(SyntheticLM(cfg.vocab, batch, seq, seed=seed), depth=2, device=dev)
+    stream = (frontend_stubs(cfg, b) for b in SyntheticLM(cfg.vocab, batch, seq, seed=seed))
+    data = Prefetcher(stream, depth=2, device=dev)
     losses, grad_norms, step_s = [], [], []
     s = start_step
     try:

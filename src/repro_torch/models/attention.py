@@ -58,6 +58,20 @@ ring writes S positions into C slots, so the early queries lose their keys
 and duplicate slots scatter in no fixed order, as in the JAX model
 (ROADMAP.md, "Known reference faults").
 
+M-RoPE (qwen2-vl): with ``cfg.rope == "mrope"`` and ``position_ids`` (3, B,
+S) given, q and k are rotated by :func:`~repro_torch.models.layers.apply_mrope`;
+otherwise by RoPE on ``positions``, as in the JAX model.  Only the rotation
+reads ``position_ids``: the masks and the cache slots still come from
+``positions``, so every kernel route above stays valid under M-RoPE.
+
+Cross-attention (whisper's decoder), as in the JAX model: with ``kv_x``
+(B, Sk, d) and ``kv_positions`` (B, Sk), K and V are projected from
+``kv_x`` with no rotation, written at ``clip(kv_pos, 0, C-1)`` when a cache
+is given, and attended with a non-causal mask; with ``cache_read_only``,
+K, V and their positions are read from the cache and only Q is computed.
+Both go through ``_mask_bias`` + ``_sdpa``: they reach no Pallas kernel in
+the JAX model, and the kernel routes above need causal self-attention.
+
 MLA (Multi-head Latent Attention, DeepSeek-V3) caches only the compressed
 latent ``ckv`` and the shared RoPE key ``krope`` (per layer ``{"ckv": (B,
 C, rank), "krope": (B, C, dr), "pos": (B, C)}``), and decodes in the
@@ -65,9 +79,7 @@ C, rank), "krope": (B, C, dr), "pos": (B, C)}``), and decodes in the
 model, so it is plain torch here and takes no kernel route.
 
 Not ported yet: a cache in another dtype than the model's (``kv_dtype``),
-cross-attention (``kv_x``, ``cache_read_only``: the whisper family) and
-M-RoPE (the qwen2-vl family), all in ROADMAP.md "Remaining model families";
-each raises ``NotImplementedError``.
+in ROADMAP.md (queue 1, B.6); it raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -79,7 +91,7 @@ import torch
 from ..kernels import ops
 from ..kernels.flash_attention import flash_attention_trainable
 from .config import ModelConfig
-from .layers import Layers, apply_rope, dense_apply, dense_init, torch_dtype
+from .layers import Layers, apply_mrope, apply_rope, dense_apply, dense_init, torch_dtype
 
 __all__ = ["gqa_init", "gqa_apply", "make_cache", "mla_init", "mla_apply", "make_mla_cache",
            "AttnFn", "DecodeFn"]
@@ -91,7 +103,9 @@ DecodeFn = Callable[[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor], to
 
 
 def gqa_init(gen: torch.Generator, cfg: ModelConfig, device: torch.device,
-             layers: Layers = None) -> Dict:
+             layers: Layers = None, cross: bool = False) -> Dict:
+    """Self-attention weights; ``cross`` (a decoder's cross-attention) has
+    the same shapes, as in the JAX ``gqa_init``."""
     dt = torch_dtype(cfg.dtype)
     d, hq, hk, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     return {
@@ -159,46 +173,53 @@ def gqa_apply(
     positions: torch.Tensor,                 # (B, S) absolute positions
     *,
     cache: Optional[Dict] = None,            # per-layer cache (no layer axis)
-    cache_read_only: bool = False,
-    kv_x: Optional[torch.Tensor] = None,
+    cache_read_only: bool = False,           # cross-attention decode: K/V from the cache
+    kv_x: Optional[torch.Tensor] = None,     # cross-attention source (B, Sk, d)
+    kv_positions: Optional[torch.Tensor] = None,
     causal: bool = True,
     window: Optional[int] = None,
-    position_ids: Optional[torch.Tensor] = None,
+    position_ids: Optional[torch.Tensor] = None,   # (3, B, S) for M-RoPE
     attn_fn: Optional[AttnFn] = None,
     decode_fn: Optional[DecodeFn] = None,
     gapless: bool = False,
 ) -> Tuple[torch.Tensor, Optional[Dict]]:
-    """Self-attention over ``x``, reading and writing ``cache`` if one is
+    """Attention over ``x`` (or, for cross-attention, from ``x`` to ``kv_x``
+    or to a read-only cache), reading and writing ``cache`` if one is
     given.  Returns ``(out (B,S,d), cache)``; the cache is updated in place
     (None without one).  ``gapless`` vouches that each row's tokens are
     the next ones of its cached sequence from position 0, with no gap, and
     that more than one token starts it; the kernel routes over a cache need
     that.  ``attn_fn`` replaces the attention kernel's route and
     ``decode_fn`` the decode kernel's (see the module docstring)."""
-    if cache_read_only or kv_x is not None:
-        raise NotImplementedError(
-            "cross-attention (kv_x, cache_read_only) is not ported yet (ROADMAP.md, "
-            "queue 1, 'Remaining model families': whisper)")
-    if cfg.rope == "mrope" and position_ids is not None:
-        raise NotImplementedError(
-            "M-RoPE is not ported yet (ROADMAP.md, queue 1, 'Remaining model "
-            "families': qwen2-vl)")
     B, S, d = x.shape
     hq, hk, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
 
     q = dense_apply(p["wq"], x).reshape(B, S, hq, hd)
-    k = dense_apply(p["wk"], x).reshape(B, S, hk, hd)
-    v = dense_apply(p["wv"], x).reshape(B, S, hk, hd)
-    if cfg.rope != "none":
-        q, k = apply_rope(q, k, positions, cfg.rope_theta)
+    if cache_read_only:
+        if cache is None or kv_x is not None:
+            raise ValueError("cache_read_only reads K and V from a cache, and takes no kv_x")
+        bias = _mask_bias(positions, cache["pos"], causal=causal, window=window)
+        out = _sdpa(q.reshape(B, S, hk, hq // hk, hd), cache["k"], cache["v"], bias,
+                    cfg.attn_logit_softcap)
+        return dense_apply(p["wo"], out.reshape(B, S, hq * hd)), cache
+
+    src = x if kv_x is None else kv_x
+    k = dense_apply(p["wk"], src).reshape(B, -1, hk, hd)
+    v = dense_apply(p["wv"], src).reshape(B, -1, hk, hd)
+    k_pos = positions if kv_x is None else kv_positions
+    if cfg.rope != "none" and kv_x is None:
+        if cfg.rope == "mrope" and position_ids is not None:
+            q, k = apply_mrope(q, k, position_ids, cfg.rope_theta, cfg.mrope_sections)
+        else:
+            q, k = apply_rope(q, k, positions, cfg.rope_theta)
     if cache is not None:
         if cache["k"].dtype != q.dtype:
             raise NotImplementedError(
                 f"a KV cache in {cache['k'].dtype} under a {q.dtype} model (kv_dtype) is "
-                "not ported yet (ROADMAP.md, queue 1, 'Remaining model families')")
-        _ring_write(cache, k, v, positions, window)
+                "not ported yet (ROADMAP.md, queue 1, B.6)")
+        _ring_write(cache, k, v, k_pos, window)
 
-    kernel_ok = causal and cfg.attn_logit_softcap is None
+    kernel_ok = causal and kv_x is None and cfg.attn_logit_softcap is None
     over_cache = (gapless and cache is not None
                   and (window is None or cache["k"].shape[1] <= window))
     if kernel_ok and S > 1 and (cache is None or over_cache and S <= cache["k"].shape[1]):
@@ -209,10 +230,9 @@ def gqa_apply(
         out = (decode_fn or ops.decode_attention)(q[:, 0].contiguous(), cache["k"],
                                                   cache["v"], lengths)
     else:
-        k_pos = positions
         if cache is not None:
             k, v, k_pos = cache["k"], cache["v"], cache["pos"]
-        bias = _mask_bias(positions, k_pos, causal=causal, window=window)
+        bias = _mask_bias(positions, k_pos, causal=causal and kv_x is None, window=window)
         out = _sdpa(q.reshape(B, S, hk, hq // hk, hd), k, v, bias, cfg.attn_logit_softcap)
     return dense_apply(p["wo"], out.reshape(B, S, hq * hd)), cache
 

@@ -8,8 +8,6 @@ over a leading layer axis, as the JAX model's ``vmap``-ed init does, or a
 tuple of leading axes (a hybrid group's ``(groups, blocks)``); matrices are
 drawn one at a time (:func:`stacked_normal`), so no float32 copy of a whole
 stack is made.
-M-RoPE comes with the qwen2-vl family (ROADMAP.md, "Remaining model
-families").
 """
 from __future__ import annotations
 
@@ -25,7 +23,7 @@ __all__ = [
     "torch_dtype", "Layers", "lead_axes", "stacked_normal", "dense_init", "dense_apply",
     "norm_init", "norm_apply",
     "activation", "mlp_init", "mlp_apply", "embed_init", "rope_freqs",
-    "apply_rope",
+    "apply_rope", "apply_mrope",
 ]
 
 
@@ -177,4 +175,23 @@ def apply_rope(q: torch.Tensor, k: torch.Tensor, positions: torch.Tensor,
     """Standard RoPE.  q: (B,S,Hq,D), k: (B,S,Hk,D), positions: (B,S)."""
     cos, sin = rope_freqs(q.shape[-1], theta, positions)
     cos, sin = cos[..., None, :], sin[..., None, :]
+    return _rotate(q, cos, sin), _rotate(k, cos, sin)
+
+
+def apply_mrope(q: torch.Tensor, k: torch.Tensor, position_ids: torch.Tensor, theta: float,
+                sections: Tuple[int, ...]) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Qwen2-VL multimodal RoPE (arXiv:2409.12191).  ``position_ids`` (3, B, S):
+    the temporal, height and width position of each token.  The head_dim/2
+    frequency slots are split into ``sections`` (t, h, w), and each section
+    takes its angle from its own stream, in float32.  For text the three
+    streams are equal and M-RoPE is RoPE."""
+    half = q.shape[-1] // 2
+    if sum(sections) != half:
+        raise ValueError(f"M-RoPE sections {tuple(sections)} do not sum to head_dim/2 = {half}")
+    f32 = torch.float32
+    inv = 1.0 / (theta ** (torch.arange(half, dtype=f32, device=q.device) / half))
+    bounds = np.cumsum((0,) + tuple(sections))
+    ang = torch.cat([position_ids[s].to(f32)[..., None] * inv[lo:hi]
+                     for s, (lo, hi) in enumerate(zip(bounds[:-1], bounds[1:]))], dim=-1)
+    cos, sin = torch.cos(ang)[..., None, :], torch.sin(ang)[..., None, :]   # (B,S,1,half)
     return _rotate(q, cos, sin), _rotate(k, cos, sin)

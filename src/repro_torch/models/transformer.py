@@ -1,22 +1,27 @@
-"""Model assembly: the ``LM`` for the families ported so far.
+"""Model assembly: one ``LM`` for every family of the JAX package.
 
 The counterpart of the JAX package's ``models/transformer.py``.  The model
 is a sequence of segments, each a homogeneous stack of blocks whose
 parameters and states are stacked over a leading layer axis, as in the JAX
 package; a Python loop over layers takes the place of ``lax.scan``.
 
-Ported: the ``dense`` family (one ``"attn"`` segment of GQA + MLP blocks,
-trained, and served with a KV cache), the ``ssm`` family (one ``"rwkv"``
-segment of RWKV6 blocks, served and trained), the ``moe`` family (an
-optional segment of ``n_dense_layers`` dense blocks, then a ``moe=True``
-segment whose blocks take a mixture of experts for their MLP; attention
-GQA or MLA; served, and its auxiliary load-balance loss flows through
-``LM.loss``) and the ``hybrid`` family (RecurrentGemma: ``"group"``
-segments of ``n_rec`` RG-LRU blocks, then a local-attention block when
-``has_attn``; for 38 layers, (rec, rec, attn) x 12 then (rec, rec) x 1;
-served).  The other families raise ``NotImplementedError``; they are
-queued in ROADMAP.md ("Remaining model families").  Activation
-checkpointing (``remat`` other than ``"none"``) is queued too.
+The families: ``dense`` and ``vlm`` (one ``"attn"`` segment of GQA + MLP
+blocks, trained, and served with a KV cache; ``vlm`` rotates q and k by
+M-RoPE when ``position_ids`` are given, RoPE otherwise), the ``ssm``
+family (one ``"rwkv"`` segment of RWKV6 blocks, served and trained), the
+``moe`` family (an optional segment of ``n_dense_layers`` dense blocks,
+then a ``moe=True`` segment whose blocks take a mixture of experts for
+their MLP; attention GQA or MLA; served, and its auxiliary load-balance
+loss flows through ``LM.loss``), the ``hybrid`` family (RecurrentGemma:
+``"group"`` segments of ``n_rec`` RG-LRU blocks, then a local-attention
+block when ``has_attn``; for 38 layers, (rec, rec, attn) x 12 then (rec,
+rec) x 1; served) and the ``audio`` family (Whisper: an ``"enc"`` segment
+of non-causal attention blocks over the frame embeddings, run once by
+:meth:`LM.encode`, then a ``"dec"`` segment of blocks with causal
+self-attention, cross-attention to the encoder's output and an MLP; the
+decoder's cross cache is written at prefill and read at each decode step).
+Activation checkpointing (``remat`` other than ``"none"``) is queued in
+ROADMAP.md (queue 1, B.6).
 
 Parameters are plain dictionaries of tensors laid out like the JAX
 ``LM.init`` pytree, so :func:`repro_torch.models.convert.params_from_jax`
@@ -29,6 +34,7 @@ from typing import Any, Dict, List, Optional, Tuple, Union
 
 import dataclasses
 
+import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
@@ -41,14 +47,14 @@ from .moe import moe_apply, moe_init
 from .recurrent import (MixFn, rglru_apply, rglru_init, rglru_state, rwkv6_apply, rwkv6_init,
                         rwkv6_state)
 
-__all__ = ["Segment", "LM", "build_segments", "MOE_AUX_WEIGHT"]
+__all__ = ["Segment", "LM", "build_segments", "sinusoidal_embed", "MOE_AUX_WEIGHT"]
 
 MOE_AUX_WEIGHT = 0.01
 
 
 @dataclass(frozen=True)
 class Segment:
-    kind: str                     # "attn" | "rwkv" | "group"
+    kind: str                     # "attn" | "rwkv" | "group" | "enc" | "dec"
     n: int                        # layers, or groups for "group"
     moe: bool = False             # a mixture of experts for the MLP ("attn")
     window: Optional[int] = None  # local-attention window ("attn", "group")
@@ -57,7 +63,7 @@ class Segment:
 
 
 def build_segments(cfg: ModelConfig) -> List[Segment]:
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "vlm"):
         return [Segment("attn", cfg.n_layers, window=cfg.attn_window)]
     if cfg.family == "moe":
         m, w = cfg.moe, cfg.attn_window
@@ -73,10 +79,19 @@ def build_segments(cfg: ModelConfig) -> List[Segment]:
         if tail:
             segs.append(Segment("group", 1, window=w, n_rec=tail, has_attn=False))
         return segs
-    raise NotImplementedError(
-        f"family {cfg.family!r} is not ported yet; see ROADMAP.md, queue 1, "
-        "'Remaining model families'"
-    )
+    if cfg.family == "audio":
+        return [Segment("enc", cfg.n_layers), Segment("dec", cfg.n_layers)]
+    raise ValueError(f"unknown family {cfg.family!r}")
+
+
+def sinusoidal_embed(positions: torch.Tensor, dim: int) -> torch.Tensor:
+    """(..., S) int -> (..., S, dim) float32 sinusoidal embedding."""
+    half = dim // 2
+    f32 = torch.float32
+    freq = torch.exp(-np.log(10000.0) * torch.arange(half, dtype=f32, device=positions.device)
+                     / half)
+    ang = positions.to(f32)[..., None] * freq
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
 
 
 def _layer(tree: Any, i: int) -> Any:
@@ -103,10 +118,16 @@ class LM:
       init(generator) -> params
       loss(params, batch) -> (scalar, metrics)           [training]
       init_cache(batch, capacity) -> caches
-      backbone(params, tokens, positions=None, caches=None) -> (hidden, caches, aux)
+      encode(params, frames) -> encoder output           [audio]
+      backbone(params, tokens, positions=None, caches=None, position_ids=None,
+               enc_out=None, enc_positions=None) -> (hidden, caches, aux)
       logits(params, hidden) -> logits
       prefill(params, batch, caches) -> (last-token logits, caches)
-      decode_step(params, tokens, pos, caches) -> (logits, caches)
+      decode_step(params, tokens, pos, caches, position_ids=None) -> (logits, caches)
+
+    A batch holds ``tokens`` (B,S) and, for training, ``labels`` (B,S);
+    an ``audio`` model's also ``frames`` (B, enc_len, d_model), and a
+    ``vlm`` model's may hold M-RoPE ``position_ids`` (3, B, S).
 
     Caches are updated in place and returned, where the JAX model returns
     new arrays (its engine donates the old ones).  ``mix_fn`` replaces the
@@ -146,6 +167,15 @@ class LM:
                     "ffn": mlp_init(gen, cfg, dev, layers=n),
                 }
             return p
+        if seg.kind == "dec":
+            return {
+                "norm1": norm_init(cfg, dev, layers=n),
+                "self_attn": gqa_init(gen, cfg, dev, layers=n),
+                "norm_x": norm_init(cfg, dev, layers=n),
+                "cross_attn": gqa_init(gen, cfg, dev, layers=n, cross=True),
+                "norm2": norm_init(cfg, dev, layers=n),
+                "ffn": mlp_init(gen, cfg, dev, layers=n),
+            }
         attn = mla_init if cfg.attention == "mla" else gqa_init
         return {
             "norm1": norm_init(cfg, dev, layers=n),
@@ -168,16 +198,20 @@ class LM:
             w = torch.randn((cfg.d_model, cfg.vocab), generator=gen,
                             dtype=torch.float32, device=dev) * 0.02
             params["lm_head"] = {"w": w.to(dt)}
+        if cfg.enc_dec:
+            params["enc_final_norm"] = norm_init(cfg, dev)
         return params
 
     # ------------------------------------------------------------------ cache --
     def init_cache(self, batch: int, capacity: int) -> List[Dict[str, Any]]:
         """Per-segment decode caches and states, stacked over layers: a KV
         cache of ``capacity`` slots (a local-attention segment keeps at most
-        its window, as a ring), MLA's latent cache, the RWKV6 state, or a
+        its window, as a ring), MLA's latent cache, the RWKV6 state, a
         group's ``{"rec": RG-LRU states (groups, n_rec, B, ...), "attn": KV
-        ring (groups, B, ...)}``; the recurrent states do not grow with the
-        sequence.  :meth:`cache_batch_axes` says where the batch axis is."""
+        ring (groups, B, ...)}``, or a decoder's ``{"self": KV cache of
+        ``capacity`` slots, "cross": KV cache of ``enc_len`` slots}`` (an
+        encoder segment keeps None); the recurrent states do not grow with
+        the sequence.  :meth:`cache_batch_axes` says where the batch axis is."""
         cfg, dev = self.cfg, self.device
         caches: List[Dict[str, Any]] = []
         for seg in self.segments:
@@ -191,6 +225,11 @@ class LM:
                 if seg.has_attn:
                     cache["attn"] = make_cache(cfg, batch, cap, seg.n, dev)
                 caches.append(cache)
+            elif seg.kind == "enc":
+                caches.append(None)
+            elif seg.kind == "dec":
+                caches.append({"self": make_cache(cfg, batch, capacity, seg.n, dev),
+                               "cross": make_cache(cfg, batch, cfg.enc_len, seg.n, dev)})
             else:
                 caches.append(rwkv6_state(cfg, batch, seg.n, dev))
         return caches
@@ -198,20 +237,22 @@ class LM:
     def cache_batch_axes(self) -> List[Any]:
         """The batch axis of every leaf of :meth:`init_cache`'s caches, one
         entry a segment: an int for every leaf below it, or a dictionary by
-        key.  Axis 1 under the layer axis; 2 for a group's RG-LRU states,
-        stacked over (groups, blocks)."""
+        key.  Axis 1 under the layer axis (a decoder's self and cross
+        caches alike; an encoder segment holds no cache); 2 for a group's
+        RG-LRU states, stacked over (groups, blocks)."""
         return [{"rec": 2, "attn": 1} if seg.kind == "group" else 1 for seg in self.segments]
 
     # ----------------------------------------------------------------- blocks --
-    def _apply_attn_block(self, seg: Segment, p, x, positions, cache, gapless, aux):
+    def _apply_attn_block(self, seg: Segment, p, x, positions, cache, gapless, aux,
+                          position_ids=None, causal=True):
         cfg = self.cfg
         h = norm_apply(cfg, p["norm1"], x)
         if cfg.attention == "mla":
             a, _ = mla_apply(cfg, p["attn"], h, positions, cache=cache)
         else:
-            a, _ = gqa_apply(cfg, p["attn"], h, positions, cache=cache, causal=True,
-                             window=seg.window, attn_fn=self.attn_fn,
-                             decode_fn=self.decode_fn, gapless=gapless)
+            a, _ = gqa_apply(cfg, p["attn"], h, positions, cache=cache, causal=causal,
+                             window=seg.window, position_ids=position_ids,
+                             attn_fn=self.attn_fn, decode_fn=self.decode_fn, gapless=gapless)
         x = x + a
         h2 = norm_apply(cfg, p["norm2"], x)
         if seg.moe:
@@ -232,6 +273,31 @@ class LM:
         h2 = norm_apply(cfg, p["norm2"], x)
         return x + mlp_apply(cfg, p["ffn"], h2)
 
+    def _apply_dec_block(self, p, x, positions, cache, enc_out, enc_positions, gapless):
+        """A decoder block: causal self-attention (the kernel routes), then
+        cross-attention to ``enc_out`` (written into the cross cache when
+        there is one) or, without ``enc_out``, to the cross cache read only,
+        then the MLP."""
+        cfg = self.cfg
+        h = norm_apply(cfg, p["norm1"], x)
+        a, _ = gqa_apply(cfg, p["self_attn"], h, positions,
+                         cache=cache["self"] if cache is not None else None,
+                         attn_fn=self.attn_fn, decode_fn=self.decode_fn, gapless=gapless)
+        x = x + a
+        hx = norm_apply(cfg, p["norm_x"], x)
+        if enc_out is not None:
+            c, _ = gqa_apply(cfg, p["cross_attn"], hx, positions, kv_x=enc_out,
+                             kv_positions=enc_positions,
+                             cache=cache["cross"] if cache is not None else None, causal=False)
+        elif cache is not None:
+            c, _ = gqa_apply(cfg, p["cross_attn"], hx, positions, cache=cache["cross"],
+                             cache_read_only=True, causal=False)
+        else:
+            raise ValueError("a decoder block needs the encoder's output or a cross cache")
+        x = x + c
+        h2 = norm_apply(cfg, p["norm2"], x)
+        return x + mlp_apply(cfg, p["ffn"], h2)
+
     def _apply_group(self, seg: Segment, p, x, positions, cache, gapless, aux):
         """A hybrid group: ``n_rec`` RG-LRU blocks, then (``has_attn``) a
         local-attention block over the group's KV ring."""
@@ -245,11 +311,46 @@ class LM:
         return x, aux
 
     # ----------------------------------------------------------------- driver --
+    def encode(self, params, frames: torch.Tensor) -> torch.Tensor:
+        """The Whisper encoder over precomputed (stub front end) frame
+        embeddings ``frames`` (B, T, d): plus the sinusoidal embedding of
+        ``0..T-1``, the ``"enc"`` segments' non-causal blocks, then
+        ``enc_final_norm``."""
+        cfg = self.cfg
+        dt = torch_dtype(cfg.dtype)
+        B, T, _ = frames.shape
+        pos = torch.arange(T, device=frames.device).expand(B, T)
+        x = frames.to(dt) + sinusoidal_embed(pos, cfg.d_model).to(dt)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        for s, seg in enumerate(self.segments):
+            if seg.kind != "enc":
+                continue
+            for p in _unstack(params["segments"][s], seg.n):
+                x, aux = self._apply_attn_block(seg, p, x, pos, None, False, aux, causal=False)
+        return norm_apply(cfg, params["enc_final_norm"], x)
+
+    def _encoder_inputs(self, params, batch):
+        """``(enc_out, enc_positions)`` for an encoder-decoder model (the
+        encoder run once over ``batch["frames"]``), else ``(None, None)``."""
+        if not self.cfg.enc_dec:
+            return None, None
+        enc_out = self.encode(params, batch["frames"])
+        B, T, _ = enc_out.shape
+        return enc_out, torch.arange(T, device=enc_out.device).expand(B, T)
+
     def backbone(self, params, tokens: torch.Tensor, positions: Optional[torch.Tensor] = None,
-                 caches=None):
+                 caches=None, position_ids: Optional[torch.Tensor] = None,
+                 enc_out: Optional[torch.Tensor] = None,
+                 enc_positions: Optional[torch.Tensor] = None):
         """Embed -> segments -> final norm.  ``positions`` (B,S) are the
         tokens' absolute positions, ``0..S-1`` if not given; the RWKV6
-        segment carries its position in its state and reads none.  Returns
+        segment carries its position in its state and reads none.
+        ``position_ids`` (3,B,S) rotate a ``vlm`` model's attention by
+        M-RoPE; masks and cache slots still come from ``positions``.  An
+        encoder-decoder model adds the sinusoidal embedding of ``positions``
+        to the token embedding and skips its encoder segments here: its
+        decoder blocks attend to ``enc_out`` at ``enc_positions``, or
+        without them read their cross caches.  Returns
         ``(hidden (B,S,d), caches, aux)``, as the JAX ``backbone`` does; with
         caches, each layer's new state is written into them in place.
         ``aux`` is the auxiliary (MoE) loss summed over the layers, an f32
@@ -258,25 +359,36 @@ class LM:
         Attention over a cache takes the kernel route only for positions it
         makes itself (a prefill from 0); given positions take the JAX route
         (``models/attention.py``)."""
-        return self._backbone(params, tokens, positions, caches, gapless=positions is None)
+        return self._backbone(params, tokens, positions, caches, gapless=positions is None,
+                              position_ids=position_ids, enc_out=enc_out,
+                              enc_positions=enc_positions)
 
-    def _backbone(self, params, tokens, positions, caches, gapless: bool):
+    def _backbone(self, params, tokens, positions, caches, gapless: bool, position_ids=None,
+                  enc_out=None, enc_positions=None):
         cfg = self.cfg
         if caches is None and cfg.remat != "none":
             raise NotImplementedError(
-                f"remat={cfg.remat!r} is not ported yet (ROADMAP.md, queue 1, slice 2 "
-                "follow-ups)")
+                f"remat={cfg.remat!r} is not ported yet (ROADMAP.md, queue 1, B.6)")
         B, S = tokens.shape
         x = params["embed"]["embedding"][tokens]
         if positions is None:
             positions = torch.arange(S, device=tokens.device).expand(B, S)
+        if cfg.enc_dec:
+            x = x + sinusoidal_embed(positions, cfg.d_model).to(x.dtype)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for s, seg in enumerate(self.segments):
+            if seg.kind == "enc":
+                continue
             cache = caches[s] if caches is not None else None
             for i, p in enumerate(_unstack(params["segments"][s], seg.n)):
                 layer = _layer(cache, i) if cache is not None else None
                 if seg.kind == "attn":
-                    x, aux = self._apply_attn_block(seg, p, x, positions, layer, gapless, aux)
+                    x, aux = self._apply_attn_block(seg, p, x, positions, layer, gapless, aux,
+                                                    position_ids)
+                    continue
+                if seg.kind == "dec":
+                    x = self._apply_dec_block(p, x, positions, layer, enc_out, enc_positions,
+                                              gapless)
                     continue
                 if seg.kind == "group":
                     x, aux = self._apply_group(seg, p, x, positions, layer, gapless, aux)
@@ -324,24 +436,33 @@ class LM:
     # -------------------------------------------------------------------- API --
     def loss(self, params, batch: Dict[str, torch.Tensor]
              ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-        """batch: tokens (B,S), labels (B,S).  Returns ``(loss, {"xent",
-        "moe_aux"})`` as the JAX model does: the cross-entropy plus
-        ``MOE_AUX_WEIGHT`` times the auxiliary loss summed over the MoE
-        layers (0 without them)."""
-        hidden, _, aux = self.backbone(params, batch["tokens"])
+        """batch: tokens (B,S), labels (B,S) [+ frames / position_ids].
+        Returns ``(loss, {"xent", "moe_aux"})`` as the JAX model does: the
+        cross-entropy plus ``MOE_AUX_WEIGHT`` times the auxiliary loss summed
+        over the MoE layers (0 without them)."""
+        enc_out, enc_pos = self._encoder_inputs(params, batch)
+        hidden, _, aux = self.backbone(params, batch["tokens"],
+                                       position_ids=batch.get("position_ids"),
+                                       enc_out=enc_out, enc_positions=enc_pos)
         xent = self._xent(params, hidden, batch["labels"])
         return xent + MOE_AUX_WEIGHT * aux, {"xent": xent, "moe_aux": aux}
 
     def prefill(self, params, batch: Dict[str, torch.Tensor], caches):
-        """Bulk-process a prompt from position 0, filling caches.  Returns
-        last-token logits."""
-        hidden, caches, _ = self.backbone(params, batch["tokens"], caches=caches)
+        """Bulk-process a prompt from position 0, filling caches (an
+        encoder-decoder model runs its encoder over ``batch["frames"]`` and
+        writes the cross caches).  Returns last-token logits."""
+        enc_out, enc_pos = self._encoder_inputs(params, batch)
+        hidden, caches, _ = self.backbone(params, batch["tokens"], caches=caches,
+                                          position_ids=batch.get("position_ids"),
+                                          enc_out=enc_out, enc_positions=enc_pos)
         return self.logits(params, hidden[:, -1:, :])[:, 0], caches
 
-    def decode_step(self, params, tokens: torch.Tensor, pos: torch.Tensor, caches):
+    def decode_step(self, params, tokens: torch.Tensor, pos: torch.Tensor, caches,
+                    position_ids: Optional[torch.Tensor] = None):
         """One decode step.  tokens: (B,), pos: (B,) absolute position of
         each token (read by attention; the RWKV6 and RG-LRU states carry
-        their own).
+        their own); ``position_ids`` (3,B,1) for M-RoPE.  An
+        encoder-decoder model's cross-attention reads its cross caches.
 
         The caller keeps the invariant the ``ServingEngine`` keeps: each
         row's cache holds its sequence's positions ``0..pos-1`` with no gap
@@ -351,5 +472,5 @@ class LM:
         decode kernel.  Use
         ``backbone`` with explicit positions for anything else."""
         hidden, caches, _ = self._backbone(params, tokens[:, None], pos[:, None], caches,
-                                           gapless=True)
+                                           gapless=True, position_ids=position_ids)
         return self.logits(params, hidden)[:, 0], caches

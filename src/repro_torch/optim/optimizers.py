@@ -6,7 +6,12 @@ tree (``{"step", "m", "v"}``, ``m`` and ``v`` in the parameter dtype unless
 leaf in ``jax.tree.flatten`` order.  Where the JAX update is pure and its
 train step donates the old buffers, :meth:`AdamW.update` writes the new
 parameters and state into the old tensors in place, under
-``torch.no_grad()``, and returns them.  Adafactor is queued in ROADMAP.md.
+``torch.no_grad()``, and returns them.  It works through each leaf in
+slices along its first axis of at most ``UPDATE_SLICE`` elements (the
+update is elementwise, so the values are the same) and folds the clip into
+each slice, so its float32 temporaries stay at a few slices rather than
+several copies of the largest leaf: Qwen2-VL's 152064 x 8192 embedding is
+5 GB in float32.  Adafactor is queued in ROADMAP.md.
 """
 from __future__ import annotations
 
@@ -18,7 +23,10 @@ import torch
 from ..models.layers import torch_dtype
 from ..tree import tree_leaves, tree_map
 
-__all__ = ["Optimizer", "AdamW", "clip_by_global_norm", "global_norm"]
+__all__ = ["Optimizer", "AdamW", "clip_by_global_norm", "global_norm", "UPDATE_SLICE"]
+
+# elements of a leaf one slice of the AdamW update takes (64 MB in float32)
+UPDATE_SLICE = 1 << 24
 
 Schedule = Union[float, Callable[[torch.Tensor], torch.Tensor]]
 
@@ -80,23 +88,31 @@ class AdamW(Optimizer):
     def update(self, grads, state, params):
         """One AdamW step, written into ``params`` and ``state`` in place;
         returns them."""
-        if self.clip_norm is not None:
-            grads, _ = clip_by_global_norm(grads, self.clip_norm)
+        scale = None
+        if self.clip_norm is not None:   # clip_by_global_norm's scale, applied slice by slice
+            scale = torch.clamp(self.clip_norm / (global_norm(grads) + 1e-9), max=1.0)
         step = state["step"] + 1
         lr = _lr_at(self.lr, step)
         sf = step.to(torch.float32)
         c1 = 1.0 - self.b1 ** sf
         c2 = 1.0 - self.b2 ** sf
-        for p, g, m, v in zip(tree_leaves(params), tree_leaves(grads),
-                              tree_leaves(state["m"]), tree_leaves(state["v"])):
-            gf = g.to(torch.float32)
-            mf = self.b1 * m.to(torch.float32) + (1 - self.b1) * gf
-            vf = self.b2 * v.to(torch.float32) + (1 - self.b2) * gf * gf
-            u = (mf / c1) / (torch.sqrt(vf / c2) + self.eps)
-            if self.weight_decay:
-                u = u + self.weight_decay * p.to(torch.float32)
-            p.copy_(p.to(torch.float32) - lr * u)
-            m.copy_(mf)
-            v.copy_(vf)
+        f32 = torch.float32
+        for leaf in zip(tree_leaves(params), tree_leaves(grads),
+                        tree_leaves(state["m"]), tree_leaves(state["v"])):
+            if leaf[0].dim():
+                rows = max(1, UPDATE_SLICE // max(1, leaf[0][0].numel()))
+                slices = zip(*(t.split(rows) for t in leaf))
+            else:
+                slices = [leaf]
+            for p, g, m, v in slices:
+                gf = g.to(f32) if scale is None else (g.to(f32) * scale).to(g.dtype).to(f32)
+                mf = self.b1 * m.to(f32) + (1 - self.b1) * gf
+                vf = self.b2 * v.to(f32) + (1 - self.b2) * gf * gf
+                u = (mf / c1) / (torch.sqrt(vf / c2) + self.eps)
+                if self.weight_decay:
+                    u = u + self.weight_decay * p.to(f32)
+                p.copy_(p.to(f32) - lr * u)
+                m.copy_(mf)
+                v.copy_(vf)
         state["step"].copy_(step)
         return params, state

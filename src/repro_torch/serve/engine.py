@@ -20,6 +20,12 @@ block axis: it serves the hybrid family wrongly; ROADMAP.md, "Known
 reference faults".)  As in the JAX engine, an on-device ``pos`` holds each slot's next
 position: set when a request is added, advanced for every slot, busy or
 idle, after each step.
+
+An encoder-decoder model (Whisper) is refused at construction: requests
+carry only tokens, and its prefill needs ``frames``.  (The JAX engine
+passes only tokens too, and fails at ``add_request`` with ``KeyError:
+'frames'``; ROADMAP.md, "Known reference faults".)  Decode such a model
+through ``LM.prefill`` and ``LM.decode_step``.
 """
 from __future__ import annotations
 
@@ -60,6 +66,12 @@ class ServingEngine:
     """Runs on the model's device (``LM(cfg, device=...)``)."""
 
     def __init__(self, model: LM, params, max_batch: int = 8, max_seq: int = 512):
+        if model.cfg.enc_dec:
+            raise NotImplementedError(
+                f"{model.cfg.name}: the engine's requests carry only tokens, and an "
+                "encoder-decoder model's prefill needs frames (the JAX engine fails at "
+                "add_request with KeyError: 'frames'; ROADMAP.md, 'Known reference "
+                "faults'); decode it through LM.prefill and LM.decode_step")
         self.model = model
         self.params = params
         self.max_batch = max_batch

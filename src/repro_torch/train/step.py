@@ -22,12 +22,18 @@ __all__ = ["value_and_grad", "make_train_step", "make_eval_step"]
 
 
 def _split_microbatches(batch: Dict[str, torch.Tensor], m: int):
-    """``m`` microbatches split along the leading batch axis."""
+    """``m`` microbatches split along the batch axis: axis 1 of M-RoPE
+    ``position_ids`` (3, B, S), axis 0 of everything else.  (The JAX
+    version splits a leaf along axis 0 whenever that axis divides by
+    ``m``, so at m = 3 it cuts ``position_ids`` across its three streams;
+    ROADMAP.md, "Known reference faults".)"""
+    parts = {}
     for key, x in batch.items():
-        if x.dim() < 2 or x.shape[0] % m:
-            raise ValueError(f"cannot split leading batch dim {tuple(x.shape)} of "
+        axis = 1 if key == "position_ids" else 0
+        if x.dim() < 2 or x.shape[axis] % m:
+            raise ValueError(f"cannot split batch axis {axis} of {tuple(x.shape)} of "
                              f"{key!r} into {m}")
-    parts = {key: x.chunk(m, dim=0) for key, x in batch.items()}
+        parts[key] = x.chunk(m, dim=axis)
     return [{key: val[i] for key, val in parts.items()} for i in range(m)]
 
 

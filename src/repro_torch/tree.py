@@ -8,42 +8,45 @@ comparisons all see the leaves in the same order as the JAX side.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, List, Tuple
+from typing import Any, Callable, Iterator, List, Tuple
 
 __all__ = ["tree_leaves", "tree_map", "tree_flatten", "tree_unflatten"]
 
 
+def _walk(node: Any, leaves: List[Any]) -> Any:
+    if isinstance(node, dict):
+        return ("dict", [(key, _walk(node[key], leaves)) for key in sorted(node)])
+    if isinstance(node, (list, tuple)):
+        return (type(node), [_walk(val, leaves) for val in node])
+    if node is None:
+        return ("none", None)
+    leaves.append(node)
+    return ("leaf", None)
+
+
+def _build(spec: Any, it: Iterator[Any]) -> Any:
+    kind, children = spec
+    if kind == "dict":
+        return {key: _build(child, it) for key, child in children}
+    if kind == "none":
+        return None
+    if kind == "leaf":
+        return next(it)
+    return kind(_build(child, it) for child in children)
+
+
 def tree_flatten(tree: Any) -> Tuple[List[Any], Any]:
-    """``(leaves, structure)``; :func:`tree_unflatten` inverts it."""
+    """``(leaves, structure)``; :func:`tree_unflatten` inverts it.  (The
+    walk is a module-level function: a nested one that calls itself would
+    be a reference cycle holding ``leaves``, so a step's gradients would
+    live until the garbage collector ran.)"""
     leaves: List[Any] = []
-
-    def walk(node):
-        if isinstance(node, dict):
-            return ("dict", [(key, walk(node[key])) for key in sorted(node)])
-        if isinstance(node, (list, tuple)):
-            return (type(node), [walk(val) for val in node])
-        if node is None:
-            return ("none", None)
-        leaves.append(node)
-        return ("leaf", None)
-
-    return leaves, walk(tree)
+    return leaves, _walk(tree, leaves)
 
 
 def tree_unflatten(structure: Any, leaves: List[Any]) -> Any:
     it = iter(leaves)
-
-    def build(spec):
-        kind, children = spec
-        if kind == "dict":
-            return {key: build(child) for key, child in children}
-        if kind == "none":
-            return None
-        if kind == "leaf":
-            return next(it)
-        return kind(build(child) for child in children)
-
-    out = build(structure)
+    out = _build(structure, it)
     if next(it, None) is not None:
         raise ValueError("more leaves than the structure holds")
     return out

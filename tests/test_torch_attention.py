@@ -22,6 +22,7 @@ from repro.kernels.ref import attention_ref as jax_attention_ref
 from repro.models import reduced as jax_reduced
 from repro.models.attention import gqa_apply as jax_gqa_apply
 from repro.models.attention import gqa_init as jax_gqa_init
+from repro.models.attention import make_cache as jax_make_cache
 from repro.models.layers import apply_rope as jax_apply_rope
 from repro.models.layers import mlp_apply as jax_mlp_apply
 from repro.models.layers import mlp_init as jax_mlp_init
@@ -204,15 +205,57 @@ def test_gqa_apply_matches_jax(qwen_cfgs, causal, window, softcap):
 
 
 def test_gqa_apply_says_where_unported_paths_are_queued(qwen_cfgs):
-    _, cfg = qwen_cfgs
-    p = {name: {"w": torch.zeros(cfg.d_model, cfg.d_model)} for name in ("wq", "wk", "wv", "wo")}
-    x = torch.zeros(1, 4, cfg.d_model)
-    pos = torch.arange(4)[None]
+    """A cache in another dtype than the model's (``kv_dtype``) is still
+    queued in ROADMAP.md.  Cross-attention (``kv_x``, written into a cache
+    and then read from it with ``cache_read_only``) and M-RoPE, queued
+    until the audio and vlm families were ported, now compute the JAX
+    function."""
+    jcfg, cfg = qwen_cfgs
+    jp = jax_gqa_init(jax.random.PRNGKey(11), jcfg)
+    p = params_from_jax(jax.tree.map(np.asarray, jp), device="cpu")
+    rng = np.random.default_rng(12)
+    x = rng.standard_normal((2, 5, cfg.d_model)).astype(np.float32)
+    enc = rng.standard_normal((2, 9, cfg.d_model)).astype(np.float32)
+    x1 = rng.standard_normal((2, 1, cfg.d_model)).astype(np.float32)
+    pos = np.broadcast_to(np.arange(5, dtype=np.int32), (2, 5)).copy()
+    enc_pos = np.broadcast_to(np.arange(9, dtype=np.int32), (2, 9)).copy()
+    pos1 = np.full((2, 1), 5, np.int32)
     kv_dtype = make_cache(cfg, 1, 8, 1, torch.device("cpu"), dtype=torch.bfloat16)
-    kv_dtype = {key: val[0] for key, val in kv_dtype.items()}  # another dtype than the model's
-    for kwargs in ({"cache": kv_dtype}, {"cache_read_only": True}, {"kv_x": x}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            gqa_apply(cfg, p, x, pos, **kwargs)
-    mcfg = dataclasses.replace(cfg, rope="mrope")
+    kv_dtype = {key: val[:, 0] for key, val in kv_dtype.items()}  # another dtype than the model's
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        gqa_apply(mcfg, p, x, pos, position_ids=torch.zeros(3, 1, 4, dtype=torch.long))
+        gqa_apply(cfg, p, _t(x[:1]), torch.from_numpy(pos[:1]), cache=kv_dtype)
+
+    def close(got, want):
+        np.testing.assert_allclose(_np(got), np.asarray(want), atol=1e-5, rtol=1e-5)
+
+    cross = dict(causal=False)
+    got, none = gqa_apply(cfg, p, _t(x), torch.from_numpy(pos), kv_x=_t(enc),
+                          kv_positions=torch.from_numpy(enc_pos), **cross)
+    want, _ = jax_gqa_apply(jcfg, jp, jnp.asarray(x), jnp.asarray(pos), kv_x=jnp.asarray(enc),
+                            kv_positions=jnp.asarray(enc_pos), **cross)
+    assert none is None
+    close(got, want)
+    cache = {key: val[0] for key, val in make_cache(cfg, 2, 9, 1, torch.device("cpu")).items()}
+    jcache = {key: val[0] for key, val in jax_make_cache(jcfg, 2, 9, 1).items()}
+    got, cache = gqa_apply(cfg, p, _t(x), torch.from_numpy(pos), kv_x=_t(enc),
+                           kv_positions=torch.from_numpy(enc_pos), cache=cache, **cross)
+    want, jcache = jax_gqa_apply(jcfg, jp, jnp.asarray(x), jnp.asarray(pos),
+                                 kv_x=jnp.asarray(enc), kv_positions=jnp.asarray(enc_pos),
+                                 cache=jcache, **cross)
+    close(got, want)
+    got, same = gqa_apply(cfg, p, _t(x1), torch.from_numpy(pos1), cache=cache,
+                          cache_read_only=True, **cross)
+    want, _ = jax_gqa_apply(jcfg, jp, jnp.asarray(x1), jnp.asarray(pos1), cache=jcache,
+                            cache_read_only=True, **cross)
+    assert same is cache
+    close(got, want)
+    with pytest.raises(ValueError, match="cache_read_only"):
+        gqa_apply(cfg, p, _t(x1), torch.from_numpy(pos1), cache_read_only=True, **cross)
+
+    sections = dict(rope="mrope", mrope_sections=(4, 6, 6))
+    ids = rng.integers(0, 99, (3, 2, 5)).astype(np.int32)
+    got, _ = gqa_apply(dataclasses.replace(cfg, **sections), p, _t(x), torch.from_numpy(pos),
+                       position_ids=torch.from_numpy(ids))
+    want, _ = jax_gqa_apply(dataclasses.replace(jcfg, **sections), jp, jnp.asarray(x),
+                            jnp.asarray(pos), position_ids=jnp.asarray(ids))
+    close(got, want)

@@ -191,6 +191,11 @@ def _attn_inputs(seed, B, S, Hq, Hk, D, dtype, device):
     (1, 1100, 16, 1, 256, True, 300),
     (1, 70, 16, 1, 256, False, None),
     (2, 129, 32, 2, 256, True, 64),
+    # Whisper's decoder (MHA, g=1, D=64) at its training shape (S=448, a
+    # ragged last tile), and Qwen2-VL's heads (g=8, D=128) at its training
+    # length
+    (8, 448, 6, 6, 64, True, None),
+    (1, 2048, 64, 8, 128, True, None),
 ])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_attention_kernel_matches_plain_version(cuda_device, B, S, Hq, Hk, D, causal,
@@ -317,6 +322,10 @@ DECODE_CASES = [
     (1, 2048, 16, 1, 256, [2048]),
     (3, 100, 16, 1, 256, [1, 100, 37]),
     (2, 300, 32, 2, 256, [300, 64]),
+    # Whisper's decoder decode (MHA, g=1, D=64) over its 448-slot self cache,
+    # and Qwen2-VL's (g=8, D=128) at the serving shape's first-step lengths
+    (8, 448, 6, 6, 64, [64, 1, 448, 200, 5, 300, 447, 33]),
+    (8, 1024, 64, 8, 128, [65, 129, 81, 201, 513, 17, 34, 257]),
 ]
 
 

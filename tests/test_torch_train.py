@@ -8,8 +8,10 @@ numpy noise, so the QKV biases are not zero) and reach the port through
 JAX's Pallas kernels run in interpret mode (``"kernel_interpret"``).
 """
 import dataclasses
+import gc
 import json
 import os
+import weakref
 
 import jax
 import jax.numpy as jnp
@@ -36,6 +38,7 @@ from repro_torch.data.synthetic import SyntheticLM, materialize_batch
 from repro_torch.kernels.rwkv6_scan import rwkv6_scan_trainable
 from repro_torch.launch.train import train
 from repro_torch.models import LM, params_from_jax, reduced
+from repro_torch.optim import optimizers
 from repro_torch.optim.optimizers import AdamW
 from repro_torch.optim.schedules import constant, cosine_with_warmup, linear_warmup
 from repro_torch.train.step import make_eval_step, make_train_step, value_and_grad
@@ -172,6 +175,46 @@ def test_train_steps_match_jax(microbatches):
                                        err_msg=name)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_adamw_update_in_slices_is_the_whole_leaf_update(monkeypatch, dtype):
+    """``AdamW.update`` works through each leaf in slices of at most
+    ``UPDATE_SLICE`` elements along its first axis, the clip folded in:
+    bit for bit the clip of the whole tree, then the update of each whole
+    leaf, over three steps (slices of 1000 elements: one leaf of 37 rows
+    of 50, one whose 2100-element row is larger than a slice, a vector and
+    a scalar)."""
+    monkeypatch.setattr(optimizers, "UPDATE_SLICE", 1000)
+    gen = torch.Generator().manual_seed(0)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen).to(dtype)
+
+    params = {"a": randn(37, 50), "b": randn(3), "c": randn(2, 3, 700), "s": randn()}
+    grads = {key: randn(*val.shape) * 5 for key, val in params.items()}
+    opt = AdamW(lr=1e-2, weight_decay=0.1)
+    got, want = tree_map(torch.clone, params), tree_map(torch.clone, params)
+    s_got, s_want = opt.init(got), opt.init(want)
+    f32 = torch.float32
+    for _ in range(3):
+        opt.update(grads, s_got, got)
+        clipped, _ = optimizers.clip_by_global_norm(grads, opt.clip_norm)
+        step = s_want["step"] + 1
+        lr, sf = opt.lr, step.to(f32)
+        c1, c2 = 1.0 - opt.b1 ** sf, 1.0 - opt.b2 ** sf
+        for p, g, m, v in zip(*(tree_leaves(t) for t in (want, clipped, s_want["m"],
+                                                          s_want["v"]))):
+            gf = g.to(f32)
+            mf = opt.b1 * m.to(f32) + (1 - opt.b1) * gf
+            vf = opt.b2 * v.to(f32) + (1 - opt.b2) * gf * gf
+            u = (mf / c1) / (torch.sqrt(vf / c2) + opt.eps) + opt.weight_decay * p.to(f32)
+            p.copy_(p.to(f32) - lr * u)
+            m.copy_(mf)
+            v.copy_(vf)
+        s_want["step"].copy_(step)
+    for a, b in zip(tree_leaves((got, s_got)), tree_leaves((want, s_want))):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+
+
 def test_schedules_and_eval_step_match_jax():
     for i in range(8):
         s = torch.tensor(i, dtype=torch.int32)
@@ -277,6 +320,42 @@ def test_checkpoint_layout_and_bfloat16_round_trip(tmp_path):
     leaves, structure = tree_flatten((tree, [None, tree["a"]]))
     assert len(leaves) == 5
     assert torch.equal(tree_unflatten(structure, leaves)[1][1], tree["a"])
+
+
+def test_a_train_step_frees_its_gradients_without_the_garbage_collector():
+    """With the cycle collector off, nothing of a step outlives it: the
+    tree helpers hold no reference cycle (a self-calling nested walk
+    was one, and it kept each step's gradient tree alive until the
+    collector ran, a second copy of the gradients on the card), and the
+    gradients of a train step are freed when the step returns."""
+    jcfg, cfg = _pair("qwen1.5-0.5b", n_layers=1)
+    model = LM(cfg, device="cpu")
+    params = params_from_jax(_nudged_params(jcfg), device="cpu")
+    opt = AdamW(lr=1e-3)
+    state = opt.init(params)
+    batch = _torch_batch(_batches(cfg.vocab, 2, 16, 1)[0])
+    seen = []
+    real = optimizers.global_norm
+
+    def spy(tree):
+        seen.extend(weakref.ref(leaf) for leaf in tree_leaves(tree))
+        return real(tree)
+
+    gc.collect()
+    gc.disable()
+    try:
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(optimizers, "global_norm", spy)
+            params, state, _ = make_train_step(model, opt)(params, state, batch)
+        leaf = torch.zeros(3)
+        ref = weakref.ref(leaf)
+        leaves, structure = tree_flatten({"a": [leaf, None], "b": (leaf,)})
+        tree_unflatten(structure, leaves)
+        del leaf, leaves
+        assert ref() is None
+        assert seen and all(r() is None for r in seen)
+    finally:
+        gc.enable()
 
 
 def test_torn_replica_is_skipped_and_all_corrupt_raises(tmp_path):
