@@ -19,7 +19,11 @@ Phases, each failing the run with a non-zero exit if anything is wrong:
              CUDA graph of calls, so the gaps between its three passes
              count), and the host's time a call of each; checks by the
              profiler that a call of attention or decode runs one kernel on
-             the card and a WKV call three.
+             the card and a WKV call three.  The decode kernel also on
+             float8_e4m3fn K/V (a float8 cache) at the dense and the hybrid
+             heads, q in bf16 and in f32, served and full, its bound from
+             the bytes read with K/V at one byte an element, SDPA on the
+             widened K/V as the yardstick.
 4. serve     serves requests through ``ServingEngine`` on full-width
              RWKV6-3B in bf16 (random weights from a seed) and checks that
              every prefill went through the WKV kernel, that the tokens are
@@ -34,6 +38,15 @@ Phases, each failing the run with a non-zero exit if anything is wrong:
              and a few decode steps' logits against the plain decode
              attention (in bf16 and in a float32 copy); fits
              ``T = m*k + c`` on this model and profiles one decode step.
+             Then a second engine over the same weights with
+             ``kv_dtype="float8_e4m3fn"`` serves the same requests: every
+             decode step runs the decode kernel once a layer on float8 K/V,
+             reading each layer's slice of the engine's cache itself (no
+             widened copy), valid tokens, a few decode steps' logits held
+             against the plain route on the same float8 cache; greedy
+             agreement with the bf16-cache engine, its step median and peak
+             memory reported beside the bf16 engine's.  Prints a
+             ``dense_float8`` line.
 7. train     trains full-width Qwen1.5-0.5B in bf16 through
              ``repro_torch.launch.train.train`` (B=4, S=2048, 6 steps) and
              checks that every attention layer's forward ran the tensor-core
@@ -129,6 +142,22 @@ Phases, each failing the run with a non-zero exit if anything is wrong:
              both held layer by layer and the whole model's logits.  The
              encoder and cross-attention are plain torch, as the JAX
              model leaves them to XLA.  Prints a ``vlm_audio`` line.
+13. train-moe-hybrid  trains Qwen1.5-MoE-A2.7B (B=1, S=2048) and
+             RecurrentGemma-9B (B=1, S=4096, past its 2048-token window)
+             through ``make_train_step(model, Adafactor(lr=1e-3))`` with
+             ``remat="block"``, 4 steps each on the trainer's batches,
+             uncut if the reckoning it prints first fits 0.9 of the card,
+             else cut in depth: the attention kernel twice a layer a step
+             (the forward and its recompute), finite losses, gradient norms
+             and aux loss, the step median, tokens/s and peak memory beside
+             the reckoning, a profiled step; step 1 against the plain
+             attention at full depth in bf16, and by phase 7's float32 and
+             bf16 rules on a copy cut to 2 layers (one group for the
+             hybrid).  Then phase 7's model at B=4, S=2048 under remat
+             none, block and dots, 3 AdamW steps each: 24, 48 and 48
+             attention launches a step, losses equal, gradient norms within
+             1e-3, step medians and peak memory.  Prints a
+             ``train_moe_hybrid`` line.
 
 Phase 3 runs the attention and decode kernels also at the MoE path's
 heads (Hq = Hk = 16, D = 128), at Command R+'s g = 12 (Hq = 96, Hk = 8) and
@@ -139,8 +168,8 @@ decoder (Hq = Hk = 6, D = 64: training at B=8, S=448, decode over its
 448-slot cache) and at Qwen2-VL's (Hq = 64, Hk = 8, D = 128: training at
 S = 2048, decode at the serving shape).
 
-The ``place``, ``stream``, ``moe``, ``hybrid`` and ``vlm_audio`` lines come before the
-``kernels`` line.  The line before the last is a JSON object with each kernel's
+The ``place``, ``stream``, ``moe``, ``hybrid``, ``vlm_audio``, ``dense_float8``
+and ``train_moe_hybrid`` lines come before the ``kernels`` line.  The line before the last is a JSON object with each kernel's
 launches on its main paths (calls of its wrapper, by path and summed),
 the kernels a call runs on the card, its error against the plain version,
 its time, the plain version's time, its bound and the library call's time
@@ -219,8 +248,9 @@ from repro_torch.models import LM  # noqa: E402
 from repro_torch.models import moe as moe_module  # noqa: E402
 from repro_torch.models import recurrent as recurrent_module  # noqa: E402
 from repro_torch.models import transformer as transformer_module  # noqa: E402
-from repro_torch.models.layers import torch_dtype  # noqa: E402
-from repro_torch.optim.optimizers import AdamW, global_norm  # noqa: E402
+from repro_torch.models.layers import FLOAT8, astype, torch_dtype  # noqa: E402
+from repro_torch.optim import optimizers  # noqa: E402
+from repro_torch.optim.optimizers import Adafactor, AdamW, global_norm  # noqa: E402
 from repro_torch.optim.schedules import cosine_with_warmup  # noqa: E402
 from repro_torch.serve.engine import ServingEngine, measure_interference  # noqa: E402
 from repro_torch.train.step import make_train_step, value_and_grad  # noqa: E402
@@ -728,17 +758,89 @@ def dense_phase(dev):
         engine.add_request(*req)
     engine.step()
     profile_report("dense", engine.step)
-    return (attn_launches, launches), fit
+    del engine
+    torch.cuda.empty_cache()
+    float8 = float8_serve(model, params, requests, done, step_s, peak)
+    return (attn_launches, launches), fit, float8
 
 
-def decode_check(model, params, requests, done):
+def float8_serve(model, params, requests, done16, step16_s, peak16):
+    """Phase 6's second engine: the same weights and requests with
+    ``kv_dtype="float8_e4m3fn"``.  Checks every decode step ran the decode
+    kernel once a layer on float8 K/V, on the engine's cache itself (no
+    widened copy on the path), the tokens, and a few decode steps' logits
+    against the plain route on the same float8 cache; reports greedy
+    agreement with the bf16-cache engine, the step median and peak memory
+    beside the bf16 engine's.  Returns the ``dense_float8`` line and the
+    float8 launches."""
+    tag, dev = "dense float8", model.device
+    cfg = dataclasses.replace(model.cfg, kv_dtype="float8_e4m3fn")
+    model8 = LM(cfg, device=dev)
+    engine = ServingEngine(model8, params, max_batch=SERVE_B, max_seq=SERVE_C)
+    check(all(c[key].dtype == FLOAT8_KV for c in engine.caches for key in ("k", "v")),
+          "the float8 engine's cache is not float8")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    flash_attention.launches = flash_decode.launches = flash_decode.float8_launches = 0
+    done, prefill_s, step_s, wall = serve(engine, requests)
+    attn_launches, launches = flash_attention.launches, flash_decode.launches
+    launches8 = flash_decode.float8_launches
+    peak = torch.cuda.max_memory_allocated()
+    check(attn_launches == cfg.n_layers * len(requests),
+          f"flash_attention launched {attn_launches} times for {len(requests)} prefills")
+    check(launches == launches8 == cfg.n_layers * len(step_s),
+          f"flash_decode launched {launches} times ({launches8} on float8 K/V) for "
+          f"{len(step_s)} decode steps of {cfg.n_layers} layers")
+    report_serve(tag, cfg, requests, done, prefill_s, step_s, wall)
+    same = [a == b for rid, _, _ in requests for a, b in zip(done[rid], done16[rid])]
+    agree = float(np.mean(same))
+    step_ms, step16_ms = 1e3 * float(np.median(step_s)), 1e3 * float(np.median(step16_s))
+    print(f"[{tag}] flash_decode launches {launches} = {cfg.n_layers} layers x {len(step_s)} "
+          f"decode steps, all on float8 K/V; greedy tokens equal to the bf16-cache engine's "
+          f"{agree:.3f} ({sum(same)} of {len(same)}); decode step median {step_ms:.2f} ms "
+          f"(bf16 cache {step16_ms:.2f}); peak memory {peak / 2**30:.2f} GiB (bf16 cache "
+          f"{peak16 / 2**30:.2f})", flush=True)
+
+    # the decode kernel reads the engine's float8 cache itself: each layer's
+    # call gets that layer's slice of the stacked cache, not a widened copy
+    seen = []
+
+    def recorder(q, k, v, lengths):
+        seen.append((k.dtype, v.dtype, k.data_ptr(), v.data_ptr()))
+        return flash_decode(q, k, v, lengths)
+
+    engine.model = LM(cfg, device=dev, decode_fn=recorder)
+    engine.add_request(*requests[0])
+    engine.step()
+    (cache,) = engine.caches
+    want = [(FLOAT8_KV, FLOAT8_KV, cache["k"][i].data_ptr(), cache["v"][i].data_ptr())
+            for i in range(cfg.n_layers)]
+    check(seen == want, "a decode step's kernel calls did not read the engine's float8 cache")
+    print(f"[{tag}] a decode step's {len(seen)} kernel calls each read its layer's float8 "
+          f"slice of the engine's cache (no widened copy)", flush=True)
+    del engine
+    torch.cuda.empty_cache()
+    decode_check(model8, params, requests, done, tag)
+    line = {"dense_float8": {
+        "arch": cfg.name, "kv_dtype": cfg.kv_dtype, "prefill_ms": [1e3 * x for x in prefill_s],
+        "step_ms_median": step_ms, "bf16_cache_step_ms_median": step16_ms,
+        "steps": len(step_s), "tokens_per_s": sum(len(t) for t in done.values()) / wall,
+        "peak_gib": peak / 2**30, "bf16_cache_peak_gib": peak16 / 2**30,
+        "greedy_agreement_with_bf16_cache": agree,
+        "launches": {"flash_attention": attn_launches, "flash_decode": launches,
+                     "flash_decode_float8": launches8}}}
+    return line, launches8
+
+
+def decode_check(model, params, requests, done, tag="dense"):
     """A few decode steps from one prefilled cache through the decode kernel,
     held against the same steps through the plain decode attention.
 
     The first SERVE_B requests are prefilled into one engine; from a copy
     of its cache each path runs DECODE_CHECK_STEPS steps on the same tokens
     (the prefill's greedy tokens, then tokens drawn from a seed), held by
-    ``hold_logits`` with the float32 paths' weights and cache cast up."""
+    ``hold_logits`` with the float32 paths' weights and cache cast up (a
+    float8 cache stays float8: the float32 paths read it as it is)."""
     cfg, dev = model.cfg, model.device
     engine = ServingEngine(model, params, max_batch=SERVE_B, max_seq=SERVE_C)
     for req in requests[:SERVE_B]:
@@ -756,7 +858,7 @@ def decode_check(model, params, requests, done):
         m = LM(c, device=dev, decode_fn=decode_fn)
         dt = torch_dtype(c.dtype)
         caches = _tree_map(lambda t: t.to(dt, copy=True) if t.is_floating_point()
-                           else t.clone(), caches0)
+                           and t.dtype not in FLOAT8 else t.clone(), caches0)
         out = []
         with torch.inference_mode():
             for t in range(DECODE_CHECK_STEPS):
@@ -771,7 +873,7 @@ def decode_check(model, params, requests, done):
     plain32 = decode(cfg32, params32, decode_attention_ref)
     del params32, caches0
     torch.cuda.empty_cache()
-    hold_logits("dense", f"decode logits, {DECODE_CHECK_STEPS} steps at batch {SERVE_B}, "
+    hold_logits(tag, f"decode logits, {DECODE_CHECK_STEPS} steps at batch {SERVE_B}, "
                 "decode kernel vs plain decode attention", kern16, plain16, kern32, plain32)
 
 
@@ -801,7 +903,8 @@ ATTN_TIMED = (("train", TRAIN_B, TRAIN_S, 16, 16, 64, None, 1, "events"),
               ("hybrid prefill", 1, 512, 16, 1, 256, HYBRID_WINDOW, 8, "device"),
               ("hybrid train", 1, 4096, 16, 1, 256, HYBRID_WINDOW, 1, "events"),
               ("whisper train", 8, WHISPER_C, 6, 6, 64, None, 8, "device"),
-              ("vlm train", 1, 2048, 64, 8, 128, None, 1, "events"))
+              ("vlm train", 1, 2048, 64, 8, 128, None, 1, "events"),
+              ("vlm prefill", 1, 512, 64, 8, 128, None, 8, "device"))
 # the host's time per call is measured over this many back-to-back calls
 ATTN_HOST_CALLS = 200
 
@@ -962,13 +1065,15 @@ def layers(fn, n):
     return lambda: fn(next(i) % n)
 
 
-def decode_cost(B, Hq, Hk, D, lengths, elem_bytes):
+def decode_cost(B, Hq, Hk, D, lengths, elem_bytes, kv_bytes=None):
     """(bytes, operations) decode attention needs for these inputs: q read
-    and o written once, k and v read once up to each row's length, the
+    and o written once (``elem_bytes`` an element), k and v read once up to
+    each row's length (``kv_bytes`` an element, ``elem_bytes`` if None), the
     lengths themselves; 4*D operations (a multiply and an add in q.k and in
     p.v) for each (query head, valid slot) pair."""
     n = int(sum(lengths))
-    nbytes = (2 * B * Hq * D + 2 * n * Hk * D) * elem_bytes + 4 * B
+    nbytes = (2 * B * Hq * D * elem_bytes + 2 * n * Hk * D * (kv_bytes or elem_bytes)
+              + 4 * B)
     return nbytes, 4 * D * Hq * n
 
 
@@ -1135,6 +1240,78 @@ def decode_phase(dev):
         torch.cuda.empty_cache()
     return worst, timing
 
+
+
+# The decode kernel on float8 K/V (a float8 KV cache): the dense serving
+# path's heads (Minitron-8B) and the hybrid's (RecurrentGemma, D = 256), at
+# the served lengths and full, q in bf16 and in f32, against the plain
+# version (which widens K/V to q's dtype first) at the attention tolerances;
+# timed with bf16 q, its bound from the bytes read with K/V at one byte an
+# element, SDPA on the widened K/V as the yardstick.
+FLOAT8_KV = torch.float8_e4m3fn
+FLOAT8_DECODE_SHAPES = (("float8 ", 32, 8, 128), ("float8 hybrid ", 16, 1, 256))
+
+
+def float8_decode_phase(dev):
+    """The decode kernel on float8_e4m3fn K/V against decode_attention_ref,
+    then its device time beside the plain version's and SDPA's on the
+    widened K/V.  Returns the worst error and the times by shape."""
+    gen = torch.Generator(device=dev).manual_seed(5)
+    worst, timing = 0.0, {}
+    B, C, L = SERVE_B, SERVE_C, DECODE_TIMING_LAYERS
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    for path, Hq, Hk, D in FLOAT8_DECODE_SHAPES:
+        for lengths in (SERVE_LENGTHS, (C,) * B):
+            lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+            for dtype in (torch.float32, torch.bfloat16):
+                q = torch.randn((B, Hq, D), generator=gen, device=dev).to(dtype)
+                k, v = (astype(torch.randn((B, C, Hk, D), generator=gen, device=dev), FLOAT8_KV)
+                        for _ in range(2))
+                out = flash_decode(q, k, v, lens)
+                torch.cuda.synchronize()
+                got, want = out.float(), decode_attention_ref(q, k, v, lens).float()
+                check(bool(torch.isfinite(got).all()), f"non-finite float8 decode output D={D}")
+                tol = ATTN_TOL[dtype]
+                err = float((got - want).abs().max())
+                over = float(((got - want).abs() - (tol + tol * want.abs())).max())
+                check(over <= 0, f"float8 decode kernel disagrees Hq={Hq} Hk={Hk} D={D} "
+                      f"lengths={list(lengths)} q {dtype}: max abs err {err:.3e} beyond {tol}")
+                worst = max(worst, err)
+                print(f"[kernels] flash_decode float8_e4m3fn K/V B={B} C={C} Hq={Hq} Hk={Hk} "
+                      f"D={D} lengths {list(lengths)} q {str(dtype)[6:]}: max abs err "
+                      f"{err:.3e} (tol {tol} abs+rel)", flush=True)
+        q = torch.randn((L, B, Hq, D), generator=gen, device=dev).to(torch.bfloat16)
+        k, v = (astype(torch.randn((L, B, C, Hk, D), generator=gen, device=dev), FLOAT8_KV)
+                for _ in range(2))
+        kt, vt = (t.to(torch.bfloat16).transpose(2, 3).contiguous() for t in (k, v))
+        for lengths_name, lengths in (("served", SERVE_LENGTHS), ("full", (C,) * B)):
+            name = path + lengths_name
+            lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+            mask = (torch.arange(C, device=dev)[None, :] < lens[:, None])[:, None, None, :]
+            ms = device_ms(layers(lambda i: flash_decode(q[i], k[i], v[i], lens), L), 4 * L)
+            plain_ms = device_ms(layers(lambda i: decode_attention_ref(q[i], k[i], v[i], lens),
+                                        L), L)
+            library_ms = device_ms(layers(lambda i: sdpa(q[i][:, :, None], kt[i], vt[i],
+                                                          attn_mask=mask, enable_gqa=True), L),
+                                   4 * L)
+            nbytes, ops = decode_cost(B, Hq, Hk, D, lengths, 2, kv_bytes=1)
+            t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / BF16_OPS_PER_S * 1e3
+            bound = max(t_bytes, t_ops)
+            timing[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound,
+                                bound_by="bytes" if t_bytes >= t_ops else "operations")
+            if name == "float8 served":
+                per_call = kernels_per_call(lambda: flash_decode(q[0], k[0], v[0], lens))
+                check(per_call == 1, f"one float8 flash_decode call ran {per_call} kernels")
+                timing["kernels_per_call"] = per_call
+            print(f"[kernels] flash_decode float8_e4m3fn K/V B={B} C={C} Hq={Hq} Hk={Hk} D={D} "
+                  f"bf16 q, lengths {lengths_name} (sum {sum(lengths)}): device {ms:.4f} ms a "
+                  f"launch; plain version {plain_ms:.4f} ms; scaled_dot_product_attention on "
+                  f"the widened K/V {library_ms:.4f} ms; bound {bound:.5f} ms ({nbytes} bytes "
+                  f"-> {t_bytes:.5f} ms, {ops} bf16 ops -> {t_ops:.5f} ms), "
+                  f"{100 * bound / ms:.1f}% of bound", flush=True)
+        del q, k, v, kt, vt
+        torch.cuda.empty_cache()
+    return worst, timing
 
 
 def plain_attention(q, k, v, causal=True, window=None):
@@ -3010,6 +3187,284 @@ def vlm_audio_phase(dev):
     return line, attn, dec
 
 
+# -- phase 13: train the MoE and hybrid families -------------------------------------
+# (arch, B, S, steps): Qwen1.5-MoE at its serving context, RecurrentGemma past
+# its 2048-token window, so the kernel's window masks; both through
+# make_train_step(model, Adafactor(lr=1e-3)) with remat="block", as the JAX
+# dry-run composes them for its big configs
+MOE_HYBRID_TRAIN = (("qwen2-moe-a2.7b", 1, 2048, 4), ("recurrentgemma-9b", 1, 4096, 4))
+# the share of the card's memory the printed reckoning may take before the
+# run cuts the model in depth (room for the allocator's fragmentation)
+TRAIN_MEMORY_SHARE = 0.9
+# step 1 on the full models: the kernel's bf16 loss and gradient norm
+# against the plain attention's bf16 ones within two bf16 ulps of the value
+# (no float32 copy of the full model fits; phase 7's float32 and bf16 rules
+# run on a copy cut to STEP1_CUT_UNITS layers, or to one hybrid group of
+# (rec, rec, attn), so the copy keeps an attention layer)
+STEP1_BF16_REL = 2.0 ** -7
+STEP1_CUT_UNITS = 2
+# the remat comparison: phase 7's model and shape, REMAT_STEPS AdamW steps
+# under each policy; gradient norms within REMAT_GNORM_RTOL (the embedding
+# backward's atomics may sum in another order on the card); losses equal
+REMAT_STEPS, REMAT_GNORM_RTOL = 3, 1e-3
+
+
+def train_reckoning(cfg, B, S):
+    """``(bytes, {term: bytes})`` a train step of ``cfg`` at (B, S) with
+    Adafactor and remat="block" is reckoned to need, from the JAX tree's
+    shapes (the model built on the meta device): weights and gradients; the
+    largest stacked leaf's gradient gathered into one stack while its
+    per-layer parts live; Adafactor's state and the float32 temporaries of
+    its slices; the float32 logits, their exponentials and their gradient;
+    the head's float32 cast and its gradient; the saved input of each
+    checkpointed layer; one layer's recompute and backward (16 float32
+    copies of its widest activation, and for the RG-LRU the scan's
+    ceil(log2 S) steps of (a, b))."""
+    model = LM(cfg, device="meta")
+    params = model.init(torch.Generator())
+    leaves = tree_leaves(params)
+    nbytes = sum(t.numel() * t.element_size() for t in leaves)
+    state = Adafactor().init(params)
+    V, d = cfg.vocab, cfg.d_model
+    lru = cfg.recurrent.lru_width if cfg.recurrent and cfg.recurrent.lru_width else 0
+    width = max(cfg.d_ff, d, lru,
+                cfg.moe.n_shared_experts * cfg.moe.d_expert if cfg.moe else 0)
+    units = sum(seg.n for seg in model.segments)
+    work = 16 * B * S * width * 4
+    if lru:
+        work += 2 * int(np.ceil(np.log2(S))) * B * S * lru * 4
+    terms = {
+        "weights": nbytes,
+        "gradients": nbytes,
+        "largest leaf's gradient stack": max(t.numel() * t.element_size() for t in leaves),
+        "Adafactor state": sum(t.numel() * 4 for t in tree_leaves(state["v"])),
+        "Adafactor slices": 8 * optimizers.UPDATE_SLICE * 4,
+        "f32 logits, exp and gradient": 3 * B * S * V * 4,
+        "f32 head and its gradient": 2 * V * d * 4,
+        "saved layer inputs": units * B * S * d * 2,
+        "one layer's recompute and backward": work,
+    }
+    return sum(terms.values()), terms
+
+
+def fitted_config(tag, arch, B, S):
+    """The config phase 13 trains: uncut if its reckoning fits
+    TRAIN_MEMORY_SHARE of the card, else cut in depth (whole hybrid
+    groups) until it does.  Prints the reckoning and the decision."""
+    full = dataclasses.replace(get_config(arch), remat="block")
+    budget = TRAIN_MEMORY_SHARE * torch.cuda.get_device_properties(0).total_memory
+    step = len(full.recurrent.pattern) if full.family == "hybrid" else 1
+    cfg = full
+    while True:
+        total, terms = train_reckoning(cfg, B, S)
+        if total <= budget or cfg.n_layers <= step:
+            break
+        cfg = dataclasses.replace(cfg, n_layers=cfg.n_layers - step)
+    print(f"[{tag}] reckoning for {cfg.name} at {cfg.n_layers} of {full.n_layers} layers, "
+          f"B={B} S={S}: {total / 1e9:.2f} GB against {budget / 1e9:.2f} GB "
+          f"({TRAIN_MEMORY_SHARE} of the card): "
+          + "; ".join(f"{k} {v / 1e9:.2f}" for k, v in terms.items()), flush=True)
+    check(total <= budget, f"{cfg.name} does not fit the card even at {cfg.n_layers} layers")
+    cut = ("uncut" if cfg.n_layers == full.n_layers
+           else f"cut in depth to {cfg.n_layers} of {full.n_layers} layers by the reckoning")
+    print(f"[{tag}] {cfg.name} trains {cut}", flush=True)
+    return cfg, total, terms, cut
+
+
+def adafactor_train(tag, cfg, dev, B, S, steps):
+    """Train ``cfg`` (remat="block") through ``make_train_step(model,
+    Adafactor(lr=1e-3))`` on the trainer's batches for ``steps`` steps, then
+    one profiled step.  Checks two attention launches a layer a step (the
+    forward and its recompute), finite losses, gradient norms and aux loss.
+    Returns the part's numbers."""
+    model = LM(cfg, device=dev)
+    n_attn = sum(seg.n for seg in model.segments
+                 if seg.kind == "attn" or (seg.kind == "group" and seg.has_attn))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+    optimizer = Adafactor(lr=1e-3)
+    opt_state = optimizer.init(params)
+    step_fn = make_train_step(model, optimizer)
+    n_params = sum(t.numel() for t in _leaves(params))
+    print(f"[{tag}] {cfg.name}: {n_params} parameters, weights and Adafactor state "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB, init "
+          f"{time.perf_counter() - t0:.1f} s; B={B} S={S}, {steps} steps, remat {cfg.remat}",
+          flush=True)
+    stream = iter(SyntheticLM(cfg.vocab, B, S, seed=0))
+    flash_attention.launches = rwkv6_scan.launches = flash_decode.launches = 0
+    flash_attention.wgmma_launches = flash_attention.simt_launches = 0
+    losses, gnorms, auxes, step_s = [], [], [], []
+    for _ in range(steps):
+        batch = to_device(frontend_stubs(cfg, next(stream)), dev)
+        t = time.perf_counter()
+        params, opt_state, metrics = step_fn(params, opt_state, batch)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t)
+        losses.append(float(metrics["loss"]))
+        gnorms.append(float(metrics["grad_norm"]))
+        auxes.append(float(metrics["moe_aux"]))
+    launches = flash_attention.launches
+    peak = torch.cuda.max_memory_allocated()
+    total = torch.cuda.get_device_properties(0).total_memory
+    check(peak < total, f"peak memory {peak} beyond the card's {total}")
+    check(launches == 2 * n_attn * steps,
+          f"flash_attention launched {launches} times for {steps} steps of {n_attn} attention "
+          f"layers, each forward once and once more in its recompute")
+    check(flash_attention.wgmma_launches == launches,
+          f"of {launches} bf16 attention launches {flash_attention.wgmma_launches} went "
+          f"through the tensor-core kernel")
+    check(rwkv6_scan.launches == flash_decode.launches == 0,
+          f"the {tag} training path launched another kernel")
+    check(bool(np.isfinite(losses).all() and np.isfinite(gnorms).all()
+               and np.isfinite(auxes).all()),
+          f"non-finite loss, gradient norm or aux loss: {losses} {gnorms} {auxes}")
+    step_ms = 1e3 * np.asarray(step_s)
+    print(f"[{tag}] losses {[round(x, 5) for x in losses]}; gradient norms "
+          f"{[round(x, 5) for x in gnorms]}; aux loss {[round(x, 5) for x in auxes]}; step ms "
+          f"{[round(float(x), 2) for x in step_ms]} (the first cold), median "
+          f"{np.median(step_ms):.2f}; {B * S / np.median(step_ms) * 1e3:.1f} tokens/s at the "
+          f"median; peak memory {peak / 2**30:.2f} GiB ({peak / 1e9:.2f} GB) of "
+          f"{total / 2**30:.2f}; flash_attention launches {launches} = {n_attn} attention "
+          f"layers x 2 (forward, recompute) x {steps} steps, all through the tensor-core "
+          f"kernel", flush=True)
+    batch = to_device(frontend_stubs(cfg, next(stream)), dev)
+    profile_report(tag, lambda: step_fn(params, opt_state, batch))
+    del params, opt_state, step_fn, model, batch, metrics
+    torch.cuda.empty_cache()
+    return dict(arch=cfg.name, layers=cfg.n_layers, params=n_params, batch=B, seq=S,
+                losses=losses, grad_norms=gnorms, aux=auxes, step_ms=step_ms.tolist(),
+                step_ms_median=float(np.median(step_ms)),
+                tokens_per_s=float(B * S / np.median(step_ms) * 1e3), peak_gib=peak / 2**30,
+                peak_bytes=peak, launches=launches, attn_layers=n_attn)
+
+
+def full_step1_check(tag, cfg, dev, kern16, shape):
+    """Step 1 of the full model through the kernel against the same step
+    through the plain attention, both in bf16: loss and gradient norm within
+    STEP1_BF16_REL of the plain values."""
+    plain16 = step_one(cfg, dev, plain_attention, shape=shape)
+    for i, name in enumerate(("loss", "gradient norm")):
+        rel = abs(kern16[i] - plain16[i]) / abs(plain16[i])
+        print(f"[{tag}] step 1 {name} at full depth: kernel bf16 {kern16[i]:.6f}, plain bf16 "
+              f"{plain16[i]:.6f}; rel diff {rel:.3e} (tol {STEP1_BF16_REL:.3e})", flush=True)
+        check(rel <= STEP1_BF16_REL, f"bf16 step 1 {name} of {cfg.name}: kernel {kern16[i]} vs "
+              f"plain {plain16[i]}")
+    return dict(kernel_bf16=kern16, plain_bf16=plain16)
+
+
+def remat_comparison(dev):
+    """Phase 7's model and shape under remat none, block and dots: REMAT_STEPS
+    AdamW steps each from the same weights on the same batches.  Checks the
+    attention launches a step (one forward a layer, twice under a recompute),
+    losses equal and gradient norms within REMAT_GNORM_RTOL; reports each
+    policy's step median and peak memory."""
+    base = get_config(TRAIN_ARCH)
+    B, S = TRAIN_B, TRAIN_S
+    batches = [to_device(frontend_stubs(base, b), dev) for b in
+               itertools.islice(iter(SyntheticLM(base.vocab, B, S, seed=0)), REMAT_STEPS)]
+    out = {}
+    for remat in ("none", "block", "dots"):
+        cfg = dataclasses.replace(base, remat=remat)
+        model = LM(cfg, device=dev)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        params = model.init(torch.Generator(device=dev).manual_seed(0))
+        optimizer = AdamW(lr=cosine_with_warmup(3e-3, 1, REMAT_STEPS))
+        opt_state = optimizer.init(params)
+        step_fn = make_train_step(model, optimizer)
+        flash_attention.launches = 0
+        losses, gnorms, step_s = [], [], []
+        for batch in batches:
+            t = time.perf_counter()
+            params, opt_state, metrics = step_fn(params, opt_state, batch)
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t)
+            losses.append(float(metrics["loss"]))
+            gnorms.append(float(metrics["grad_norm"]))
+        per_step = flash_attention.launches / REMAT_STEPS
+        want = cfg.n_layers * (1 if remat == "none" else 2)
+        check(per_step == want, f"remat {remat}: {per_step} attention launches a step, "
+              f"wanted {want}")
+        out[remat] = dict(losses=losses, grad_norms=gnorms, step_ms=[1e3 * x for x in step_s],
+                          step_ms_median=1e3 * float(np.median(step_s)),
+                          peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                          attention_launches_per_step=per_step)
+        print(f"[remat] {remat}: losses {losses}; gradient norms {gnorms}; step ms "
+              f"{[round(1e3 * x, 2) for x in step_s]}, median "
+              f"{out[remat]['step_ms_median']:.2f}; peak memory {out[remat]['peak_gib']:.2f} "
+              f"GiB; {per_step:.0f} attention launches a step", flush=True)
+        del params, opt_state, step_fn, model, metrics
+        torch.cuda.empty_cache()
+    for remat in ("block", "dots"):
+        check(out[remat]["losses"] == out["none"]["losses"],
+              f"remat {remat} losses {out[remat]['losses']} differ from none's "
+              f"{out['none']['losses']}")
+        rel = max(abs(a - b) / abs(b) for a, b in zip(out[remat]["grad_norms"],
+                                                       out["none"]["grad_norms"]))
+        out[remat]["grad_norm_rel_diff"] = rel
+        print(f"[remat] {remat}: losses equal to none's; gradient norms within {rel:.3e} "
+              f"relative (tol {REMAT_GNORM_RTOL})", flush=True)
+        check(rel <= REMAT_GNORM_RTOL, f"remat {remat} gradient norms differ by {rel:.3e}")
+    return out
+
+
+def train_moe_hybrid_phase(dev):
+    """Phase 13: train Qwen1.5-MoE-A2.7B and RecurrentGemma-9B with
+    Adafactor and remat="block", uncut or cut in depth as the printed
+    reckoning says; step 1 against the plain attention at full depth in
+    bf16 and on a cut copy by phase 7's rules; then the remat comparison on
+    phase 7's model.  Returns the ``train_moe_hybrid`` line and the
+    attention launches by path."""
+    t_phase = time.perf_counter()
+    # A train step gathers each stacked leaf's gradient into one block while
+    # its per-layer parts live (7.7 GiB for Qwen-MoE's experts), among blocks
+    # the backward pass has freed and split: let the caching allocator map
+    # more memory into a segment rather than fail on fragmentation (the
+    # uncut MoE step failed so with 21.6 GiB reserved and free, on an
+    # NVIDIA H100 80GB HBM3 at 700 W)
+    torch.cuda.empty_cache()
+    torch.cuda.memory._set_allocator_settings("expandable_segments:True")
+    try:
+        line, launches = train_moe_hybrid_runs(dev)
+    finally:
+        torch.cuda.empty_cache()
+        torch.cuda.memory._set_allocator_settings("expandable_segments:False")
+    line = {"train_moe_hybrid": line}
+    line["train_moe_hybrid"]["seconds"] = time.perf_counter() - t_phase
+    print(f"[train-moe-hybrid] phase took {line['train_moe_hybrid']['seconds']:.1f} s",
+          flush=True)
+    return line, launches
+
+
+def train_moe_hybrid_runs(dev):
+    """Phase 13's runs: returns its line's parts and the launches by path."""
+    line, launches = {}, {}
+    for arch, B, S, steps in MOE_HYBRID_TRAIN:
+        tag = "train-moe" if arch == MOE_ARCH else "train-hybrid"
+        cfg, reckoned, terms, cut = fitted_config(tag, arch, B, S)
+        part = adafactor_train(tag, cfg, dev, B, S, steps)
+        print(f"[{tag}] peak {part['peak_bytes'] / 1e9:.2f} GB against the reckoning "
+              f"{reckoned / 1e9:.2f} GB", flush=True)
+        part.update(cut=cut, reckoning_gb=reckoned / 1e9,
+                    reckoning_terms_gb={k: v / 1e9 for k, v in terms.items()})
+        part["step1"] = full_step1_check(tag, cfg, dev, (part["losses"][0],
+                                                         part["grad_norms"][0]), (B, S))
+        small = dataclasses.replace(cfg, n_layers=len(cfg.recurrent.pattern)
+                                    if cfg.family == "hybrid" else STEP1_CUT_UNITS)
+        kern16 = step_one(small, dev, None, shape=(B, S))
+        part["step1_cut"] = dict(layers=small.n_layers,
+                                 **step1_check(small, dev, kern16, tag, (B, S)))
+        line[cfg.name] = part
+        launches[f"{cfg.family} train"] = part["launches"]
+        torch.cuda.empty_cache()
+    line["remat"] = remat_comparison(dev)
+    for remat, val in line["remat"].items():
+        launches[f"remat {remat}"] = int(val["attention_launches_per_step"] * REMAT_STEPS)
+    return line, launches
+
+
 # the per-shape numbers of a kernel's row in the kernels line
 SHAPE_KEYS = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")
 
@@ -3053,7 +3508,18 @@ def main() -> int:
           + "; f32 "
           + ", ".join(f"D={d} {decode_smem_bytes(d, torch.float32)} bytes"
                       for d in (32, 64, 128, 256))
+          + "; bf16 q, float8 K/V "
+          + ", ".join(f"D={d} {decode_smem_bytes(d, torch.bfloat16, FLOAT8_KV)} bytes"
+                      for d in (32, 64, 128, 256))
+          + "; f32 q, float8 K/V "
+          + ", ".join(f"D={d} {decode_smem_bytes(d, torch.float32, FLOAT8_KV)} bytes"
+                      for d in (32, 64, 128, 256))
           + " (128 threads a block)", flush=True)
+    for d in (32, 64, 128, 256):
+        for qd in (torch.bfloat16, torch.float32):
+            check(decode_smem_bytes(d, qd, FLOAT8_KV) <= decode_smem_bytes(d, qd),
+                  f"the float8 ring at D={d} takes more shared memory than {qd}'s: the split "
+                  "plan would not hold")
     for name in ("rwkv6_scan", "flash_decode"):
         for kern, regs, st, ld in ptxas_report(reports.get(name, "")):
             print(f"[build] {name} {kern}: {regs} registers, spill stores {st} bytes, "
@@ -3062,6 +3528,7 @@ def main() -> int:
     worst, timing = kernel_phase(dev)
     attn_worst, attn_t = attention_phase(dev)
     dec_worst, dec_t = decode_phase(dev)
+    dec8_worst, dec8_t = float8_decode_phase(dev)
     flash_attention.launches = flash_decode.launches = 0
     model, params, launches = serve_phase(dev)
     check(flash_attention.launches == 0 and flash_decode.launches == 0,
@@ -3069,7 +3536,8 @@ def main() -> int:
     fit_phase("fit", model, params, (rwkv6_scan,))
     del model, params
     torch.cuda.empty_cache()
-    (dense_attn_launches, dense_dec_launches), dense_fit = dense_phase(dev)
+    (dense_attn_launches, dense_dec_launches), dense_fit, (dense8, dense8_launches) = \
+        dense_phase(dev)
     torch.cuda.empty_cache()
     attn_launches, _, _ = train_phase(dev)
     torch.cuda.empty_cache()
@@ -3082,10 +3550,13 @@ def main() -> int:
     hybrid, hybrid_attn_launches, hybrid_dec_launches = hybrid_phase(dev)
     torch.cuda.empty_cache()
     vlm_audio, vlm_audio_attn, vlm_audio_dec = vlm_audio_phase(dev)
+    torch.cuda.empty_cache()
+    train_mh, train_mh_attn = train_moe_hybrid_phase(dev)
 
     main_t, dec_main, attn_main = timing[512], dec_t["served"], attn_t["train"]
     attn_by_path = {"dense": dense_attn_launches, "train": attn_launches,
-                    "moe": moe_attn_launches, "hybrid": hybrid_attn_launches, **vlm_audio_attn}
+                    "moe": moe_attn_launches, "hybrid": hybrid_attn_launches, **vlm_audio_attn,
+                    **train_mh_attn}
     dec_by_path = {"dense": dense_dec_launches, "moe": moe_dec_launches,
                    "hybrid": hybrid_dec_launches, **vlm_audio_dec}
     print(f"[done] {time.perf_counter() - t_start:.1f} s", flush=True)
@@ -3094,6 +3565,8 @@ def main() -> int:
     print(json.dumps(moe), flush=True)
     print(json.dumps(hybrid), flush=True)
     print(json.dumps(vlm_audio), flush=True)
+    print(json.dumps(dense8), flush=True)
+    print(json.dumps(train_mh), flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": [{
         "name": "rwkv6_scan",
@@ -3139,6 +3612,22 @@ def main() -> int:
         "library_ms": dec_main["library_ms"],
         "by_shape": {name: {key: val[key] for key in SHAPE_KEYS}
                      for name, val in dec_t.items() if isinstance(val, dict)},
+    }, {
+        "name": "flash_decode (float8_e4m3fn K/V)",
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_decode.cu",
+        "replaces": "src/repro/kernels/flash_decode.py:76",
+        "launches": dense8_launches,
+        "launches_by_path": {"dense float8": dense8_launches},
+        "kernels_per_call": dec8_t["kernels_per_call"],
+        "max_abs_err": dec8_worst,
+        "ms": dec8_t["float8 served"]["ms"],
+        "plain_ms": dec8_t["float8 served"]["plain_ms"],
+        "bound_ms": dec8_t["float8 served"]["bound_ms"],
+        "bound_by": dec8_t["float8 served"]["bound_by"],
+        "library_ms": dec8_t["float8 served"]["library_ms"],
+        "by_shape": {name: {key: val[key] for key in SHAPE_KEYS}
+                     for name, val in dec8_t.items() if isinstance(val, dict)},
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

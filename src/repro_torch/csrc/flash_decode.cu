@@ -64,12 +64,25 @@
 //    split computed once, into shared memory) and writes o.  No host
 //    sync and no allocation, so a CUDA graph can capture the launch.
 //
+// Float8 K/V.  A cache kept in float8_e4m3fn or float8_e5m2 under a bf16
+// or f32 query (the served model's kv_dtype) is read as it is stored: the
+// ring lands its tiles at one byte an element (half the bytes of bf16, a
+// quarter of f32), and once a tile has landed the block widens it into one
+// tile of q's dtype in shared memory, laid out as above, which the products
+// then read.  Widening float8 to bf16 or f32 is exact, so the kernel
+// computes what the plain version computes on the cache widened to q's
+// dtype; q and P are not quantised.  The ring and the widened tile together
+// take no more shared memory than the same ring in q's dtype, so the split
+// plan stands as it is.
+//
 // Lengths are taken in [1, C]: a length above C counts as C, and a length
 // below 1 gives a zero output (the reference has no meaning for it).  The
 // kernel allocates nothing and launches on the stream it is given; the C
 // entry point returns a cudaError_t and the Python wrapper raises on it.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
+#include <cuda_fp8.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -82,6 +95,8 @@ constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
 constexpr int kBK = 64;                 // cache slots a split is a multiple of
 constexpr float kNegInf = -1e30f;
+// K/V storage: q's dtype, or float8 widened in shared memory
+constexpr int kKvSame = 0, kKvE4M3 = 1, kKvE5M2 = 2;
 
 template <typename T> struct Cfg;
 template <> struct Cfg<__nv_bfloat16> {
@@ -102,18 +117,26 @@ template <typename T, int D> struct Geo {
   static constexpr int kStages = kF32 || D == 256 ? 2 : 3;
 };
 
-template <typename T, int D>
+// bytes of a K/V element in device memory and in the ring
+template <typename T, int KV>
+__host__ __device__ constexpr int kv_bytes() {
+  return KV == kKvSame ? (int)sizeof(T) : 1;
+}
+// the ring; for float8 K/V also the widened tile of K and of V in T
+template <typename T, int KV, int D>
 __host__ __device__ constexpr int ring_bytes() {
-  return Geo<T, D>::kStages * 2 * Geo<T, D>::kRows * D * (int)sizeof(T);
+  return Geo<T, D>::kStages * 2 * Geo<T, D>::kRows * D * kv_bytes<T, KV>()
+         + (KV == kKvSame ? 0 : 2 * Geo<T, D>::kRows * D * (int)sizeof(T));
 }
 template <typename T, int D>
 __host__ __device__ constexpr int merge_bytes() {
   // each warp's acc (kHeads, D), m and l
   return kWarps * Cfg<T>::kHeads * (D + 2) * (int)sizeof(float);
 }
-template <typename T, int D>
+template <typename T, int KV, int D>
 __host__ __device__ constexpr int smem_bytes_for() {
-  return (ring_bytes<T, D>() > merge_bytes<T, D>() ? ring_bytes<T, D>() : merge_bytes<T, D>())
+  return (ring_bytes<T, KV, D>() > merge_bytes<T, D>() ? ring_bytes<T, KV, D>()
+                                                       : merge_bytes<T, D>())
          + 16;
 }
 
@@ -186,6 +209,54 @@ __device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a, uint32_t b
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+// two float8 values (the low byte first) to f32, exactly, through f16
+template <int KV>
+__device__ __forceinline__ float2 fp8x2_to_float2(uint32_t two) {
+  const __half2_raw h = __nv_cvt_fp8x2_to_halfraw2(
+      static_cast<__nv_fp8x2_storage_t>(two & 0xffffu), KV == kKvE4M3 ? __NV_E4M3 : __NV_E5M2);
+  return __half22float2(__half2(h));
+}
+
+// Widen a landed float8 tile (BK rows of D bytes, unswizzled) into BK rows
+// of T laid out as WarpState::tile reads them (swizzled as a T tile lands).
+// Each thread takes 16 float8 values at a time: one 16-byte chunk in, two
+// bf16 chunks or four f32 chunks out.
+template <typename T, int KV, int D, int BK>
+__device__ __forceinline__ void widen_tile(const unsigned char* src, unsigned char* dst,
+                                           int tid) {
+  constexpr int CPR8 = D / 16;                  // 16-byte chunks a float8 row
+  constexpr int RB = D * (int)sizeof(T);        // bytes a widened row
+  for (int idx = tid; idx < BK * CPR8; idx += kThreads) {
+    const int r = idx / CPR8, c = idx % CPR8;
+    const uint4 raw = *reinterpret_cast<const uint4*>(src + r * D + c * 16);
+    const uint32_t w[4] = {raw.x, raw.y, raw.z, raw.w};
+    float f[16];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 lo = fp8x2_to_float2<KV>(w[i]);
+      const float2 hi = fp8x2_to_float2<KV>(w[i] >> 16);
+      f[4 * i] = lo.x;
+      f[4 * i + 1] = lo.y;
+      f[4 * i + 2] = hi.x;
+      f[4 * i + 3] = hi.y;
+    }
+    unsigned char* row = dst + r * RB;
+    if constexpr (std::is_same<T, float>::value) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        *reinterpret_cast<float4*>(row + swz<T, D>(r, 4 * c + j) * 16) =
+            make_float4(f[4 * j], f[4 * j + 1], f[4 * j + 2], f[4 * j + 3]);
+    } else {
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+        *reinterpret_cast<uint4*>(row + swz<T, D>(r, 2 * c + j) * 16) =
+            make_uint4(pack_bf16(f[8 * j], f[8 * j + 1]), pack_bf16(f[8 * j + 2], f[8 * j + 3]),
+                       pack_bf16(f[8 * j + 4], f[8 * j + 5]),
+                       pack_bf16(f[8 * j + 6], f[8 * j + 7]));
+    }
+  }
 }
 
 struct Args {
@@ -398,16 +469,18 @@ struct WarpState<float, D> {
   }
 };
 
-template <typename T, int D>
+template <typename T, int KV, int D>
 __global__ void __launch_bounds__(kThreads)
 flash_decode_kernel(const Args a) {
   static_assert(D % 32 == 0, "head size");
   constexpr int KH = Cfg<T>::kHeads;
   constexpr int S = Geo<T, D>::kStages;
   constexpr int BK = Geo<T, D>::kRows;          // cache slots a tile
-  constexpr int RB = D * (int)sizeof(T);        // bytes a tile row
-  constexpr int CPR = RB / 16;                  // 16-byte chunks a row
-  constexpr int TILE = BK * RB;                 // bytes a K or V tile
+  constexpr int KB = kv_bytes<T, KV>();         // bytes a K/V element as stored
+  constexpr int RBK = D * KB;                   // bytes a landed tile row
+  constexpr int CPR = RBK / 16;                 // 16-byte chunks a landed row
+  constexpr int TILEK = BK * RBK;               // bytes a landed K or V tile
+  constexpr int TILE = BK * D * (int)sizeof(T); // bytes a K or V tile in T
 
   const int split = (int)(blockIdx.x % a.nsplit);
   const int rowid = (int)(blockIdx.x / a.nsplit);   // (b * Hk + hk) * HC + hc
@@ -435,17 +508,19 @@ flash_decode_kernel(const Args a) {
   unsigned char* smem = smem_raw;
   const long long row = (long long)a.Hk * D;        // slot stride of k and v
   const long long kv_off = (long long)b * a.C * row + (long long)hk * D;
-  const T* kg = static_cast<const T*>(a.k) + kv_off;
-  const T* vg = static_cast<const T*>(a.v) + kv_off;
+  const unsigned char* kg = static_cast<const unsigned char*>(a.k) + kv_off * KB;
+  const unsigned char* vg = static_cast<const unsigned char*>(a.v) + kv_off * KB;
 
+  // a tile lands in its stored dtype: a T tile swizzled as tile() reads it,
+  // a float8 tile row-major (widen_tile swizzles)
   auto load_tile = [&](int stage, int k0) {
-    unsigned char* ks = smem + stage * 2 * TILE;
-    unsigned char* vs = ks + TILE;
+    unsigned char* ks = smem + stage * 2 * TILEK;
+    unsigned char* vs = ks + TILEK;
     for (int idx = tid; idx < BK * CPR; idx += kThreads) {
       const int r = idx / CPR, c = idx % CPR;
       const bool valid = k0 + r < k_end;
-      const long long off = valid ? (long long)(k0 + r) * row + c * (16 / (int)sizeof(T)) : 0;
-      const int dst = r * RB + swz<T, D>(r, c) * 16;
+      const long long off = valid ? (long long)(k0 + r) * row * KB + c * 16 : 0;
+      const int dst = r * RBK + (KV == kKvSame ? swz<T, D>(r, c) : c) * 16;
       cp_async16(ks + dst, kg + off, valid);
       cp_async16(vs + dst, vg + off, valid);
     }
@@ -466,7 +541,15 @@ flash_decode_kernel(const Args a) {
     const int nt = it + S - 1;
     if (nt < ntiles) load_tile(nt % S, k_begin + nt * BK);
     cp_async_commit();
-    const unsigned char* ks = smem + (it % S) * 2 * TILE;
+    const unsigned char* ks = smem + (it % S) * 2 * TILEK;
+    if constexpr (KV != kKvSame) {
+      // every warp is past the barrier above, done with the last widened tile
+      unsigned char* wide = smem + S * 2 * TILEK;
+      widen_tile<T, KV, D, BK>(ks, wide, tid);
+      widen_tile<T, KV, D, BK>(ks + TILEK, wide + TILE, tid);
+      __syncthreads();
+      ks = wide;
+    }
     st.tile(reinterpret_cast<const char*>(ks), reinterpret_cast<const char*>(ks + TILE),
             k_begin + it * BK, k_end, warp, lane, a.scale_log2);
   }
@@ -561,35 +644,67 @@ flash_decode_kernel(const Args a) {
   }
 }
 
-template <typename T, int D>
+template <typename T, int KV, int D>
 cudaError_t launch(const Args& a, int B, cudaStream_t st) {
-  constexpr int smem = smem_bytes_for<T, D>();
+  constexpr int smem = smem_bytes_for<T, KV, D>();
   // the cross-split merge keeps a weight a (split, head) in shared memory
   if ((a.nsplit + 1) * Cfg<T>::kHeads * (int)sizeof(float) > smem) return cudaErrorInvalidValue;
   static std::atomic<uint64_t> smem_set{0};
-  const cudaError_t e = set_smem_once(flash_decode_kernel<T, D>, smem, smem_set);
+  const cudaError_t e = set_smem_once(flash_decode_kernel<T, KV, D>, smem, smem_set);
   if (e != cudaSuccess) return e;
   const long long blocks = (long long)B * a.Hk * a.HC * a.nsplit;
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
-  flash_decode_kernel<T, D><<<(unsigned)blocks, kThreads, smem, st>>>(a);
+  flash_decode_kernel<T, KV, D><<<(unsigned)blocks, kThreads, smem, st>>>(a);
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t dispatch(const Args& a, int B, int D, cudaStream_t st) {
+template <typename T, int KV>
+cudaError_t dispatch_d(const Args& a, int B, int D, cudaStream_t st) {
   switch (D) {
-    case 32: return launch<T, 32>(a, B, st);
-    case 64: return launch<T, 64>(a, B, st);
-    case 128: return launch<T, 128>(a, B, st);
-    case 256: return launch<T, 256>(a, B, st);
+    case 32: return launch<T, KV, 32>(a, B, st);
+    case 64: return launch<T, KV, 64>(a, B, st);
+    case 128: return launch<T, KV, 128>(a, B, st);
+    case 256: return launch<T, KV, 256>(a, B, st);
     default: return cudaErrorInvalidValue;
+  }
+}
+
+template <typename T>
+cudaError_t dispatch(const Args& a, int B, int D, int kv_kind, cudaStream_t st) {
+  switch (kv_kind) {
+    case kKvSame: return dispatch_d<T, kKvSame>(a, B, D, st);
+    case kKvE4M3: return dispatch_d<T, kKvE4M3>(a, B, D, st);
+    case kKvE5M2: return dispatch_d<T, kKvE5M2>(a, B, D, st);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+template <typename T, int KV>
+int smem_of(int D) {
+  switch (D) {
+    case 32: return smem_bytes_for<T, KV, 32>();
+    case 64: return smem_bytes_for<T, KV, 64>();
+    case 128: return smem_bytes_for<T, KV, 128>();
+    case 256: return smem_bytes_for<T, KV, 256>();
+    default: return -1;
+  }
+}
+
+template <typename T>
+int smem_of_kind(int D, int kv_kind) {
+  switch (kv_kind) {
+    case kKvSame: return smem_of<T, kKvSame>(D);
+    case kKvE4M3: return smem_of<T, kKvE4M3>(D);
+    case kKvE5M2: return smem_of<T, kKvE5M2>(D);
+    default: return -1;
   }
 }
 
 }  // namespace
 
-// q, o: (B, Hq, D); k, v: (B, C, Hk, D); all float32 (is_bf16 = 0) or all
-// bfloat16 (is_bf16 = 1), contiguous and 16-byte aligned; lengths: (B,)
+// q, o: (B, Hq, D) float32 (is_bf16 = 0) or bfloat16 (is_bf16 = 1); k, v:
+// (B, C, Hk, D) in q's dtype (kv_kind = 0), float8_e4m3fn (1) or
+// float8_e5m2 (2); all contiguous and 16-byte aligned; lengths: (B,)
 // int32.  Scratch, with HC = ceil(g / flash_decode_heads_per_block) and
 // rows = B * Hk * HC: part_acc (rows, nsplit, heads_per_block, D) and
 // part_ml (rows, nsplit, heads_per_block, 2) float32; counters (rows,) int32,
@@ -600,7 +715,7 @@ extern "C" int flash_decode_fwd(const void* q, const void* k, const void* v,
                                 const void* lengths, void* o, void* part_acc,
                                 void* part_ml, void* counters, int B, int C, int Hq, int Hk,
                                 int D, int split_keys, int nsplit, float scale, int is_bf16,
-                                void* stream) {
+                                int kv_kind, void* stream) {
   if (B < 1 || C < 1 || Hq < 1 || Hk < 1 || Hq % Hk != 0 || split_keys < kBK ||
       split_keys % kBK != 0 || nsplit < 1 || (long long)nsplit * split_keys < C)
     return cudaErrorInvalidValue;
@@ -610,8 +725,8 @@ extern "C" int flash_decode_fwd(const void* q, const void* k, const void* v,
          static_cast<float*>(part_ml), static_cast<int*>(counters), C, Hq, Hk,
          (g + kh - 1) / kh, split_keys, nsplit, scale * 1.4426950408889634f};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (is_bf16) return dispatch<__nv_bfloat16>(a, B, D, st);
-  return dispatch<float>(a, B, D, st);
+  if (is_bf16) return dispatch<__nv_bfloat16>(a, B, D, kv_kind, st);
+  return dispatch<float>(a, B, D, kv_kind, st);
 }
 
 // Query heads one block holds (the head chunk): bf16 16, float32 8.
@@ -619,18 +734,10 @@ extern "C" int flash_decode_heads_per_block(int is_bf16) {
   return is_bf16 ? Cfg<__nv_bfloat16>::kHeads : Cfg<float>::kHeads;
 }
 
-// Dynamic shared memory one block takes at head size D, in bytes; -1 if D
-// is not built.
-extern "C" int flash_decode_smem_bytes(int D, int is_bf16) {
-  switch (D) {
-    case 32: return is_bf16 ? smem_bytes_for<__nv_bfloat16, 32>() : smem_bytes_for<float, 32>();
-    case 64: return is_bf16 ? smem_bytes_for<__nv_bfloat16, 64>() : smem_bytes_for<float, 64>();
-    case 128:
-      return is_bf16 ? smem_bytes_for<__nv_bfloat16, 128>() : smem_bytes_for<float, 128>();
-    case 256:
-      return is_bf16 ? smem_bytes_for<__nv_bfloat16, 256>() : smem_bytes_for<float, 256>();
-    default: return -1;
-  }
+// Dynamic shared memory one block takes at head size D for K/V of kv_kind,
+// in bytes; -1 if D or kv_kind is not built.
+extern "C" int flash_decode_smem_bytes(int D, int is_bf16, int kv_kind) {
+  return is_bf16 ? smem_of_kind<__nv_bfloat16>(D, kv_kind) : smem_of_kind<float>(D, kv_kind);
 }
 
 extern "C" const char* flash_decode_error_string(int code) {

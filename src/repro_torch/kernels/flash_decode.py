@@ -10,7 +10,11 @@ raises if the launch fails.  The split scratch (partials and the merge
 counters) is allocated once per (device, stream) and grown when a larger
 shape needs more, so an eager call allocates nothing else; a call captured in
 a CUDA graph takes a scratch of the graph's own, so a replay shares no
-counters with eager calls on another stream.  It takes CUDA tensors only: CPU tensors go to the plain version through
+counters with eager calls on another stream.  K and V may be in q's
+dtype or in float8 (``float8_e4m3fn``, ``float8_e5m2``: a float8 KV cache,
+read as it is stored and widened in the kernel; ``flash_decode.
+float8_launches`` counts those launches).  It takes CUDA tensors only: CPU
+tensors go to the plain version through
 :func:`repro_torch.kernels.ops.decode_attention`.
 """
 from __future__ import annotations
@@ -18,7 +22,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -27,6 +31,8 @@ from .build import load
 __all__ = ["flash_decode", "check_decode_args", "split_plan", "smem_bytes"]
 
 _SUPPORTED_D = (32, 64, 128, 256)
+# the kernel's kv_kind for K/V in q's dtype (0) or in each float8 dtype
+_KV_KIND = {torch.float8_e4m3fn: 1, torch.float8_e5m2: 2}
 _TILE = 64              # cache slots per tile of the kernel
 _BLOCKS_PER_SM = 2      # a full cache gives about this many blocks per SM, all resident
 # At D=256 one block fills an SM, and a split of one or two tiles spends
@@ -58,8 +64,9 @@ def check_decode_args(q, k, v, lengths) -> None:
                          f"{lengths.dtype}")
     if q.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"q must be float32 or bfloat16, got {q.dtype}")
-    if k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError("q, k and v must share one dtype")
+    if k.dtype != v.dtype or (k.dtype != q.dtype and k.dtype not in _KV_KIND):
+        raise TypeError(f"k and v must share one dtype, q's ({q.dtype}) or a float8 one; got "
+                        f"{k.dtype} and {v.dtype}")
     for name, a in (("q", q), ("k", k), ("v", v), ("lengths", lengths)):
         if not a.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
@@ -76,7 +83,10 @@ def split_plan(B: int, Hk: int, C: int, n_sm: int, D: int = 128) -> Tuple[int, i
     least ``_MIN_TILES`` tiles at head size ``D``, so that the ``B * Hk * nsplit`` blocks come
     to about two per SM when the cache is full: two fit on an SM at once in
     bf16 at D=128, so a full cache is one wave, and each split holds several
-    tiles for its load ring to overlap (four at the serving shape)."""
+    tiles for its load ring to overlap (four at the serving shape).  The
+    same plan serves float8 K/V: their ring and widened tile take no more
+    shared memory than q's dtype's ring (:func:`smem_bytes`), so as many
+    blocks fit on an SM."""
     tiles = -(-C // _TILE)
     want = max(1, min(tiles, -(-_BLOCKS_PER_SM * n_sm // (B * Hk))))
     split_keys = _TILE * max(-(-tiles // want), min(_MIN_TILES.get(D, 1), tiles))
@@ -87,22 +97,25 @@ def split_plan(B: int, Hk: int, C: int, n_sm: int, D: int = 128) -> Tuple[int, i
 def _lib() -> ctypes.CDLL:
     lib = load("flash_decode")
     fn = lib.flash_decode_fwd
-    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_int]
-                   + [ctypes.c_void_p])
+    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 7
+                   + [ctypes.c_float, ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     lib.flash_decode_error_string.argtypes = [ctypes.c_int]
     lib.flash_decode_error_string.restype = ctypes.c_char_p
-    lib.flash_decode_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.flash_decode_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int]
     lib.flash_decode_smem_bytes.restype = ctypes.c_int
     lib.flash_decode_heads_per_block.argtypes = [ctypes.c_int]
     lib.flash_decode_heads_per_block.restype = ctypes.c_int
     return lib
 
 
-def smem_bytes(D: int, dtype: torch.dtype = torch.bfloat16) -> int:
+def smem_bytes(D: int, dtype: torch.dtype = torch.bfloat16,
+               kv_dtype: Optional[torch.dtype] = None) -> int:
     """Dynamic shared memory one block of the kernel takes at head size
-    ``D`` for ``dtype`` (builds the kernel if needed)."""
-    return _lib().flash_decode_smem_bytes(D, int(dtype == torch.bfloat16))
+    ``D`` for q in ``dtype`` and K/V in ``kv_dtype`` (q's if None; builds
+    the kernel if needed)."""
+    return _lib().flash_decode_smem_bytes(D, int(dtype == torch.bfloat16),
+                                          _KV_KIND.get(kv_dtype, 0))
 
 
 class _Scratch:
@@ -154,14 +167,15 @@ def _sm_count(index: int) -> int:
 
 def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  lengths: torch.Tensor) -> torch.Tensor:
-    """Launch the decode kernel.  q ``(B,Hq,D)``, k and v ``(B,C,Hk,D)``, all
-    float32 or all bfloat16, contiguous, on one CUDA device; ``lengths``
+    """Launch the decode kernel.  q ``(B,Hq,D)`` float32 or bfloat16, k and v
+    ``(B,C,Hk,D)`` in q's dtype or both in one float8 dtype, contiguous, on
+    one CUDA device; ``lengths``
     ``(B,)`` int32 on the same device, each in ``[1, C]`` (only slots
     ``j < lengths[b]`` count; the kernel reads no slot beyond).  D in
     {32, 64, 128, 256}, any C, any B and Hk.  Returns ``(B,Hq,D)`` in q's dtype.
     One kernel launch a call; eager calls on one stream share the split
     scratch, and a captured call has its own.  ``flash_decode.launches``
-    counts launches."""
+    counts launches, ``flash_decode.float8_launches`` those on float8 K/V."""
     check_decode_args(q, k, v, lengths)
     if q.device.type != "cuda":
         raise ValueError(
@@ -183,13 +197,15 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         err = lib.flash_decode_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(), o.data_ptr(),
             part_acc.data_ptr(), part_ml.data_ptr(), counters.data_ptr(), B, C, Hq, Hk, D,
-            split_keys, nsplit, 1.0 / math.sqrt(D), is_bf16, stream,
+            split_keys, nsplit, 1.0 / math.sqrt(D), is_bf16, _KV_KIND.get(k.dtype, 0), stream,
         )
     if err != 0:
         msg = lib.flash_decode_error_string(err).decode()
         raise RuntimeError(f"flash_decode launch failed: {msg} (cudaError {err})")
     flash_decode.launches += 1
+    flash_decode.float8_launches += k.dtype in _KV_KIND
     return o
 
 
 flash_decode.launches = 0
+flash_decode.float8_launches = 0

@@ -53,10 +53,12 @@ def decode_attention_ref(
     *,
     scale: Optional[float] = None,
 ) -> torch.Tensor:
-    """Naive single-token GQA decode over a padded KV cache: scores in
-    float32, slots ``j >= lengths[b]`` masked to -1e30, softmax in float32,
-    the weights rounded to v's dtype before the product with v.  Returns
-    ``(B, Hq, D)``."""
+    """Naive single-token GQA decode over a padded KV cache: k and v widened
+    to q's dtype first (a float8 cache; exact), scores in float32, slots
+    ``j >= lengths[b]`` masked to -1e30, softmax in float32, the weights
+    rounded to q's dtype before the product with v.  Returns ``(B, Hq,
+    D)``."""
+    k, v = k.to(q.dtype), v.to(q.dtype)
     B, Hq, D = q.shape
     C, Hk = k.shape[1], k.shape[2]
     g = Hq // Hk

@@ -78,8 +78,18 @@ C, rank), "krope": (B, C, dr), "pos": (B, C)}``), and decodes in the
 *absorbed* form, in latent space.  It reaches no Pallas kernel in the JAX
 model, so it is plain torch here and takes no kernel route.
 
-Not ported yet: a cache in another dtype than the model's (``kv_dtype``),
-in ROADMAP.md (queue 1, B.6); it raises ``NotImplementedError``.
+A cache in float8 (``kv_dtype`` ``"float8_e4m3fn"`` or ``"float8_e5m2"``)
+holds the keys and values rounded as the JAX model rounds them on write
+(:func:`~repro_torch.models.layers.astype`, bit for bit with ``jnp.astype``,
+NaN beyond float8_e4m3fn's range included), written through ``uint8``
+views.  Every route attends over the rounded values read back in q's
+dtype, as the JAX route does (``cache.astype(q.dtype)``): a prefill through
+the attention kernel over the new keys and values rounded and widened (the
+slots it just wrote), a decode step through the decode kernel over the
+float8 cache itself (the kernel widens each tile as it lands; the cache is
+never copied), the JAX route over the cache widened.  Any other
+``kv_dtype`` than the model's dtype raises ``NotImplementedError`` naming
+ROADMAP.md.
 """
 from __future__ import annotations
 
@@ -91,7 +101,8 @@ import torch
 from ..kernels import ops
 from ..kernels.flash_attention import flash_attention_trainable
 from .config import ModelConfig
-from .layers import Layers, apply_mrope, apply_rope, dense_apply, dense_init, torch_dtype
+from .layers import (FLOAT8, Layers, apply_mrope, apply_rope, astype, dense_apply, dense_init,
+                     torch_dtype)
 
 __all__ = ["gqa_init", "gqa_apply", "make_cache", "mla_init", "mla_apply", "make_mla_cache",
            "AttnFn", "DecodeFn"]
@@ -119,14 +130,18 @@ def gqa_init(gen: torch.Generator, cfg: ModelConfig, device: torch.device,
 def make_cache(cfg: ModelConfig, batch: int, capacity: int, n_layers: int,
                device: torch.device, dtype: Optional[torch.dtype] = None) -> Dict:
     """Stacked-over-layers KV cache (leading axis = layer), in ``kv_dtype``
-    or the model's dtype, every slot empty."""
+    or the model's dtype, every slot empty (a float8 cache made as zero
+    bytes, which are +0 in both formats)."""
     dt = dtype or torch_dtype(cfg.kv_dtype or cfg.dtype)
     shape = (n_layers, batch, capacity, cfg.n_kv_heads, cfg.head_dim)
-    return {
-        "k": torch.zeros(shape, dtype=dt, device=device),
-        "v": torch.zeros(shape, dtype=dt, device=device),
-        "pos": torch.full(shape[:3], -1, dtype=torch.int32, device=device),
-    }
+
+    def zeros():
+        if dt in FLOAT8:
+            return torch.zeros(shape, dtype=torch.uint8, device=device).view(dt)
+        return torch.zeros(shape, dtype=dt, device=device)
+
+    return {"k": zeros(), "v": zeros(),
+            "pos": torch.full(shape[:3], -1, dtype=torch.int32, device=device)}
 
 
 def _mask_bias(pos_q: torch.Tensor, pos_k: torch.Tensor, causal: bool,
@@ -158,12 +173,26 @@ def _ring_write(cache: Dict, k: torch.Tensor, v: torch.Tensor, positions: torch.
                 window: Optional[int]) -> None:
     """Write the new keys, values and positions (B,S,...) in place at their
     slots: ``p % C`` in a windowed ring cache, ``clip(p, 0, C-1)`` in a
-    global one."""
+    global one; cast to the cache's dtype by ``astype``, a float8 leaf
+    written through a ``uint8`` view (its bytes are what the scatter moves,
+    and no float8 scatter kernel is needed)."""
     C = cache["k"].shape[1]
     slots = positions % C if window is not None else positions.clamp(0, C - 1)
     b_idx = torch.arange(slots.shape[0], device=slots.device)[:, None]
     for key, new in (("k", k), ("v", v), ("pos", positions)):
-        cache[key][b_idx, slots] = new.to(cache[key].dtype)
+        leaf, new = cache[key], astype(new, cache[key].dtype)
+        if leaf.dtype in FLOAT8:
+            leaf, new = leaf.view(torch.uint8), new.view(torch.uint8)
+        leaf[b_idx, slots] = new
+
+
+def _check_kv_dtype(cache: Dict, q: torch.Tensor) -> None:
+    dt = cache["k"].dtype
+    if dt != q.dtype and dt not in FLOAT8:
+        raise NotImplementedError(
+            f"a KV cache in {dt} under a {q.dtype} model: of the kv_dtypes other than the "
+            "model's, float8_e4m3fn and float8_e5m2 are ported; the others are queued in "
+            "ROADMAP.md (queue 1)")
 
 
 def gqa_apply(
@@ -198,9 +227,10 @@ def gqa_apply(
     if cache_read_only:
         if cache is None or kv_x is not None:
             raise ValueError("cache_read_only reads K and V from a cache, and takes no kv_x")
+        _check_kv_dtype(cache, q)
         bias = _mask_bias(positions, cache["pos"], causal=causal, window=window)
-        out = _sdpa(q.reshape(B, S, hk, hq // hk, hd), cache["k"], cache["v"], bias,
-                    cfg.attn_logit_softcap)
+        out = _sdpa(q.reshape(B, S, hk, hq // hk, hd), cache["k"].to(q.dtype),
+                    cache["v"].to(q.dtype), bias, cfg.attn_logit_softcap)
         return dense_apply(p["wo"], out.reshape(B, S, hq * hd)), cache
 
     src = x if kv_x is None else kv_x
@@ -213,10 +243,9 @@ def gqa_apply(
         else:
             q, k = apply_rope(q, k, positions, cfg.rope_theta)
     if cache is not None:
-        if cache["k"].dtype != q.dtype:
-            raise NotImplementedError(
-                f"a KV cache in {cache['k'].dtype} under a {q.dtype} model (kv_dtype) is "
-                "not ported yet (ROADMAP.md, queue 1, B.6)")
+        _check_kv_dtype(cache, q)
+        # rounded as the cache holds them: the prefill route attends over these
+        k, v = astype(k, cache["k"].dtype), astype(v, cache["k"].dtype)
         _ring_write(cache, k, v, k_pos, window)
 
     kernel_ok = causal and kv_x is None and cfg.attn_logit_softcap is None
@@ -224,14 +253,15 @@ def gqa_apply(
                   and (window is None or cache["k"].shape[1] <= window))
     if kernel_ok and S > 1 and (cache is None or over_cache and S <= cache["k"].shape[1]):
         fn = attn_fn or flash_attention_trainable
-        out = fn(q.contiguous(), k.contiguous(), v.contiguous(), causal=True, window=window)
+        out = fn(q.contiguous(), k.to(q.dtype).contiguous(), v.to(q.dtype).contiguous(),
+                 causal=True, window=window)
     elif kernel_ok and over_cache and S == 1:
         lengths = (positions[:, 0] + 1).clamp(max=cache["k"].shape[1]).to(torch.int32)
         out = (decode_fn or ops.decode_attention)(q[:, 0].contiguous(), cache["k"],
                                                   cache["v"], lengths)
     else:
         if cache is not None:
-            k, v, k_pos = cache["k"], cache["v"], cache["pos"]
+            k, v, k_pos = cache["k"].to(q.dtype), cache["v"].to(q.dtype), cache["pos"]
         bias = _mask_bias(positions, k_pos, causal=causal and kv_x is None, window=window)
         out = _sdpa(q.reshape(B, S, hk, hq // hk, hd), k, v, bias, cfg.attn_logit_softcap)
     return dense_apply(p["wo"], out.reshape(B, S, hq * hd)), cache

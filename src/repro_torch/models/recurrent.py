@@ -269,12 +269,13 @@ def linear_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``h_t = a_t h_{t-1} + b_t`` from ``h_{-1} = 0`` along axis 1, for every
     t: a Hillis-Steele scan of the pairs (a, b) under ``(a_l, b_l) then
     (a_r, b_r) = (a_l a_r, a_r b_l + b_r)``, ceil(log2 S) doubling steps of
-    whole-tensor operations rather than one launch a token."""
-    a, b = a.clone(), b.clone()
+    whole-tensor operations rather than one launch a token.  Each step makes
+    new tensors, so autograd keeps every step's (a, b) for the backward pass
+    (an in-place step would overwrite what the backward pass reads)."""
     d, S = 1, a.shape[1]
     while d < S:
-        b[:, d:] = torch.addcmul(b[:, d:], a[:, d:], b[:, :-d])   # right side read first
-        a[:, d:] = a[:, d:] * a[:, :-d]
+        b = torch.cat([b[:, :d], torch.addcmul(b[:, d:], a[:, d:], b[:, :-d])], dim=1)
+        a = torch.cat([a[:, :d], a[:, d:] * a[:, :-d]], dim=1)
         d *= 2
     return b
 

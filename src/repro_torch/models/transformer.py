@@ -20,8 +20,16 @@ of non-causal attention blocks over the frame embeddings, run once by
 :meth:`LM.encode`, then a ``"dec"`` segment of blocks with causal
 self-attention, cross-attention to the encoder's output and an MLP; the
 decoder's cross cache is written at prefill and read at each decode step).
-Activation checkpointing (``remat`` other than ``"none"``) is queued in
-ROADMAP.md (queue 1, B.6).
+Activation checkpointing: without caches (training), ``remat="block"``
+recomputes each layer (a ``group`` segment: each group) in the backward
+pass, the unit the JAX model checkpoints (its ``lax.scan`` body), through
+``torch.utils.checkpoint.checkpoint(use_reentrant=False)``; ``"dots"``
+keeps the results of the products with no batch axis (``aten.mm`` and
+``aten.addmm``: the dense projections and the router), as JAX's
+``dots_with_no_batch_dims_saveable`` does, and recomputes the rest (the
+experts' batched products, attention).  The layer returns its own MoE
+auxiliary loss, so a recompute adds nothing to the sum.  Either way the
+attention kernel's forward runs twice a layer a step.
 
 Parameters are plain dictionaries of tensors laid out like the JAX
 ``LM.init`` pytree, so :func:`repro_torch.models.convert.params_from_jax`
@@ -33,10 +41,12 @@ from dataclasses import dataclass
 from typing import Any, Dict, List, Optional, Tuple, Union
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from ..device import resolve_device
 from .attention import (AttnFn, DecodeFn, gqa_apply, gqa_init, make_cache, make_mla_cache,
@@ -50,6 +60,17 @@ from .recurrent import (MixFn, rglru_apply, rglru_init, rglru_state, rwkv6_apply
 __all__ = ["Segment", "LM", "build_segments", "sinusoidal_embed", "MOE_AUX_WEIGHT"]
 
 MOE_AUX_WEIGHT = 0.01
+
+# the ops whose results remat="dots" keeps: products with no batch axis
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs) -> CheckpointPolicy:
+    return CheckpointPolicy.MUST_SAVE if op in _DOTS else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _dots_context():
+    return create_selective_checkpoint_contexts(_dots_policy)
 
 
 @dataclass(frozen=True)
@@ -325,8 +346,10 @@ class LM:
         for s, seg in enumerate(self.segments):
             if seg.kind != "enc":
                 continue
+            block = functools.partial(self._apply_attn_block, seg, positions=pos, cache=None,
+                                      gapless=False, causal=False)
             for p in _unstack(params["segments"][s], seg.n):
-                x, aux = self._apply_attn_block(seg, p, x, pos, None, False, aux, causal=False)
+                x, aux = self._layer(block, p, x, aux, remat=True)
         return norm_apply(cfg, params["enc_final_norm"], x)
 
     def _encoder_inputs(self, params, batch):
@@ -366,9 +389,6 @@ class LM:
     def _backbone(self, params, tokens, positions, caches, gapless: bool, position_ids=None,
                   enc_out=None, enc_positions=None):
         cfg = self.cfg
-        if caches is None and cfg.remat != "none":
-            raise NotImplementedError(
-                f"remat={cfg.remat!r} is not ported yet (ROADMAP.md, queue 1, B.6)")
         B, S = tokens.shape
         x = params["embed"]["embedding"][tokens]
         if positions is None:
@@ -382,22 +402,43 @@ class LM:
             cache = caches[s] if caches is not None else None
             for i, p in enumerate(_unstack(params["segments"][s], seg.n)):
                 layer = _layer(cache, i) if cache is not None else None
-                if seg.kind == "attn":
-                    x, aux = self._apply_attn_block(seg, p, x, positions, layer, gapless, aux,
-                                                    position_ids)
-                    continue
-                if seg.kind == "dec":
-                    x = self._apply_dec_block(p, x, positions, layer, enc_out, enc_positions,
-                                              gapless)
-                    continue
-                if seg.kind == "group":
-                    x, aux = self._apply_group(seg, p, x, positions, layer, gapless, aux)
-                    continue
-                x, new = rwkv6_apply(cfg, p["block"], x, layer, mix_fn=self.mix_fn)
-                if layer is not None:
-                    for key, val in new.items():
-                        layer[key].copy_(val)
+                block = functools.partial(
+                    self._block, seg, positions=positions, cache=layer, gapless=gapless,
+                    position_ids=position_ids, enc_out=enc_out, enc_positions=enc_positions)
+                x, aux = self._layer(block, p, x, aux, remat=caches is None)
         return norm_apply(cfg, params["final_norm"], x), caches, aux
+
+    def _block(self, seg: Segment, p, x, aux, positions, cache, gapless, position_ids,
+               enc_out, enc_positions):
+        """One layer of ``seg`` (a group for ``"group"``): ``(x, aux)``
+        after it, its new state written into ``cache`` in place."""
+        if seg.kind == "attn":
+            return self._apply_attn_block(seg, p, x, positions, cache, gapless, aux,
+                                          position_ids)
+        if seg.kind == "dec":
+            return self._apply_dec_block(p, x, positions, cache, enc_out, enc_positions,
+                                         gapless), aux
+        if seg.kind == "group":
+            return self._apply_group(seg, p, x, positions, cache, gapless, aux)
+        x, new = rwkv6_apply(self.cfg, p["block"], x, cache, mix_fn=self.mix_fn)
+        if cache is not None:
+            for key, val in new.items():
+                cache[key].copy_(val)
+        return x, aux
+
+    def _layer(self, block, p, x, aux, remat: bool):
+        """``block(p, x, aux) -> (x, aux)``, checkpointed by ``cfg.remat``
+        when ``remat`` (no caches).  The checkpointed block starts from a
+        zero aux and returns its own, which is added here once."""
+        policy = self.cfg.remat
+        if not remat or policy == "none":
+            return block(p, x, aux=aux)
+        if policy not in ("block", "dots"):
+            raise ValueError(f"unknown remat {policy!r}")
+        extra = {"context_fn": _dots_context} if policy == "dots" else {}
+        x, own = checkpoint(lambda p_, x_, a_: block(p_, x_, aux=a_), p, x,
+                            torch.zeros_like(aux), use_reentrant=False, **extra)
+        return x, aux + own
 
     # ------------------------------------------------------------------ heads --
     def logits(self, params, hidden: torch.Tensor) -> torch.Tensor:

@@ -38,6 +38,7 @@ import torch
 
 from ..core.interference import fit_linear_interference
 from ..device import synchronize
+from ..models.layers import FLOAT8
 from ..models.transformer import LM
 
 __all__ = ["ServingEngine", "measure_interference"]
@@ -50,8 +51,10 @@ def _splice(full, one, axis, slot: int) -> None:
     if isinstance(full, dict):
         for key in full:
             _splice(full[key], one[key], axis[key] if isinstance(axis, dict) else axis, slot)
-    else:
-        full.select(axis, slot).copy_(one.select(axis, 0))
+        return
+    if full.dtype in FLOAT8:     # a float8 cache: copy its bytes
+        full, one = full.view(torch.uint8), one.view(torch.uint8)
+    full.select(axis, slot).copy_(one.select(axis, 0))
 
 
 @dataclass

@@ -10,6 +10,7 @@ queued in ROADMAP.md (slice 6).
 """
 from __future__ import annotations
 
+from dataclasses import dataclass
 from typing import Any, Callable, Dict, Tuple
 
 import torch
@@ -18,7 +19,16 @@ from ..models.transformer import LM
 from ..optim.optimizers import Optimizer, global_norm
 from ..tree import tree_flatten, tree_map, tree_unflatten
 
-__all__ = ["value_and_grad", "make_train_step", "make_eval_step"]
+__all__ = ["TrainState", "value_and_grad", "make_train_step", "make_eval_step"]
+
+
+@dataclass
+class TrainState:
+    """Parameters, optimizer state and step count, as the JAX package's
+    ``TrainState`` holds them."""
+    params: Any
+    opt_state: Any
+    step: int = 0
 
 
 def _split_microbatches(batch: Dict[str, torch.Tensor], m: int):

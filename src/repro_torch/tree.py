@@ -10,7 +10,7 @@ from __future__ import annotations
 
 from typing import Any, Callable, Iterator, List, Tuple
 
-__all__ = ["tree_leaves", "tree_map", "tree_flatten", "tree_unflatten"]
+__all__ = ["tree_leaves", "tree_map", "tree_flatten", "tree_unflatten", "flatten_up_to"]
 
 
 def _walk(node: Any, leaves: List[Any]) -> Any:
@@ -49,6 +49,28 @@ def tree_unflatten(structure: Any, leaves: List[Any]) -> Any:
     out = _build(structure, it)
     if next(it, None) is not None:
         raise ValueError("more leaves than the structure holds")
+    return out
+
+
+def _up_to(spec: Any, node: Any, out: List[Any]) -> None:
+    kind, children = spec
+    if kind == "leaf":
+        out.append(node)
+    elif kind == "dict":
+        for key, child in children:
+            _up_to(child, node[key], out)
+    elif kind != "none":
+        for child, val in zip(children, node):
+            _up_to(child, val, out)
+
+
+def flatten_up_to(structure: Any, tree: Any) -> List[Any]:
+    """The subtrees of ``tree`` at the leaves of ``structure`` (from
+    :func:`tree_flatten`), in leaf order: ``treedef.flatten_up_to``.  An
+    optimizer state that keeps a dictionary for each parameter is read
+    leaf by leaf this way."""
+    out: List[Any] = []
+    _up_to(structure, tree, out)
     return out
 
 

@@ -205,11 +205,12 @@ def test_gqa_apply_matches_jax(qwen_cfgs, causal, window, softcap):
 
 
 def test_gqa_apply_says_where_unported_paths_are_queued(qwen_cfgs):
-    """A cache in another dtype than the model's (``kv_dtype``) is still
-    queued in ROADMAP.md.  Cross-attention (``kv_x``, written into a cache
-    and then read from it with ``cache_read_only``) and M-RoPE, queued
-    until the audio and vlm families were ported, now compute the JAX
-    function."""
+    """A cache in another dtype than the model's other than float8 (here
+    bfloat16 under a float32 model) is still queued in ROADMAP.md.  A
+    float8 cache (``kv_dtype``), cross-attention (``kv_x``, written into a
+    cache and then read from it with ``cache_read_only``) and M-RoPE,
+    queued until they were ported, now compute the JAX function: here a
+    float8 cache through the cross-attention write and read."""
     jcfg, cfg = qwen_cfgs
     jp = jax_gqa_init(jax.random.PRNGKey(11), jcfg)
     p = params_from_jax(jax.tree.map(np.asarray, jp), device="cpu")
@@ -248,6 +249,24 @@ def test_gqa_apply_says_where_unported_paths_are_queued(qwen_cfgs):
     want, _ = jax_gqa_apply(jcfg, jp, jnp.asarray(x1), jnp.asarray(pos1), cache=jcache,
                             cache_read_only=True, **cross)
     assert same is cache
+    close(got, want)
+    f8 = {key: val[0] for key, val in make_cache(cfg, 2, 9, 1, torch.device("cpu"),
+                                                   dtype=torch.float8_e4m3fn).items()}
+    jf8 = {key: val[0] for key, val in jax_make_cache(jcfg, 2, 9, 1,
+                                                      dtype=jnp.float8_e4m3fn).items()}
+    got, f8 = gqa_apply(cfg, p, _t(x), torch.from_numpy(pos), kv_x=_t(enc),
+                        kv_positions=torch.from_numpy(enc_pos), cache=f8, **cross)
+    want, jf8 = jax_gqa_apply(jcfg, jp, jnp.asarray(x), jnp.asarray(pos), kv_x=jnp.asarray(enc),
+                              kv_positions=jnp.asarray(enc_pos), cache=jf8, **cross)
+    close(got, want)
+    for key in ("k", "v"):
+        assert f8[key].dtype == torch.float8_e4m3fn
+        np.testing.assert_array_equal(f8[key].view(torch.uint8).numpy(),
+                                      np.asarray(jf8[key]).view(np.uint8))
+    got, _ = gqa_apply(cfg, p, _t(x1), torch.from_numpy(pos1), cache=f8, cache_read_only=True,
+                       **cross)
+    want, _ = jax_gqa_apply(jcfg, jp, jnp.asarray(x1), jnp.asarray(pos1), cache=jf8,
+                            cache_read_only=True, **cross)
     close(got, want)
     with pytest.raises(ValueError, match="cache_read_only"):
         gqa_apply(cfg, p, _t(x1), torch.from_numpy(pos1), cache_read_only=True, **cross)

@@ -12,9 +12,10 @@ import torch
 from repro_torch.core import batched
 from repro_torch.kernels import ops
 from repro_torch.kernels.flash_attention import flash_attention, flash_attention_trainable
-from repro_torch.kernels.flash_decode import flash_decode
+from repro_torch.kernels.flash_decode import check_decode_args, flash_decode
 from repro_torch.kernels.ref import attention_ref, decode_attention_ref, rwkv6_ref
 from repro_torch.kernels.rwkv6_scan import rwkv6_scan, rwkv6_scan_trainable
+from repro_torch.models.layers import astype
 
 # the tolerances of the JAX package's own kernel sweep (tests/test_kernels.py)
 TOL = {torch.float32: dict(atol=2e-3, rtol=2e-3), torch.bfloat16: dict(atol=5e-2, rtol=5e-2)}
@@ -452,6 +453,101 @@ def test_decode_kernel_rejects_what_it_does_not_take(cuda_device):
         flash_decode(q, k, v, lens.cpu())
     with pytest.raises(ValueError, match="CUDA"):
         flash_decode(q.cpu(), k.cpu(), v.cpu(), lens.cpu())
+    assert flash_decode.launches == before
+
+
+FLOAT8 = [torch.float8_e4m3fn, torch.float8_e5m2]
+# (B, C, Hq, Hk, D, lengths): float8 K/V at every head size the kernel takes,
+# among them the dense serving shape and the hybrid's (g = 16, D = 256)
+FLOAT8_CASES = [
+    (2, 300, 8, 2, 32, [300, 65]),
+    (8, 448, 6, 6, 64, [64, 1, 448, 200, 5, 300, 447, 33]),
+    (8, 1024, 32, 8, 128, [65, 129, 81, 201, 513, 17, 34, 257]),
+    (4, 1000, 32, 8, 128, [1, 1000, 999, 517]),
+    (8, 1024, 16, 1, 256, [65, 129, 81, 201, 513, 17, 34, 257]),
+    (1, 2048, 16, 1, 256, [2048]),
+]
+
+
+def _float8_inputs(seed, B, C, Hq, Hk, D, dtype, kv_dtype, device, lengths):
+    q, k, v, lens = _decode_inputs(seed, B, C, Hq, Hk, D, torch.float32, device, lengths)
+    return q.to(dtype), astype(k, kv_dtype), astype(v, kv_dtype), lens
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,C,Hq,Hk,D,lengths", FLOAT8_CASES)
+@pytest.mark.parametrize("kv_dtype", FLOAT8)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_kernel_on_float8_kv_matches_plain_version(cuda_device, B, C, Hq, Hk, D, lengths,
+                                                          kv_dtype, dtype):
+    """A float8 cache read as it is stored: the kernel against the plain
+    version, which widens K/V to q's dtype first; one float8 launch."""
+    q, k, v, lens = _float8_inputs(31, B, C, Hq, Hk, D, dtype, kv_dtype, cuda_device, lengths)
+    before, before8 = flash_decode.launches, flash_decode.float8_launches
+    out = ops.decode_attention(q, k, v, lens)
+    torch.cuda.synchronize()
+    assert (flash_decode.launches, flash_decode.float8_launches) == (before + 1, before8 + 1)
+    assert out.dtype == dtype and out.shape == q.shape
+    ref = decode_attention_ref(q, k, v, lens)
+    assert torch.equal(ref, decode_attention_ref(q, k.to(dtype), v.to(dtype), lens))
+    np.testing.assert_allclose(_np(out), _np(ref), **ATTN_TOL[dtype])
+
+
+@pytest.mark.cuda
+def test_float8_decode_replays_in_a_cuda_graph(cuda_device):
+    """A float8 call captured in a CUDA graph: replays on new inputs give
+    the eager outputs."""
+    B, C, Hq, Hk, D = 8, 1024, 32, 8, 128
+    lengths = [1024, 65, 300, 1, 777, 1024, 512, 129]
+    q, k, v, lens = _float8_inputs(32, B, C, Hq, Hk, D, torch.bfloat16, torch.float8_e4m3fn,
+                                   cuda_device, lengths)
+    flash_decode(q, k, v, lens)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = flash_decode(q, k, v, lens)
+    for seed in (33, 34):
+        q2, k2, v2, _ = _float8_inputs(seed, B, C, Hq, Hk, D, torch.bfloat16,
+                                       torch.float8_e4m3fn, cuda_device, lengths)
+        q.copy_(q2)
+        k.view(torch.uint8).copy_(k2.view(torch.uint8))
+        v.view(torch.uint8).copy_(v2.view(torch.uint8))
+        graph.replay()
+        torch.cuda.synchronize()
+        eager = flash_decode(q, k, v, lens)
+        torch.cuda.synchronize()
+        assert torch.equal(out, eager)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv_dtype", FLOAT8)
+def test_float8_cast_on_the_card_is_the_cpu_cast(cuda_device, kv_dtype):
+    """The cast a float8 cache is written through gives on the card the
+    bytes it gives on the CPU (held there against ``jnp.astype``) for all
+    65536 bf16 patterns and a float32 sweep across float8_e4m3fn's range."""
+    bits = torch.arange(1 << 16, dtype=torch.int32).to(torch.int16)
+    x16 = bits.view(torch.bfloat16)
+    x32 = torch.cat([torch.linspace(-500, 500, 200001), torch.linspace(57000, 62000, 5001),
+                     torch.tensor([float("nan"), -float("nan"), float("inf"), -float("inf")])])
+    for x in (x16, x32):
+        got = astype(x.to(cuda_device), kv_dtype).view(torch.uint8).cpu()
+        assert torch.equal(got, astype(x, kv_dtype).view(torch.uint8))
+
+
+@pytest.mark.cuda
+def test_decode_kernel_rejects_mixed_kv_dtypes(cuda_device):
+    """K and V share one dtype, q's or one float8; q is never float8."""
+    q, k, v, lens = _float8_inputs(35, 2, 128, 8, 2, 64, torch.bfloat16, torch.float8_e4m3fn,
+                                   cuda_device, [5, 9])
+    before = flash_decode.launches
+    for kk, vv in ((k.to(torch.bfloat16), v), (k, v.to(torch.bfloat16)),
+                   (k, astype(v.float(), torch.float8_e5m2))):
+        with pytest.raises(TypeError, match="share one dtype"):
+            check_decode_args(q, kk, vv, lens)
+        with pytest.raises(TypeError):
+            flash_decode(q, kk, vv, lens)
+    with pytest.raises(TypeError, match="q must be"):
+        flash_decode(q.to(torch.float8_e4m3fn), k, v, lens)
     assert flash_decode.launches == before
 
 

@@ -151,8 +151,11 @@ def test_entry_points_need_a_card_unless_told_cpu(monkeypatch):
 def test_unported_families_say_where_they_are_queued():
     """Every architecture of the registry, the JAX package's ten, builds an
     ``LM``; what is still queued raises ``NotImplementedError`` naming
-    ROADMAP.md: activation checkpointing (``remat``) and a KV cache in
-    another dtype than the model's (``kv_dtype``)."""
+    ROADMAP.md: a KV cache in another dtype than the model's other than
+    float8 (``kv_dtype="bfloat16"`` under a float32 model).  Activation
+    checkpointing (``remat``) and a float8 cache, queued until they were
+    ported, now compute the JAX function (``tests/test_torch_remat.py`` and
+    ``tests/test_torch_float8.py`` hold them against the JAX package)."""
     assert len(ARCHS) == 10
     for arch in ARCHS:
         cfg = reduced(get_config(arch))
@@ -162,9 +165,14 @@ def test_unported_families_say_where_they_are_queued():
     model = LM(cfg, device="cpu")
     params = model.init(torch.Generator().manual_seed(0))
     tokens = torch.zeros((1, 4), dtype=torch.long)
+    batch = {"tokens": tokens, "labels": tokens}
+    for remat in ("block", "dots"):
+        assert torch.equal(LM(dataclasses.replace(cfg, remat=remat), device="cpu").loss(
+            params, batch)[0], model.loss(params, batch)[0])
+    kv16 = LM(dataclasses.replace(cfg, kv_dtype="bfloat16"), device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        LM(dataclasses.replace(cfg, remat="block"), device="cpu").loss(
-            params, {"tokens": tokens, "labels": tokens})
-    kv8 = LM(dataclasses.replace(cfg, kv_dtype="bfloat16"), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        kv8.prefill(params, {"tokens": tokens}, kv8.init_cache(1, 8))
+        kv16.prefill(params, {"tokens": tokens}, kv16.init_cache(1, 8))
+    kv8 = LM(dataclasses.replace(cfg, kv_dtype="float8_e4m3fn"), device="cpu")
+    caches = kv8.init_cache(1, 8)
+    logits, caches = kv8.prefill(params, {"tokens": tokens}, caches)
+    assert caches[0]["k"].dtype == torch.float8_e4m3fn and bool(torch.isfinite(logits).all())
