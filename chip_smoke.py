@@ -158,6 +158,32 @@ Phases, each failing the run with a non-zero exit if anything is wrong:
              attention launches a step, losses equal, gradient norms within
              1e-3, step medians and peak memory.  Prints a
              ``train_moe_hybrid`` line.
+14. distribution  the distribution layer (``repro_torch.launch``,
+             ``optim/compression.py``, ``train/pipeline.py``): (a) a
+             one-rank NCCL process group and a (pod=1, data=1, model=1)
+             ``DeviceMesh`` on the card; (b) phase 7's model and batch
+             through the int8 cross-pod step (``grad_compression="int8"``,
+             3 steps rounded to nearest, then one stochastic): step 1's
+             loss ``==`` the plain step's from the same weights, each
+             leaf's mean its own round trip bit for bit and within half a
+             step (one, stochastic), the parameters within 5e-3 of the
+             plain step's, 24 wgmma attention launches a step; both steps'
+             ms, the quantize-gather-dequantize ms and the pod bytes;
+             (c) the same 24 layers through ``split_stages(., 1)`` and
+             ``pipeline_loss_fn`` on a one-rank "stage" mesh, M=4
+             microbatches of (1, 2048): loss and gradient norm against
+             ``LM.loss`` averaged over the microbatches, bf16 within 2^-7,
+             a float32 copy cut to 2 layers within 1e-5, 96 launches in the
+             forward; (e) the dry-run's twin of ``qwen1.5-0.5b train_4k``
+             at B=4 on the one-card mesh: resident bytes ``==`` the
+             card's, the step (remat "block") 3 times beside its roofline
+             bound and the TFLOP/s on the counted FLOPs; then, with the
+             group destroyed, (d) the 80-cell dry-run grid on the meta
+             device (64 ok, 16 skip: ``long_500k`` on the full-attention
+             architectures), both H100 roofline tables, and one multi-pod
+             cell under int8 compression, whose pod bytes are half the
+             bf16 all-reduce's plus the scales.  Prints a
+             ``distribution`` line.
 
 Phase 3 runs the attention and decode kernels also at the MoE path's
 heads (Hq = Hk = 16, D = 128), at Command R+'s g = 12 (Hq = 96, Hk = 8) and
@@ -168,8 +194,8 @@ decoder (Hq = Hk = 6, D = 64: training at B=8, S=448, decode over its
 448-slot cache) and at Qwen2-VL's (Hq = 64, Hk = 8, D = 128: training at
 S = 2048, decode at the serving shape).
 
-The ``place``, ``stream``, ``moe``, ``hybrid``, ``vlm_audio``, ``dense_float8``
-and ``train_moe_hybrid`` lines come before the ``kernels`` line.  The line before the last is a JSON object with each kernel's
+The ``place``, ``stream``, ``moe``, ``hybrid``, ``vlm_audio``, ``dense_float8``,
+``train_moe_hybrid`` and ``distribution`` lines come before the ``kernels`` line.  The line before the last is a JSON object with each kernel's
 launches on its main paths (calls of its wrapper, by path and summed),
 the kernels a call runs on the card, its error against the plain version,
 its time, the plain version's time, its bound and the library call's time
@@ -194,6 +220,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
+import torch.distributed as dist  # noqa: E402
 
 from torch.autograd import DeviceType  # noqa: E402
 from torch.profiler import ProfilerActivity, profile  # noqa: E402
@@ -209,7 +236,8 @@ from repro_torch.api import (  # noqa: E402
     orchestrate_batch,
     run_one,
 )
-from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.configs import ARCHS, get_config  # noqa: E402
+from repro_torch.configs.shapes import SHAPES  # noqa: E402
 from repro_torch.core import batched  # noqa: E402
 from repro_torch.core.policy import IBDASHPolicy  # noqa: E402
 from repro_torch.obs import (  # noqa: E402
@@ -240,19 +268,27 @@ from repro_torch.kernels.flash_attention import smem_bytes as attn_smem_bytes  #
 from repro_torch.kernels.flash_attention import tile_plan  # noqa: E402
 from repro_torch.kernels.flash_decode import flash_decode, split_plan  # noqa: E402
 from repro_torch.kernels.flash_decode import smem_bytes as decode_smem_bytes  # noqa: E402
+from repro_torch.kernels.meta import attention_work, decode_work, wkv_cost  # noqa: E402
+from repro_torch.kernels.meta import wkv_tiling  # noqa: E402
 from repro_torch.kernels.ref import attention_ref, decode_attention_ref, rwkv6_ref  # noqa: E402
 from repro_torch.kernels.rwkv6_scan import KERNELS_PER_CALL as WKV_KERNELS_PER_CALL  # noqa: E402
 from repro_torch.kernels.rwkv6_scan import kernel_chunk, rwkv6_scan, smem_bytes  # noqa: E402
+from repro_torch.launch import dryrun, roofline  # noqa: E402
+from repro_torch.launch.mesh import make_host_mesh, make_mesh, mesh_axis_sizes  # noqa: E402
 from repro_torch.launch.train import frontend_stubs, train  # noqa: E402
 from repro_torch.models import LM  # noqa: E402
 from repro_torch.models import moe as moe_module  # noqa: E402
 from repro_torch.models import recurrent as recurrent_module  # noqa: E402
 from repro_torch.models import transformer as transformer_module  # noqa: E402
-from repro_torch.models.layers import FLOAT8, astype, torch_dtype  # noqa: E402
+from repro_torch.models.layers import FLOAT8, astype, norm_apply, torch_dtype  # noqa: E402
 from repro_torch.optim import optimizers  # noqa: E402
+from repro_torch.optim.compression import int8_dequantize, int8_quantize  # noqa: E402
 from repro_torch.optim.optimizers import Adafactor, AdamW, global_norm  # noqa: E402
 from repro_torch.optim.schedules import cosine_with_warmup  # noqa: E402
 from repro_torch.serve.engine import ServingEngine, measure_interference  # noqa: E402
+from repro_torch.train import step as step_module  # noqa: E402
+from repro_torch.train.pipeline import pipeline_efficiency, pipeline_loss_fn  # noqa: E402
+from repro_torch.train.pipeline import split_stages  # noqa: E402
 from repro_torch.train.step import make_train_step, value_and_grad  # noqa: E402
 from repro_torch.tree import tree_leaves, tree_map  # noqa: E402
 
@@ -405,40 +441,12 @@ def wkv_inputs(B, T, dtype, gen, dev, strong_decay=False):
                 u=randn(H, N) * 0.2, S0=randn(B, H, N, N) * 0.1)
 
 
-def wkv_cost(B: int, T: int, elem_bytes: int, chunk: int, sub: int = 16):
-    """(bytes, SIMT operations, product operations) the WKV scan needs for
-    these shapes, counted as the kernel splits the work: chunks of ``chunk``
-    tokens, A factored over sub-chunks of ``sub``.
-
-    Bytes: r, k, v and y in the activation dtype and w in f32, each read or
-    written once; u, S0 and S_T in f32 (the kernel's per-chunk scratch not
-    counted).  Per (b, h) and chunk of L valid tokens, SIMT operations
-    (f32 in both instantiations): the state increment (k e^{total-cum})^T v
-    and the carry S <- e^{total} S + dS; A's diagonal sub-chunk blocks
-    (subtract, exp, two multiplies, add a term below the diagonal; the u
-    term on it); the log, cumulative sum and decay factors.  Product
-    operations (TF32 tensor cores in bf16, SIMT in f32): (r e^{cum_exc}) @ S,
-    A's blocks below the diagonal sub-chunks as products of factors, and
-    A @ v over i <= t.  A ragged last chunk counts its valid tokens only.
-    """
-    nbytes = B * T * H * N * (4 * elem_bytes + 4) + H * N * 4 + 2 * B * H * N * N * 4
-    simt = prod = 0
-    for t0 in range(0, T, chunk):
-        L = min(chunk, T - t0)
-        subs = [min(sub, L - s0) for s0 in range(0, L, sub)]
-        simt += 2 * L * N * N + 2 * N * N + 3 * L * N
-        simt += sum(5 * (l * (l - 1) // 2) * N + 3 * l * N for l in subs)
-        prod += 2 * L * N * N + 2 * (L * (L - 1) // 2 + L) * N
-        prod += sum(2 * subs[q] * subs[p] * N for q in range(len(subs)) for p in range(q))
-    return nbytes, B * H * simt, B * H * prod
-
-
 def wkv_bound(T: int, chunk: int):
     """``(bound ms, bound_by, line)`` of the bf16 WKV scan at B=1: the larger
     of its bytes over the memory rate and its operations over their rates,
     SIMT at the f32 peak and the products at the TF32 peak, the larger of
     the two (the pipes run side by side)."""
-    nbytes, simt, prod = wkv_cost(1, T, 2, chunk)
+    nbytes, simt, prod = wkv_cost(1, T, H, N, 2, chunk)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = max(simt / F32_OPS_PER_S, prod / TF32_OPS_PER_S) * 1e3
     line = (f"{nbytes} bytes -> {t_bytes:.4f} ms, {simt} f32 SIMT ops -> "
@@ -502,6 +510,8 @@ def kernel_phase(dev):
                   f"{' strong decay' if strong else ''}: max abs err y {errs[0]:.3e}, "
                   f"S_T {errs[1]:.3e} (tol {tol} abs+rel){upcast}", flush=True)
     timing, chunk = {}, kernel_chunk()
+    check(chunk == wkv_tiling()[0], f"the built WKV kernel's chunk {chunk} differs from the "
+          f"{wkv_tiling()[0]} that kernels/meta.py reads from its source")
     for T in (128, 200, 512):
         inp = wkv_inputs(1, T, torch.bfloat16, gen, dev)
         call = lambda: rwkv6_scan(**inp)   # noqa: E731
@@ -877,18 +887,6 @@ def decode_check(model, params, requests, done, tag="dense"):
                 "decode kernel vs plain decode attention", kern16, plain16, kern32, plain32)
 
 
-def attention_cost(B, S, Hq, Hk, D, elem_bytes, causal=True, window=None):
-    """(bytes, operations) attention needs for these shapes: q, k, v read
-    and o written once; 4*D operations (a multiply and an add in q.k and in
-    p.v) for each (query, key) pair the masks let in, counted exactly."""
-    i = np.arange(S)
-    hi = i + 1 if causal else np.full(S, S)
-    lo = np.maximum(0, i - window + 1) if window else np.zeros(S, dtype=int)
-    pairs = int((hi - lo).sum()) * B * Hq
-    nbytes = (2 * B * S * Hq * D + 2 * B * S * Hk * D) * elem_bytes
-    return nbytes, 4 * D * pairs
-
-
 # The attention kernel is timed at the training shape and at the dense
 # serving path's longest prefill (Minitron-8B's GQA heads), the latter over
 # this many copies of its inputs in turn so each launch finds them outside
@@ -998,7 +996,7 @@ def attention_phase(dev):
         lib_err = float((sdpa(qt[0], kt[0], vt[0], **lib_kw).transpose(1, 2).float()
                          - attention_ref(q[0], k[0], v[0], causal=True, window=window).float()
                          ).abs().max())
-        nbytes, ops = attention_cost(B, S, Hq, Hk, D, 2, window=window)
+        ops, nbytes = attention_work(B, S, Hq, Hk, D, 2, window=window)
         t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / BF16_OPS_PER_S * 1e3
         bound = max(t_bytes, t_ops)
         plan = tile_plan(B, S, Hq, Hk)
@@ -1066,15 +1064,14 @@ def layers(fn, n):
 
 
 def decode_cost(B, Hq, Hk, D, lengths, elem_bytes, kv_bytes=None):
-    """(bytes, operations) decode attention needs for these inputs: q read
-    and o written once (``elem_bytes`` an element), k and v read once up to
-    each row's length (``kv_bytes`` an element, ``elem_bytes`` if None), the
-    lengths themselves; 4*D operations (a multiply and an add in q.k and in
-    p.v) for each (query head, valid slot) pair."""
-    n = int(sum(lengths))
-    nbytes = (2 * B * Hq * D * elem_bytes + 2 * n * Hk * D * (kv_bytes or elem_bytes)
-              + 4 * B)
-    return nbytes, 4 * D * Hq * n
+    """(bytes, operations) decode attention needs for these inputs, by
+    ``kernels/meta.py``'s count over the rows' valid slots: q read and o
+    written once (``elem_bytes`` an element), k and v read once up to each
+    row's length (``kv_bytes`` an element, ``elem_bytes`` if None), the
+    lengths themselves; 4*D operations for each (query head, valid slot)."""
+    ops, nbytes = decode_work(B, Hq, Hk, D, int(sum(lengths)), elem_bytes,
+                              kv_bytes or elem_bytes)
+    return nbytes, ops
 
 
 # torch.profiler now and then misses device events of a profile on an H100
@@ -3465,6 +3462,410 @@ def train_moe_hybrid_runs(dev):
     return line, launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: the distribution layer
+# ---------------------------------------------------------------------------
+DIST_STEPS = 3                       # int8 steps rounded to nearest, then one stochastic
+PIPE_M = 4                           # the pipeline's microbatches of (1, TRAIN_S)
+PIPE_BF16_REL = 2.0 ** -7
+PIPE_F32_REL = 1e-5
+PIPE_F32_LAYERS = 2                  # the float32 copy's depth
+INT8_PARAM_TOL = 5e-3                # tests/test_system.py's bound after one step
+# the int8 step's gradients against a plain backward from the same weights,
+# per leaf, relative to the leaf's largest: the embedding backward's atomics
+# may sum in another order on the card (bf16 gradients)
+INT8_GRAD_REL = 2.0 ** -7
+# a round trip's error beyond its half (nearest) or whole (stochastic) step,
+# in steps: the float32 division x / scale and the product q * scale each
+# round within 2^-24 of a value of up to 127 steps
+ROUNDTRIP_SLACK = 2 * 127 * 2.0 ** -24
+INT8_SEED = 7                        # the stochastic step's generator
+TWIN_ARCH, TWIN_SHAPE, TWIN_B, TWIN_STEPS = "qwen1.5-0.5b", "train_4k", 4, 3
+GRID_CELLS, GRID_OK, GRID_SKIP = 80, 64, 16
+
+
+class _MeanRecorder:
+    """Stands in for ``train.step._cross_pod_int8_mean``: records each
+    call's gradients and result."""
+
+    def __init__(self, fn):
+        self.fn, self.calls = fn, []
+
+    def __call__(self, grads, mesh, generator=None):
+        out = self.fn(grads, mesh, generator)
+        self.calls.append((grads, out, generator is not None))
+        return out
+
+
+def _clone(tree):
+    return tree_map(lambda t: t.detach().clone(), tree)
+
+
+def _max_diff(a, b) -> float:
+    return max(float((x.detach().float() - y.detach().float()).abs().max())
+               for x, y in zip(tree_leaves(a), tree_leaves(b)))
+
+
+def int8_part(dev, mesh, arch=TRAIN_ARCH, B=TRAIN_B, S=TRAIN_S):
+    """(b): phase 7's model and batch through the int8 cross-pod step on the
+    one-pod mesh, against the plain step from the same parameters."""
+    cfg = get_config(arch)
+    model = LM(cfg, device=dev)
+    opt = AdamW(lr=3e-4)
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+    batches = [to_device(frontend_stubs(cfg, b), dev) for b in
+               itertools.islice(iter(SyntheticLM(cfg.vocab, B, S, seed=0)), DIST_STEPS + 1)]
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    plain_p, plain_s = _clone(params), opt.init(params)
+    plain = make_train_step(model, opt)
+    plain_ms = []
+    for i in range(DIST_STEPS):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        plain_p, plain_s, m = plain(plain_p, plain_s, batches[i])
+        torch.cuda.synchronize()
+        plain_ms.append(1e3 * (time.perf_counter() - t))
+        if i == 0:
+            plain_loss, plain_after1 = float(m["loss"]), _clone(plain_p)
+    del plain_p, plain_s
+
+    recorder = _MeanRecorder(step_module._cross_pod_int8_mean)
+    step_module._cross_pod_int8_mean = recorder
+    params0 = _clone(params)
+    try:
+        step = make_train_step(model, opt, grad_compression="int8", mesh=mesh)
+        state = opt.init(params)
+        int8_ms, losses, launches = [], [], []
+        for i in range(DIST_STEPS + 1):
+            gen = (torch.Generator(device=dev).manual_seed(INT8_SEED) if i == DIST_STEPS
+                   else None)
+            flash_attention.launches = flash_attention.wgmma_launches = 0
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            params, state, m = step(params, state, batches[i], gen)
+            torch.cuda.synchronize()
+            int8_ms.append(1e3 * (time.perf_counter() - t))
+            losses.append(float(m["loss"]))
+            launches.append(flash_attention.launches)
+            check(flash_attention.wgmma_launches == flash_attention.launches == cfg.n_layers,
+                  f"int8 step {i + 1}: {flash_attention.launches} attention launches "
+                  f"({flash_attention.wgmma_launches} wgmma), wanted {cfg.n_layers}")
+            if i == 0:
+                d1 = _max_diff(params, plain_after1)
+                check(losses[0] == plain_loss, f"int8 step 1 loss {losses[0]} != the plain "
+                      f"step's {plain_loss}")
+                check(d1 <= INT8_PARAM_TOL, f"after one int8 step the parameters are {d1} "
+                      f"from the plain step's (tol {INT8_PARAM_TOL})")
+                # the bound above holds whatever the gradient (AdamW's first
+                # step moves a weight by about lr): the step must be the
+                # optimizer's update on the mean it reduced, bit for bit
+                replay = _clone(params0)
+                opt.update(recorder.calls[0][1], opt.init(replay), replay)
+                check(all(torch.equal(a, b) for a, b in zip(tree_leaves(params),
+                                                            tree_leaves(replay))),
+                      "int8 step 1's parameters differ from AdamW's update on its mean")
+                del replay
+    finally:
+        step_module._cross_pod_int8_mean = recorder.fn
+    del plain_after1
+    # and the gradients it quantised must be a plain backward's
+    _, _, plain_grads = value_and_grad(model, params0, batches[0])
+    grad_rel = max(float((a.float() - b.float()).abs().max() / b.float().abs().max().clamp_min(
+        1e-30)) for a, b in zip(tree_leaves(recorder.calls[0][0]), tree_leaves(plain_grads)))
+    check(grad_rel <= INT8_GRAD_REL, f"int8 step 1's gradients {grad_rel:.3e} of a leaf's "
+          f"largest from a plain backward's (tol {INT8_GRAD_REL:.3e})")
+    del params0, plain_grads
+
+    # one pod: the step's mean is each leaf's own round trip, bit for bit
+    # (the stochastic one redrawn from the same seed, leaf by leaf)
+    worst = {False: 0.0, True: 0.0}
+    for grads, out, stochastic in (recorder.calls[0], recorder.calls[-1]):
+        bound = 1.0 if stochastic else 0.5
+        gen = torch.Generator(device=dev).manual_seed(INT8_SEED) if stochastic else None
+        for g, o in zip(tree_leaves(grads), tree_leaves(out)):
+            q, s = int8_quantize(g, gen)
+            check(torch.equal(o, int8_dequantize(q, s, g.dtype)),
+                  "the one-pod mean differs from the leaf's own round trip")
+            err = float((int8_dequantize(q, s) - g.float()).abs().max())
+            check(err <= float(s) * (bound + ROUNDTRIP_SLACK),
+                  f"round-trip error {err} beyond {bound} step ({float(s)}) of a leaf")
+            worst[stochastic] = max(worst[stochastic], err / float(s))
+    grads = recorder.calls[0][0]
+    leaves = tree_leaves(grads)
+    events = []
+    for _ in range(3):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        recorder.fn(grads, mesh, None)
+        b.record()
+        torch.cuda.synchronize()
+        events.append(a.elapsed_time(b))
+    npod = 2
+    int8_bytes = sum(g.numel() for g in leaves) + 4 * len(leaves)
+    grad_bytes = sum(g.numel() * g.element_size() for g in leaves)
+    # an all-gather over p pods sends (p-1)/p of p*e bytes a pod; a ring
+    # all-reduce of the bf16 gradients 2(p-1)/p of 2e
+    wire_int8 = (npod - 1) * int8_bytes
+    wire_bf16 = 2 * (npod - 1) / npod * grad_bytes
+    quant_ms = float(np.median(events))
+    print(f"[dist] (b) int8 cross-pod step, {cfg.name} ({n_params} parameters), B={B} S={S}, "
+          f"AdamW, one pod: step 1 loss {losses[0]!r} == the plain step's; its gradients "
+          f"within {grad_rel:.3e} of a leaf's largest of a plain backward's (tol "
+          f"{INT8_GRAD_REL:.3e}); its parameters == AdamW's update on its int8 mean, bit for "
+          f"bit, and within {d1:.3e} of the plain step's (tol {INT8_PARAM_TOL}); losses "
+          f"{losses}; flash_attention launches a step {launches}, all wgmma", flush=True)
+    print(f"[dist] (b) round trip: worst |dequantized - gradient| {worst[False]:.4f} of a "
+          f"step to nearest (<= 0.5), {worst[True]:.4f} stochastic (<= 1), over "
+          f"{len(leaves)} leaves", flush=True)
+    print(f"[dist] (b) step ms: int8 {[round(x, 2) for x in int8_ms]} (the last stochastic), "
+          f"median of the first {DIST_STEPS} {np.median(int8_ms[:DIST_STEPS]):.2f}; plain "
+          f"{[round(x, 2) for x in plain_ms]}, median {np.median(plain_ms):.2f}; quantize + "
+          f"gather + dequantize of all {len(leaves)} leaves {quant_ms:.3f} ms (median of 3, "
+          f"CUDA events)", flush=True)
+    print(f"[dist] (b) pod bytes a step: {int8_bytes} int8 + scale bytes a pod against "
+          f"{grad_bytes} bf16 gradient bytes ({grad_bytes / int8_bytes:.3f}x); at 2 pods a "
+          f"device sends {wire_int8} bytes in the int8 gather against {wire_bf16:.0f} in a "
+          f"bf16 ring all-reduce", flush=True)
+    out = dict(arch=cfg.name, params=n_params, batch=B, seq=S, losses=losses,
+               plain_loss=plain_loss, param_diff_after_1=d1, grad_rel_diff_1=grad_rel,
+               int8_step_ms=int8_ms,
+               plain_step_ms=plain_ms, quant_gather_dequant_ms=quant_ms,
+               worst_roundtrip_steps={"nearest": worst[False], "stochastic": worst[True]},
+               int8_pod_bytes=int8_bytes, grad_pod_bytes=grad_bytes,
+               launches_per_step=launches)
+    del params, state, grads, recorder, batches
+    torch.cuda.empty_cache()
+    return out, sum(launches)
+
+
+def _pipeline_adapters(model):
+    """The LM's embedding, layers and loss as ``pipeline_loss_fn`` takes them
+    (a dense model: one ``attn`` segment, no auxiliary loss)."""
+    cfg, seg = model.cfg, model.segments[0]
+
+    def embed_fn(ep, tokens):
+        return ep["embedding"][tokens]
+
+    def block_fn(lp, x):
+        B, S = x.shape[:2]
+        positions = torch.arange(S, device=x.device).expand(B, S)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        return model._block(seg, lp, x, aux, positions=positions, cache=None, gapless=True,
+                            position_ids=None, enc_out=None, enc_positions=None)[0]
+
+    def loss_fn(hp, y, labels):
+        return model._xent(hp, norm_apply(cfg, hp["final_norm"], y), labels)
+
+    return embed_fn, block_fn, loss_fn
+
+
+def pipeline_run(cfg, dev, mesh, tokens, labels):
+    """Loss and gradient norm of the GPipe schedule on the one-stage mesh, and
+    of ``LM.loss`` averaged over the same microbatches, from the same
+    weights; and the attention launches of the pipeline's forward."""
+    model = LM(cfg, device=dev)
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+    for t in tree_leaves(params):
+        t.requires_grad_(True)
+    if not cfg.tie_embeddings:
+        raise ValueError("the adapters take a tied embedding")
+    embed_fn, block_fn, loss_fn = _pipeline_adapters(model)
+    stages = split_stages(tree_map(lambda t: t.detach(), params["segments"][0]), 1)
+    stages = tree_map(lambda t: t.requires_grad_(True), stages)
+    head = {"embed": params["embed"], "final_norm": params["final_norm"]}
+    pp = {"stages": stages, "embed": params["embed"], "head": head}
+    batch = {"tokens": tokens, "labels": labels}
+    flash_attention.launches = 0
+    loss = pipeline_loss_fn(mesh, block_fn, embed_fn, loss_fn)(pp, batch)
+    launches = flash_attention.launches
+    loss.backward()
+    grads = [t.grad for t in tree_leaves(stages)] + [
+        t.grad for t in tree_leaves({"embed": params["embed"],
+                                     "final_norm": params["final_norm"]}) if t.grad is not None]
+    pipe = (float(loss.detach()), float(global_norm(grads)))
+    for t in tree_leaves(params) + tree_leaves(stages):
+        t.grad = None
+    total, acc = 0.0, None
+    for m in range(tokens.shape[0]):
+        loss_m, _, g = value_and_grad(model, params, {"tokens": tokens[m], "labels": labels[m]})
+        total += float(loss_m) / tokens.shape[0]
+        g = [x.float() / tokens.shape[0] for x in tree_leaves(g)]
+        acc = g if acc is None else [a + b for a, b in zip(acc, g)]
+    ref = (total, float(global_norm(acc)))
+    del params, stages, pp, grads, acc
+    torch.cuda.empty_cache()
+    return pipe, ref, launches
+
+
+def pipeline_part(dev, mesh, arch=TRAIN_ARCH, S=TRAIN_S):
+    """(c): the GPipe schedule on the one-stage mesh at full width, against
+    ``LM.loss`` averaged over the same microbatches."""
+    cfg = get_config(arch)
+    b = next(iter(SyntheticLM(cfg.vocab, PIPE_M, S, seed=0)))
+    tokens = torch.from_numpy(b["tokens"]).to(dev).reshape(PIPE_M, 1, S)
+    labels = torch.from_numpy(b["labels"]).to(dev).reshape(PIPE_M, 1, S)
+    t = time.perf_counter()
+    pipe16, ref16, launches = pipeline_run(cfg, dev, mesh, tokens, labels)
+    seconds = time.perf_counter() - t
+    check(launches == PIPE_M * cfg.n_layers,
+          f"the pipeline's forward launched flash_attention {launches} times, wanted "
+          f"{PIPE_M} microbatches x {cfg.n_layers} layers")
+    small = dataclasses.replace(cfg, n_layers=PIPE_F32_LAYERS, dtype="float32")
+    pipe32, ref32, _ = pipeline_run(small, dev, mesh, tokens, labels)
+    rel16 = [abs(a - b) / abs(b) for a, b in zip(pipe16, ref16)]
+    rel32 = [abs(a - b) / abs(b) for a, b in zip(pipe32, ref32)]
+    print(f"[dist] (c) GPipe, {cfg.name}, {cfg.n_layers} layers in split_stages(., 1), M="
+          f"{PIPE_M} microbatches of (1, {S}), pipeline_efficiency({PIPE_M}, 1) = "
+          f"{pipeline_efficiency(PIPE_M, 1)}: bf16 loss {pipe16[0]:.6f} against LM.loss's "
+          f"mean {ref16[0]:.6f}, gradient norm {pipe16[1]:.6f} against {ref16[1]:.6f}, rel "
+          f"diffs {rel16[0]:.3e} {rel16[1]:.3e} (tol {PIPE_BF16_REL:.3e}); float32 copy cut to "
+          f"{PIPE_F32_LAYERS} layers: rel diffs {rel32[0]:.3e} {rel32[1]:.3e} (tol "
+          f"{PIPE_F32_REL}); {launches} flash_attention launches in the forward; "
+          f"{seconds:.1f} s", flush=True)
+    check(max(rel16) <= PIPE_BF16_REL, f"bf16 pipeline against LM.loss: {pipe16} vs {ref16}")
+    check(max(rel32) <= PIPE_F32_REL, f"f32 pipeline against LM.loss: {pipe32} vs {ref32}")
+    return dict(arch=cfg.name, microbatches=PIPE_M, seq=S, stages=1,
+                efficiency=pipeline_efficiency(PIPE_M, 1), bf16=dict(pipeline=pipe16, ref=ref16),
+                f32_cut=dict(layers=PIPE_F32_LAYERS, pipeline=pipe32, ref=ref32),
+                launches=launches), launches
+
+
+def grid_part():
+    """(d): the 80-cell dry-run grid on the meta device, both roofline
+    tables, and one multi-pod cell under int8 compression."""
+    traces, records = {}, {}
+    variant = dict(remat="block")
+    t = time.perf_counter()
+    for arch in ARCHS:
+        for shape in SHAPES:
+            for mk in ("single", "multi"):
+                records[dryrun.cell_key(arch, shape, mk, variant)] = dryrun.run_cell(
+                    arch, shape, mk, traces=traces, **variant)
+    seconds = time.perf_counter() - t
+    status = [r["status"] for r in records.values()]
+    fails = {k: r["error"] for k, r in records.items() if r["status"] == "fail"}
+    skips = sorted(k for k, r in records.items() if r["status"] == "skip")
+    cell_s = [r["total_s"] for r in records.values()]
+    print(f"[dist] (d) dry-run grid: {len(records)} cells, {status.count('ok')} ok, "
+          f"{status.count('skip')} skip, {status.count('fail')} fail in {seconds:.1f} s of "
+          f"host time ({np.mean(cell_s):.2f} s a cell, the longest {max(cell_s):.2f} s; "
+          f"{len(traces)} traces, each reused for both meshes)", flush=True)
+    check(not fails, f"dry-run cells failed: {fails}")
+    check(len(records) == GRID_CELLS and status.count("ok") == GRID_OK
+          and status.count("skip") == GRID_SKIP, f"grid counts {len(records)} "
+          f"{status.count('ok')} {status.count('skip')}")
+    check(all("|long_500k|" in k for k in skips), f"unexpected skips: {skips}")
+    for mk in ("single", "multi"):
+        print(f"[dist] (d) H100 roofline, {mk} mesh (seconds a step; 989 TFLOP/s bf16, "
+              f"3.35 TB/s, NVLink 450 GB/s in a node, InfiniBand 50 GB/s across):", flush=True)
+        for line in roofline.format_table(roofline.build_table(records, mk)).splitlines():
+            print(f"[dist] (d)   {line}", flush=True)
+    arch = TRAIN_ARCH
+    plain = records[dryrun.cell_key(arch, "train_4k", "multi", variant)]
+    int8 = dryrun.run_cell(arch, "train_4k", "multi", traces=traces, remat="block",
+                           compression="int8")
+    check(int8["status"] == "ok", f"the int8 cell: {int8.get('error')}")
+    n_leaves = len(tree_leaves(LM(get_config(arch), device="meta").init(torch.Generator())))
+    p = int8["mesh_shape"]["pod"]
+    w_int8, w_plain = (r["collectives"]["wire_by_axis"]["pod"] for r in (int8, plain))
+    scales = 4 * (p - 1) * n_leaves
+    print(f"[dist] (d) {arch} train_4k multi under --compression int8: {w_int8:.0f} bytes a "
+          f"device on the pod links against {w_plain:.0f} for the bf16 all-reduce "
+          f"({w_int8 / w_plain:.4f}x): at p = 2 the gather of one int8 byte an element sends "
+          f"(p-1)/p of p*e/n = e/n bytes, the ring all-reduce of two bf16 bytes 2(p-1)/p of "
+          f"2e/n = 2e/n, so half, plus {scales} bytes of float32 scales; a quarter of a "
+          f"float32 all-reduce's", flush=True)
+    check(w_int8 == w_plain / 2 + scales, f"int8 pod bytes {w_int8} != {w_plain} / 2 + "
+          f"{scales}")
+    rows = {mk: roofline.build_table(records, mk) for mk in ("single", "multi")}
+    return dict(cells=len(records), ok=status.count("ok"), skip=status.count("skip"),
+                fail=status.count("fail"), seconds=seconds, cell_s_mean=float(np.mean(cell_s)),
+                cell_s_max=max(cell_s), int8_pod_wire=w_int8, bf16_pod_wire=w_plain,
+                roofline={mk: [{k: r[k] for k in ("arch", "shape", "compute_s", "memory_s",
+                                                    "collective_s", "dominant", "mfu_bound")}
+                               for r in rs] for mk, rs in rows.items()})
+
+
+def twin_part(dev, mesh):
+    """(e): price the one-card train_4k cell at B=4 and hold it against the
+    card: resident bytes, then the step's median beside its bound."""
+    rec = dryrun.run_cell(TWIN_ARCH, TWIN_SHAPE, "card", mesh=mesh,
+                          batch_override=TWIN_B, remat="block")
+    check(rec["status"] == "ok", f"the twin cell: {rec.get('error')}")
+    row = roofline.roofline_row(rec)
+    shape = dataclasses.replace(SHAPES[TWIN_SHAPE], global_batch=TWIN_B)
+    cfg = dryrun.make_cell_config(TWIN_ARCH, shape)
+    model = LM(cfg, device=dev)
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+    opt = dryrun.pick_optimizer(TWIN_ARCH)
+    state = opt.init(params)
+    card = {"param_bytes_per_device": sum(t.numel() * t.element_size()
+                                          for t in tree_leaves(params)),
+            "opt_bytes_per_device": sum(t.numel() * t.element_size()
+                                        for t in tree_leaves(state))}
+    print(f"[dist] (e) twin {TWIN_ARCH} {TWIN_SHAPE} at B={TWIN_B} on the one-card mesh: "
+          f"resident {rec['resident']} (priced) against {card} (on the card)", flush=True)
+    check(rec["resident"] == {k: float(v) for k, v in card.items()},
+          f"priced resident bytes {rec['resident']} != the card's {card}")
+    step = make_train_step(model, opt)
+    batches = [to_device(frontend_stubs(cfg, b), dev) for b in itertools.islice(
+        iter(SyntheticLM(cfg.vocab, TWIN_B, shape.seq_len, seed=0)), TWIN_STEPS)]
+    torch.cuda.reset_peak_memory_stats()
+    step_s = []
+    for b in batches:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        params, state, m = step(params, state, b)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t)
+        check(bool(np.isfinite(float(m["loss"]))), "the twin step's loss is not finite")
+    peak = torch.cuda.max_memory_allocated()
+    med = float(np.median(step_s))
+    tflops = rec["flops_global"] / med / 1e12
+    print(f"[dist] (e) the step on the card (remat block, bf16, AdamW bf16 state): "
+          f"{[round(1e3 * x, 2) for x in step_s]} ms, median {1e3 * med:.2f} ms; roofline "
+          f"bound {1e3 * row['bound_s']:.2f} ms ({row['dominant']}: compute "
+          f"{1e3 * row['compute_s']:.2f} ms from {rec['flops_global']:.4e} counted FLOPs, "
+          f"memory {1e3 * row['memory_s']:.2f} ms from {rec['bytes_global']:.4e} counted "
+          f"bytes, an upper bound); measured / bound {med / row['bound_s']:.2f}; "
+          f"{tflops:.1f} TFLOP/s achieved on the counted FLOPs; peak memory "
+          f"{peak / 2**30:.2f} GiB", flush=True)
+    del params, state, step, batches
+    torch.cuda.empty_cache()
+    return dict(arch=TWIN_ARCH, shape=TWIN_SHAPE, batch=TWIN_B, resident=rec["resident"],
+                card=card, step_ms=[1e3 * x for x in step_s], step_ms_median=1e3 * med,
+                bound_ms=1e3 * row["bound_s"], bound_by=row["dominant"],
+                compute_ms=1e3 * row["compute_s"], memory_ms=1e3 * row["memory_s"],
+                flops=rec["flops_global"], bytes=rec["bytes_global"], tflops=tflops,
+                peak_gib=peak / 2**30)
+
+
+def distribution_phase(dev, backend="nccl"):
+    """Phase 14: the int8 cross-pod step and the GPipe schedule at full width
+    on a one-rank process group, the dry-run grid on the meta device and the
+    twin against the card.  Returns the ``distribution`` line and the
+    attention launches by path."""
+    t_phase = time.perf_counter()
+    line = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_pg_") as tmp:
+        dist.init_process_group(backend, init_method=f"file://{tmp}/store", rank=0,
+                                world_size=1)
+        try:
+            mesh = make_host_mesh(pod=1, data=1, model=1, device_type=dev.type)
+            print(f"[dist] (a) one-rank {backend} process group; mesh "
+                  f"{mesh_axis_sizes(mesh)} on {dev.type}", flush=True)
+            line["int8"], int8_launches = int8_part(dev, mesh)
+            stage_mesh = make_mesh((1,), ("stage",), dev.type)
+            line["pipeline"], pipe_launches = pipeline_part(dev, stage_mesh)
+            line["twin"] = twin_part(dev, mesh)
+        finally:
+            dist.destroy_process_group()
+    line["grid"] = grid_part()
+    line["seconds"] = time.perf_counter() - t_phase
+    print(f"[dist] phase took {line['seconds']:.1f} s", flush=True)
+    return {"distribution": line}, {"train int8": int8_launches, "pipeline": pipe_launches}
+
+
 # the per-shape numbers of a kernel's row in the kernels line
 SHAPE_KEYS = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")
 
@@ -3552,11 +3953,13 @@ def main() -> int:
     vlm_audio, vlm_audio_attn, vlm_audio_dec = vlm_audio_phase(dev)
     torch.cuda.empty_cache()
     train_mh, train_mh_attn = train_moe_hybrid_phase(dev)
+    torch.cuda.empty_cache()
+    distribution, dist_attn = distribution_phase(dev)
 
     main_t, dec_main, attn_main = timing[512], dec_t["served"], attn_t["train"]
     attn_by_path = {"dense": dense_attn_launches, "train": attn_launches,
                     "moe": moe_attn_launches, "hybrid": hybrid_attn_launches, **vlm_audio_attn,
-                    **train_mh_attn}
+                    **train_mh_attn, **dist_attn}
     dec_by_path = {"dense": dense_dec_launches, "moe": moe_dec_launches,
                    "hybrid": hybrid_dec_launches, **vlm_audio_dec}
     print(f"[done] {time.perf_counter() - t_start:.1f} s", flush=True)
@@ -3567,6 +3970,7 @@ def main() -> int:
     print(json.dumps(vlm_audio), flush=True)
     print(json.dumps(dense8), flush=True)
     print(json.dumps(train_mh), flush=True)
+    print(json.dumps(distribution), flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": [{
         "name": "rwkv6_scan",

@@ -11,10 +11,12 @@ from dataclasses import dataclass
 from typing import Dict, Iterator
 
 import numpy as np
+import torch
 
 from ..models.config import ModelConfig
+from ..models.layers import torch_dtype
 
-__all__ = ["SyntheticLM", "materialize_batch"]
+__all__ = ["SyntheticLM", "batch_specs", "materialize_batch"]
 
 
 @dataclass
@@ -44,9 +46,30 @@ class SyntheticLM:
             }
 
 
+def batch_specs(cfg: ModelConfig, batch: int, seq_len: int, mode: str = "train"
+                ) -> Dict[str, torch.Tensor]:
+    """Stand-ins on the meta device for every model input (the dry-run's
+    inputs: shapes and dtypes, no storage), as the JAX version's
+    ``ShapeDtypeStruct``s.  mode: "train" (tokens and labels) or "prefill"
+    (tokens); ``tokens`` and ``labels`` (B, S) int32, an ``audio`` model's
+    ``frames`` (B, enc_len, d_model) in the model's dtype, a ``vlm`` model's
+    ``position_ids`` (3, B, S) int32."""
+    def meta(*shape, dtype=torch.int32):
+        return torch.empty(shape, dtype=dtype, device="meta")
+
+    specs = {"tokens": meta(batch, seq_len)}
+    if mode == "train":
+        specs["labels"] = meta(batch, seq_len)
+    if cfg.enc_dec:
+        specs["frames"] = meta(batch, cfg.enc_len, cfg.d_model, dtype=torch_dtype(cfg.dtype))
+    if cfg.needs_position_ids:
+        specs["position_ids"] = meta(3, batch, seq_len)
+    return specs
+
+
 def materialize_batch(cfg: ModelConfig, batch: int, seq_len: int, seed: int = 0,
                       mode: str = "train") -> Dict[str, np.ndarray]:
-    """One concrete host batch of the stream.  mode: "train" (tokens and
+    """One concrete host batch of the stream, matching :func:`batch_specs`.  mode: "train" (tokens and
     labels) or "prefill" (tokens).  The front-end stubs come as in the JAX
     version, the same values for the same seed: an ``audio`` model's
     ``frames`` (B, enc_len, d_model), standard normal draws of their own

@@ -15,7 +15,10 @@ contiguous CUDA tensors only: CPU tensors go to the plain version through
 ``flash_attention_trainable``: its forward is ``ops.attention`` (on the card,
 the kernel) and its backward recomputes attention through
 :func:`repro_torch.kernels.ref.attention_ref` and differentiates it, the JAX
-package's own oracle backward.  There is no backward kernel.
+package's own oracle backward.  There is no backward kernel.  On meta
+tensors (the dry-run) the forward counts the kernel's work by formula
+(:mod:`.meta`) and the backward traces ``attention_ref``'s ops, the same
+ops it runs on the card.
 """
 from __future__ import annotations
 

@@ -2,8 +2,9 @@
 
 The device of the tensors decides: a CPU tensor goes to the plain PyTorch
 version in :mod:`.ref`, a CUDA tensor to the hand-written kernel, which
-either launches or raises.  There is no fallback from the kernel to the
-plain version on the card.
+either launches or raises, and a meta tensor to :mod:`.meta`, which returns
+meta outputs and counts the kernel's work for the dry-run.  There is no
+fallback from the kernel to the plain version on the card.
 """
 from __future__ import annotations
 
@@ -11,6 +12,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from . import meta as _meta
 from . import ref as _ref
 from .flash_attention import flash_attention as _flash_attention
 from .flash_decode import flash_decode as _flash_decode
@@ -27,6 +29,8 @@ def attention(
     returns ``(B,S,Hq,D)``; see :func:`repro_torch.kernels.ref.attention_ref`."""
     if q.device.type == "cpu":
         return _ref.attention_ref(q, k, v, causal=causal, window=window)
+    if q.device.type == "meta":
+        return _meta.attention(q, k, v, causal, window)
     return _flash_attention(q, k, v, causal=causal, window=window)
 
 
@@ -38,6 +42,8 @@ def decode_attention(
     ``(B,Hq,D)``; see :func:`repro_torch.kernels.ref.decode_attention_ref`."""
     if q.device.type == "cpu":
         return _ref.decode_attention_ref(q, k, v, lengths)
+    if q.device.type == "meta":
+        return _meta.decode_attention(q, k, v, lengths)
     return _flash_decode(q, k, v, lengths)
 
 
@@ -49,4 +55,6 @@ def rwkv6(
     :func:`repro_torch.kernels.ref.rwkv6_ref` for the shapes."""
     if r.device.type == "cpu":
         return _ref.rwkv6_ref(r, k, v, w, u, S0)
+    if r.device.type == "meta":
+        return _meta.rwkv6(r, k, v, w, u, S0)
     return _rwkv6_scan(r, k, v, w, u, S0)

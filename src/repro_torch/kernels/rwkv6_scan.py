@@ -12,7 +12,9 @@ CPU tensors go to the plain version through :func:`repro_torch.kernels.ops.rwkv6
 ``rwkv6_scan_trainable``: its forward is ``ops.rwkv6`` (on the card, the
 kernel) and its backward recomputes the recurrence through
 :func:`repro_torch.kernels.ref.rwkv6_ref` and differentiates it, the JAX
-package's own oracle backward.  There is no backward kernel.
+package's own oracle backward.  There is no backward kernel.  On meta
+tensors (the dry-run) both directions count their work by formula
+(:mod:`.meta`): the backward's loop over every token is too slow to trace.
 """
 from __future__ import annotations
 
@@ -154,6 +156,10 @@ class _Rwkv6Scan(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, gy, gs):
+        if gy.device.type == "meta":
+            from .meta import rwkv6_backward
+
+            return rwkv6_backward(*ctx.saved_tensors)
         with torch.enable_grad():
             leaves = [t.detach().requires_grad_() for t in ctx.saved_tensors]
             y, sT = rwkv6_ref(*leaves)

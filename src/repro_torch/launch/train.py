@@ -1,7 +1,12 @@
 """End-to-end training driver on one device.
 
-The counterpart of the JAX package's ``launch/train.py``, without a mesh or
-shardings: synthetic-but-learnable LM data through the ``Prefetcher``, the
+The counterpart of the JAX package's ``launch/train.py`` in one process.
+The JAX driver shards its step over a host mesh by the production rules;
+the port has those rules and meshes (``launch/sharding.py``,
+``launch/mesh.py``) and runs its multi-process steps, the int8 cross-pod
+step and the GPipe pipeline, from ``train/step.py`` and
+``train/pipeline.py``, but this driver holds whole parameters on one
+device: synthetic-but-learnable LM data through the ``Prefetcher``, the
 train step (AdamW on a cosine schedule with warmup), replicated
 checkpointing on the Young/Daly cadence, and crash-restart resume.  Every
 architecture trains: an ``audio`` model's batches carry zero ``frames`` and

@@ -82,8 +82,11 @@ def stacked_normal(gen: torch.Generator, lead: Tuple[int, ...], shape: Tuple[int
     """A ``lead + shape`` tensor of normal draws times ``scale`` in ``dtype``,
     drawn one ``shape`` matrix at a time so that no float32 copy of the whole
     stack is ever made: Qwen-MoE's stacked ``wi`` is (24, 60, 2048, 1408),
-    16.6 GB in float32."""
+    16.6 GB in float32.  On the meta device (the dry-run) nothing is drawn:
+    the tensor is its shape and dtype alone."""
     out = torch.empty(lead + shape, dtype=dtype, device=device)
+    if out.device.type == "meta":
+        return out
     flat = out.view((-1,) + shape)
     for i in range(flat.shape[0]):
         flat[i] = (torch.randn(shape, generator=gen, dtype=torch.float32, device=device)

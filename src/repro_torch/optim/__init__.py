@@ -1,5 +1,7 @@
-"""Optimizers (AdamW, Adafactor), LR schedules and gradient clipping.  The
-int8 gradient compression is queued in ROADMAP.md."""
+"""Optimizers (AdamW, Adafactor), LR schedules, gradient clipping and the
+int8 gradient compression for the links between pods."""
+from .compression import (compress_gradients, decompress_gradients, int8_dequantize,
+                          int8_quantize)
 from .optimizers import Adafactor, AdamW, Optimizer, clip_by_global_norm, global_norm
 from .schedules import constant, cosine_with_warmup, linear_warmup
 
@@ -12,4 +14,8 @@ __all__ = [
     "constant",
     "cosine_with_warmup",
     "linear_warmup",
+    "int8_quantize",
+    "int8_dequantize",
+    "compress_gradients",
+    "decompress_gradients",
 ]

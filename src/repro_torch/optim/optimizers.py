@@ -9,8 +9,9 @@ JAX update is pure and its train step donates the old buffers, ``update``
 writes the new parameters and state into the old tensors in place, under
 ``torch.no_grad()``, and returns them.
 
-Both work through each leaf in slices of at most ``UPDATE_SLICE`` elements,
-so their float32 temporaries stay at a few slices rather than several
+Both work through each leaf in slices of at most ``update_slice`` elements
+(a keyword of ``update``; None reads the module's ``UPDATE_SLICE``), so
+their float32 temporaries stay at a few slices rather than several
 copies of the largest leaf: Qwen2-VL's 152064 x 8192 embedding is 5 GB in
 float32, and one stacked expert leaf of Qwen1.5-MoE (24 x 60 x 2048 x 1408)
 would be 16.6 GB.  AdamW is elementwise, so its slices along the first axis
@@ -47,6 +48,10 @@ def _lr_at(lr: Schedule, step: torch.Tensor) -> torch.Tensor:
     return torch.tensor(lr, dtype=torch.float32, device=step.device)
 
 
+def _slice_elems(update_slice: Optional[int]) -> int:
+    return UPDATE_SLICE if update_slice is None else update_slice
+
+
 def _sumsq(x: torch.Tensor) -> torch.Tensor:
     """The sum of the squares of ``x`` in float32, in slices along its first
     axis of at most ``UPDATE_SLICE`` elements, so no float32 copy of a large
@@ -68,12 +73,13 @@ def clip_by_global_norm(tree, max_norm: float) -> Tuple[Any, torch.Tensor]:
 
 
 class Optimizer:
-    """init(params) -> state;  update(grads, state, params) -> (params, state)."""
+    """init(params) -> state;  update(grads, state, params, update_slice=None)
+    -> (params, state)."""
 
     def init(self, params) -> Dict[str, Any]:
         raise NotImplementedError
 
-    def update(self, grads, state, params):
+    def update(self, grads, state, params, update_slice: Optional[int] = None):
         raise NotImplementedError
 
 
@@ -104,7 +110,7 @@ class AdamW(Optimizer):
         }
 
     @torch.no_grad()
-    def update(self, grads, state, params):
+    def update(self, grads, state, params, update_slice: Optional[int] = None):
         """One AdamW step, written into ``params`` and ``state`` in place;
         returns them."""
         scale = None
@@ -116,10 +122,11 @@ class AdamW(Optimizer):
         c1 = 1.0 - self.b1 ** sf
         c2 = 1.0 - self.b2 ** sf
         f32 = torch.float32
+        n = _slice_elems(update_slice)
         for leaf in zip(tree_leaves(params), tree_leaves(grads),
                         tree_leaves(state["m"]), tree_leaves(state["v"])):
             if leaf[0].dim():
-                rows = max(1, UPDATE_SLICE // max(1, leaf[0][0].numel()))
+                rows = max(1, n // max(1, leaf[0][0].numel()))
                 slices = zip(*(t.split(rows) for t in leaf))
             else:
                 slices = [leaf]
@@ -173,9 +180,10 @@ class Adafactor(Optimizer):
                 "v": tree_map(st, params)}
 
     @torch.no_grad()
-    def update(self, grads, state, params):
+    def update(self, grads, state, params, update_slice: Optional[int] = None):
         """One Adafactor step, written into ``params`` and ``state`` in
         place; returns them."""
+        n = _slice_elems(update_slice)
         step = state["step"] + 1
         sf = step.to(torch.float32)
         beta2 = 1.0 - sf ** (-self.decay)
@@ -184,9 +192,9 @@ class Adafactor(Optimizer):
         for p, g, v in zip(leaves_p, flatten_up_to(structure, grads),
                            flatten_up_to(structure, state["v"])):
             if "vr" in v:
-                self._update_factored(p, g, v, beta2, scale)
+                self._update_factored(p, g, v, beta2, scale, n)
             else:
-                self._update_full(p, g, v, beta2, scale)
+                self._update_full(p, g, v, beta2, scale, n)
         state["step"].copy_(step)
         return params, state
 
@@ -199,10 +207,10 @@ class Adafactor(Optimizer):
             u = u + self.weight_decay * p.to(torch.float32)
         p.copy_(p.to(torch.float32) - scale * u)
 
-    def _update_full(self, p, g, v, beta2, scale):
+    def _update_full(self, p, g, v, beta2, scale, n):
         vv = v["v"]
         if p.dim():
-            rows = max(1, UPDATE_SLICE // max(1, p[0].numel()))
+            rows = max(1, n // max(1, p[0].numel()))
             slices = list(zip(p.split(rows), g.split(rows), vv.split(rows)))
         else:
             slices = [(p, g, vv)]
@@ -219,17 +227,17 @@ class Adafactor(Optimizer):
         for ps, gs, vs in slices:
             self._apply(ps, u_of(gs, vs), sumsq, max(1, p.numel()), scale)
 
-    def _update_factored(self, p, g, v, beta2, scale):
+    def _update_factored(self, p, g, v, beta2, scale, n):
         R, C = p.shape[-2:]
         p3, g3 = p.view(-1, R, C), g.reshape(-1, R, C)
         vr, vc = v["vr"].view(-1, R), v["vc"].view(-1, C)
         # (matrices, rows) of each slice: whole matrices while one fits a
         # slice, else row blocks of one matrix
-        if R * C <= UPDATE_SLICE:
-            m = UPDATE_SLICE // (R * C)
+        if R * C <= n:
+            m = n // (R * C)
             chunks = [(slice(i, i + m), slice(None)) for i in range(0, p3.shape[0], m)]
         else:
-            rows = max(1, UPDATE_SLICE // C)
+            rows = max(1, n // C)
             chunks = [(slice(i, i + 1), slice(r, r + rows))
                       for i in range(p3.shape[0]) for r in range(0, R, rows)]
         f32 = torch.float32

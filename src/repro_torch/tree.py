@@ -10,7 +10,8 @@ from __future__ import annotations
 
 from typing import Any, Callable, Iterator, List, Tuple
 
-__all__ = ["tree_leaves", "tree_map", "tree_flatten", "tree_unflatten", "flatten_up_to"]
+__all__ = ["tree_leaves", "tree_map", "tree_flatten", "tree_unflatten", "flatten_up_to",
+           "tree_paths", "tree_map_with_path"]
 
 
 def _walk(node: Any, leaves: List[Any]) -> Any:
@@ -87,3 +88,30 @@ def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:
         if len(o) != len(leaves):
             raise ValueError("trees differ in structure")
     return tree_unflatten(structure, [fn(*args) for args in zip(leaves, *others)])
+
+
+def _paths(node: Any, prefix: str, out: List[str]) -> None:
+    if isinstance(node, dict):
+        for key in sorted(node):
+            _paths(node[key], f"{prefix}{key}/", out)
+    elif isinstance(node, (list, tuple)):
+        for i, val in enumerate(node):
+            _paths(val, f"{prefix}{i}/", out)
+    elif node is not None:
+        out.append(prefix[:-1])
+
+
+def tree_paths(tree: Any) -> List[str]:
+    """The path of every leaf, in leaf order: dictionary keys and sequence
+    indices joined by ``/`` (``"segments/0/attn/wq/w"``), the string the
+    JAX package's sharding rules make of a ``jax.tree_util`` key path."""
+    out: List[str] = []
+    _paths(tree, "", out)
+    return out
+
+
+def tree_map_with_path(fn: Callable, tree: Any) -> Any:
+    """``fn(path, leaf)`` applied leaf by leaf, ``path`` as :func:`tree_paths`
+    gives it."""
+    leaves, structure = tree_flatten(tree)
+    return tree_unflatten(structure, [fn(p, x) for p, x in zip(tree_paths(tree), leaves)])

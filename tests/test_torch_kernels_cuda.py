@@ -671,3 +671,41 @@ def test_admitted_stream_run_is_the_same_on_card_and_cpu(cuda_device):
     got, want = run("cuda"), run("cpu")
     assert got == want
     assert got[1]["shed"] > 0
+
+
+def _meta_and_card_calls(device):
+    """One call of each kernel's entry point (attention through its trainable
+    form, forward and backward; decode; WKV through its trainable form) on
+    ``device``; returns the launch counts they added."""
+    before = (flash_attention.launches, flash_decode.launches, rwkv6_scan.launches)
+    q = torch.zeros((1, 64, 4, 64), dtype=torch.bfloat16, device=device, requires_grad=True)
+    k = torch.zeros((1, 64, 2, 64), dtype=torch.bfloat16, device=device, requires_grad=True)
+    out = flash_attention_trainable(q, k, k)
+    out.float().sum().backward()
+    lengths = torch.full((1,), 64, dtype=torch.int32, device=device)
+    d = ops.decode_attention(q[:, 0].detach().contiguous(), k.detach(), k.detach(), lengths)
+    r = torch.zeros((1, 64, 2, 64), dtype=torch.bfloat16, device=device, requires_grad=True)
+    w = torch.full((1, 64, 2, 64), 0.5, device=device, requires_grad=True)
+    y, s = rwkv6_scan_trainable(r, r, r, w, torch.zeros((2, 64), device=device),
+                                torch.zeros((1, 2, 64, 64), device=device))
+    (y.float().sum() + s.sum()).backward()
+    assert out.shape == q.shape and d.shape == (1, 4, 64) and y.shape == r.shape
+    assert out.device.type == y.device.type == torch.device(device).type
+    return (flash_attention.launches - before[0], flash_decode.launches - before[1],
+            rwkv6_scan.launches - before[2])
+
+
+def test_meta_tensors_take_no_kernel_launch():
+    """The dry-run's route: meta tensors get meta outputs and counted work,
+    and neither a launch nor a build (there is no card here)."""
+    from repro_torch.kernels.meta import count_kernel_work
+
+    with count_kernel_work() as work:
+        assert _meta_and_card_calls("meta") == (0, 0, 0)
+    assert work.calls == {"flash_attention": 1, "flash_decode": 1, "rwkv6_scan": 1,
+                          "rwkv6_scan backward": 1}
+
+
+@pytest.mark.cuda
+def test_cuda_tensors_still_launch_the_kernels(cuda_device):
+    assert _meta_and_card_calls(cuda_device) == (1, 1, 1)
