@@ -184,6 +184,33 @@ Phases, each failing the run with a non-zero exit if anything is wrong:
              cell under int8 compression, whose pod bytes are half the
              bf16 all-reduce's plus the scales.  Prints a
              ``distribution`` line.
+15. audit-kvdtype  (a) the port's kernel audit
+             (``repro_torch.analysis.kernel_audit.builtin_targets("cuda")``):
+             the five float64 decision kernels, the three kernels' entry
+             points (launching the CUDA kernels) and a reduced Qwen1.5-0.5B's
+             decode step and prefill through a ``ServingEngine``'s caches,
+             each run on the card under the dispatch recorder and
+             ``torch.cuda.set_sync_debug_mode("error")``: no finding (float64
+             end to end, no host round trip, the expected input signatures,
+             the cache written in place), their op counts, launches and
+             cache pointers printed; (b) the decode kernel on K/V in another
+             float dtype than q's (bf16 and f16 K/V under f32 q, f32 and f16
+             K/V under bf16 q) at phase 3's dense, MoE and hybrid heads, B=8,
+             C=1024, served and full, against the plain version, with its
+             time, the plain version's, SDPA's on K/V cast to q's dtype and
+             the bound from the bytes at K/V's own width, and the registers
+             and spills of those variants (in a whole run (b) runs beside
+             phase 3's decode checks, where one call's profile is
+             reliable); (c) full-width Minitron-8B in
+             float32 (30.9 GB of weights) served with phase 6's requests
+             from a float32 cache and from a bfloat16 one: every decode
+             launch on the bf16-K/V kind reading the engine's cache itself,
+             the prefill through the f32 attention kernel, 4 decode steps
+             held against the plain route on the same cache and by phase
+             6's RMS rule against the float32 cache's, greedy agreement with
+             the float32 cache's tokens reported; then from a float16 cache,
+             and the weights rounded to bfloat16 served from bfloat16,
+             float32 and float16 caches.  Prints an ``audit_kvdtype`` line.
 
 Phase 3 runs the attention and decode kernels also at the MoE path's
 heads (Hq = Hk = 16, D = 128), at Command R+'s g = 12 (Hq = 96, Hk = 8) and
@@ -195,7 +222,8 @@ decoder (Hq = Hk = 6, D = 64: training at B=8, S=448, decode over its
 S = 2048, decode at the serving shape).
 
 The ``place``, ``stream``, ``moe``, ``hybrid``, ``vlm_audio``, ``dense_float8``,
-``train_moe_hybrid`` and ``distribution`` lines come before the ``kernels`` line.  The line before the last is a JSON object with each kernel's
+``train_moe_hybrid``, ``distribution`` and ``audit_kvdtype`` lines come before the
+``kernels`` line.  The line before the last is a JSON object with each kernel's
 launches on its main paths (calls of its wrapper, by path and summed),
 the kernels a call runs on the card, its error against the plain version,
 its time, the plain version's time, its bound and the library call's time
@@ -226,6 +254,7 @@ from torch.autograd import DeviceType  # noqa: E402
 from torch.profiler import ProfilerActivity, profile  # noqa: E402
 from torch.utils.checkpoint import checkpoint  # noqa: E402
 
+from repro_torch.analysis.kernel_audit import builtin_targets, run_audit  # noqa: E402
 from repro_torch.ckpt.checkpoint import CheckpointManager  # noqa: E402
 from repro_torch.api import (  # noqa: E402
     Orchestrator,
@@ -267,6 +296,7 @@ from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
 from repro_torch.kernels.flash_attention import smem_bytes as attn_smem_bytes  # noqa: E402
 from repro_torch.kernels.flash_attention import tile_plan  # noqa: E402
 from repro_torch.kernels.flash_decode import flash_decode, split_plan  # noqa: E402
+from repro_torch.kernels.flash_decode import blocks_per_sm as decode_blocks_per_sm  # noqa: E402
 from repro_torch.kernels.flash_decode import smem_bytes as decode_smem_bytes  # noqa: E402
 from repro_torch.kernels.meta import attention_work, decode_work, wkv_cost  # noqa: E402
 from repro_torch.kernels.meta import wkv_tiling  # noqa: E402
@@ -791,10 +821,11 @@ def float8_serve(model, params, requests, done16, step16_s, peak16):
           "the float8 engine's cache is not float8")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    flash_attention.launches = flash_decode.launches = flash_decode.float8_launches = 0
+    flash_attention.launches = flash_decode.launches = 0
+    flash_decode.kind_launches.clear()
     done, prefill_s, step_s, wall = serve(engine, requests)
     attn_launches, launches = flash_attention.launches, flash_decode.launches
-    launches8 = flash_decode.float8_launches
+    launches8 = flash_decode.kind_launches.get((torch_dtype(cfg.dtype), FLOAT8_KV), 0)
     peak = torch.cuda.max_memory_allocated()
     check(attn_launches == cfg.n_layers * len(requests),
           f"flash_attention launched {attn_launches} times for {len(requests)} prefills")
@@ -3866,6 +3897,361 @@ def distribution_phase(dev, backend="nccl"):
     return {"distribution": line}, {"train int8": int8_launches, "pipeline": pipe_launches}
 
 
+# -- phase 15: audit-kvdtype ----------------------------------------------------------
+# The decode kernel's kinds for K/V in another float dtype than q's (a cache
+# in another kv_dtype than the model's), as (q dtype, K/V dtype), held at the
+# dense serving path's heads (Minitron-8B, g = 4), the MoE path's (Qwen-MoE,
+# g = 1) and the hybrid's (RecurrentGemma, g = 16, D = 256).
+KV_KINDS = ((torch.float32, torch.bfloat16), (torch.float32, torch.float16),
+            (torch.bfloat16, torch.float32), (torch.bfloat16, torch.float16))
+KV_KIND_SHAPES = (("", 32, 8, 128), ("moe ", 16, 16, 128), ("hybrid ", 16, 1, 256))
+
+
+def kind_name(q_dtype, kv_dtype) -> str:
+    return f"{str(kv_dtype)[6:]} K/V, {str(q_dtype)[6:]} q"
+
+
+def audit_part(dev):
+    """(a) Every target of the kernel audit (``builtin_targets``) rebuilt on
+    the card and run under the dispatch recorder and
+    ``set_sync_debug_mode("error")``: the findings (none allowed), each
+    target's op count, signatures and kernel launches, and the engine's
+    cache pointers before and after its decode step and prefill."""
+    counted = {kern.__name__: kern for kern in
+               (flash_attention, flash_decode, rwkv6_scan, *batched.DECISION_KERNELS)}
+    rows, problems = {}, []
+    for path, specs in builtin_targets(dev.type).items():
+        for spec in specs:
+            before = {name: kern.launches for name, kern in counted.items()}
+            result = run_audit(spec)
+            torch.cuda.synchronize()
+            launched = {name: kern.launches - before[name] for name, kern in counted.items()
+                        if kern.launches != before[name]}
+            rows[spec.name] = dict(file=path, device=spec.device, ops=result.ops,
+                                   signatures=result.signatures, launches=launched,
+                                   findings=result.problems)
+            print(f"[audit] {spec.name} ({path}, {spec.device}): {result.ops} aten ops over "
+                  f"{len(spec.sweep)} sweep points, {result.signatures} input signatures "
+                  f"(expected {spec.expected_signatures}), kernel launches {launched}, "
+                  f"{len(result.problems)} findings", flush=True)
+            for msg in result.problems:
+                print(f"[audit]   finding: {msg}", flush=True)
+            for leaf, (was, now) in result.pointers.items():
+                print(f"[audit]   {spec.name} cache leaf {leaf}: storage {was:#x} before the "
+                      f"call, {now:#x} after", flush=True)
+            if result.pointers:
+                rows[spec.name]["pointers_unchanged"] = all(
+                    was == now for was, now in result.pointers.values())
+            problems += result.problems
+    check(not problems, f"the kernel audit on the card found {len(problems)} problems")
+    for name, kern in (("attention", "flash_attention"), ("decode_attention", "flash_decode"),
+                       ("rwkv6", "rwkv6_scan"), ("engine.decode_step", "flash_decode"),
+                       ("engine.prefill", "flash_attention")):
+        check(rows[name]["launches"].get(kern, 0) > 0,
+              f"the audit of {name} on the card launched no {kern}")
+    print(f"[audit] {len(rows)} targets audited on the card, 0 findings", flush=True)
+    return rows
+
+
+def kv_kinds_part(dev):
+    """(b) The decode kernel on each of KV_KINDS against decode_attention_ref
+    at KV_KIND_SHAPES (B=8, C=1024, served lengths and full), its device
+    time beside the plain version's and SDPA's on K/V cast to q's dtype;
+    its bound from the bytes read with K/V at their own width and the
+    operations at q's type's peak (bf16 tensor cores, or f32 outside them).
+    Returns ``{(q dtype, K/V dtype): (worst error, timing by shape)}``."""
+    gen = torch.Generator(device=dev).manual_seed(7)
+    B, C, L = SERVE_B, SERVE_C, DECODE_TIMING_LAYERS
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    out = {}
+    for qd, kvd in KV_KINDS:
+        worst, timing = 0.0, {}
+        tol = ATTN_TOL[qd]
+        peak = BF16_OPS_PER_S if qd == torch.bfloat16 else F32_OPS_PER_S
+        for path, Hq, Hk, D in KV_KIND_SHAPES:
+            q = torch.randn((L, B, Hq, D), generator=gen, device=dev).to(qd)
+            k, v = (astype(torch.randn((L, B, C, Hk, D), generator=gen, device=dev), kvd)
+                    for _ in range(2))
+            kt, vt = (astype(t, qd).transpose(2, 3).contiguous() for t in (k, v))
+            for lengths_name, lengths in (("served", SERVE_LENGTHS), ("full", (C,) * B)):
+                name = path + lengths_name
+                lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+                got = flash_decode(q[0], k[0], v[0], lens).float()
+                torch.cuda.synchronize()
+                want = decode_attention_ref(q[0], k[0], v[0], lens).float()
+                check(bool(torch.isfinite(got).all()),
+                      f"non-finite decode output, {kind_name(qd, kvd)}, D={D}")
+                err = float((got - want).abs().max())
+                over = float(((got - want).abs() - (tol + tol * want.abs())).max())
+                check(over <= 0, f"decode kernel on {kind_name(qd, kvd)} disagrees Hq={Hq} "
+                      f"Hk={Hk} D={D} lengths {lengths_name}: max abs err {err:.3e} beyond "
+                      f"{tol} abs+rel")
+                worst = max(worst, err)
+                mask = (torch.arange(C, device=dev)[None, :] < lens[:, None])[:, None, None, :]
+                ms = device_ms(layers(lambda i: flash_decode(q[i], k[i], v[i], lens), L), 2 * L)
+                plain_ms = device_ms(
+                    layers(lambda i: decode_attention_ref(q[i], k[i], v[i], lens), L), L)
+                library_ms = device_ms(layers(lambda i: sdpa(q[i][:, :, None], kt[i], vt[i],
+                                                              attn_mask=mask, enable_gqa=True),
+                                              L), 2 * L)
+                nbytes, ops = decode_cost(B, Hq, Hk, D, lengths, q.element_size(),
+                                          kv_bytes=k.element_size())
+                t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / peak * 1e3
+                bound = max(t_bytes, t_ops)
+                timing[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                                    bound_ms=bound,
+                                    bound_by="bytes" if t_bytes >= t_ops else "operations",
+                                    max_abs_err=err)
+                if name == "served":
+                    per_call = kernels_per_call(lambda: flash_decode(q[0], k[0], v[0], lens))
+                    check(per_call == 1, f"one flash_decode call on {kind_name(qd, kvd)} ran "
+                          f"{per_call} kernels on the card")
+                    timing["kernels_per_call"] = per_call
+                plan = split_plan(B, Hk, C, n_sm, D, decode_blocks_per_sm(D, qd, kvd))
+                print(f"[kvdtype] flash_decode {kind_name(qd, kvd)} B={B} C={C} Hq={Hq} "
+                      f"Hk={Hk} D={D}, lengths {lengths_name} (sum {sum(lengths)}), "
+                      f"(split_keys, nsplit) {plan}: max abs err {err:.3e} (tol {tol} "
+                      f"abs+rel); device {ms:.4f} ms a "
+                      f"launch; plain version {plain_ms:.4f} ms; scaled_dot_product_attention "
+                      f"on K/V cast to q's dtype {library_ms:.4f} ms; bound {bound:.5f} ms "
+                      f"({nbytes} bytes -> {t_bytes:.5f} ms, {ops} ops -> {t_ops:.5f} ms), "
+                      f"{100 * bound / ms:.1f}% of bound", flush=True)
+            del q, k, v, kt, vt
+            torch.cuda.empty_cache()
+        out[(qd, kvd)] = (worst, timing)
+    return out
+
+
+def kv_variants(report):
+    """``(kernel, registers, spill stores, spill loads)`` of the decode
+    kernel's variants for KV_KINDS in an ``nvcc -Xptxas -v`` report: kinds 3
+    (bf16 K/V), 4 (f16) and 5 (f32)."""
+    return [row for row in ptxas_report(report)
+            if re.search(r"flash_decode_kernel\s*<[^,]+,\s*[345]\s*,", row[0])
+            or re.search(r"flash_decode_kernelI\w+?Li[345]ELi", row[0])]
+
+
+def serve_kv(tag, base, params, requests, kv_dtype):
+    """Serve ``requests`` through ``ServingEngine`` on ``base``'s config with
+    ``kv_dtype``: every prefill through the attention kernel (the SIMT one
+    in float32) once a layer, every decode step through the decode kernel
+    once a layer on K/V in the cache's dtype; valid tokens.  Returns the
+    served stats."""
+    dev = base.device
+    cfg = dataclasses.replace(base.cfg, kv_dtype=kv_dtype)
+    model = LM(cfg, device=dev)
+    engine = ServingEngine(model, params, max_batch=SERVE_B, max_seq=SERVE_C)
+    qd, kvd = torch_dtype(cfg.dtype), torch_dtype(kv_dtype or cfg.dtype)
+    check(all(c[key].dtype == kvd for c in engine.caches for key in ("k", "v")),
+          f"[{tag}] the engine's cache is not {kvd}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    flash_attention.launches = flash_attention.wgmma_launches = 0
+    flash_attention.simt_launches = flash_decode.launches = 0
+    flash_decode.kind_launches.clear()
+    done, prefill_s, step_s, wall = serve(engine, requests)
+    attn, dec, kinds = flash_attention.launches, flash_decode.launches, \
+        dict(flash_decode.kind_launches)
+    peak = torch.cuda.max_memory_allocated()
+    check(attn == cfg.n_layers * len(requests),
+          f"[{tag}] flash_attention launched {attn} times for {len(requests)} prefills")
+    route = flash_attention.simt_launches if qd == torch.float32 else \
+        flash_attention.wgmma_launches
+    check(route == attn, f"[{tag}] of {attn} attention launches {route} went through the "
+          f"{'SIMT' if qd == torch.float32 else 'tensor-core'} kernel")
+    check(dec == cfg.n_layers * len(step_s),
+          f"[{tag}] flash_decode launched {dec} times for {len(step_s)} decode steps")
+    check(kinds == ({(qd, kvd): dec} if kvd != qd else {}),
+          f"[{tag}] decode launches by K/V kind {kinds}, wanted all {dec} on "
+          f"{kind_name(qd, kvd)}")
+    report_serve(tag, cfg, requests, done, prefill_s, step_s, wall)
+    print(f"[{tag}] flash_attention launches {attn} = {cfg.n_layers} layers x {len(requests)} "
+          f"prefills; flash_decode launches {dec} = {cfg.n_layers} layers x {len(step_s)} "
+          f"decode steps, all on {kind_name(qd, kvd)}; decode step median "
+          f"{1e3 * float(np.median(step_s)):.2f} ms; peak memory {peak / 2**30:.2f} GiB",
+          flush=True)
+    del engine
+    torch.cuda.empty_cache()
+    return dict(model=model, done=done, steps=len(step_s), attn=attn, dec=dec,
+                step_ms_median=1e3 * float(np.median(step_s)),
+                prefill_ms=[1e3 * x for x in prefill_s], peak_gib=peak / 2**30,
+                tokens_per_s=sum(len(t) for t in done.values()) / wall)
+
+
+def agreement(requests, done, ref) -> float:
+    same = [a == b for rid, _, _ in requests for a, b in zip(done[rid], ref[rid])]
+    return float(np.mean(same))
+
+
+def kvdtype_decode_check(tag, model, ref_model, params, requests):
+    """DECODE_CHECK_STEPS decode steps of ``model`` (its cache in another
+    dtype) from one prefilled cache through the decode kernel, held against
+    the same steps through the plain decode attention on the same cache
+    within LOGITS_F32_TOL of max |logit| (both read the cache in float32),
+    and by phase 6's RMS rule against the plain steps over ``ref_model``'s
+    cache in the model's own dtype (the unrounded K/V): the kernel's RMS
+    distance from them at most BF16_NOISE_FACTOR times the plain route's."""
+    dev = model.device
+
+    def prefilled(m):
+        engine = ServingEngine(m, params, max_batch=SERVE_B, max_seq=SERVE_C)
+        for req in requests[:SERVE_B]:
+            engine.add_request(*req)
+        return engine.tokens.clone(), engine.pos.clone(), engine.caches
+
+    first, pos0, caches = prefilled(model)
+    _, _, ref_caches = prefilled(ref_model)
+    rng = np.random.default_rng(3)
+    feed = [first] + [torch.as_tensor(rng.integers(0, model.cfg.vocab, SERVE_B), device=dev)
+                      for _ in range(DECODE_CHECK_STEPS - 1)]
+
+    def decode(cfg, caches0, decode_fn):
+        m = LM(cfg, device=dev, decode_fn=decode_fn)
+        c = _tree_map(lambda t: t.clone(), caches0)
+        out = []
+        with torch.inference_mode():
+            for t in range(DECODE_CHECK_STEPS):
+                lg, c = m.decode_step(params, feed[t], pos0 + t, c)
+                out.append(lg.float())
+        return torch.stack(out)
+
+    kern = decode(model.cfg, caches, None)
+    plain = decode(model.cfg, caches, decode_attention_ref)
+    ref = decode(ref_model.cfg, ref_caches, decode_attention_ref)
+    del caches, ref_caches
+    torch.cuda.empty_cache()
+    check(bool(torch.isfinite(kern).all()), f"[{tag}] non-finite decode logits")
+    scale, err = float(plain.abs().max()), float((kern - plain).abs().max())
+    rms_kern, rms_plain = _rms(kern, ref), _rms(plain, ref)
+    print(f"[{tag}] decode logits, {DECODE_CHECK_STEPS} steps at batch {SERVE_B}, decode "
+          f"kernel vs plain decode attention on the same cache: max abs diff {err:.4e} (max "
+          f"|logit| {scale:.4f}, tol {LOGITS_F32_TOL} of it); RMS from the plain route over "
+          f"the {model.cfg.dtype} cache: kernel {rms_kern:.4e}, plain {rms_plain:.4e} (tol "
+          f"{BF16_NOISE_FACTOR}x)", flush=True)
+    check(err <= LOGITS_F32_TOL * scale,
+          f"[{tag}] decode logits differ by {err:.4e}, beyond {LOGITS_F32_TOL} x {scale:.4f}")
+    check(rms_kern <= BF16_NOISE_FACTOR * rms_plain,
+          f"[{tag}] decode logits are {rms_kern:.4e} RMS from the unrounded cache's, beyond "
+          f"{BF16_NOISE_FACTOR} x the plain route's {rms_plain:.4e}")
+    return dict(max_abs_diff=err, max_abs_logit=scale, rms_kernel=rms_kern, rms_plain=rms_plain)
+
+
+def kvdtype_serve_part(dev):
+    """(c) Full-width Minitron-8B in float32 (30.9 GB of weights from a
+    seed) served from a bfloat16 cache: every decode launch on the bf16-K/V
+    kind, the prefill through the f32 attention kernel, the kernel reading
+    the engine's cache itself, 4 decode steps held against the plain route,
+    greedy agreement with the float32 cache's tokens; then from a float16
+    cache, and the same weights rounded to bfloat16 served from float32 and
+    float16 caches beside a bfloat16 one.  Returns the line and the decode
+    launches by K/V kind and path."""
+    tag = "kvdtype"
+    cfg = dataclasses.replace(get_config(DENSE_ARCH), dtype="float32")
+    base = LM(cfg, device=dev)
+    params = base.init(torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    print(f"[{tag}] {cfg.name} in float32: {n_params} parameters, "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB", flush=True)
+    requests = serve_requests_for(cfg)
+    line, launches = {"arch": cfg.name}, {}
+    ref = serve_kv(f"{tag} f32 cache", base, params, requests, None)
+    main = serve_kv(f"{tag} bf16 cache", base, params, requests, "bfloat16")
+    # the decode kernel reads the engine's bf16 cache itself: each layer's
+    # call gets that layer's slice of the stacked cache, not a cast copy
+    seen = []
+
+    def recorder(q, k, v, lengths):
+        seen.append((q.dtype, k.dtype, k.data_ptr(), v.data_ptr()))
+        return flash_decode(q, k, v, lengths)
+
+    cfg16 = main["model"].cfg
+    engine = ServingEngine(LM(cfg16, device=dev, decode_fn=recorder), params,
+                           max_batch=SERVE_B, max_seq=SERVE_C)
+    engine.add_request(*requests[0])
+    engine.step()
+    (cache,) = engine.caches
+    want = [(torch.float32, torch.bfloat16, cache["k"][i].data_ptr(), cache["v"][i].data_ptr())
+            for i in range(cfg.n_layers)]
+    check(seen == want, "a decode step's kernel calls did not read the engine's bf16 cache")
+    print(f"[{tag}] a decode step's {len(seen)} kernel calls each read its layer's bf16 slice "
+          "of the engine's cache (no cast copy)", flush=True)
+    del engine, cache
+    torch.cuda.empty_cache()
+    hold = kvdtype_decode_check(f"{tag} bf16 cache", main["model"], ref["model"], params,
+                                requests)
+    f16 = serve_kv(f"{tag} f16 cache", base, params, requests, "float16")
+    for name, res in (("bfloat16", main), ("float16", f16)):
+        line[f"float32 model, {name} cache"] = dict(
+            {key: res[key] for key in ("steps", "step_ms_median", "prefill_ms", "peak_gib",
+                                       "tokens_per_s", "attn", "dec")},
+            greedy_agreement_with_float32_cache=agreement(requests, res["done"], ref["done"]))
+        print(f"[{tag}] float32 model, {name} cache: greedy tokens equal to the float32 "
+              f"cache's {line[f'float32 model, {name} cache']['greedy_agreement_with_float32_cache']:.3f}; "
+              f"decode step median {res['step_ms_median']:.2f} ms (float32 cache "
+              f"{ref['step_ms_median']:.2f}); peak {res['peak_gib']:.2f} GiB (float32 cache "
+              f"{ref['peak_gib']:.2f})", flush=True)
+    line["float32 model, bfloat16 cache"]["decode_check"] = hold
+    line["float32 model, float32 cache"] = {key: ref[key] for key in (
+        "steps", "step_ms_median", "peak_gib", "tokens_per_s")}
+    launches[(torch.float32, torch.bfloat16)] = {"kvdtype float32 model": main["dec"]}
+    launches[(torch.float32, torch.float16)] = {"kvdtype float32 model": f16["dec"]}
+    same_kind = {"kvdtype float32 cache": ref["dec"]}
+    attn = {"kvdtype float32 model": ref["attn"] + main["attn"] + f16["attn"]}
+    del base, ref, main, f16
+    params = _tree_map(lambda t: t.to(torch.bfloat16), params)
+    torch.cuda.empty_cache()
+    base16 = LM(dataclasses.replace(cfg, dtype="bfloat16"), device=dev)
+    ref16 = serve_kv(f"{tag} bf16 model", base16, params, requests, None)
+    for name in ("float32", "float16"):
+        res = serve_kv(f"{tag} bf16 model {name} cache", base16, params, requests, name)
+        agree = agreement(requests, res["done"], ref16["done"])
+        line[f"bfloat16 model, {name} cache"] = dict(
+            {key: res[key] for key in ("steps", "step_ms_median", "peak_gib", "tokens_per_s",
+                                       "attn", "dec")},
+            greedy_agreement_with_bfloat16_cache=agree)
+        print(f"[{tag}] bfloat16 model, {name} cache: greedy tokens equal to the bfloat16 "
+              f"cache's {agree:.3f}; decode step median {res['step_ms_median']:.2f} ms "
+              f"(bfloat16 cache {ref16['step_ms_median']:.2f})", flush=True)
+        launches[(torch.bfloat16, torch_dtype(name))] = {"kvdtype bfloat16 model": res["dec"]}
+        attn["kvdtype bfloat16 model"] = attn.get("kvdtype bfloat16 model", 0) + res["attn"]
+    same_kind["kvdtype bfloat16 cache"] = ref16["dec"]
+    attn["kvdtype bfloat16 model"] += ref16["attn"]
+    del params, base16, ref16
+    torch.cuda.empty_cache()
+    return line, launches, same_kind, attn
+
+
+def audit_kvdtype_phase(dev, report="", kinds=None):
+    """Phase 15: (a) the kernel audit on the card, (b) the decode kernel's
+    kinds for K/V in another float dtype against the plain version with
+    their times (``kv_kinds_part``, unless ``kinds`` holds its result) and
+    the registers and spills of their variants (from ``report``, the
+    build's ``-Xptxas -v`` output, where this run built the kernel), (c) a
+    float32 Minitron-8B served from a bfloat16 cache and the other kinds'
+    caches.  Returns the ``audit_kvdtype`` line, the kinds' held results,
+    the main-path decode launches by kind and path, the kind-0 decode
+    launches and the attention launches by path."""
+    t_phase = time.perf_counter()
+    line = {"audit": audit_part(dev)}
+    variants = kv_variants(report)
+    for kern, regs, st, ld in variants:
+        print(f"[kvdtype] flash_decode {kern}: {regs} registers, spill stores {st} bytes, "
+              f"spill loads {ld} bytes", flush=True)
+    if not variants:
+        print("[kvdtype] flash_decode was already built: no register report", flush=True)
+    line["registers"] = [dict(kernel=k, registers=r, spill_stores=s, spill_loads=ld)
+                         for k, r, s, ld in variants]
+    kinds = kinds or kv_kinds_part(dev)
+    line["kinds"] = {kind_name(*key): timing for key, (_, timing) in kinds.items()}
+    served, launches, same_kind, attn = kvdtype_serve_part(dev)
+    line["serve"] = served
+    line["seconds"] = time.perf_counter() - t_phase
+    print(f"[kvdtype] phase took {line['seconds']:.1f} s", flush=True)
+    return {"audit_kvdtype": line}, kinds, launches, same_kind, attn
+
+
 # the per-shape numbers of a kernel's row in the kernels line
 SHAPE_KEYS = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")
 
@@ -3930,6 +4316,10 @@ def main() -> int:
     attn_worst, attn_t = attention_phase(dev)
     dec_worst, dec_t = decode_phase(dev)
     dec8_worst, dec8_t = float8_decode_phase(dev)
+    # phase 15's (b) runs here, beside the other decode checks: late in a
+    # whole run (after phase 14) torch.profiler saw no device event in nine
+    # profiles of one call in a row, and (b) counts a call's kernels so
+    kv_kinds = kv_kinds_part(dev)
     flash_attention.launches = flash_decode.launches = 0
     model, params, launches = serve_phase(dev)
     check(flash_attention.launches == 0 and flash_decode.launches == 0,
@@ -3955,13 +4345,16 @@ def main() -> int:
     train_mh, train_mh_attn = train_moe_hybrid_phase(dev)
     torch.cuda.empty_cache()
     distribution, dist_attn = distribution_phase(dev)
+    torch.cuda.empty_cache()
+    audit_kvdtype, kv_kinds, kv_launches, kv_same_kind, kv_attn = audit_kvdtype_phase(
+        dev, reports.get("flash_decode", ""), kv_kinds)
 
     main_t, dec_main, attn_main = timing[512], dec_t["served"], attn_t["train"]
     attn_by_path = {"dense": dense_attn_launches, "train": attn_launches,
                     "moe": moe_attn_launches, "hybrid": hybrid_attn_launches, **vlm_audio_attn,
-                    **train_mh_attn, **dist_attn}
+                    **train_mh_attn, **dist_attn, **kv_attn}
     dec_by_path = {"dense": dense_dec_launches, "moe": moe_dec_launches,
-                   "hybrid": hybrid_dec_launches, **vlm_audio_dec}
+                   "hybrid": hybrid_dec_launches, **vlm_audio_dec, **kv_same_kind}
     print(f"[done] {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps(place), flush=True)
     print(json.dumps(stream), flush=True)
@@ -3971,6 +4364,7 @@ def main() -> int:
     print(json.dumps(dense8), flush=True)
     print(json.dumps(train_mh), flush=True)
     print(json.dumps(distribution), flush=True)
+    print(json.dumps(audit_kvdtype), flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": [{
         "name": "rwkv6_scan",
@@ -4032,7 +4426,19 @@ def main() -> int:
         "library_ms": dec8_t["float8 served"]["library_ms"],
         "by_shape": {name: {key: val[key] for key in SHAPE_KEYS}
                      for name, val in dec8_t.items() if isinstance(val, dict)},
-    }]}), flush=True)
+    }] + [{
+        "name": f"flash_decode ({kind_name(*key)})",
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_decode.cu",
+        "replaces": "src/repro/kernels/flash_decode.py:76",
+        "launches": sum(kv_launches[key].values()),
+        "launches_by_path": kv_launches[key],
+        "kernels_per_call": timing_kv["kernels_per_call"],
+        "max_abs_err": worst_kv,
+        **{k: timing_kv["served"][k] for k in SHAPE_KEYS},
+        "by_shape": {name: {k: val[k] for k in SHAPE_KEYS}
+                     for name, val in timing_kv.items() if isinstance(val, dict)},
+    } for key, (worst_kv, timing_kv) in kv_kinds.items()]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

@@ -472,15 +472,6 @@ def _on(arr: np.ndarray, device: DeviceLike, dtype: torch.dtype,
     return out
 
 
-def _pad(t: torch.Tensor, n_rows: int, fill) -> torch.Tensor:
-    """``t`` (already on its device) with rows up to ``n_rows`` of ``fill``."""
-    if n_rows == t.shape[0]:
-        return t
-    pad = torch.full((n_rows - t.shape[0],) + tuple(t.shape[1:]), fill,
-                     dtype=t.dtype, device=t.device)
-    return torch.cat([t, pad])
-
-
 # -- decision kernels (torch tensors in, torch tensors out) ----------------------
 def select_queue(masked: torch.Tensor, k: int) -> torch.Tensor:
     """Algorithm 1 lines 16-18 for all rows: the first ``k`` entries of each
@@ -695,22 +686,23 @@ def ibdash_decide_batch(
     """
     B, D = total.shape
     n_scan = min(int(gamma) + 1, D - 1)  # a scalar iteration accepts or breaks
-    d_total = _on(total, device, torch.float64, B, 0.0)
-    d_pf = _on(pf, device, torch.float64, B, 0.0)
-    d_feas = _on(feasible, device, torch.bool, B, False)
+    # rows padded before the selection too, so both kernels see a bounded
+    # set of shapes; a pad row has no feasible device, which makes it inert
+    # in the selection and in the scan
+    n_pad = _padded(B)
+    d_total = _on(total, device, torch.float64, n_pad, 1.0)
+    d_pf = _on(pf, device, torch.float64, n_pad, 0.0)
+    d_feas = _on(feasible, device, torch.bool, n_pad, False)
     n_feas = d_feas.sum(dim=1)
     # lines 16-18: the priority queue == stable ascending sort over L(T_i)
     # with infeasible devices pushed to +inf; only its first n_scan + 1
     # entries are reachable.
     order = select_queue(torch.where(d_feas, d_total, np.inf), n_scan + 1)
-    n_pad = _padded(B)
     accepts = ibdash_scan_kernel(
-        _pad(torch.gather(d_total, 1, order), n_pad, 1.0),
-        _pad(torch.gather(d_pf, 1, order), n_pad, 0.0),
-        _pad(n_feas, n_pad, D),
+        torch.gather(d_total, 1, order), torch.gather(d_pf, 1, order), n_feas,
         alpha, beta, gamma,
-    )[:B]
-    order, accepts, n_feas = order.cpu().numpy(), accepts.cpu().numpy(), n_feas.cpu().numpy()
+    )
+    order, accepts, n_feas = (t[:B].cpu().numpy() for t in (order, accepts, n_feas))
     n_extra = accepts.sum(axis=1)
     out: List[Tuple[int, ...]] = []
     for b in range(B):

@@ -75,6 +75,18 @@
 // take no more shared memory than the same ring in q's dtype, so the split
 // plan stands as it is.
 //
+// Other float K/V.  bfloat16 or float16 K/V under an f32 query, and float32
+// or float16 K/V under a bf16 query (a cache in another kv_dtype than the
+// model's), take the same path: the tile lands at K/V's own width and is
+// converted into one tile of q's dtype in shared memory.  Widening bf16 or
+// f16 to f32 is exact; narrowing f32 or f16 to bf16 rounds to nearest even,
+// as the plain version's cast (and jnp.astype) does.  A 2-byte tile under an
+// f32 query is half an f32 one, so the ring keeps its two stages; under a
+// bf16 query the converted tile is extra, so f16 K/V take two stages, and
+// f32 K/V, whose landed tile is twice a bf16 one, two below D = 256 and one
+// at D = 256 (160 KB and 192 KB a block with the converted tile): one block
+// an SM, for which the wrapper plans its splits.
+
 // Lengths are taken in [1, C]: a length above C counts as C, and a length
 // below 1 gives a zero output (the reference has no meaning for it).  The
 // kernel allocates nothing and launches on the stream it is given; the C
@@ -95,8 +107,9 @@ constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
 constexpr int kBK = 64;                 // cache slots a split is a multiple of
 constexpr float kNegInf = -1e30f;
-// K/V storage: q's dtype, or float8 widened in shared memory
-constexpr int kKvSame = 0, kKvE4M3 = 1, kKvE5M2 = 2;
+// K/V storage: q's dtype, or float8, bf16, f16 or f32 converted into q's
+// dtype in shared memory
+constexpr int kKvSame = 0, kKvE4M3 = 1, kKvE5M2 = 2, kKvBF16 = 3, kKvF16 = 4, kKvF32 = 5;
 
 template <typename T> struct Cfg;
 template <> struct Cfg<__nv_bfloat16> {
@@ -120,12 +133,24 @@ template <typename T, int D> struct Geo {
 // bytes of a K/V element in device memory and in the ring
 template <typename T, int KV>
 __host__ __device__ constexpr int kv_bytes() {
-  return KV == kKvSame ? (int)sizeof(T) : 1;
+  return KV == kKvSame ? (int)sizeof(T)
+         : KV == kKvF32 ? 4
+         : KV == kKvBF16 || KV == kKvF16 ? 2
+                                          : 1;
 }
-// the ring; for float8 K/V also the widened tile of K and of V in T
+// stages of the ring: float8 K/V keep q's dtype's; a converted tile of
+// wider K/V costs a tile of q's dtype besides the ring, so two stages, and
+// one for f32 K/V under bf16 q at D=256 (two would need 256 KB)
+template <typename T, int KV, int D>
+__host__ __device__ constexpr int stages() {
+  return KV == kKvSame || kv_bytes<T, KV>() == 1 ? Geo<T, D>::kStages
+         : kv_bytes<T, KV>() > (int)sizeof(T) && D == 256 ? 1
+                                                           : 2;
+}
+// the ring; for converted K/V also the converted tile of K and of V in T
 template <typename T, int KV, int D>
 __host__ __device__ constexpr int ring_bytes() {
-  return Geo<T, D>::kStages * 2 * Geo<T, D>::kRows * D * kv_bytes<T, KV>()
+  return stages<T, KV, D>() * 2 * Geo<T, D>::kRows * D * kv_bytes<T, KV>()
          + (KV == kKvSame ? 0 : 2 * Geo<T, D>::kRows * D * (int)sizeof(T));
 }
 template <typename T, int D>
@@ -219,42 +244,70 @@ __device__ __forceinline__ float2 fp8x2_to_float2(uint32_t two) {
   return __half22float2(__half2(h));
 }
 
-// Widen a landed float8 tile (BK rows of D bytes, unswizzled) into BK rows
-// of T laid out as WarpState::tile reads them (swizzled as a T tile lands).
-// Each thread takes 16 float8 values at a time: one 16-byte chunk in, two
-// bf16 chunks or four f32 chunks out.
-template <typename T, int KV, int D, int BK>
-__device__ __forceinline__ void widen_tile(const unsigned char* src, unsigned char* dst,
-                                           int tid) {
-  constexpr int CPR8 = D / 16;                  // 16-byte chunks a float8 row
-  constexpr int RB = D * (int)sizeof(T);        // bytes a widened row
-  for (int idx = tid; idx < BK * CPR8; idx += kThreads) {
-    const int r = idx / CPR8, c = idx % CPR8;
-    const uint4 raw = *reinterpret_cast<const uint4*>(src + r * D + c * 16);
-    const uint32_t w[4] = {raw.x, raw.y, raw.z, raw.w};
-    float f[16];
+// The 16 / kv_bytes K/V values of one landed 16-byte chunk as f32, exactly.
+template <int KV>
+__device__ __forceinline__ void chunk_to_float(const uint4 raw, float* f) {
+  const uint32_t w[4] = {raw.x, raw.y, raw.z, raw.w};
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < 4; ++i) {
+    if constexpr (KV == kKvE4M3 || KV == kKvE5M2) {
       const float2 lo = fp8x2_to_float2<KV>(w[i]);
       const float2 hi = fp8x2_to_float2<KV>(w[i] >> 16);
       f[4 * i] = lo.x;
       f[4 * i + 1] = lo.y;
       f[4 * i + 2] = hi.x;
       f[4 * i + 3] = hi.y;
+    } else if constexpr (KV == kKvBF16) {
+      f[2 * i] = __uint_as_float(w[i] << 16);
+      f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+    } else if constexpr (KV == kKvF16) {
+      __half2_raw h;
+      h.x = static_cast<unsigned short>(w[i] & 0xffffu);
+      h.y = static_cast<unsigned short>(w[i] >> 16);
+      const float2 x = __half22float2(__half2(h));
+      f[2 * i] = x.x;
+      f[2 * i + 1] = x.y;
+    } else {
+      f[i] = __uint_as_float(w[i]);
     }
+  }
+}
+
+// Convert a landed K/V tile (BK rows of D elements in KV's dtype, row-major,
+// unswizzled) into BK rows of T laid out as WarpState::tile reads them
+// (swizzled as a T tile lands).  Each thread takes one landed 16-byte chunk
+// at a time, 16 / kv_bytes values: widened to f32 exactly, then stored as
+// f32 or rounded to bf16 (to nearest even), one or more 16-byte chunks of T
+// out, or half of one (f32 K/V under bf16 q).
+template <typename T, int KV, int D, int BK>
+__device__ __forceinline__ void widen_tile(const unsigned char* src, unsigned char* dst,
+                                           int tid) {
+  constexpr int KB = kv_bytes<T, KV>();
+  constexpr int E = 16 / KB;                    // values a landed chunk
+  constexpr int CPRL = D * KB / 16;             // landed chunks a row
+  constexpr int OB = E * (int)sizeof(T);        // bytes of T a landed chunk gives
+  constexpr int RB = D * (int)sizeof(T);        // bytes a converted row
+  for (int idx = tid; idx < BK * CPRL; idx += kThreads) {
+    const int r = idx / CPRL, c = idx % CPRL;
+    float f[E];
+    chunk_to_float<KV>(*reinterpret_cast<const uint4*>(src + r * D * KB + c * 16), f);
     unsigned char* row = dst + r * RB;
     if constexpr (std::is_same<T, float>::value) {
 #pragma unroll
-      for (int j = 0; j < 4; ++j)
-        *reinterpret_cast<float4*>(row + swz<T, D>(r, 4 * c + j) * 16) =
+      for (int j = 0; j < OB / 16; ++j)
+        *reinterpret_cast<float4*>(row + swz<T, D>(r, c * (OB / 16) + j) * 16) =
             make_float4(f[4 * j], f[4 * j + 1], f[4 * j + 2], f[4 * j + 3]);
-    } else {
+    } else if constexpr (OB >= 16) {
 #pragma unroll
-      for (int j = 0; j < 2; ++j)
-        *reinterpret_cast<uint4*>(row + swz<T, D>(r, 2 * c + j) * 16) =
+      for (int j = 0; j < OB / 16; ++j)
+        *reinterpret_cast<uint4*>(row + swz<T, D>(r, c * (OB / 16) + j) * 16) =
             make_uint4(pack_bf16(f[8 * j], f[8 * j + 1]), pack_bf16(f[8 * j + 2], f[8 * j + 3]),
                        pack_bf16(f[8 * j + 4], f[8 * j + 5]),
                        pack_bf16(f[8 * j + 6], f[8 * j + 7]));
+    } else {
+      // 8 bytes: half of logical chunk c / 2
+      *reinterpret_cast<uint2*>(row + swz<T, D>(r, c >> 1) * 16 + (c & 1) * 8) =
+          make_uint2(pack_bf16(f[0], f[1]), pack_bf16(f[2], f[3]));
     }
   }
 }
@@ -474,7 +527,7 @@ __global__ void __launch_bounds__(kThreads)
 flash_decode_kernel(const Args a) {
   static_assert(D % 32 == 0, "head size");
   constexpr int KH = Cfg<T>::kHeads;
-  constexpr int S = Geo<T, D>::kStages;
+  constexpr int S = stages<T, KV, D>();
   constexpr int BK = Geo<T, D>::kRows;          // cache slots a tile
   constexpr int KB = kv_bytes<T, KV>();         // bytes a K/V element as stored
   constexpr int RBK = D * KB;                   // bytes a landed tile row
@@ -512,7 +565,7 @@ flash_decode_kernel(const Args a) {
   const unsigned char* vg = static_cast<const unsigned char*>(a.v) + kv_off * KB;
 
   // a tile lands in its stored dtype: a T tile swizzled as tile() reads it,
-  // a float8 tile row-major (widen_tile swizzles)
+  // a tile to convert row-major (widen_tile swizzles)
   auto load_tile = [&](int stage, int k0) {
     unsigned char* ks = smem + stage * 2 * TILEK;
     unsigned char* vs = ks + TILEK;
@@ -530,20 +583,32 @@ flash_decode_kernel(const Args a) {
   st.init(static_cast<const T*>(a.q) + ((long long)b * a.Hq + h0) * D, hb, lane);
 
   const int ntiles = (k_end - k_begin + BK - 1) / BK;
+  if constexpr (S > 1) {
 #pragma unroll
-  for (int s = 0; s < S - 1; ++s) {
-    if (s < ntiles) load_tile(s, k_begin + s * BK);
-    cp_async_commit();
+    for (int s = 0; s < S - 1; ++s) {
+      if (s < ntiles) load_tile(s, k_begin + s * BK);
+      cp_async_commit();
+    }
   }
   for (int it = 0; it < ntiles; ++it) {
-    cp_async_wait<S - 2>();   // tile `it` has landed, for this thread's copies
-    __syncthreads();          // for every thread's; and stage (it - 1) % S is free
-    const int nt = it + S - 1;
-    if (nt < ntiles) load_tile(nt % S, k_begin + nt * BK);
-    cp_async_commit();
+    if constexpr (S > 1) {
+      cp_async_wait<S - 2>();   // tile `it` has landed, for this thread's copies
+      __syncthreads();          // for every thread's; and stage (it - 1) % S is free
+      const int nt = it + S - 1;
+      if (nt < ntiles) load_tile(nt % S, k_begin + nt * BK);
+      cp_async_commit();
+    } else {
+      // one stage: every thread is past the last conversion (the barrier
+      // after it), so the stage is free; load, wait, and the barrier below
+      // also frees the converted tile the last products read
+      load_tile(0, k_begin + it * BK);
+      cp_async_commit();
+      cp_async_wait<0>();
+      __syncthreads();
+    }
     const unsigned char* ks = smem + (it % S) * 2 * TILEK;
     if constexpr (KV != kKvSame) {
-      // every warp is past the barrier above, done with the last widened tile
+      // every warp is past the barrier above, done with the last converted tile
       unsigned char* wide = smem + S * 2 * TILEK;
       widen_tile<T, KV, D, BK>(ks, wide, tid);
       widen_tile<T, KV, D, BK>(ks + TILEK, wide + TILE, tid);
@@ -671,10 +736,18 @@ cudaError_t dispatch_d(const Args& a, int B, int D, cudaStream_t st) {
 
 template <typename T>
 cudaError_t dispatch(const Args& a, int B, int D, int kv_kind, cudaStream_t st) {
+  constexpr bool kF32 = std::is_same<T, float>::value;
   switch (kv_kind) {
     case kKvSame: return dispatch_d<T, kKvSame>(a, B, D, st);
     case kKvE4M3: return dispatch_d<T, kKvE4M3>(a, B, D, st);
     case kKvE5M2: return dispatch_d<T, kKvE5M2>(a, B, D, st);
+    case kKvF16: return dispatch_d<T, kKvF16>(a, B, D, st);
+    case kKvBF16:
+      if constexpr (kF32) return dispatch_d<T, kKvBF16>(a, B, D, st);
+      else return cudaErrorInvalidValue;     // bf16 under bf16 q is kind 0
+    case kKvF32:
+      if constexpr (!kF32) return dispatch_d<T, kKvF32>(a, B, D, st);
+      else return cudaErrorInvalidValue;     // f32 under f32 q is kind 0
     default: return cudaErrorInvalidValue;
   }
 }
@@ -692,10 +765,18 @@ int smem_of(int D) {
 
 template <typename T>
 int smem_of_kind(int D, int kv_kind) {
+  constexpr bool kF32 = std::is_same<T, float>::value;
   switch (kv_kind) {
     case kKvSame: return smem_of<T, kKvSame>(D);
     case kKvE4M3: return smem_of<T, kKvE4M3>(D);
     case kKvE5M2: return smem_of<T, kKvE5M2>(D);
+    case kKvF16: return smem_of<T, kKvF16>(D);
+    case kKvBF16:
+      if constexpr (kF32) return smem_of<T, kKvBF16>(D);
+      else return -1;
+    case kKvF32:
+      if constexpr (!kF32) return smem_of<T, kKvF32>(D);
+      else return -1;
     default: return -1;
   }
 }
@@ -703,8 +784,9 @@ int smem_of_kind(int D, int kv_kind) {
 }  // namespace
 
 // q, o: (B, Hq, D) float32 (is_bf16 = 0) or bfloat16 (is_bf16 = 1); k, v:
-// (B, C, Hk, D) in q's dtype (kv_kind = 0), float8_e4m3fn (1) or
-// float8_e5m2 (2); all contiguous and 16-byte aligned; lengths: (B,)
+// (B, C, Hk, D) in q's dtype (kv_kind = 0), float8_e4m3fn (1), float8_e5m2
+// (2), bfloat16 under f32 q (3), float16 (4) or float32 under bf16 q (5);
+// all contiguous and 16-byte aligned; lengths: (B,)
 // int32.  Scratch, with HC = ceil(g / flash_decode_heads_per_block) and
 // rows = B * Hk * HC: part_acc (rows, nsplit, heads_per_block, D) and
 // part_ml (rows, nsplit, heads_per_block, 2) float32; counters (rows,) int32,

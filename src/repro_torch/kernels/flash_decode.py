@@ -11,10 +11,13 @@ counters) is allocated once per (device, stream) and grown when a larger
 shape needs more, so an eager call allocates nothing else; a call captured in
 a CUDA graph takes a scratch of the graph's own, so a replay shares no
 counters with eager calls on another stream.  K and V may be in q's
-dtype or in float8 (``float8_e4m3fn``, ``float8_e5m2``: a float8 KV cache,
-read as it is stored and widened in the kernel; ``flash_decode.
-float8_launches`` counts those launches).  It takes CUDA tensors only: CPU
-tensors go to the plain version through
+dtype, in float8 (``float8_e4m3fn``, ``float8_e5m2``: a float8 KV cache,
+read as it is stored and widened in the kernel), or in another float dtype:
+bf16 or f16 under an f32 q, f32 or f16 under a bf16 q (a cache in another
+``kv_dtype`` than the model's, converted into q's dtype in the kernel, a
+narrowing rounded to nearest even).  ``flash_decode.kind_launches`` counts
+the launches on K/V in another dtype than q's, by (q dtype, K/V dtype).
+It takes CUDA tensors only: CPU tensors go to the plain version through
 :func:`repro_torch.kernels.ops.decode_attention`.
 """
 from __future__ import annotations
@@ -28,11 +31,19 @@ import torch
 
 from .build import load
 
-__all__ = ["flash_decode", "check_decode_args", "split_plan", "smem_bytes"]
+__all__ = ["flash_decode", "check_decode_args", "kv_kind", "split_plan", "smem_bytes",
+           "blocks_per_sm"]
 
 _SUPPORTED_D = (32, 64, 128, 256)
-# the kernel's kv_kind for K/V in q's dtype (0) or in each float8 dtype
-_KV_KIND = {torch.float8_e4m3fn: 1, torch.float8_e5m2: 2}
+# the kernel's kv_kind for K/V in q's dtype (0) and, by (q dtype, K/V
+# dtype), for every other pair it is built for
+_KV_KIND = {
+    (torch.float32, torch.float8_e4m3fn): 1, (torch.bfloat16, torch.float8_e4m3fn): 1,
+    (torch.float32, torch.float8_e5m2): 2, (torch.bfloat16, torch.float8_e5m2): 2,
+    (torch.float32, torch.bfloat16): 3,
+    (torch.float32, torch.float16): 4, (torch.bfloat16, torch.float16): 4,
+    (torch.bfloat16, torch.float32): 5,
+}
 _TILE = 64              # cache slots per tile of the kernel
 _BLOCKS_PER_SM = 2      # a full cache gives about this many blocks per SM, all resident
 # At D=256 one block fills an SM, and a split of one or two tiles spends
@@ -40,6 +51,14 @@ _BLOCKS_PER_SM = 2      # a full cache gives about this many blocks per SM, all 
 # four tiles were among the fastest at RecurrentGemma's decode shapes on an
 # H100 (21.6-28.5 us against 25.4-65.0 us for one tile; PERF.md, §6).
 _MIN_TILES = {256: 4}
+
+
+def kv_kind(q_dtype: torch.dtype, kv_dtype: torch.dtype) -> Optional[int]:
+    """The kernel's kv_kind for K/V in ``kv_dtype`` under q in ``q_dtype``,
+    or None where no kernel is built for the pair."""
+    if q_dtype not in (torch.float32, torch.bfloat16):
+        return None
+    return 0 if kv_dtype == q_dtype else _KV_KIND.get((q_dtype, kv_dtype))
 
 
 def check_decode_args(q, k, v, lengths) -> None:
@@ -64,9 +83,12 @@ def check_decode_args(q, k, v, lengths) -> None:
                          f"{lengths.dtype}")
     if q.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"q must be float32 or bfloat16, got {q.dtype}")
-    if k.dtype != v.dtype or (k.dtype != q.dtype and k.dtype not in _KV_KIND):
-        raise TypeError(f"k and v must share one dtype, q's ({q.dtype}) or a float8 one; got "
-                        f"{k.dtype} and {v.dtype}")
+    if k.dtype != v.dtype:
+        raise TypeError(f"k and v must share one dtype; got {k.dtype} and {v.dtype}")
+    if kv_kind(q.dtype, k.dtype) is None:
+        raise TypeError(f"no kernel for K/V in {k.dtype} under q in {q.dtype}: K/V in q's "
+                        "dtype, a float8 one, bfloat16 or float16 under float32 q, or float32 "
+                        "or float16 under bfloat16 q")
     for name, a in (("q", q), ("k", k), ("v", v), ("lengths", lengths)):
         if not a.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
@@ -77,18 +99,22 @@ def check_decode_args(q, k, v, lengths) -> None:
             raise ValueError(f"{name} must start on a 16-byte boundary")
 
 
-def split_plan(B: int, Hk: int, C: int, n_sm: int, D: int = 128) -> Tuple[int, int]:
+def split_plan(B: int, Hk: int, C: int, n_sm: int, D: int = 128,
+               per_sm: int = _BLOCKS_PER_SM) -> Tuple[int, int]:
     """``(split_keys, nsplit)``: the cache axis cut into ``nsplit`` splits of
     ``split_keys`` slots, a multiple of the kernel's 64-slot tile and at
     least ``_MIN_TILES`` tiles at head size ``D``, so that the ``B * Hk * nsplit`` blocks come
-    to about two per SM when the cache is full: two fit on an SM at once in
-    bf16 at D=128, so a full cache is one wave, and each split holds several
-    tiles for its load ring to overlap (four at the serving shape).  The
-    same plan serves float8 K/V: their ring and widened tile take no more
-    shared memory than q's dtype's ring (:func:`smem_bytes`), so as many
-    blocks fit on an SM."""
+    to about ``per_sm`` per SM when the cache is full: two fit on an SM
+    at once in bf16 at D=128, so a full cache is one wave, and each split
+    holds several tiles for its load ring to overlap (four at the serving
+    shape).  The same plan serves float8 K/V: their ring and widened tile
+    take no more shared memory than q's dtype's ring (:func:`smem_bytes`), so
+    as many blocks fit on an SM.  K/V kinds whose ring and converted tile
+    take more than q's dtype's ring (f16 or f32 K/V under bf16 q) are
+    planned at one block an SM (:func:`blocks_per_sm`): half the splits,
+    twice the tiles a split."""
     tiles = -(-C // _TILE)
-    want = max(1, min(tiles, -(-_BLOCKS_PER_SM * n_sm // (B * Hk))))
+    want = max(1, min(tiles, -(-per_sm * n_sm // (B * Hk))))
     split_keys = _TILE * max(-(-tiles // want), min(_MIN_TILES.get(D, 1), tiles))
     return split_keys, -(-C // split_keys)
 
@@ -114,8 +140,18 @@ def smem_bytes(D: int, dtype: torch.dtype = torch.bfloat16,
     """Dynamic shared memory one block of the kernel takes at head size
     ``D`` for q in ``dtype`` and K/V in ``kv_dtype`` (q's if None; builds
     the kernel if needed)."""
-    return _lib().flash_decode_smem_bytes(D, int(dtype == torch.bfloat16),
-                                          _KV_KIND.get(kv_dtype, 0))
+    kind = kv_kind(dtype, dtype if kv_dtype is None else kv_dtype)
+    if kind is None:
+        raise TypeError(f"no kernel for K/V in {kv_dtype} under q in {dtype}")
+    return _lib().flash_decode_smem_bytes(D, int(dtype == torch.bfloat16), kind)
+
+
+@functools.cache
+def blocks_per_sm(D: int, dtype: torch.dtype, kv_dtype: torch.dtype) -> int:
+    """Blocks an SM the split plan aims at for q in ``dtype`` and K/V in
+    ``kv_dtype``: ``_BLOCKS_PER_SM``, or one where the K/V kind's shared
+    memory exceeds that of q's dtype's ring (builds the kernel if needed)."""
+    return _BLOCKS_PER_SM if smem_bytes(D, dtype, kv_dtype) <= smem_bytes(D, dtype) else 1
 
 
 class _Scratch:
@@ -171,11 +207,13 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``(B,C,Hk,D)`` in q's dtype or both in one float8 dtype, contiguous, on
     one CUDA device; ``lengths``
     ``(B,)`` int32 on the same device, each in ``[1, C]`` (only slots
-    ``j < lengths[b]`` count; the kernel reads no slot beyond).  D in
+    ``j < lengths[b]`` count; the kernel reads no slot beyond).  K and V may
+    also be in another float dtype than q's (:func:`kv_kind`).  D in
     {32, 64, 128, 256}, any C, any B and Hk.  Returns ``(B,Hq,D)`` in q's dtype.
     One kernel launch a call; eager calls on one stream share the split
     scratch, and a captured call has its own.  ``flash_decode.launches``
-    counts launches, ``flash_decode.float8_launches`` those on float8 K/V."""
+    counts launches, ``flash_decode.kind_launches[(q dtype, K/V dtype)]``
+    those on each K/V dtype other than q's."""
     check_decode_args(q, k, v, lengths)
     if q.device.type != "cuda":
         raise ValueError(
@@ -184,7 +222,8 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         )
     B, Hq, D = q.shape
     C, Hk = k.shape[1], k.shape[2]
-    split_keys, nsplit = split_plan(B, Hk, C, _sm_count(q.device.index or 0), D)
+    split_keys, nsplit = split_plan(B, Hk, C, _sm_count(q.device.index or 0), D,
+                                    blocks_per_sm(D, q.dtype, k.dtype))
     is_bf16 = int(q.dtype == torch.bfloat16)
     lib = _lib()
     kh = lib.flash_decode_heads_per_block(is_bf16)
@@ -197,15 +236,17 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         err = lib.flash_decode_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(), o.data_ptr(),
             part_acc.data_ptr(), part_ml.data_ptr(), counters.data_ptr(), B, C, Hq, Hk, D,
-            split_keys, nsplit, 1.0 / math.sqrt(D), is_bf16, _KV_KIND.get(k.dtype, 0), stream,
+            split_keys, nsplit, 1.0 / math.sqrt(D), is_bf16, kv_kind(q.dtype, k.dtype), stream,
         )
     if err != 0:
         msg = lib.flash_decode_error_string(err).decode()
         raise RuntimeError(f"flash_decode launch failed: {msg} (cudaError {err})")
     flash_decode.launches += 1
-    flash_decode.float8_launches += k.dtype in _KV_KIND
+    if k.dtype != q.dtype:
+        key = (q.dtype, k.dtype)
+        flash_decode.kind_launches[key] = flash_decode.kind_launches.get(key, 0) + 1
     return o
 
 
 flash_decode.launches = 0
-flash_decode.float8_launches = 0
+flash_decode.kind_launches = {}

@@ -11,6 +11,8 @@ from typing import Optional, Tuple
 
 import torch
 
+from .cast import astype
+
 __all__ = ["attention_ref", "decode_attention_ref", "rwkv6_ref"]
 
 
@@ -53,12 +55,13 @@ def decode_attention_ref(
     *,
     scale: Optional[float] = None,
 ) -> torch.Tensor:
-    """Naive single-token GQA decode over a padded KV cache: k and v widened
-    to q's dtype first (a float8 cache; exact), scores in float32, slots
-    ``j >= lengths[b]`` masked to -1e30, softmax in float32, the weights
-    rounded to q's dtype before the product with v.  Returns ``(B, Hq,
-    D)``."""
-    k, v = k.to(q.dtype), v.to(q.dtype)
+    """Naive single-token GQA decode over a padded KV cache: k and v cast
+    to q's dtype first as JAX casts them (:func:`~.cast.astype`: a float8 or
+    a narrower cache widened exactly, a float32 one rounded to q's bf16),
+    scores in float32, slots ``j >= lengths[b]`` masked to -1e30, softmax in
+    float32, the weights rounded to q's dtype before the product with v.
+    Returns ``(B, Hq, D)``."""
+    k, v = astype(k, q.dtype), astype(v, q.dtype)
     B, Hq, D = q.shape
     C, Hk = k.shape[1], k.shape[2]
     g = Hq // Hk

@@ -78,18 +78,17 @@ C, rank), "krope": (B, C, dr), "pos": (B, C)}``), and decodes in the
 *absorbed* form, in latent space.  It reaches no Pallas kernel in the JAX
 model, so it is plain torch here and takes no kernel route.
 
-A cache in float8 (``kv_dtype`` ``"float8_e4m3fn"`` or ``"float8_e5m2"``)
-holds the keys and values rounded as the JAX model rounds them on write
-(:func:`~repro_torch.models.layers.astype`, bit for bit with ``jnp.astype``,
-NaN beyond float8_e4m3fn's range included), written through ``uint8``
-views.  Every route attends over the rounded values read back in q's
-dtype, as the JAX route does (``cache.astype(q.dtype)``): a prefill through
-the attention kernel over the new keys and values rounded and widened (the
+A cache in another dtype than the model's (``kv_dtype``: float8_e4m3fn or
+float8_e5m2, written through ``uint8`` views; or float32, bfloat16 or
+float16) holds the keys and values rounded as the JAX model rounds them on
+write (:func:`~repro_torch.models.layers.astype`, bit for bit with
+``jnp.astype``, NaN beyond float8_e4m3fn's range included).  Every route
+attends over the stored values read back in q's dtype, as the JAX route
+does (``cache.astype(q.dtype)``): a prefill through the attention kernel
+over the new keys and values rounded to ``kv_dtype`` and cast back (the
 slots it just wrote), a decode step through the decode kernel over the
-float8 cache itself (the kernel widens each tile as it lands; the cache is
-never copied), the JAX route over the cache widened.  Any other
-``kv_dtype`` than the model's dtype raises ``NotImplementedError`` naming
-ROADMAP.md.
+cache itself (the kernel converts each tile as it lands; the cache is
+never copied), the JAX route over ``astype(cache, q.dtype)``.
 """
 from __future__ import annotations
 
@@ -186,15 +185,6 @@ def _ring_write(cache: Dict, k: torch.Tensor, v: torch.Tensor, positions: torch.
         leaf[b_idx, slots] = new
 
 
-def _check_kv_dtype(cache: Dict, q: torch.Tensor) -> None:
-    dt = cache["k"].dtype
-    if dt != q.dtype and dt not in FLOAT8:
-        raise NotImplementedError(
-            f"a KV cache in {dt} under a {q.dtype} model: of the kv_dtypes other than the "
-            "model's, float8_e4m3fn and float8_e5m2 are ported; the others are queued in "
-            "ROADMAP.md (queue 1)")
-
-
 def gqa_apply(
     cfg: ModelConfig,
     p: Dict,
@@ -227,10 +217,9 @@ def gqa_apply(
     if cache_read_only:
         if cache is None or kv_x is not None:
             raise ValueError("cache_read_only reads K and V from a cache, and takes no kv_x")
-        _check_kv_dtype(cache, q)
         bias = _mask_bias(positions, cache["pos"], causal=causal, window=window)
-        out = _sdpa(q.reshape(B, S, hk, hq // hk, hd), cache["k"].to(q.dtype),
-                    cache["v"].to(q.dtype), bias, cfg.attn_logit_softcap)
+        out = _sdpa(q.reshape(B, S, hk, hq // hk, hd), astype(cache["k"], q.dtype),
+                    astype(cache["v"], q.dtype), bias, cfg.attn_logit_softcap)
         return dense_apply(p["wo"], out.reshape(B, S, hq * hd)), cache
 
     src = x if kv_x is None else kv_x
@@ -243,7 +232,6 @@ def gqa_apply(
         else:
             q, k = apply_rope(q, k, positions, cfg.rope_theta)
     if cache is not None:
-        _check_kv_dtype(cache, q)
         # rounded as the cache holds them: the prefill route attends over these
         k, v = astype(k, cache["k"].dtype), astype(v, cache["k"].dtype)
         _ring_write(cache, k, v, k_pos, window)
@@ -253,15 +241,15 @@ def gqa_apply(
                   and (window is None or cache["k"].shape[1] <= window))
     if kernel_ok and S > 1 and (cache is None or over_cache and S <= cache["k"].shape[1]):
         fn = attn_fn or flash_attention_trainable
-        out = fn(q.contiguous(), k.to(q.dtype).contiguous(), v.to(q.dtype).contiguous(),
-                 causal=True, window=window)
+        out = fn(q.contiguous(), astype(k, q.dtype).contiguous(),
+                 astype(v, q.dtype).contiguous(), causal=True, window=window)
     elif kernel_ok and over_cache and S == 1:
         lengths = (positions[:, 0] + 1).clamp(max=cache["k"].shape[1]).to(torch.int32)
         out = (decode_fn or ops.decode_attention)(q[:, 0].contiguous(), cache["k"],
                                                   cache["v"], lengths)
     else:
         if cache is not None:
-            k, v, k_pos = cache["k"].to(q.dtype), cache["v"].to(q.dtype), cache["pos"]
+            k, v, k_pos = astype(cache["k"], q.dtype), astype(cache["v"], q.dtype), cache["pos"]
         bias = _mask_bias(positions, k_pos, causal=causal and kv_x is None, window=window)
         out = _sdpa(q.reshape(B, S, hk, hq // hk, hd), k, v, bias, cfg.attn_logit_softcap)
     return dense_apply(p["wo"], out.reshape(B, S, hq * hd)), cache

@@ -17,6 +17,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..kernels.cast import FLOAT8, astype
 from .config import ModelConfig
 
 __all__ = [
@@ -26,12 +27,6 @@ __all__ = [
     "apply_rope", "apply_mrope", "FLOAT8", "astype",
 ]
 
-# the float8 dtypes a KV cache may be stored in (``kv_dtype``)
-FLOAT8 = (torch.float8_e4m3fn, torch.float8_e5m2)
-# float8_e4m3fn's largest finite value is 448; values of magnitude above 464,
-# halfway to the next step (480, the NaN encoding), overflow
-_E4M3_OVERFLOW = 464.0
-
 
 def torch_dtype(name: str) -> torch.dtype:
     """The torch dtype for a config's dtype name (``"bfloat16"``, ...)."""
@@ -39,32 +34,6 @@ def torch_dtype(name: str) -> torch.dtype:
     if not isinstance(dt, torch.dtype):
         raise ValueError(f"unknown dtype {name!r}")
     return dt
-
-
-def astype(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    """``x.astype(dtype)`` as JAX computes it, bit for bit, for every
-    bfloat16 and float32 value.  Torch's cast agrees but for two float8
-    cases, fixed up on a ``uint8`` view:
-
-    * float8_e4m3fn has no infinity.  Where |x| > 464 (infinities
-      included) JAX gives NaN (0x7f, with x's sign bit); torch saturates to
-      +-448 (0x7e, with the sign bit), one code below it.
-    * float8_e5m2 from a NaN: JAX gives 0x7f from bfloat16 whatever the
-      sign, and 0x7e with the sign bit from float32; torch keeps the sign
-      and gives 0x7f.
-
-    Every other value rounds to the nearest even in both."""
-    y = x.to(dtype)
-    if dtype not in FLOAT8 or not x.is_floating_point() or x.dtype in FLOAT8:
-        return y
-    bits = y.view(torch.uint8)
-    if dtype == torch.float8_e4m3fn:
-        bits = bits + (x.abs() > _E4M3_OVERFLOW)
-    elif x.dtype == torch.bfloat16:
-        bits = torch.where(torch.isnan(x), 0x7F, bits)
-    else:
-        bits = bits - torch.isnan(x).to(torch.uint8)
-    return bits.view(dtype)
 
 
 Layers = Optional[Union[int, Tuple[int, ...]]]

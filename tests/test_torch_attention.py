@@ -205,11 +205,11 @@ def test_gqa_apply_matches_jax(qwen_cfgs, causal, window, softcap):
 
 
 def test_gqa_apply_says_where_unported_paths_are_queued(qwen_cfgs):
-    """A cache in another dtype than the model's other than float8 (here
-    bfloat16 under a float32 model) is still queued in ROADMAP.md.  A
-    float8 cache (``kv_dtype``), cross-attention (``kv_x``, written into a
-    cache and then read from it with ``cache_read_only``) and M-RoPE,
-    queued until they were ported, now compute the JAX function: here a
+    """Paths once queued in ROADMAP.md now compute the JAX function: a
+    cache in another dtype than the model's (here bfloat16 under a float32
+    model, read through the JAX route: the prefill is not vouched gapless),
+    a float8 cache (``kv_dtype``), cross-attention (``kv_x``, written into a
+    cache and then read from it with ``cache_read_only``) and M-RoPE: here a
     float8 cache through the cross-attention write and read."""
     jcfg, cfg = qwen_cfgs
     jp = jax_gqa_init(jax.random.PRNGKey(11), jcfg)
@@ -223,11 +223,20 @@ def test_gqa_apply_says_where_unported_paths_are_queued(qwen_cfgs):
     pos1 = np.full((2, 1), 5, np.int32)
     kv_dtype = make_cache(cfg, 1, 8, 1, torch.device("cpu"), dtype=torch.bfloat16)
     kv_dtype = {key: val[:, 0] for key, val in kv_dtype.items()}  # another dtype than the model's
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        gqa_apply(cfg, p, _t(x[:1]), torch.from_numpy(pos[:1]), cache=kv_dtype)
 
     def close(got, want):
         np.testing.assert_allclose(_np(got), np.asarray(want), atol=1e-5, rtol=1e-5)
+
+    jkv = {key: val[0] for key, val in jax_make_cache(jcfg, 1, 8, 1,
+                                                      dtype=jnp.bfloat16).items()}
+    got, kv_dtype = gqa_apply(cfg, p, _t(x[:1]), torch.from_numpy(pos[:1]), cache=kv_dtype)
+    want, jkv = jax_gqa_apply(jcfg, jp, jnp.asarray(x[:1]), jnp.asarray(pos[:1]), cache=jkv)
+    assert kv_dtype["k"].dtype == torch.bfloat16
+    # the cache within one bfloat16 step of JAX's; the output at the model's 5e-4
+    for key in ("k", "v"):
+        np.testing.assert_allclose(_np(kv_dtype[key]), np.asarray(jkv[key], np.float32),
+                                   atol=2.0 ** -7, rtol=2.0 ** -7)
+    np.testing.assert_allclose(_np(got), np.asarray(want), atol=5e-4, rtol=5e-4)
 
     cross = dict(causal=False)
     got, none = gqa_apply(cfg, p, _t(x), torch.from_numpy(pos), kv_x=_t(enc),

@@ -269,7 +269,8 @@ def test_trainable_wrappers_launch_the_kernels_and_give_oracle_gradients(cuda_de
     before = flash_attention.launches
     out = flash_attention_trainable(q, k, v, causal=True)
     assert flash_attention.launches == before + 1
-    g = torch.randn_like(out)
+    g = torch.randn(out.shape, generator=torch.Generator(device=cuda_device).manual_seed(11),
+                    device=cuda_device)
     grads = torch.autograd.grad(out, (q, k, v), g)
     want = torch.autograd.grad(attention_ref(q, k, v, causal=True), (q, k, v), g)
     for got, ref in zip(grads, want):
@@ -483,15 +484,44 @@ def test_decode_kernel_on_float8_kv_matches_plain_version(cuda_device, B, C, Hq,
     """A float8 cache read as it is stored: the kernel against the plain
     version, which widens K/V to q's dtype first; one float8 launch."""
     q, k, v, lens = _float8_inputs(31, B, C, Hq, Hk, D, dtype, kv_dtype, cuda_device, lengths)
-    before, before8 = flash_decode.launches, flash_decode.float8_launches
+    key = (dtype, kv_dtype)
+    before, before8 = flash_decode.launches, flash_decode.kind_launches.get(key, 0)
     out = ops.decode_attention(q, k, v, lens)
     torch.cuda.synchronize()
-    assert (flash_decode.launches, flash_decode.float8_launches) == (before + 1, before8 + 1)
+    assert (flash_decode.launches, flash_decode.kind_launches[key]) == (before + 1, before8 + 1)
     assert out.dtype == dtype and out.shape == q.shape
     ref = decode_attention_ref(q, k, v, lens)
     assert torch.equal(ref, decode_attention_ref(q, k.to(dtype), v.to(dtype), lens))
     np.testing.assert_allclose(_np(out), _np(ref), **ATTN_TOL[dtype])
 
+
+
+# (q dtype, K/V dtype): the other float K/V dtypes the kernel converts in
+# shared memory (a cache in another kv_dtype than the model's)
+KV_KINDS = [(torch.float32, torch.bfloat16), (torch.float32, torch.float16),
+            (torch.bfloat16, torch.float32), (torch.bfloat16, torch.float16)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,C,Hq,Hk,D,lengths", FLOAT8_CASES)
+@pytest.mark.parametrize("dtype,kv_dtype", KV_KINDS)
+def test_decode_kernel_on_other_kv_dtypes_matches_plain_version(cuda_device, B, C, Hq, Hk, D,
+                                                                lengths, dtype, kv_dtype):
+    """K/V in another float dtype than q's, at every head size: the kernel
+    against the plain version, which casts K/V to q's dtype first (a
+    narrowing to bf16 rounded to nearest even); one launch of that kind."""
+    q, k, v, lens = _decode_inputs(36, B, C, Hq, Hk, D, torch.float32, cuda_device, lengths)
+    q, k, v = q.to(dtype), astype(k, kv_dtype), astype(v, kv_dtype)
+    key = (dtype, kv_dtype)
+    before = (flash_decode.launches, flash_decode.kind_launches.get(key, 0))
+    out = ops.decode_attention(q, k, v, lens)
+    torch.cuda.synchronize()
+    assert (flash_decode.launches, flash_decode.kind_launches[key]) == (before[0] + 1,
+                                                                        before[1] + 1)
+    assert out.dtype == dtype and out.shape == q.shape
+    ref = decode_attention_ref(q, k, v, lens)
+    assert torch.equal(ref, decode_attention_ref(q, astype(k, dtype), astype(v, dtype), lens))
+    np.testing.assert_allclose(_np(out), _np(ref), **ATTN_TOL[dtype])
 
 @pytest.mark.cuda
 def test_float8_decode_replays_in_a_cuda_graph(cuda_device):

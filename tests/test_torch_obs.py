@@ -72,6 +72,24 @@ def test_reports_equal_reference(name):
         assert report["critical_path"]["n"] == got.stream.stats["completed"]
 
 
+# the span kinds each traced run emits, named here so that each kind the port
+# emits has a pin in its own suite (the span-parity rule of
+# ``python -m repro_torch.analysis`` checks that): a kind that stops being
+# emitted fails here
+EMITTED = {
+    "mix": {"instance", "plan", "model_upload", "parent_transfer", "exec"},
+    "correlated-churn-salvage": {"device_down", "device_up", "salvage"},
+    "correlated-churn-replan": {"device_down", "device_up", "recovery_wait", "replan"},
+    "stream": {"admission_queue", "shed"},
+}
+
+
+@pytest.mark.parametrize("name", list(TRACED))
+def test_traced_runs_emit_their_span_kinds(name):
+    scheme, cfg = TRACED[name]
+    got = api.run_one(scheme, api.SimConfig(device="cpu", trace=True, **cfg))
+    assert EMITTED[name] <= {span.kind for span in got.trace.spans}
+
 @pytest.mark.parametrize("name", list(TRACED))
 def test_chrome_trace_equals_reference(name, tmp_path):
     """The exported JSON equals the reference's string for string, passes

@@ -27,6 +27,7 @@ from repro_torch.kernels.flash_decode import flash_decode
 from repro_torch.kernels.rwkv6_scan import rwkv6_scan
 from repro_torch.launch.serve import serve_demo
 from repro_torch.models import LM, params_from_jax, reduced
+from repro_torch.models.layers import astype
 from repro_torch.serve.engine import ServingEngine
 from repro_torch.serve.scheduler import ServingFleet, serving_interference_model
 from repro_torch.sim.runner import SimConfig, run_one
@@ -150,12 +151,13 @@ def test_entry_points_need_a_card_unless_told_cpu(monkeypatch):
 
 def test_unported_families_say_where_they_are_queued():
     """Every architecture of the registry, the JAX package's ten, builds an
-    ``LM``; what is still queued raises ``NotImplementedError`` naming
-    ROADMAP.md: a KV cache in another dtype than the model's other than
-    float8 (``kv_dtype="bfloat16"`` under a float32 model).  Activation
-    checkpointing (``remat``) and a float8 cache, queued until they were
-    ported, now compute the JAX function (``tests/test_torch_remat.py`` and
-    ``tests/test_torch_float8.py`` hold them against the JAX package)."""
+    ``LM``.  Activation checkpointing (``remat``), a float8 cache and a KV
+    cache in another float dtype (``kv_dtype="bfloat16"`` under a float32
+    model), queued until they were ported, now compute the JAX function
+    (``tests/test_torch_remat.py``, ``tests/test_torch_float8.py`` and
+    ``tests/test_torch_kvdtype.py`` hold them against the JAX package): here
+    the bfloat16 cache holds the float32 cache's keys and values rounded by
+    ``astype``, and the logits stay within 1e-2 of the float32 cache's."""
     assert len(ARCHS) == 10
     for arch in ARCHS:
         cfg = reduced(get_config(arch))
@@ -170,8 +172,12 @@ def test_unported_families_say_where_they_are_queued():
         assert torch.equal(LM(dataclasses.replace(cfg, remat=remat), device="cpu").loss(
             params, batch)[0], model.loss(params, batch)[0])
     kv16 = LM(dataclasses.replace(cfg, kv_dtype="bfloat16"), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        kv16.prefill(params, {"tokens": tokens}, kv16.init_cache(1, 8))
+    logits32, caches32 = model.prefill(params, {"tokens": tokens}, model.init_cache(1, 8))
+    logits16, caches16 = kv16.prefill(params, {"tokens": tokens}, kv16.init_cache(1, 8))
+    for key in ("k", "v"):
+        assert caches16[0][key].dtype == torch.bfloat16
+        assert torch.equal(caches16[0][key], astype(caches32[0][key], torch.bfloat16))
+    torch.testing.assert_close(logits16, logits32, atol=1e-2, rtol=1e-2)
     kv8 = LM(dataclasses.replace(cfg, kv_dtype="float8_e4m3fn"), device="cpu")
     caches = kv8.init_cache(1, 8)
     logits, caches = kv8.prefill(params, {"tokens": tokens}, caches)
