@@ -180,9 +180,12 @@ Phases, each failing the run with a non-zero exit if anything is wrong:
              bound and the TFLOP/s on the counted FLOPs; then, with the
              group destroyed, (d) the 80-cell dry-run grid on the meta
              device (64 ok, 16 skip: ``long_500k`` on the full-attention
-             architectures), both H100 roofline tables, and one multi-pod
-             cell under int8 compression, whose pod bytes are half the
-             bf16 all-reduce's plus the scales.  Prints a
+             architectures; sequence parallelism, the default), both H100
+             roofline tables, one multi-pod cell under int8 compression,
+             whose pod bytes are half the bf16 all-reduce's plus the
+             scales, and ``qwen1.5-0.5b train_4k`` single under
+             ``--seq-shard sp`` against ``none`` (bytes by axis, the
+             collective term).  Prints a
              ``distribution`` line.
 15. audit-kvdtype  (a) the port's kernel audit
              (``repro_torch.analysis.kernel_audit.builtin_targets("cuda")``):
@@ -3808,13 +3811,54 @@ def grid_part():
           f"float32 all-reduce's", flush=True)
     check(w_int8 == w_plain / 2 + scales, f"int8 pod bytes {w_int8} != {w_plain} / 2 + "
           f"{scales}")
+    seq = seq_shard_part(traces, records, variant)
     rows = {mk: roofline.build_table(records, mk) for mk in ("single", "multi")}
     return dict(cells=len(records), ok=status.count("ok"), skip=status.count("skip"),
                 fail=status.count("fail"), seconds=seconds, cell_s_mean=float(np.mean(cell_s)),
                 cell_s_max=max(cell_s), int8_pod_wire=w_int8, bf16_pod_wire=w_plain,
+                seq_shard=seq,
                 roofline={mk: [{k: r[k] for k in ("arch", "shape", "compute_s", "memory_s",
                                                     "collective_s", "dominant", "mfu_bound")}
                                for r in rs] for mk, rs in rows.items()})
+
+
+def seq_shard_part(traces, records, variant):
+    """(d): the train_4k single-pod cell of the train phase's architecture
+    under sequence parallelism (the grid's default) against ``--seq-shard
+    none``: the plan's bytes by axis and the roofline's collective term.
+    Counted as the JAX dry-run's records count them (a reduce-scatter as
+    the all-reduce of its input), SP moves more bytes over "model", as
+    there."""
+    arch = TRAIN_ARCH
+    sp = records[dryrun.cell_key(arch, "train_4k", "single", variant)]
+    none = dryrun.run_cell(arch, "train_4k", "single", traces=traces, seq_shard="none",
+                           **variant)
+    check(none["status"] == "ok", f"the seq_shard none cell: {none.get('error')}")
+    out = {}
+    for name, rec in (("sp", sp), ("none", none)):
+        c, m = rec["collectives"], rec["mesh_shape"]["model"]
+        as_reference = sum(v * (m if kind == "reduce-scatter" else 1)
+                           for kind, axes in c["by_kind_axis"].items()
+                           for a, v in axes.items() if a == "model")
+        out[name] = dict(by_axis=c["by_axis"], wire_by_axis=c["wire_by_axis"],
+                         total_bytes=c["total_bytes"], model_as_reference=as_reference,
+                         collective_s=roofline.roofline_row(rec)["collective_s"])
+    print(f"[dist] (d) {arch} train_4k single, --seq-shard sp against none: result bytes "
+          f"a device by axis {_gb(out['sp']['by_axis'])} against "
+          f"{_gb(out['none']['by_axis'])} GB ('model' as the reference counts it: "
+          f"{out['sp']['model_as_reference'] / 1e9:.3f} against "
+          f"{out['none']['model_as_reference'] / 1e9:.3f}), sent "
+          f"{_gb(out['sp']['wire_by_axis'])} against {_gb(out['none']['wire_by_axis'])} GB; "
+          f"collective term {out['sp']['collective_s']:.4f} s against "
+          f"{out['none']['collective_s']:.4f} s", flush=True)
+    check(out["sp"]["model_as_reference"] > out["none"]["model_as_reference"],
+          "sp moves no more bytes over 'model' than none, counted as the reference counts")
+    check(sp["flops_global"] == none["flops_global"], "sp and none traced differently")
+    return out
+
+
+def _gb(by_axis):
+    return {k: round(v / 1e9, 3) for k, v in sorted(by_axis.items())}
 
 
 def twin_part(dev, mesh):

@@ -48,53 +48,100 @@ XLA's cost analysis counts once; so the reference's ``probe_configs``,
 ``extrapolate_costs`` and ``_seg_counts`` have no job here, and with no
 HLO there is nothing for ``collective_bytes_from_hlo`` to parse.
 
-The collective plan, the counterpart of what XLA's partitioner inserts.
+The collective plan, the counterpart of what XLA's partitioner inserts,
+held against the JAX dry-run's records in ``tests/test_torch_collectives.py``.
 Bytes are each collective's result bytes per device, by kind (as
 ``collective_bytes_from_hlo`` sums them) and by axis; ``wire_by_axis`` adds
 what each device sends over each axis under ring algorithms on k devices
 (all-gather and all-to-all (k-1)/k of the result, reduce-scatter (k-1) times
-it, all-reduce 2(k-1)/k), which the roofline reads.  For a parameter leaf of
-b bytes and e elements whose spec splits it over n devices in all, with
-d, m and p the data, model and pod axis sizes:
+it, all-reduce 2(k-1)/k), which the roofline reads; ``by_kind_axis`` splits
+``by_axis`` by kind.  d, m and p are the data, model and pod axis sizes; T the
+tokens a device holds in full (its batch rows times S, 1 at decode); X a
+(T, width) activation's bytes; a train step makes two forward passes under
+remat (the forward and the recompute) and one backward.
+
+Weights, for a leaf of b bytes and e elements split over n devices:
 
   * train: a leaf sharded over "data" is all-gathered over "data" twice a
-    step, in the forward and in the backward (result b*d/n each), and its
-    gradient reduce-scattered over "data" (result b/n); any other leaf,
-    when d > 1, has its gradient all-reduced over "data" (result b/n).
-    When p > 1 each gradient is all-reduced over "pod" (result b/n); under
-    ``--compression int8`` that becomes two all-gathers over "pod": p*e/n
-    int8 bytes and the 4p bytes of the float32 scales.  At p = 2 the int8
-    gather sends e/n bytes a device against the bf16 all-reduce's 2e/n
-    (half; a quarter of a float32 all-reduce's), and from p = 4 on it sends
-    as much or more: a gather grows with p, an all-reduce does not;
-  * prefill and decode: a data-sharded leaf is all-gathered once a pass
-    (result b*d/n);
-  * activations over "model": each row-parallel projection (a leaf whose
-    input dim is sharded over "model": the ``wo``s, ``cm_v``,
-    ``proj_out``) all-reduces its output once a pass over "model", per
-    device tokens x d_out x the activation's bytes; train makes 3 passes
-    (forward, recompute, backward), prefill and decode 1; a Whisper
-    encoder layer's tokens are its frames, and decode runs no encoder;
-  * experts sharded over "model" (over model x data under ``train_ep``)
-    make two all-to-alls a MoE layer a pass over those axes, of per-device
-    tokens x top_k x d_model x the activation's bytes;
-  * split-KV decode: a cache whose sequence dim is sharded over "model"
-    all-reduces each attention layer's partial outputs and softmax
-    statistics over "model": per-device rows x query heads x (value width
-    + 2) float32 values (the value width is MLA's latent rank).
+    step (result b*d/n each) and its gradient reduce-scattered (result
+    b/n); any other leaf, when d > 1, has its gradient all-reduced over
+    "data" (result b/n).  When p > 1 each gradient is all-reduced over
+    "pod" (result b/n); under ``--compression int8`` that becomes the
+    leaf's max-abs all-reduced over its own shards (4 bytes) and two
+    all-gathers over "pod": p*e/n int8 bytes and the 4p bytes of the
+    float32 scales.  At p = 2 the int8 gather sends e/n bytes a device
+    against the bf16 all-reduce's 2e/n; from p = 4 on it sends as much or
+    more.  Every leaf adds 4 bytes all-reduced over its shards (the global
+    gradient norm);
+  * prefill and decode: a data-sharded leaf is all-gathered once (b*d/n).
 
-What the plan leaves out is listed in ROADMAP.md (the vocab-parallel
-embedding and loss reductions, the sequence-parallel gathers, the int8
-step's max-abs reduction inside a pod, the optimizer's own reductions).
+Activations over "model", where the projections are column-parallel (their
+output dim sharded over "model": wq/wk/wv, wi/wg, the shared experts',
+RWKV's, the RG-LRU's) or row-parallel (their input dim: the wo's, cm_v,
+proj_out).  The stream is the model's ``act_sharding``: its sequence over
+"model" (SP) for a train or prefill cell under ``seq_shard="sp"`` whose S
+divides by m, as in the reference:
+
+  * without SP: each row-parallel output is all-reduced each forward pass
+    (X), and each group of column-parallel projections that reads one
+    input all-reduces that input's gradient in the backward (X, once a
+    group: the partial sums add up first);
+  * under SP the step runs context-parallel, as XLA's partitioner runs it
+    for these specs: the stream stays on its sequence shard; every leaf
+    split over "model" (the embedding, attention, the MLPs, the router) is
+    gathered whole each forward pass (the embedding once) and its gradient,
+    a partial sum over the sequence shards, reduce-scattered over "model"
+    before its data reduction; such a leaf not split over "model" (a norm's
+    scale) has its gradient all-reduced.  Attention gathers K and V (MLA:
+    its latent) each forward pass and reduce-scatters their gradients, or,
+    when fewer bytes, gathers the queries and reduce-scatters its partial
+    outputs with their max and sum (T x heads x 4, twice), and in the
+    backward gathers the outputs' gradient and both statistics and
+    reduce-scatters the queries' gradient.  The RWKV and RG-LRU blocks and
+    routed experts gather the stream each forward pass (X) and
+    reduce-scatter its gradient (X/m); their row-parallel outputs are
+    reduce-scattered (X/m) and the outputs' gradients gathered (X); the
+    stream norms' gradients are all-reduced;
+  * the vocab-parallel embedding (vocab over "model"), without SP: the
+    partial rows are all-reduced into the stream (X); vocab-parallel
+    logits (``logits_sharding`` vocab over "model"): under SP the hidden
+    is gathered (X) and its f32 gradient reduce-scattered, else that
+    gradient all-reduced; the loss
+    all-reduces its max, sum of exponentials and gold logit (T x 4 bytes
+    each) over "model" and its mean over the batch axes; a SP prefill
+    gathers the last position's hidden;
+  * MLA without SP: the query latent, split over "model" by wdq, is
+    gathered for q_norm and wuq each forward pass and its gradient
+    reduce-scattered; wuk and wuv, column-parallel from the replicated
+    key-value latent, all-reduce its gradient; RWKV's channel-mix gate cm_r
+    is gathered;
+  * experts sharded over "model" alone, under einsum dispatch: every rank
+    routes all the stream to its experts and the combine's partial sums
+    reduce, like a column- then row-parallel MLP; sharded over data too
+    (``train_ep``) or under sort dispatch: two all-to-alls a MoE layer a
+    pass over those axes, of T x top_k x d_model x the activation's bytes;
+  * the KV cache: at prefill K and V leave their projections sharded by
+    head, and an all-to-all over "model" writes each rank's slots (an
+    all-gather when the slots do not split; nothing under context
+    parallelism, whose K and V are the rank's own slots); at decode, with
+    the slots split over "model", each attention layer gathers the query
+    heads and the new token's K and V, and all-reduces its partial outputs
+    and softmax statistics: rows x query heads x (value width + 2) float32
+    values (the value width is MLA's latent rank).
+
+The hybrid's conv and gate weights act on their own "model" shard of the
+RG-LRU's width and move no activation; their gradients reduce over "data"
+as any unsharded leaf's.  What the plan leaves out is listed in ROADMAP.md.
 
 Usage:
   python -m repro_torch.launch.dryrun --arch olmo-1b --shape train_4k --mesh single
   python -m repro_torch.launch.dryrun --all --mesh both --out dryrun_results.json
-Variant flags (--remat/--dispatch/--xent-chunk/--compression/--opt/...) tag
-the cell key, as the reference's do.  The reference's ``--seq-shard`` has
-no counterpart: the port's models place no sequence-parallel activations,
-and the plan does not model them (ROADMAP.md lists that gap), so a variant
-without them would be priced the same as one with.
+  python -m repro_torch.launch.dryrun --arch olmo-1b --shape train_4k --seq-shard none
+Variant flags (--remat/--dispatch/--xent-chunk/--compression/--opt/--seq-shard
+/...) tag the cell key, as the reference's do; as there, "sp" and "none" both
+drop from the tag, so the two --seq-shard records of a cell share a key.  The
+trace does not depend on --seq-shard (the shardings are the identity on meta
+tensors): only the plan does.
 """
 from __future__ import annotations
 
@@ -124,6 +171,7 @@ from ..train.step import make_train_step
 from ..tree import tree_flatten, tree_paths
 from .mesh import make_production_mesh, mesh_axis_sizes, mesh_size
 from .sharding import (
+    NamedSharding,
     PartitionSpec,
     _dp_for,
     cache_shardings,
@@ -134,7 +182,8 @@ from .sharding import (
 )
 
 __all__ = ["ADAFACTOR_ARCHS", "pick_optimizer", "input_specs", "make_cell_config",
-           "build_cell", "trace_cell", "plan_collectives", "run_cell", "SkipCell",
+           "build_cell", "model_shardings", "trace_cell",
+           "plan_collectives", "run_cell", "SkipCell",
            "sharded_bytes_per_device", "cell_key", "main"]
 
 # Big configs use Adafactor (factored second moments) so optimizer state
@@ -142,7 +191,9 @@ __all__ = ["ADAFACTOR_ARCHS", "pick_optimizer", "input_specs", "make_cell_config
 ADAFACTOR_ARCHS = {"deepseek-v3-671b", "command-r-plus-104b", "qwen2-vl-72b"}
 
 _COLL_KINDS = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all", "collective-permute")
-_VARIANT_DEFAULTS = (None, "none", 0, 1, "auto", "fsdp")
+# a variant's default values, left out of its tag; "sp" and "none" both, as
+# in the reference, so a --seq-shard none record shares the sp record's key
+_VARIANT_DEFAULTS = (None, "none", 0, 1, "auto", "fsdp", "sp")
 
 
 def pick_optimizer(arch: str, name: str = "auto"):
@@ -347,6 +398,7 @@ class _Plan:
         self.out: Dict[str, Any] = {k: {"bytes": 0.0, "count": 0} for k in _COLL_KINDS}
         self.by_axis: Dict[str, float] = {}
         self.wire_by_axis: Dict[str, float] = {}
+        self.by_kind_axis: Dict[str, Dict[str, float]] = {}
 
     def add(self, kind: str, axes: Tuple[str, ...], result: float, count: int = 1) -> None:
         k = math.prod(self.sizes.get(a, 1) for a in axes)
@@ -356,6 +408,8 @@ class _Plan:
         self.out[kind]["bytes"] += result * count
         self.out[kind]["count"] += count
         self.by_axis[label] = self.by_axis.get(label, 0.0) + result * count
+        per_kind = self.by_kind_axis.setdefault(kind, {})
+        per_kind[label] = per_kind.get(label, 0.0) + result * count
         self.wire_by_axis[label] = self.wire_by_axis.get(label, 0.0) + _wire(kind, k, result) * count
 
     def record(self) -> Dict[str, Any]:
@@ -363,71 +417,272 @@ class _Plan:
         rec["total_bytes"] = sum(v["bytes"] for v in self.out.values())
         rec["by_axis"] = self.by_axis
         rec["wire_by_axis"] = self.wire_by_axis
+        rec["by_kind_axis"] = self.by_kind_axis
         return rec
 
 
-def plan_collectives(cell: _Cell, mesh, compression: str = "none") -> Dict[str, Any]:
+_STREAM_NORMS = re.compile(r"(^|/)(norm1|norm2|norm_x|final_norm|enc_final_norm|ln1|ln2)/")
+
+
+def model_shardings(cfg, shape: ShapeSpec, mesh, seq_shard: str = "sp",
+                    compression: str = "none") -> Tuple[NamedSharding, NamedSharding]:
+    """The stream's and the logits' shardings of a cell, as the reference's
+    ``build_lowerable`` sets them: the (B, S, d) stream batch over the dp
+    axes that divide B ("pod" left out under int8 compression, whose step
+    runs one process a pod) and, for a train or prefill cell under ``sp``
+    whose S divides by the model axis, its sequence over "model"; the (B, S,
+    vocab) logits batch over dp and vocab over "model" when it divides."""
+    if seq_shard not in ("sp", "none"):
+        raise ValueError(f"unknown seq_shard {seq_shard!r}")
+    m = mesh_axis_sizes(mesh)["model"]
+    dp = _dp_for(shape.global_batch, mesh)
+    if compression == "int8":
+        dp = tuple(a for a in dp if a != "pod")
+    seq = "model" if (shape.kind != "decode" and seq_shard == "sp"
+                      and shape.seq_len % m == 0) else None
+    vocab = "model" if cfg.vocab % m == 0 else None
+    return (NamedSharding(mesh, PartitionSpec(dp or None, seq)),
+            NamedSharding(mesh, PartitionSpec(dp or None, None, vocab)))
+
+
+def _input_group(path: str, name: str) -> str:
+    """Which input a column-parallel projection reads: projections of one
+    group share it, so their input-gradient partial sums add up before one
+    reduction.  (MLA's up-projections read the latents: planned apart.)"""
+    if "cross_attn/" in path and name in ("wk", "wv"):
+        return "enc"
+    return "cm" if name in ("cm_k", "cm_r") else "in"
+
+
+def plan_collectives(cell: _Cell, mesh, compression: str = "none",
+                     seq_shard: str = "sp") -> Dict[str, Any]:
     """The per-device collectives of a cell's step on ``mesh``, by the rules
-    in the module docstring."""
+    in the module docstring, under the stream and logits shardings that
+    :func:`model_shardings` gives the cell."""
     cfg, shape = cell.cfg, cell.shape
+    act_sh, logits_sh = model_shardings(cfg, shape, mesh, seq_shard, compression)
     sizes = mesh_axis_sizes(mesh)
-    d, p = sizes.get("data", 1), sizes.get("pod", 1)
+    d, p, m = sizes.get("data", 1), sizes.get("pod", 1), sizes.get("model", 1)
     plan = _Plan(sizes)
     kind = shape.kind
-    B = shape.global_batch
+    train = kind == "train"
+    B, S = shape.global_batch, shape.seq_len
     dp = _dp_for(B, mesh)
     b_pd = B // math.prod(sizes[a] for a in dp)
-    tokens_pd = b_pd * (shape.seq_len if kind != "decode" else 1)
-    passes = 3 if kind == "train" else 1
+    rows = b_pd * (S if kind != "decode" else 1)
     act = torch.tensor([], dtype=getattr(torch, cfg.dtype)).element_size()
+    lg = torch.tensor([], dtype=getattr(torch, cfg.logits_dtype)).element_size()
+    # SP: the stream's sequence over "model", run context-parallel
+    sp = "model" in act_sh.spec.axes(1)
+    vocab_par = "model" in logits_sh.spec.axes(2)
+    fwd = (2 if cfg.remat != "none" else 1) if train else 1   # forward (+ recompute)
+    bwd = 1 if train else 0
+    M = ("model",)
     seg_kinds = [seg.kind for seg in build_segments(cfg)]
+
+    def stream_in(tok: float, width: int, count: int = 1) -> None:
+        """A column-parallel group reads the (replicated or sequence-sharded)
+        stream: SP gathers it each forward pass and reduce-scatters its
+        gradient; without SP its gradient's partial sums are all-reduced."""
+        full = tok * width * act
+        if sp:
+            plan.add("all-gather", M, full, fwd * count)
+            plan.add("reduce-scatter", M, full / m, bwd * count)
+        else:
+            plan.add("all-reduce", M, full, bwd * count)
+
+    def stream_out(tok: float, width: int, count: int = 1) -> None:
+        """A row-parallel output's partial sums: reduce-scattered into the
+        sequence-sharded stream under SP (its gradient gathered back), else
+        all-reduced each forward pass."""
+        full = tok * width * act
+        if sp:
+            plan.add("reduce-scatter", M, full / m, fwd * count)
+            plan.add("all-gather", M, full, bwd * count)
+        else:
+            plan.add("all-reduce", M, full, fwd * count)
 
     param_sh = param_shardings(cell.params, mesh, mode=cell.pmode)
     leaves = tree_flatten(cell.params)[0]
+    groups: Dict[Tuple[str, str], Tuple[float, int, int]] = {}
+    attn_mods: Dict[str, Dict[str, float]] = {}
     for path, leaf, sh in zip(tree_paths(cell.params), leaves, tree_flatten(param_sh)[0]):
         spec, shp = sh.spec, tuple(leaf.shape)
         e, n = leaf.numel(), shard_count(sh.spec, sizes)
+        if e == 0:
+            continue                                   # a segment of no layers
         b = e * leaf.element_size()
-        data_sharded = any("data" in spec.axes(i) for i in range(len(spec)))
-        if kind == "train":
+        nd = len(shp)
+        shard_axes = tuple(a for a in sizes for i in range(nd) if a in spec.axes(i))
+        data_sharded = "data" in shard_axes
+        gathered = b * (d if data_sharded else 1) / n      # after the data gathers
+        recurrent = "/block/" in path or "/rec/rec/" in path
+        # under SP a leaf on the context-parallel path meets the stream on
+        # its sequence shard: gathered whole, its gradient a partial sum
+        cp_leaf = sp and not (recurrent or "experts/" in path or path.startswith("lm_head/"))
+        if train:
             if data_sharded:
                 plan.add("all-gather", ("data",), b * d / n, 2)
                 plan.add("reduce-scatter", ("data",), b / n)
             else:
                 plan.add("all-reduce", ("data",), b / n)
             if compression == "int8":
+                # the leaf's max-abs over the pod's shards, then the gathers
+                plan.add("all-reduce", tuple(a for a in shard_axes if a != "pod"), 4)
                 plan.add("all-gather", ("pod",), p * e / n)
                 plan.add("all-gather", ("pod",), 4 * p)
             else:
                 plan.add("all-reduce", ("pod",), b / n)
+            plan.add("all-reduce", shard_axes, 4)        # its share of the global norm
+            if cp_leaf and "model" in shard_axes:
+                plan.add("reduce-scatter", M, gathered)  # before the data reduction
+            elif cp_leaf or (sp and _STREAM_NORMS.search(path)):
+                plan.add("all-reduce", M, b / n)         # applied to a sequence shard
         elif data_sharded:
             plan.add("all-gather", ("data",), b * d / n)
 
-        nd = len(shp)
-        m = re.match(r"segments/(\d+)/", path)
-        seg = seg_kinds[int(m.group(1))] if m else None
+        mt = re.match(r"segments/(\d+)/", path)
+        seg = seg_kinds[int(mt.group(1))] if mt else None
         if seg == "enc" and kind == "decode":
             continue                                   # decode runs no encoder
-        tok = b_pd * cfg.enc_len if seg == "enc" else tokens_pd
-        if (nd >= 2 and "experts/" not in path and not path.startswith("embed/")
-                and "model" in spec.axes(nd - 2)):
-            plan.add("all-reduce", ("model",), tok * shp[-1] * act,
-                     passes * math.prod(shp[:-2]))
-        if path.endswith("experts/wi") and spec.axes(nd - 3):
-            plan.add("all-to-all", spec.axes(nd - 3), tok * cfg.moe.top_k * cfg.d_model * act,
-                     2 * passes * math.prod(shp[:-3]))
+        tok = b_pd * cfg.enc_len if seg == "enc" else rows
+        name = path.split("/")[-2] if path.endswith("/w") else path.split("/")[-1]
+        if nd < 2 or path.startswith(("embed/", "lm_head/")):
+            continue
+        if cp_leaf:
+            # the stream stays on its sequence shard: a leaf split over
+            # "model" is gathered whole each forward pass; attention's
+            # widths are noted
+            if "model" in shard_axes:
+                plan.add("all-gather", M, gathered * m, fwd)
+            mod = re.match(r"(.*(?:attn|self_attn|cross_attn))/(wq|wuq|wk|wv|wdkv|wo)/w$", path)
+            if mod:
+                widths = attn_mods.setdefault(mod.group(1), {"count": math.prod(shp[:-2])})
+                role = {"wuq": "q", "wdkv": "kv", "wk": "kv", "wv": "kv"}.get(name, name[1:])
+                width_tok = b_pd * cfg.enc_len if "cross_attn/" in path and role == "kv" else tok
+                widths[role] = widths.get(role, 0) + width_tok * shp[-1 if role != "o" else -2]
+            continue
+        if "experts/" in path:
+            e_axes = spec.axes(nd - 3)
+            if not path.endswith("experts/wi") or not e_axes:
+                continue
+            n_moe = math.prod(shp[:-3])
+            if e_axes == M and (cfg.moe.dispatch or "einsum") == "einsum":
+                # every model rank routes the whole stream to its own experts;
+                # the combine's partial sums reduce like a row-parallel output
+                stream_in(tok, cfg.d_model, n_moe)
+                stream_out(tok, cfg.d_model, n_moe)
+            else:
+                plan.add("all-to-all", e_axes, tok * cfg.moe.top_k * cfg.d_model * act,
+                         2 * (fwd + bwd) * n_moe)
+            continue
+        if not path.endswith("/w"):
+            continue                                   # not a projection's matrix
+        count = math.prod(shp[:-2])
+        col = "model" in spec.axes(nd - 1) and "model" not in spec.axes(nd - 2)
+        if "model" in spec.axes(nd - 2):
+            stream_out(tok, shp[-1], count)
+        elif col and name == "cm_r":
+            # RWKV's channel-mix gate, sharded over "model" by its output,
+            # gates the reduced stream: gathered each forward pass
+            plan.add("all-gather", M, tok * shp[-1] * act, fwd * count)
+            plan.add("reduce-scatter", M, tok * shp[-1] * act / m, bwd * count)
+            groups[(path.rsplit("/", 2)[0], "cm")] = (tok, shp[-2], count)
+        elif col and name == "wuq":
+            # MLA: the query latent leaves wdq sharded over "model"; q_norm
+            # and wuq read it whole: gathered each forward pass, its
+            # gradient's partial sums reduce-scattered
+            plan.add("all-gather", M, tok * shp[-2] * act, fwd * count)
+            plan.add("reduce-scatter", M, tok * shp[-2] * act / m, bwd * count)
+        elif col and name == "wuk":
+            # MLA: wuk and wuv read the replicated key-value latent; their
+            # input gradients' partial sums are all-reduced
+            plan.add("all-reduce", M, tok * shp[-2] * act, bwd * count)
+        elif col and name != "wuv" and not (kind == "decode" and "cross_attn/" in path
+                                            and name != "wq"):
+            group = _input_group(path, name)
+            key = (path.rsplit("/", 2)[0], group)
+            width_tok = b_pd * cfg.enc_len if group == "enc" else tok
+            groups[key] = (width_tok, shp[-2], count)
+    for tok, width, count in groups.values():
+        stream_in(tok, width, count)
+    for widths in attn_mods.values():
+        # context-parallel attention: each rank's queries need every key;
+        # gather K and V (MLA: the latent) each forward pass and
+        # reduce-scatter their gradients, or, when the queries and the
+        # partial outputs of each rank's keys move fewer bytes, gather the
+        # queries and reduce-scatter the outputs with their max and sum, and
+        # in the backward gather the outputs' gradient with the softmax
+        # statistics and reduce-scatter the queries' gradient
+        q, o, kv, count = widths["q"], widths["o"], widths["kv"], widths["count"]
+        stats = q / cfg.head_dim * 4
+        if kv <= q + o / m:
+            plan.add("all-gather", M, kv * act, fwd * count)
+            plan.add("reduce-scatter", M, kv * act / m, bwd * count)
+        else:
+            plan.add("all-gather", M, q * act, fwd * count)
+            plan.add("reduce-scatter", M, o * act / m, fwd * count)
+            plan.add("all-reduce", M, stats, 2 * fwd * count)
+            plan.add("all-gather", M, o * act, bwd * count)
+            plan.add("all-gather", M, stats, 2 * bwd * count)
+            plan.add("reduce-scatter", M, q * act / m, bwd * count)
 
-    if kind == "decode":
+    emb_sh = param_pspec("embed/embedding", (cfg.vocab, cfg.d_model), mesh, mode=cell.pmode)
+    if sp and "model" in emb_sh.axes(0):
+        # the lookup reads the table gathered whole over "model" (once:
+        # outside any checkpoint); its gradient is reduce-scattered above
+        n = shard_count(emb_sh, sizes)
+        plan.add("all-gather", M, cfg.vocab * cfg.d_model * act
+                 * (d if "data" in emb_sh.axes(1) else 1) * m / n)
+    elif "model" in emb_sh.axes(0):
+        # vocab-parallel lookup: each rank embeds the tokens in its vocab
+        # shard; the partial rows are all-reduced into the stream
+        plan.add("all-reduce", M, rows * cfg.d_model * act)
+    if vocab_par:
+        if train:
+            full = rows * cfg.d_model
+            if sp:                                     # the hidden gathered for the logits
+                plan.add("all-gather", M, full * act)
+                plan.add("reduce-scatter", M, full * lg / m)
+            else:
+                plan.add("all-reduce", M, full * lg)
+            # the vocab-parallel loss: max, sum of exponentials, gold logit
+            plan.add("all-reduce", M, rows * 4, 3)
+        elif kind == "prefill" and sp:
+            plan.add("all-gather", M, b_pd * cfg.d_model * act)   # the last position
+    if train:
+        plan.add("all-reduce", dp, 4)                  # the loss's mean over the batch
+
+    if kind != "train":
         cache_sh = cache_shardings(cell.caches, mesh)
         for path, leaf, sh in zip(tree_paths(cell.caches), tree_flatten(cell.caches)[0],
                                   tree_flatten(cache_sh)[0]):
             name = path.rsplit("/", 1)[-1]
-            if name not in ("k", "ckv") or "model" not in sh.spec.axes(2):
-                continue
-            rows = leaf.shape[1] // math.prod(sizes[a] for a in sh.spec.axes(1))
-            width = cfg.mla.kv_lora_rank if name == "ckv" else cfg.head_dim
-            plan.add("all-reduce", ("model",), rows * cfg.n_heads * (width + 2) * 4,
-                     leaf.shape[0])
+            split = "model" in sh.spec.axes(2) if leaf.dim() > 2 else False
+            L = leaf.shape[0]
+            if kind == "prefill" and name in ("k", "v") and m > 1 and not (sp and split):
+                # K and V leave their projections sharded by head (by
+                # sequence under context parallelism, which writes a split
+                # cache in place); the cache holds a sequence shard of every
+                # head (all-to-all) or, when its slots do not split, every
+                # slot of every head (all-gather)
+                cross = "cross" in path
+                written = b_pd * (cfg.enc_len if cross else min(S, leaf.shape[2]))
+                full = written * math.prod(leaf.shape[3:]) * leaf.element_size()
+                plan.add("all-to-all" if split else "all-gather", M, full / m if split else full,
+                         L)
+            if kind == "decode" and name in ("k", "ckv") and split:
+                # split-KV decode: every rank reads all query heads over its
+                # slots; the partial outputs and softmax statistics reduce
+                r = leaf.shape[1] // math.prod(sizes[a] for a in sh.spec.axes(1))
+                width = cfg.mla.kv_lora_rank if name == "ckv" else cfg.head_dim
+                if name == "k":
+                    # the query heads, and the new token's K and V for the
+                    # rank whose slots take it
+                    plan.add("all-gather", M, r * cfg.n_heads * cfg.head_dim * act, L)
+                    plan.add("all-gather", M, r * math.prod(leaf.shape[3:])
+                             * leaf.element_size(), 2 * L)
+                plan.add("all-reduce", M, r * cfg.n_heads * (width + 2) * 4, L)
     return plan.record()
 
 
@@ -440,7 +695,8 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str, mesh=None,
              traces: Optional[Dict[Any, Any]] = None, **variant) -> Dict[str, Any]:
     """One cell's record on ``mesh`` (default: the production mesh of
     ``mesh_kind``, "single" or "multi").  ``traces`` caches the built cell
-    and its count by (arch, shape, variant) across meshes."""
+    and its count by (arch, shape, variant) across meshes and across
+    ``seq_shard``, which changes the plan only."""
     t0 = time.perf_counter()
     if mesh is None:
         mesh = make_production_mesh(multi_pod=(mesh_kind == "multi"))
@@ -450,10 +706,11 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str, mesh=None,
         "mesh_shape": mesh_axis_sizes(mesh), "variant": _variant_tag(variant),
     }
     traces = {} if traces is None else traces
-    key = (arch, shape_name, tuple(sorted(variant.items(), key=lambda kv: kv[0])))
+    build = {k: v for k, v in variant.items() if k != "seq_shard"}
+    key = (arch, shape_name, tuple(sorted(build.items(), key=lambda kv: kv[0])))
     try:
         if key not in traces:
-            cell = build_cell(arch, shape_name, **variant)
+            cell = build_cell(arch, shape_name, **build)
             traces[key] = (cell, trace_cell(cell, variant.get("microbatches", 1)))
         cell, count = traces[key]
         rec.update({
@@ -465,7 +722,8 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str, mesh=None,
             "bytes_global": count["bytes"],
             "bytes_per_device": count["bytes"] / n_chips,
             "kernel_calls": count["kernel_calls"],
-            "collectives": plan_collectives(cell, mesh, variant.get("compression", "none")),
+            "collectives": plan_collectives(cell, mesh, variant.get("compression", "none"),
+                                            variant.get("seq_shard", "sp")),
             "params": cell.cfg.param_count(),
             "active_params": cell.cfg.active_param_count(),
             "resident": cell_resident(cell, mesh),
@@ -503,6 +761,8 @@ def main(argv=None) -> int:
     ap.add_argument("--kv-dtype", default=None)
     ap.add_argument("--group-size", type=int, default=0)
     ap.add_argument("--moe-shard", default="fsdp", choices=("fsdp", "ep_full"))
+    ap.add_argument("--seq-shard", default="sp", choices=("sp", "none"),
+                    help="sequence parallelism: the stream's sequence over 'model'")
     ap.add_argument("--batch-override", type=int, default=0)
     ap.add_argument("--force", action="store_true", help="recompute existing cells")
     args = ap.parse_args(argv)
@@ -511,7 +771,8 @@ def main(argv=None) -> int:
                    xent_chunk=args.xent_chunk, compression=args.compression,
                    microbatches=args.microbatches, infer_shard=args.infer_shard,
                    kv_dtype=args.kv_dtype, group_size=args.group_size,
-                   moe_shard=args.moe_shard, batch_override=args.batch_override)
+                   moe_shard=args.moe_shard, seq_shard=args.seq_shard,
+                   batch_override=args.batch_override)
 
     meshes = ("single", "multi") if args.mesh == "both" else (args.mesh,)
     if args.all:

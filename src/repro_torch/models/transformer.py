@@ -31,6 +31,11 @@ experts' batched products, attention).  The layer returns its own MoE
 auxiliary loss, so a recompute adds nothing to the sum.  Either way the
 attention kernel's forward runs twice a layer a step.
 
+``act_sharding`` and ``logits_sharding`` (a ``launch.sharding.NamedSharding``
+each, None by default) constrain the stream and the logits where the JAX
+model does: a DTensor is redistributed to the spec, a plain tensor left as
+it is.
+
 Parameters are plain dictionaries of tensors laid out like the JAX
 ``LM.init`` pytree, so :func:`repro_torch.models.convert.params_from_jax`
 loads JAX weights as they are.
@@ -115,6 +120,21 @@ def sinusoidal_embed(positions: torch.Tensor, dim: int) -> torch.Tensor:
     return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
 
 
+def _constrain(x: torch.Tensor, sharding) -> torch.Tensor:
+    """``jax.lax.with_sharding_constraint``'s counterpart: a DTensor is
+    redistributed to ``sharding``'s placements (a ``launch.sharding.
+    NamedSharding`` on a ``DeviceMesh``); any other tensor, which one device
+    holds whole, is returned as it is, as the constraint leaves an array on
+    one device.  ``sharding`` None constrains nothing."""
+    if sharding is None:
+        return x
+    from torch.distributed.tensor import DTensor
+
+    if isinstance(x, DTensor):
+        return x.redistribute(sharding.mesh, sharding.placements)
+    return x
+
+
 def _layer(tree: Any, i: int) -> Any:
     """Layer ``i`` of a layer-stacked dictionary of tensors (views, no copy)."""
     if isinstance(tree, dict):
@@ -166,6 +186,16 @@ class LM:
         self.mix_fn = mix_fn
         self.attn_fn = attn_fn
         self.decode_fn = decode_fn
+        # Optional NamedShardings on a DeviceMesh (``launch.dryrun.
+        # model_shardings`` gives the reference's), as the JAX model's: the
+        # (B, S, d) activation stream's, applied to the embedding output,
+        # the encoder's input and after every layer (a hybrid group); and
+        # the (B, S, vocab) logits'.
+        self.act_sharding = None
+        self.logits_sharding = None
+
+    def _wsc(self, x: torch.Tensor) -> torch.Tensor:
+        return _constrain(x, self.act_sharding)
 
     # ------------------------------------------------------------------ init --
     def _block_init(self, gen: torch.Generator, seg: Segment) -> Dict:
@@ -341,7 +371,7 @@ class LM:
         dt = torch_dtype(cfg.dtype)
         B, T, _ = frames.shape
         pos = torch.arange(T, device=frames.device).expand(B, T)
-        x = frames.to(dt) + sinusoidal_embed(pos, cfg.d_model).to(dt)
+        x = self._wsc(frames.to(dt) + sinusoidal_embed(pos, cfg.d_model).to(dt))
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for s, seg in enumerate(self.segments):
             if seg.kind != "enc":
@@ -350,6 +380,7 @@ class LM:
                                       gapless=False, causal=False)
             for p in _unstack(params["segments"][s], seg.n):
                 x, aux = self._layer(block, p, x, aux, remat=True)
+                x = self._wsc(x)
         return norm_apply(cfg, params["enc_final_norm"], x)
 
     def _encoder_inputs(self, params, batch):
@@ -390,7 +421,7 @@ class LM:
                   enc_out=None, enc_positions=None):
         cfg = self.cfg
         B, S = tokens.shape
-        x = params["embed"]["embedding"][tokens]
+        x = self._wsc(params["embed"]["embedding"][tokens])
         if positions is None:
             positions = torch.arange(S, device=tokens.device).expand(B, S)
         if cfg.enc_dec:
@@ -406,6 +437,7 @@ class LM:
                     self._block, seg, positions=positions, cache=layer, gapless=gapless,
                     position_ids=position_ids, enc_out=enc_out, enc_positions=enc_positions)
                 x, aux = self._layer(block, p, x, aux, remat=caches is None)
+                x = self._wsc(x)
         return norm_apply(cfg, params["final_norm"], x), caches, aux
 
     def _block(self, seg: Segment, p, x, aux, positions, cache, gapless, position_ids,
@@ -442,14 +474,15 @@ class LM:
 
     # ------------------------------------------------------------------ heads --
     def logits(self, params, hidden: torch.Tensor) -> torch.Tensor:
-        """``hidden @ W`` in ``logits_dtype``.  The JAX model gets float32
-        logits from bf16 operands (``preferred_element_type``); here both
-        operands are cast up first, which gives the same values."""
+        """``hidden @ W`` in ``logits_dtype``, constrained to
+        ``logits_sharding``.  The JAX model gets float32 logits from bf16
+        operands (``preferred_element_type``); here both operands are cast
+        up first, which gives the same values."""
         cfg = self.cfg
         w = (params["embed"]["embedding"].T if cfg.tie_embeddings
              else params["lm_head"]["w"])
         ld = torch_dtype(cfg.logits_dtype)
-        return hidden.to(ld) @ w.to(ld)
+        return _constrain(hidden.to(ld) @ w.to(ld), self.logits_sharding)
 
     def _xent(self, params, hidden: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
         """Mean cross-entropy over the vocabulary; with ``xent_chunk`` > 1

@@ -257,58 +257,193 @@ def test_meta_cell_flops_equal_the_cpu_step(monkeypatch, arch, shape):
 
 
 # ------------------------------------------------------------- the plan --
-def _one_layer_cell(monkeypatch, kind):
+POD_MESH = AbstractMesh((2, 2, 2), ("pod", "data", "model"))
+
+
+def _one_layer_cell(monkeypatch, kind, remat="none", arch="olmo-1b"):
     shape = {"train": ShapeSpec("train_4k", "train", 16, 8),
              "decode": ShapeSpec("decode_32k", "decode", 16, 8)}[kind]
     monkeypatch.setitem(SHAPES, shape.name, shape)
-    cfg = reduced(get_config("olmo-1b"), n_layers=1, vocab=128, dtype="bfloat16")
-    return dryrun.build_cell("olmo-1b", shape.name, cfg=cfg)
+    cfg = reduced(get_config(arch), n_layers=1, vocab=128, dtype="bfloat16", remat=remat)
+    return dryrun.build_cell(arch, shape.name, cfg=cfg)
 
 
 def test_plan_counted_by_hand_train(monkeypatch):
-    """One OLMo layer (d=128, d_ff=256, vocab 128, tied embedding, bf16) on
-    pod 2 x data 2 x model 2, B=8, S=16.  Eight leaves, every one sharded
-    over data and model (n = 4): the embedding and the four attention
-    projections of 32768 bytes, the three MLP matrices of 65536; 360448
-    bytes in all."""
+    """One OLMo layer (d=128, d_ff=256, vocab 128, tied embedding, bf16, no
+    remat) on pod 2 x data 2 x model 2, B=8, S=16, without SP.  Eight
+    leaves, every one sharded over data and model (n = 4): the embedding and
+    the four attention projections of 32768 bytes, the three MLP matrices of
+    65536; 360448 bytes in all.  A device holds 2 rows, T = 32 tokens, a
+    (T, d) bf16 activation X = 8192 bytes."""
     cell = _one_layer_cell(monkeypatch, "train")
-    mesh = AbstractMesh((2, 2, 2), ("pod", "data", "model"))
-    plan = dryrun.plan_collectives(cell, mesh)
-    b = 360448
+    plan = dryrun.plan_collectives(cell, POD_MESH, seq_shard="none")
+    b, X = 360448, 8192
     # two gathers over data of b*d/n = b/2 each a leaf; one reduce-scatter of b/4
     assert plan["all-gather"] == {"bytes": b, "count": 16}
     assert plan["reduce-scatter"] == {"bytes": b / 4, "count": 8}
-    # the pod all-reduce of b/4; attention's and the MLP's wo, row-parallel,
-    # all-reduce 32 tokens a device x 128 x 2 bytes, 3 passes each
-    act = 32 * 128 * 2 * 3 * 2
-    assert plan["all-reduce"] == {"bytes": b / 4 + act, "count": 8 + 6}
+    # the pod all-reduce of b/4 a leaf and its 4 bytes of the global norm;
+    # over "model": attention's and the MLP's wo all-reduce their outputs in
+    # the forward pass, the two column-parallel groups (wq/wk/wv, wi/wg)
+    # their inputs' gradients in the backward, the vocab-parallel lookup its
+    # rows (X each); the tied head's f32 hidden gradient (32 x 128 x 4); the
+    # loss's max, sum and gold logit (32 x 4 each), its mean over the batch
+    model = 2 * X + 2 * X + X + 32 * 128 * 4 + 3 * 32 * 4
+    assert plan["all-reduce"] == {"bytes": b / 4 + 8 * 4 + model + 4, "count": 8 + 8 + 9 + 1}
     assert plan["all-to-all"]["count"] == 0
-    assert plan["by_axis"] == {"data": b + b / 4, "pod": b / 4, "model": act}
+    assert plan["by_axis"] == {"data": b + b / 4, "pod": b / 4, "data+model": 32,
+                               "model": model, "pod+data": 4}
     # on 2 devices a ring all-gather sends half its result, a reduce-scatter
-    # its result, an all-reduce its result
-    assert plan["wire_by_axis"] == {"data": b / 2 + b / 4, "pod": b / 4, "model": act}
-    assert plan["total_bytes"] == b + b / 4 + b / 4 + act
+    # its result, an all-reduce its result; on 4 an all-reduce 3/2 of it
+    assert plan["wire_by_axis"] == {"data": b / 2 + b / 4, "pod": b / 4, "data+model": 48,
+                                    "model": model, "pod+data": 6}
+    assert plan["total_bytes"] == b + b / 4 + b / 4 + 32 + model + 4
 
-    int8 = dryrun.plan_collectives(cell, mesh, "int8")
-    # the pod all-reduce becomes two gathers: 2*e/4 int8 bytes (e = b/2
-    # elements) and 4*2 bytes of scales, a leaf
+    int8 = dryrun.plan_collectives(cell, POD_MESH, "int8", "none")
+    # the pod all-reduce becomes the leaf's max-abs over its data and model
+    # shards (4 bytes) and two gathers: 2*e/4 int8 bytes (e = b/2 elements)
+    # and 4*2 bytes of scales, a leaf
     assert int8["all-gather"] == {"bytes": b + b / 4 + 8 * 8, "count": 16 + 16}
-    assert int8["all-reduce"] == {"bytes": act, "count": 6}
+    assert int8["all-reduce"] == {"bytes": 8 * 4 + 8 * 4 + model + 4, "count": 8 + 8 + 9 + 1}
     assert int8["wire_by_axis"]["pod"] == b / 8 + 8 * 4
     # half the bf16 all-reduce's bytes on the pod links, plus the scales
     assert int8["wire_by_axis"]["pod"] == plan["wire_by_axis"]["pod"] / 2 + 32
 
 
+def test_plan_counted_by_hand_int8_max_abs(monkeypatch):
+    """The int8 step's max-abs reduction: one float32 a leaf all-reduced over
+    the leaf's own shards inside a pod ("data+model" for all eight leaves),
+    beside the global norm's; nothing of it over "pod"."""
+    cell = _one_layer_cell(monkeypatch, "train")
+    plain = dryrun.plan_collectives(cell, POD_MESH, seq_shard="none")
+    int8 = dryrun.plan_collectives(cell, POD_MESH, "int8", "none")
+    assert plain["by_axis"]["data+model"] == 8 * 4
+    assert int8["by_axis"]["data+model"] == 2 * 8 * 4
+    assert int8["wire_by_axis"]["data+model"] == 2 * 8 * 4 * 3 / 2
+    assert "pod" not in dryrun.model_shardings(cell.cfg, cell.shape, POD_MESH, "sp",
+                                              "int8")[0].spec.axes(0)
+
+
+def test_plan_counted_by_hand_train_sp(monkeypatch):
+    """The one-layer cell of the train hand count under SP (its S = 16
+    divides by the model axis) with remat="block": two forward passes (the
+    forward and the recompute) and the backward, run context-parallel as
+    XLA partitions it.  T = 32 tokens and X = 8192 as there; 4 query heads
+    of 32, as many K/V heads."""
+    cell = _one_layer_cell(monkeypatch, "train", remat="block")
+    act, logits = dryrun.model_shardings(cell.cfg, cell.shape, POD_MESH, "sp")
+    assert act.spec == dryrun.PartitionSpec(("pod", "data"), "model")
+    assert logits.spec == dryrun.PartitionSpec(("pod", "data"), None, "model")
+    plan = dryrun.plan_collectives(cell, POD_MESH)
+    b, X, T = 360448, 8192, 32
+    # over "model": the seven layer matrices (327680 bytes), after their
+    # data gathers, gathered whole in each forward pass; attention's
+    # queries in each forward pass (X: K and V, 2 X, are more than the
+    # queries and half the output), the output's gradient (X) and its two
+    # softmax statistics (T x 4 heads x 4 bytes each) in the backward; the
+    # tied table once for the lookup (b_embed * d * m / n = 32768); the
+    # hidden once for the vocab-parallel logits (X)
+    stats = T * 4 * 4
+    ag_model = 2 * 327680 + 2 * X + X + 2 * stats + 32768 + X
+    assert plan["all-gather"] == {"bytes": b + ag_model, "count": 16 + 14 + 2 + 1 + 2 + 1 + 1}
+    # every leaf's gradient, a partial sum over the sequence shards,
+    # reduce-scattered over "model" down to its data-gathered size (b/2 in
+    # all); the partial outputs in each forward pass and the queries'
+    # gradient (X/2 each); the f32 hidden gradient (T x 128 x 4 / 2)
+    rs_model = b / 2 + 2 * X / 2 + X / 2 + T * 128 * 4 / 2
+    assert plan["reduce-scatter"] == {"bytes": b / 4 + rs_model, "count": 8 + 8 + 2 + 1 + 1}
+    assert plan["by_kind_axis"]["reduce-scatter"] == {"data": b / 4, "model": rs_model}
+    # the softmax statistics in each forward pass and the loss's three
+    # reductions; OLMo's norms carry no weights
+    ar_model = 2 * 2 * stats + 3 * T * 4
+    assert plan["all-reduce"] == {"bytes": b / 4 + 8 * 4 + ar_model + 4,
+                                  "count": 8 + 8 + 4 + 3 + 1}
+    assert plan["by_axis"]["model"] == ag_model + rs_model + ar_model
+    # on 2 devices an all-gather sends half its result, a reduce-scatter or
+    # an all-reduce its result.  Without SP: the row-parallel outputs in
+    # both forward passes (4 X), the groups' input gradients (2 X), the
+    # lookup (X), the f32 hidden gradient, the loss.  At 32 tokens a device
+    # the weight gathers of context parallelism outweigh all of it
+    none = dryrun.plan_collectives(cell, POD_MESH, seq_shard="none")
+    assert plan["wire_by_axis"]["model"] == ag_model / 2 + rs_model + ar_model
+    assert none["wire_by_axis"]["model"] == 7 * X + T * 128 * 4 + 3 * T * 4
+
+
+def test_plan_sp_norm_gradients(monkeypatch):
+    """Under SP the gradient of a leaf on the context-parallel path that is
+    not split over "model" is a partial sum over the sequence shards and is
+    all-reduced over "model": reduced qwen1.5-0.5b's norm1, norm2 and
+    final_norm scales (d = 128 bf16: 256 bytes each); beside them the
+    global-norm shares (4 bytes) of the q/k/v biases, split over "model"
+    alone, the softmax statistics of its context-parallel attention (T = 32
+    tokens x 4 heads x 4 bytes, twice) and the loss's three reductions."""
+    cell = _one_layer_cell(monkeypatch, "train", arch="qwen1.5-0.5b")
+    sp = dryrun.plan_collectives(cell, POD_MESH)
+    assert sp["by_kind_axis"]["all-reduce"]["model"] == (3 * 256 + 3 * 4 + 2 * 32 * 4 * 4
+                                                         + 3 * 32 * 4)
+    none = dryrun.plan_collectives(cell, POD_MESH, seq_shard="none")
+    assert "model" not in none["by_kind_axis"].get("reduce-scatter", {})
+    # without SP: 2 row-parallel outputs, 2 column-parallel groups, the
+    # lookup (X = 32 x 128 x 2 each), the f32 hidden gradient, the loss
+    X = 32 * 128 * 2
+    assert none["by_kind_axis"]["all-reduce"]["model"] == 5 * X + 2 * X + 3 * 32 * 4 + 3 * 4
+
+
+def test_plan_counted_by_hand_mla(monkeypatch):
+    """MLA's partner sums, on one reduced DeepSeek-V3 layer (d=128, 4 heads,
+    q_lora 64, kv_lora 32, nope 32 + rope 16, v 32; a dense MLP; untied
+    head) without SP or remat: T = 32 tokens a device, X = 8192 bytes."""
+    cell = _one_layer_cell(monkeypatch, "train", arch="deepseek-v3-671b")
+    plan = dryrun.plan_collectives(cell, POD_MESH, seq_shard="none")
+    X, T = 8192, 32
+    # the query latent, split over "model" by wdq (data, model), gathered
+    # for q_norm and wuq (T x 64 x 2) and its gradient reduce-scattered
+    assert plan["by_kind_axis"]["all-gather"]["model"] == T * 64 * 2
+    assert plan["by_kind_axis"]["reduce-scatter"]["model"] == T * 64 * 2 / 2
+    # all-reduces over "model": the input gradients of wdq's and wi/wg's
+    # groups, attention's and the MLP's wo outputs, the lookup (X each);
+    # wuk/wuv's replicated key-value latent's gradient (T x 32 x 2); the
+    # head's f32 hidden gradient; the loss; the global-norm shares of
+    # wuq, wuk and wuv, split over "model" alone
+    assert plan["by_kind_axis"]["all-reduce"]["model"] == (
+        5 * X + T * 32 * 2 + T * 128 * 4 + 3 * T * 4 + 3 * 4)
+
+
 def test_plan_counted_by_hand_decode(monkeypatch):
     cell = _one_layer_cell(monkeypatch, "decode")
-    mesh = AbstractMesh((2, 2, 2), ("pod", "data", "model"))
-    plan = dryrun.plan_collectives(cell, mesh)
+    plan = dryrun.plan_collectives(cell, POD_MESH)
     b = 360448
-    assert plan["all-gather"] == {"bytes": b / 2, "count": 8}
-    # two row-parallel outputs of 2 rows x 128 x 2 bytes, and the split-KV
-    # reduction: 2 rows x 4 heads x (32 + 2) f32 values
-    assert plan["all-reduce"] == {"bytes": 2 * 512 + 2 * 4 * 34 * 4, "count": 3}
+    # the data gathers of b/2 a leaf; over "model", a row (2 a device) x 4
+    # query heads x 32 x 2 bytes = 512 for the split-KV query gather and 512
+    # each for the new token's K and V
+    assert plan["all-gather"] == {"bytes": b / 2 + 3 * 512, "count": 8 + 3}
+    # two row-parallel outputs and the vocab-parallel lookup, of 2 rows x
+    # 128 x 2 bytes, and the split-KV reduction: 2 rows x 4 heads x (32 + 2)
+    # f32 values
+    assert plan["all-reduce"] == {"bytes": 3 * 512 + 2 * 4 * 34 * 4, "count": 4}
     assert plan["reduce-scatter"]["count"] == 0
+
+
+def test_cli_seq_shard_none_sends_less_over_model(tmp_path):
+    """--seq-shard none prices the same trace with fewer bytes over "model"
+    than the default sp, counted as the reference's records count them (a
+    reduce-scatter as the all-reduce of its input, result x group size);
+    both records get one key, as the reference's do."""
+    recs = []
+    for flag in ("sp", "none"):
+        out = tmp_path / f"{flag}.json"
+        assert dryrun.main(["--arch", "olmo-1b", "--shape", "train_4k", "--mesh", "single",
+                            "--seq-shard", flag, "--out", str(out)]) == 0
+        recs.append(json.loads(out.read_text()))
+    assert list(recs[0]) == list(recs[1]) == ["olmo-1b|train_4k|single|remat=block"]
+    sp, none = (r["olmo-1b|train_4k|single|remat=block"] for r in recs)
+
+    def model_bytes(rec):
+        kinds, m = rec["collectives"]["by_kind_axis"], rec["mesh_shape"]["model"]
+        return sum(v * (m if kind == "reduce-scatter" else 1)
+                   for kind, axes in kinds.items() for a, v in axes.items() if a == "model")
+
+    assert model_bytes(none) < model_bytes(sp)
+    assert none["flops_per_device"] == sp["flops_per_device"]
 
 
 # --------------------------------------------------------------- roofline --
