@@ -181,7 +181,9 @@ Phases, each failing the run with a non-zero exit if anything is wrong:
              group destroyed, (d) the 80-cell dry-run grid on the meta
              device (64 ok, 16 skip: ``long_500k`` on the full-attention
              architectures; sequence parallelism, the default), both H100
-             roofline tables, one multi-pod cell under int8 compression,
+             roofline tables, the collective and binding terms of the
+             seven recurrent, MLA/MoE and Adafactor cells held to the JAX
+             records, one multi-pod cell under int8 compression,
              whose pod bytes are half the bf16 all-reduce's plus the
              scales, and ``qwen1.5-0.5b train_4k`` single under
              ``--seq-shard sp`` against ``none`` (bytes by axis, the
@@ -3516,6 +3518,12 @@ ROUNDTRIP_SLACK = 2 * 127 * 2.0 ** -24
 INT8_SEED = 7                        # the stochastic step's generator
 TWIN_ARCH, TWIN_SHAPE, TWIN_B, TWIN_STEPS = "qwen1.5-0.5b", "train_4k", 4, 3
 GRID_CELLS, GRID_OK, GRID_SKIP = 80, 64, 16
+# the recurrent, MLA/MoE and Adafactor cells whose plan is held to the JAX
+# dry-run's records; phase 14 (d) prints their collective terms
+HELD_CELLS = (("rwkv6-3b", "train_4k"), ("rwkv6-3b", "prefill_32k"),
+              ("recurrentgemma-9b", "train_4k"), ("recurrentgemma-9b", "prefill_32k"),
+              ("deepseek-v3-671b", "train_4k"), ("deepseek-v3-671b", "decode_32k"),
+              ("command-r-plus-104b", "train_4k"))
 
 
 class _MeanRecorder:
@@ -3794,6 +3802,14 @@ def grid_part():
               f"3.35 TB/s, NVLink 450 GB/s in a node, InfiniBand 50 GB/s across):", flush=True)
         for line in roofline.format_table(roofline.build_table(records, mk)).splitlines():
             print(f"[dist] (d)   {line}", flush=True)
+    rows = {mk: {(r["arch"], r["shape"]): r for r in roofline.build_table(records, mk)}
+            for mk in ("single", "multi")}
+    held = {f"{a} {s}": {mk: [rows[mk][a, s]["collective_s"], rows[mk][a, s]["dominant"]]
+                         for mk in ("single", "multi")} for a, s in HELD_CELLS}
+    print("[dist] (d) collective term (s) and binding term, single | multi, of the cells held "
+          "to the JAX records in tests/test_torch_collectives_{recurrent,adafactor}.py: "
+          + "; ".join(f"{k} {v['single'][0]:.4g} {v['single'][1]} | {v['multi'][0]:.4g} "
+                      f"{v['multi'][1]}" for k, v in held.items()), flush=True)
     arch = TRAIN_ARCH
     plain = records[dryrun.cell_key(arch, "train_4k", "multi", variant)]
     int8 = dryrun.run_cell(arch, "train_4k", "multi", traces=traces, remat="block",
@@ -3816,7 +3832,7 @@ def grid_part():
     return dict(cells=len(records), ok=status.count("ok"), skip=status.count("skip"),
                 fail=status.count("fail"), seconds=seconds, cell_s_mean=float(np.mean(cell_s)),
                 cell_s_max=max(cell_s), int8_pod_wire=w_int8, bf16_pod_wire=w_plain,
-                seq_shard=seq,
+                seq_shard=seq, held_cells=held,
                 roofline={mk: [{k: r[k] for k in ("arch", "shape", "compute_s", "memory_s",
                                                     "collective_s", "dominant", "mfu_bound")}
                                for r in rs] for mk, rs in rows.items()})

@@ -49,13 +49,14 @@ XLA's cost analysis counts once; so the reference's ``probe_configs``,
 HLO there is nothing for ``collective_bytes_from_hlo`` to parse.
 
 The collective plan, the counterpart of what XLA's partitioner inserts,
-held against the JAX dry-run's records in ``tests/test_torch_collectives.py``.
+held against the JAX dry-run's records in ``tests/test_torch_collectives*.py``
+(dense, MoE, GQA, RWKV6, hybrid, MLA and Adafactor cells).
 Bytes are each collective's result bytes per device, by kind (as
 ``collective_bytes_from_hlo`` sums them) and by axis; ``wire_by_axis`` adds
 what each device sends over each axis under ring algorithms on k devices
 (all-gather and all-to-all (k-1)/k of the result, reduce-scatter (k-1) times
-it, all-reduce 2(k-1)/k), which the roofline reads; ``by_kind_axis`` splits
-``by_axis`` by kind.  d, m and p are the data, model and pod axis sizes; T the
+it, all-reduce 2(k-1)/k, a collective-permute the result), which the
+roofline reads; ``by_kind_axis`` splits ``by_axis`` by kind.  d, m and p are the data, model and pod axis sizes; T the
 tokens a device holds in full (its batch rows times S, 1 at decode); X a
 (T, width) activation's bytes; a train step makes two forward passes under
 remat (the forward and the recompute) and one backward.
@@ -73,7 +74,20 @@ Weights, for a leaf of b bytes and e elements split over n devices:
     against the bf16 all-reduce's 2e/n; from p = 4 on it sends as much or
     more.  Every leaf adds 4 bytes all-reduced over its shards (the global
     gradient norm);
-  * prefill and decode: a data-sharded leaf is all-gathered once (b*d/n).
+  * prefill and decode: a data-sharded leaf is all-gathered once (b*d/n),
+    but for two that stay where they are when moving activations costs
+    fewer bytes, as XLA chooses: the routed experts (at decode every rank
+    gathers nothing: the dispatched slots, E/m experts x the device's groups
+    x capacity, are all-reduced over "data" after the dispatch (x d_model)
+    and after the up projections' data-split contraction (x d_expert,
+    twice), and the down projection's data-split outputs gathered (x
+    d_model); at prefill the weights are gathered) and MLA's wuk at decode
+    (below);
+  * Adafactor (train): a factored leaf's row and column statistics (float32
+    means over its last and second last dims) are partial sums over the
+    axes that split the reduced dim, all-reduced there, then gathered whole
+    over the leaf's other axes (the statistics are replicated); every leaf's
+    update RMS adds 4 bytes all-reduced over its shards.
 
 Activations over "model", where the projections are column-parallel (their
 output dim sharded over "model": wq/wk/wv, wi/wg, the shared experts',
@@ -88,27 +102,51 @@ divides by m, as in the reference:
     group: the partial sums add up first);
   * under SP the step runs context-parallel, as XLA's partitioner runs it
     for these specs: the stream stays on its sequence shard; every leaf
-    split over "model" (the embedding, attention, the MLPs, the router) is
-    gathered whole each forward pass (the embedding once) and its gradient,
-    a partial sum over the sequence shards, reduce-scattered over "model"
-    before its data reduction; such a leaf not split over "model" (a norm's
-    scale) has its gradient all-reduced.  Attention gathers K and V (MLA:
-    its latent) each forward pass and reduce-scatters their gradients, or,
-    when fewer bytes, gathers the queries and reduce-scatters its partial
-    outputs with their max and sum (T x heads x 4, twice), and in the
-    backward gathers the outputs' gradient and both statistics and
-    reduce-scatters the queries' gradient.  The RWKV and RG-LRU blocks and
-    routed experts gather the stream each forward pass (X) and
+    split over "model" (the embedding, attention, the MLPs, the router, the
+    RWKV and RG-LRU blocks) is gathered whole each forward pass (the
+    embedding once) and its gradient, a partial sum over the sequence
+    shards, reduce-scattered over "model" before its data reduction; such a
+    leaf not split over "model" (a norm's scale) has its gradient
+    all-reduced.  Attention gathers K and V each forward pass and
+    reduce-scatters their gradients, or, when fewer bytes, gathers the
+    queries and reduce-scatters its partial outputs with their max and sum
+    (T x heads x 4, twice), and in the backward gathers the outputs'
+    gradient and both statistics and reduce-scatters the queries' gradient.
+    MLA gathers K and V as XLA does, expanded by wuk and wuv (heads x
+    (nope + v) and the shared rope key), the up projection of each token
+    made once.  Routed experts gather the stream each forward pass (X) and
     reduce-scatter its gradient (X/m); their row-parallel outputs are
     reduce-scattered (X/m) and the outputs' gradients gathered (X); the
     stream norms' gradients are all-reduced;
+  * the recurrent blocks under SP, as XLA reshards them (X = T x width x
+    act, X32 its float32 size).  RWKV6: each of the two token shifts moves
+    the normed stream off its sequence shard and back each forward pass
+    (two all-to-alls of X/m); in the backward the shift is a one-token halo
+    (collective-permute of rows x d).  In training (no state) the WKV scan
+    runs whole on every rank: r, k, v (X each) and the float32 decay (X32)
+    are gathered each forward pass and the outputs' gradient (X) in the
+    backward.  At prefill the state's key dim is split over "model": r, k
+    and the decay move to that shard (all-to-all, (2 X + X32)/m), v is
+    gathered (X), and the outputs' partial sums over the key shards are
+    all-reduced (X32; XLA reduces each step's).  RG-LRU in training: the
+    causal conv and the scan run on a batch shard: the conv's input and
+    output (X/m each) and the scan's input and states (X32/m each) move there
+    and back each forward pass (all-to-all); in the backward the conv's
+    halo, conv_width - 1 tokens, is exchanged.  RG-LRU at prefill runs on
+    its state's width shard: proj_x and proj_g, gathered whole, run on the
+    sequence shard and their outputs move to the width shard (X/m each);
+    proj_out, row-parallel, reduce-scatters its partial sums (X/m).  The
+    blocks' states are written from the shard they were computed on, the
+    one their cache holds: nothing moves;
   * the vocab-parallel embedding (vocab over "model"), without SP: the
     partial rows are all-reduced into the stream (X); vocab-parallel
     logits (``logits_sharding`` vocab over "model"): under SP the hidden
     is gathered (X) and its f32 gradient reduce-scattered, else that
     gradient all-reduced; the loss
     all-reduces its max, sum of exponentials and gold logit (T x 4 bytes
-    each) over "model" and its mean over the batch axes; a SP prefill
+    each) over "model" and its mean over the batch axes; under
+    ``xent_chunk`` the backward recomputes each chunk's logits, so the
+    hidden's gather and the three reductions come twice; a SP prefill
     gathers the last position's hidden;
   * MLA without SP: the query latent, split over "model" by wdq, is
     gathered for q_norm and wuq each forward pass and its gradient
@@ -123,15 +161,24 @@ divides by m, as in the reference:
   * the KV cache: at prefill K and V leave their projections sharded by
     head, and an all-to-all over "model" writes each rank's slots (an
     all-gather when the slots do not split; nothing under context
-    parallelism, whose K and V are the rank's own slots); at decode, with
+    parallelism, whose K and V are the rank's own slots, but for a ring
+    cache shorter than the sequence, whose last window sits on the last
+    sequence shard: each other rank receives the window's K and V of its
+    own slots, a collective-permute of rows x C/m slots); at decode, with
     the slots split over "model", each attention layer gathers the query
     heads and the new token's K and V, and all-reduces its partial outputs
     and softmax statistics: rows x query heads x (value width + 2) float32
-    values (the value width is MLA's latent rank).
+    values (the value width is MLA's latent rank).  MLA's absorbed decode
+    gathers the queries' rope heads and the new token's latent and rope
+    key, and keeps wuk on its data shard of the latent: every row's query
+    heads are absorbed over each rank's latent slice (rows x heads x
+    latent, gathered over "model" by head) and an all-to-all over "data"
+    gives each row its whole latent query.
 
 The hybrid's conv and gate weights act on their own "model" shard of the
 RG-LRU's width and move no activation; their gradients reduce over "data"
-as any unsharded leaf's.  What the plan leaves out is listed in ROADMAP.md.
+as any unsharded leaf's.  Where these rules were read from the records'
+HLO and what the plan leaves out: ROADMAP.md and ``tests/_jax_collectives.py``.
 
 Usage:
   python -m repro_torch.launch.dryrun --arch olmo-1b --shape train_4k --mesh single
@@ -389,6 +436,8 @@ def _wire(kind: str, k: int, result: float) -> float:
         return (k - 1) / k * result
     if kind == "reduce-scatter":
         return (k - 1) * result
+    if kind == "collective-permute":
+        return result
     return 2 * (k - 1) / k * result
 
 
@@ -502,10 +551,30 @@ def plan_collectives(cell: _Cell, mesh, compression: str = "none",
         else:
             plan.add("all-reduce", M, full, fwd * count)
 
+    adafactor = train and isinstance(cell.optimizer, Adafactor)
+
+    def adafactor_stats(leaf, spec, shard_axes, n) -> None:
+        """Adafactor's factored statistics of a leaf: the row means (over
+        its last dim) are partial sums over the axes splitting that dim,
+        all-reduced, then gathered whole over the rest (the statistics are
+        replicated); the column means likewise over the second last dim;
+        then the update's RMS over the leaf (4 bytes)."""
+        if cell.optimizer._factored(leaf):
+            for dim in (leaf.dim() - 1, leaf.dim() - 2):
+                red = spec.axes(dim)
+                rest = tuple(a for a in shard_axes if a not in red)
+                k = math.prod(sizes[a] for a in red)
+                full = leaf.numel() // leaf.shape[dim] * 4
+                plan.add("all-reduce", red, full * k / n)
+                plan.add("all-gather", rest, full)
+        plan.add("all-reduce", shard_axes, 4)
+
     param_sh = param_shardings(cell.params, mesh, mode=cell.pmode)
     leaves = tree_flatten(cell.params)[0]
     groups: Dict[Tuple[str, str], Tuple[float, int, int]] = {}
     attn_mods: Dict[str, Dict[str, float]] = {}
+    recurrent: list = []                      # (first projection, layers, width)
+    moe_weights: Dict[str, Dict[str, Any]] = {}   # routed experts by segment
     for path, leaf, sh in zip(tree_paths(cell.params), leaves, tree_flatten(param_sh)[0]):
         spec, shp = sh.spec, tuple(leaf.shape)
         e, n = leaf.numel(), shard_count(sh.spec, sizes)
@@ -516,10 +585,13 @@ def plan_collectives(cell: _Cell, mesh, compression: str = "none",
         shard_axes = tuple(a for a in sizes for i in range(nd) if a in spec.axes(i))
         data_sharded = "data" in shard_axes
         gathered = b * (d if data_sharded else 1) / n      # after the data gathers
-        recurrent = "/block/" in path or "/rec/rec/" in path
         # under SP a leaf on the context-parallel path meets the stream on
-        # its sequence shard: gathered whole, its gradient a partial sum
-        cp_leaf = sp and not (recurrent or "experts/" in path or path.startswith("lm_head/"))
+        # its sequence shard: gathered whole, its gradient a partial sum; an
+        # RG-LRU with a state runs on the state's width shard, which only
+        # its input projections leave from the sequence shard
+        name = path.split("/")[-2] if path.endswith("/w") else path.split("/")[-1]
+        on_width = ("/rec/rec/" in path and not train and name not in ("proj_x", "proj_g"))
+        cp_leaf = sp and not (on_width or "experts/" in path or path.startswith("lm_head/"))
         if train:
             if data_sharded:
                 plan.add("all-gather", ("data",), b * d / n, 2)
@@ -534,10 +606,25 @@ def plan_collectives(cell: _Cell, mesh, compression: str = "none",
             else:
                 plan.add("all-reduce", ("pod",), b / n)
             plan.add("all-reduce", shard_axes, 4)        # its share of the global norm
+            if adafactor:
+                adafactor_stats(leaf, spec, shard_axes, n)
             if cp_leaf and "model" in shard_axes:
                 plan.add("reduce-scatter", M, gathered)  # before the data reduction
             elif cp_leaf or (sp and _STREAM_NORMS.search(path)):
                 plan.add("all-reduce", M, b / n)         # applied to a sequence shard
+        elif data_sharded and kind == "decode" and name == "wuk" and "data" in spec.axes(nd - 2):
+            # MLA's absorbed decode keeps wuk on its data shard of the
+            # latent: every row's query heads are absorbed over each rank's
+            # slice of the latent (the rows gathered over "model" by head),
+            # and an all-to-all over "data" gives each row its whole latent
+            q_lat = rows * cfg.n_heads * cfg.mla.kv_lora_rank * act
+            plan.add("all-gather", M, q_lat, math.prod(shp[:-2]))
+            plan.add("all-to-all", ("data",), q_lat, math.prod(shp[:-2]))
+        elif data_sharded and "experts/" in path:
+            e_split = math.prod(sizes[a] for a in spec.axes(nd - 3))
+            moe = moe_weights.setdefault(path.rsplit("/", 1)[0], {
+                "layers": math.prod(shp[:-3]), "experts": shp[-3] // e_split, "gathers": []})
+            moe["gathers"].append(b * d / n)
         elif data_sharded:
             plan.add("all-gather", ("data",), b * d / n)
 
@@ -546,21 +633,28 @@ def plan_collectives(cell: _Cell, mesh, compression: str = "none",
         if seg == "enc" and kind == "decode":
             continue                                   # decode runs no encoder
         tok = b_pd * cfg.enc_len if seg == "enc" else rows
-        name = path.split("/")[-2] if path.endswith("/w") else path.split("/")[-1]
         if nd < 2 or path.startswith(("embed/", "lm_head/")):
             continue
+        if sp and name in ("wr", "proj_x"):
+            recurrent.append((name, math.prod(shp[:-2]), shp[-1]))
         if cp_leaf:
             # the stream stays on its sequence shard: a leaf split over
             # "model" is gathered whole each forward pass; attention's
             # widths are noted
             if "model" in shard_axes:
                 plan.add("all-gather", M, gathered * m, fwd)
-            mod = re.match(r"(.*(?:attn|self_attn|cross_attn))/(wq|wuq|wk|wv|wdkv|wo)/w$", path)
+            mod = re.match(r"(.*(?:attn|self_attn|cross_attn))/(wq|wuq|wk|wv|wuk|wuv|wdkv|wo)/w$",
+                           path)
             if mod:
                 widths = attn_mods.setdefault(mod.group(1), {"count": math.prod(shp[:-2])})
-                role = {"wuq": "q", "wdkv": "kv", "wk": "kv", "wv": "kv"}.get(name, name[1:])
+                role = {"wuq": "q", "wdkv": "kv", "wk": "kv", "wv": "kv", "wuk": "kv",
+                        "wuv": "kv"}.get(name, name[1:])
                 width_tok = b_pd * cfg.enc_len if "cross_attn/" in path and role == "kv" else tok
-                widths[role] = widths.get(role, 0) + width_tok * shp[-1 if role != "o" else -2]
+                # MLA's keys and values: the heads wuk and wuv expand, and
+                # the rope key wdkv leaves beside the latent
+                width = (cfg.mla.qk_rope_head_dim if name == "wdkv"
+                         else shp[-1 if role != "o" else -2])
+                widths[role] = widths.get(role, 0) + width_tok * width
             continue
         if "experts/" in path:
             e_axes = spec.axes(nd - 3)
@@ -613,10 +707,11 @@ def plan_collectives(cell: _Cell, mesh, compression: str = "none",
         # partial outputs of each rank's keys move fewer bytes, gather the
         # queries and reduce-scatter the outputs with their max and sum, and
         # in the backward gather the outputs' gradient with the softmax
-        # statistics and reduce-scatter the queries' gradient
+        # statistics and reduce-scatter the queries' gradient; MLA gathers
+        # K and V, as XLA does
         q, o, kv, count = widths["q"], widths["o"], widths["kv"], widths["count"]
         stats = q / cfg.head_dim * 4
-        if kv <= q + o / m:
+        if cfg.mla is not None or kv <= q + o / m:
             plan.add("all-gather", M, kv * act, fwd * count)
             plan.add("reduce-scatter", M, kv * act / m, bwd * count)
         else:
@@ -626,6 +721,66 @@ def plan_collectives(cell: _Cell, mesh, compression: str = "none",
             plan.add("all-gather", M, o * act, bwd * count)
             plan.add("all-gather", M, stats, 2 * bwd * count)
             plan.add("reduce-scatter", M, q * act / m, bwd * count)
+
+    for first, count, width in recurrent:
+        # the recurrent blocks on the sequence-sharded stream (XLA's
+        # reshards, read from the records' HLO)
+        x = rows * width * act                    # one (T, width) activation
+        x32 = rows * width * 4
+        if first == "wr":
+            # RWKV6: each token shift (time and channel mix) moves the normed
+            # stream off its sequence shard and back (two all-to-alls); in
+            # the backward the shift is a one-token halo
+            plan.add("all-to-all", M, x / m, 4 * fwd * count)
+            plan.add("collective-permute", M, b_pd * width * act, 2 * bwd * count)
+            if train:
+                # no state: the scan runs whole on every rank; r, k, v and
+                # the float32 decay are gathered each forward pass, the
+                # output's gradient in the backward
+                plan.add("all-gather", M, x, 3 * fwd * count)
+                plan.add("all-gather", M, x32, fwd * count)
+                plan.add("all-gather", M, x, bwd * count)
+            else:
+                # the state's key dim is split over "model": r, k and the
+                # decay move to that shard, v is gathered whole, and the
+                # outputs' partial sums over the key shards are all-reduced
+                plan.add("all-to-all", M, (2 * x + x32) / m, count)
+                plan.add("all-gather", M, x, count)
+                plan.add("all-reduce", M, x32, count)
+        elif train:
+            # RG-LRU, no state: the causal conv and the scan run on a batch
+            # shard; the conv's input and output (act) and the scan's input
+            # and states (float32) move there and back each forward pass; in
+            # the backward the conv's halo is exchanged
+            plan.add("all-to-all", M, (x + x32) / m, 2 * fwd * count)
+            plan.add("collective-permute", M,
+                     b_pd * (cfg.recurrent.conv_width - 1) * width * act, bwd * count)
+        else:
+            # RG-LRU with a state: it runs on the state's width shard; proj_x's
+            # and proj_g's outputs move there from the sequence shard
+            # (proj_out, row-parallel, reduces its partial sums above)
+            plan.add("all-to-all", M, x / m, 2 * count)
+    for moe in moe_weights.values():
+        # routed experts outside training: gather their data-sharded weights
+        # or keep them and move the dispatched tokens, whichever moves fewer
+        # bytes (XLA gathers at prefill and moves tokens at decode): the
+        # dispatch's partial sums over the batch shards and the up
+        # projections' over the data-split width are all-reduced, the down
+        # projection's data-split outputs gathered
+        mc, n_moe = cfg.moe, moe["layers"]
+        tokens = B * (S if kind != "decode" else 1)
+        s_grp = min(mc.group_size, tokens)
+        n_grp, n_dp = tokens // s_grp, math.prod(sizes[a] for a in dp)
+        cap = max(math.ceil(s_grp * mc.top_k * mc.capacity_factor / mc.n_experts), 1)
+        # (expert, capacity) slots a device holds: its experts, its groups
+        slots = moe["experts"] * (n_grp // n_dp if n_grp % n_dp == 0 else n_grp) * cap
+        if slots * (2 * cfg.d_model + 2 * mc.d_expert) * act * n_moe < sum(moe["gathers"]):
+            plan.add("all-reduce", ("data",), slots * cfg.d_model * act, n_moe)
+            plan.add("all-reduce", ("data",), slots * mc.d_expert * act, 2 * n_moe)
+            plan.add("all-gather", ("data",), slots * cfg.d_model * act, n_moe)
+        else:
+            for gather in moe["gathers"]:
+                plan.add("all-gather", ("data",), gather)
 
     emb_sh = param_pspec("embed/embedding", (cfg.vocab, cfg.d_model), mesh, mode=cell.pmode)
     if sp and "model" in emb_sh.axes(0):
@@ -641,13 +796,17 @@ def plan_collectives(cell: _Cell, mesh, compression: str = "none",
     if vocab_par:
         if train:
             full = rows * cfg.d_model
+            # the chunked cross-entropy recomputes each chunk's logits, and
+            # what they need, in the backward
+            nc = cfg.xent_chunk
+            lg_fwd = 2 if nc and nc > 1 and S % nc == 0 else 1
             if sp:                                     # the hidden gathered for the logits
-                plan.add("all-gather", M, full * act)
+                plan.add("all-gather", M, full * act, lg_fwd)
                 plan.add("reduce-scatter", M, full * lg / m)
             else:
                 plan.add("all-reduce", M, full * lg)
             # the vocab-parallel loss: max, sum of exponentials, gold logit
-            plan.add("all-reduce", M, rows * 4, 3)
+            plan.add("all-reduce", M, rows * 4, 3 * lg_fwd)
         elif kind == "prefill" and sp:
             plan.add("all-gather", M, b_pd * cfg.d_model * act)   # the last position
     if train:
@@ -671,6 +830,13 @@ def plan_collectives(cell: _Cell, mesh, compression: str = "none",
                 full = written * math.prod(leaf.shape[3:]) * leaf.element_size()
                 plan.add("all-to-all" if split else "all-gather", M, full / m if split else full,
                          L)
+            elif (kind == "prefill" and name in ("k", "v") and split and leaf.shape[2] < S
+                  and "cross" not in path):
+                # a ring cache under context parallelism: the last window's
+                # K and V sit on the last sequence shard, and the other ranks
+                # receive those of their own slots
+                plan.add("collective-permute", M, b_pd * leaf.shape[2] // m
+                         * math.prod(leaf.shape[3:]) * leaf.element_size(), L)
             if kind == "decode" and name in ("k", "ckv") and split:
                 # split-KV decode: every rank reads all query heads over its
                 # slots; the partial outputs and softmax statistics reduce
@@ -682,6 +848,13 @@ def plan_collectives(cell: _Cell, mesh, compression: str = "none",
                     plan.add("all-gather", M, r * cfg.n_heads * cfg.head_dim * act, L)
                     plan.add("all-gather", M, r * math.prod(leaf.shape[3:])
                              * leaf.element_size(), 2 * L)
+                else:
+                    # MLA: the query heads' rope part (the latent part is
+                    # wuk's, above), and the new token's latent and rope key
+                    mla = cfg.mla
+                    plan.add("all-gather", M, r * cfg.n_heads * mla.qk_rope_head_dim * act, L)
+                    plan.add("all-gather", M, r * (mla.kv_lora_rank + mla.qk_rope_head_dim)
+                             * leaf.element_size(), L)
                 plan.add("all-reduce", M, r * cfg.n_heads * (width + 2) * 4, L)
     return plan.record()
 

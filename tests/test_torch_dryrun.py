@@ -260,12 +260,14 @@ def test_meta_cell_flops_equal_the_cpu_step(monkeypatch, arch, shape):
 POD_MESH = AbstractMesh((2, 2, 2), ("pod", "data", "model"))
 
 
-def _one_layer_cell(monkeypatch, kind, remat="none", arch="olmo-1b"):
-    shape = {"train": ShapeSpec("train_4k", "train", 16, 8),
-             "decode": ShapeSpec("decode_32k", "decode", 16, 8)}[kind]
+def _one_layer_cell(monkeypatch, kind, remat="none", arch="olmo-1b", seq=16, opt="auto",
+                    **overrides):
+    name = {"train": "train_4k", "prefill": "prefill_32k", "decode": "decode_32k"}[kind]
+    shape = ShapeSpec(name, kind, seq, 8)
     monkeypatch.setitem(SHAPES, shape.name, shape)
-    cfg = reduced(get_config(arch), n_layers=1, vocab=128, dtype="bfloat16", remat=remat)
-    return dryrun.build_cell(arch, shape.name, cfg=cfg)
+    cfg = reduced(get_config(arch), **{"n_layers": 1, "vocab": 128, "dtype": "bfloat16",
+                                       "remat": remat, **overrides})
+    return dryrun.build_cell(arch, shape.name, cfg=cfg, opt=opt)
 
 
 def test_plan_counted_by_hand_train(monkeypatch):
@@ -396,16 +398,23 @@ def test_plan_counted_by_hand_mla(monkeypatch):
     plan = dryrun.plan_collectives(cell, POD_MESH, seq_shard="none")
     X, T = 8192, 32
     # the query latent, split over "model" by wdq (data, model), gathered
-    # for q_norm and wuq (T x 64 x 2) and its gradient reduce-scattered
-    assert plan["by_kind_axis"]["all-gather"]["model"] == T * 64 * 2
+    # for q_norm and wuq (T x 64 x 2) and its gradient reduce-scattered;
+    # beside it Adafactor's statistics gathered over "model": the row or
+    # column means of the six factored matrices whose other dim is split
+    # over "data" (the embedding, the head, wo, wi, wg and the MLP's wo:
+    # 3 x 512 + 3 x 1024 bytes; test_plan_counted_by_hand_adafactor)
+    assert plan["by_kind_axis"]["all-gather"]["model"] == T * 64 * 2 + 3 * 512 + 3 * 1024
     assert plan["by_kind_axis"]["reduce-scatter"]["model"] == T * 64 * 2 / 2
     # all-reduces over "model": the input gradients of wdq's and wi/wg's
     # groups, attention's and the MLP's wo outputs, the lookup (X each);
     # wuk/wuv's replicated key-value latent's gradient (T x 32 x 2); the
     # head's f32 hidden gradient; the loss; the global-norm shares of
-    # wuq, wuk and wuv, split over "model" alone
+    # wuq, wuk and wuv, split over "model" alone, and their Adafactor update
+    # RMS (4 bytes each); the six factored matrices' means over their
+    # "model" dims, partial sums over its two shards (half their 512 or
+    # 1024 float32 bytes: 6 x 256)
     assert plan["by_kind_axis"]["all-reduce"]["model"] == (
-        5 * X + T * 32 * 2 + T * 128 * 4 + 3 * T * 4 + 3 * 4)
+        5 * X + T * 32 * 2 + T * 128 * 4 + 3 * T * 4 + 3 * 4 + 3 * 4 + 6 * 256)
 
 
 def test_plan_counted_by_hand_decode(monkeypatch):
@@ -421,6 +430,137 @@ def test_plan_counted_by_hand_decode(monkeypatch):
     # f32 values
     assert plan["all-reduce"] == {"bytes": 3 * 512 + 2 * 4 * 34 * 4, "count": 4}
     assert plan["reduce-scatter"]["count"] == 0
+
+
+def test_plan_counted_by_hand_rwkv_train_sp(monkeypatch):
+    """One reduced RWKV6 layer (d = 128, d_ff = 256, vocab 128, untied,
+    bf16) in training under SP with remat="block": two forward passes and
+    the backward, T = 32 tokens a device, X = T x d x 2 = 8192 bytes."""
+    cell = _one_layer_cell(monkeypatch, "train", remat="block", arch="rwkv6-3b")
+    plan = dryrun.plan_collectives(cell, POD_MESH)
+    X, kinds = 8192, plan["by_kind_axis"]
+    # each token shift moves the normed stream off its sequence shard and
+    # back each forward pass: 2 shifts x 2 all-to-alls x 2 passes, X/2 each
+    assert kinds["all-to-all"] == {"model": 8 * X / 2}
+    # in the backward each shift is a one-token halo: 2 rows x d x 2 bytes
+    assert kinds["collective-permute"] == {"model": 2 * 2 * 128 * 2}
+    # over "model": the block's eight matrices split over it (wr, wk, wv,
+    # wg, wo, cm_r of 32768 bytes, cm_k, cm_v of 65536) gathered whole each
+    # forward pass; the table once for the lookup (32768); the hidden for
+    # the logits (X); the scan's r, k, v (X each) and float32 decay (2 X)
+    # each forward pass and the outputs' gradient (X) in the backward
+    weights = 6 * 32768 + 2 * 65536
+    assert kinds["all-gather"]["model"] == 2 * weights + 32768 + X + 2 * (3 * X + 2 * X) + X
+
+
+def test_plan_counted_by_hand_rwkv_prefill_sp(monkeypatch):
+    """The RWKV6 layer at prefill under SP (B = 8, S = 16: T = 32, X =
+    8192): the shifts' all-to-alls (4 x X/2), the scan's r, k and float32
+    decay moved to the state's key shard ((2 X + 2 X)/2), v gathered (X),
+    the outputs' float32 partial sums over the key shards all-reduced (2 X);
+    the wkv and shift states are written from the shards they were
+    computed on, the ones their cache holds: nothing else moves."""
+    cell = _one_layer_cell(monkeypatch, "prefill", arch="rwkv6-3b")
+    plan = dryrun.plan_collectives(cell, POD_MESH)
+    X, kinds = 8192, plan["by_kind_axis"]
+    assert kinds["all-to-all"] == {"model": 4 * X / 2 + 4 * X / 2}
+    assert kinds["all-reduce"] == {"model": 2 * X}
+    assert plan["collective-permute"]["count"] == plan["reduce-scatter"]["count"] == 0
+    # over "model": the eight matrices once, the table, the last position's
+    # hidden for the logits (2 rows x d x 2 bytes), v
+    assert kinds["all-gather"]["model"] == 6 * 32768 + 2 * 65536 + 32768 + 512 + X
+
+
+def test_plan_counted_by_hand_hybrid_train_sp(monkeypatch):
+    """One reduced RG-LRU layer (d = lru width = 128, conv width 4) in
+    training under SP with remat="block": each forward pass moves the
+    conv's input and output (X/2 each, X = 8192) and the scan's input and
+    states (float32: X each) to a batch shard and back; in the backward the
+    conv's halo of 3 tokens is exchanged (2 rows x 3 x 128 x 2 bytes)."""
+    cell = _one_layer_cell(monkeypatch, "train", remat="block", arch="recurrentgemma-9b")
+    plan = dryrun.plan_collectives(cell, POD_MESH)
+    X, kinds = 8192, plan["by_kind_axis"]
+    assert kinds["all-to-all"] == {"model": 2 * (2 * X / 2 + 2 * 2 * X / 2)}
+    assert kinds["collective-permute"] == {"model": 2 * 3 * 128 * 2}
+    # a device sends a permute's result once
+    assert dryrun._wire("collective-permute", 2, 1536) == 1536
+
+
+def test_plan_counted_by_hand_hybrid_prefill_sp(monkeypatch):
+    """Reduced RecurrentGemma (two RG-LRU layers, one local-attention layer,
+    window 16) at prefill under SP, S = 32: T = 64 tokens a device, X = 64 x
+    128 x 2 = 16384.  Each RG-LRU runs on its state's width shard: proj_x's
+    and proj_g's outputs move there (X/2 each), proj_out reduce-scatters its
+    partial sums (X/2); its conv and h states are written where they were
+    computed.  The ring cache (16 slots, split over "model") is shorter
+    than the sequence: the other rank receives the last window's K and V of
+    its own 8 slots from the last sequence shard (2 rows x 8 x 1 head x 32 x
+    2 bytes each)."""
+    cell = _one_layer_cell(monkeypatch, "prefill", arch="recurrentgemma-9b", seq=32,
+                           n_layers=3)
+    plan = dryrun.plan_collectives(cell, POD_MESH)
+    X, kinds = 16384, plan["by_kind_axis"]
+    assert kinds["all-to-all"] == {"model": 2 * 2 * X / 2}
+    assert kinds["reduce-scatter"] == {"model": 2 * X / 2}
+    assert kinds["collective-permute"] == {"model": 2 * (2 * 8 * 1 * 32 * 2)}
+
+
+def test_plan_counted_by_hand_moe_tokens_or_weights(monkeypatch):
+    """Routed experts outside training, reduced Qwen-MoE (8 experts of
+    d_expert 64 over "model", d = 128 over "data", top 2, groups of 16,
+    capacity factor 1.25).  At decode (8 tokens: one group of 8, capacity
+    ceil(8 x 2 x 1.25 / 8) = 3) a device holds 4 experts x 3 slots: moving
+    them, 12 x (2 x 128 + 2 x 64) x 2 = 9216 bytes, costs less than
+    gathering the three expert matrices (3 x 65536): the dispatched slots and
+    the up projections' partial sums are all-reduced over "data", the down
+    projection's outputs gathered.  At a prefill of 8 x 256 tokens (128
+    groups, 32 a device, capacity 5) the 640 slots would move 491520 bytes:
+    the weights are gathered."""
+    decode = dryrun.plan_collectives(_one_layer_cell(monkeypatch, "decode",
+                                                     arch="qwen2-moe-a2.7b"), POD_MESH)
+    slots = 4 * 1 * 3
+    assert decode["by_kind_axis"]["all-reduce"]["data"] == slots * 128 * 2 + 2 * slots * 64 * 2
+    prefill = dryrun.plan_collectives(_one_layer_cell(monkeypatch, "prefill", seq=256,
+                                                      arch="qwen2-moe-a2.7b"), POD_MESH)
+    assert "data" not in prefill["by_kind_axis"]["all-reduce"]
+    gathers = 3 * 65536
+    assert (prefill["by_kind_axis"]["all-gather"]["data"]
+            - decode["by_kind_axis"]["all-gather"]["data"] == gathers - slots * 128 * 2)
+
+
+def test_plan_counted_by_hand_adafactor(monkeypatch):
+    """Adafactor's statistics on one reduced Command R+ layer (d = 128, 4
+    query and 4 K/V heads of 32, d_ff = 256, tied table), without SP: eight
+    factored matrices, each split over "data" on one dim and "model" on the
+    other.  A mean over a dim is a partial sum over that dim's two shards,
+    all-reduced there (half its float32 bytes), then gathered over the other
+    axis (the statistics are replicated): the table, wq, wk, wv and wo have
+    512-byte row and column means, wi and wg 512 and 1024, the MLP's wo 1024
+    and 512; each leaf's update RMS is 4 bytes over its four shards.  The
+    plan with AdamW differs by these alone."""
+    ada = _one_layer_cell(monkeypatch, "train", arch="command-r-plus-104b")
+    adamw = _one_layer_cell(monkeypatch, "train", arch="command-r-plus-104b", opt="adamw")
+    assert isinstance(ada.optimizer, dryrun.Adafactor)
+    plan = dryrun.plan_collectives(ada, POD_MESH, seq_shard="none")
+    base = dryrun.plan_collectives(adamw, POD_MESH, seq_shard="none")
+    means = 5 * (512 + 512) + 3 * (512 + 1024)
+    assert plan["all-gather"]["bytes"] - base["all-gather"]["bytes"] == means
+    assert plan["all-reduce"]["bytes"] - base["all-reduce"]["bytes"] == means / 2 + 8 * 4
+    assert (plan["by_axis"]["data+model"] - base["by_axis"]["data+model"]) == 8 * 4
+
+
+def test_plan_counted_by_hand_xent_chunk(monkeypatch):
+    """The chunked cross-entropy (xent_chunk = 2) recomputes each chunk's
+    logits in the backward: on the one-layer OLMo cell under SP with
+    remat="block" the hidden is gathered for the logits again (X = 8192)
+    and the loss's max, sum and gold logit reduced again (3 x 32 x 4)."""
+    whole = _one_layer_cell(monkeypatch, "train", remat="block")
+    chunked = _one_layer_cell(monkeypatch, "train", remat="block", xent_chunk=2)
+    a = dryrun.plan_collectives(whole, POD_MESH)
+    b = dryrun.plan_collectives(chunked, POD_MESH)
+    assert b["all-gather"]["bytes"] - a["all-gather"]["bytes"] == 8192
+    assert b["all-reduce"]["bytes"] - a["all-reduce"]["bytes"] == 3 * 32 * 4
+    assert b["reduce-scatter"] == a["reduce-scatter"]
 
 
 def test_cli_seq_shard_none_sends_less_over_model(tmp_path):
