@@ -146,11 +146,13 @@ Phases, each failing the run with a non-zero exit if anything is wrong:
              RecurrentGemma-9B (B=1, S=4096, past its 2048-token window)
              through ``make_train_step(model, Adafactor(lr=1e-3))`` with
              ``remat="block"``, 4 steps each on the trainer's batches,
-             uncut if the reckoning it prints first fits 0.9 of the card,
-             else cut in depth: the attention kernel twice a layer a step
-             (the forward and its recompute), finite losses, gradient norms
-             and aux loss, the step median, tokens/s and peak memory beside
-             the reckoning, a profiled step; step 1 against the plain
+             uncut if the dry-run's traced peak of the same step on the
+             one-card mesh (printed first) fits 0.9 of the card, else cut
+             in depth: the attention kernel twice a layer a step (the
+             forward and its recompute), finite losses, gradient norms and
+             aux loss, the step median, tokens/s, and the card's peak memory
+             over the steps within 10% of the traced peak, a profiled step;
+             step 1 against the plain
              attention at full depth in bf16, and by phase 7's float32 and
              bf16 rules on a copy cut to 2 layers (one group for the
              hybrid).  Then phase 7's model at B=4, S=2048 under remat
@@ -177,11 +179,14 @@ Phases, each failing the run with a non-zero exit if anything is wrong:
              forward; (e) the dry-run's twin of ``qwen1.5-0.5b train_4k``
              at B=4 on the one-card mesh: resident bytes ``==`` the
              card's, the step (remat "block") 3 times beside its roofline
-             bound and the TFLOP/s on the counted FLOPs; then, with the
+             bound and the TFLOP/s on the counted FLOPs, its memory record
+             and traced peak within 5% of the card's max_memory_allocated
+             over the same steps; then, with the
              group destroyed, (d) the 80-cell dry-run grid on the meta
              device (64 ok, 16 skip: ``long_500k`` on the full-attention
              architectures; sequence parallelism, the default), both H100
-             roofline tables, the collective and binding terms of the
+             roofline tables with each cell's peak GiB a device and whether
+             it fits a card, the count that fits on each mesh, the collective and binding terms of the
              seven recurrent, MLA/MoE and Adafactor cells held to the JAX
              records, one multi-pod cell under int8 compression,
              whose pod bytes are half the bf16 all-reduce's plus the
@@ -271,7 +276,7 @@ from repro_torch.api import (  # noqa: E402
     run_one,
 )
 from repro_torch.configs import ARCHS, get_config  # noqa: E402
-from repro_torch.configs.shapes import SHAPES  # noqa: E402
+from repro_torch.configs.shapes import SHAPES, ShapeSpec  # noqa: E402
 from repro_torch.core import batched  # noqa: E402
 from repro_torch.core.policy import IBDASHPolicy  # noqa: E402
 from repro_torch.obs import (  # noqa: E402
@@ -300,16 +305,20 @@ from repro_torch.kernels.build import build  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
 from repro_torch.kernels.flash_attention import smem_bytes as attn_smem_bytes  # noqa: E402
 from repro_torch.kernels.flash_attention import tile_plan  # noqa: E402
-from repro_torch.kernels.flash_decode import flash_decode, split_plan  # noqa: E402
+from repro_torch.kernels.flash_decode import HEADS_PER_BLOCK, flash_decode, split_plan  # noqa: E402
 from repro_torch.kernels.flash_decode import blocks_per_sm as decode_blocks_per_sm  # noqa: E402
 from repro_torch.kernels.flash_decode import smem_bytes as decode_smem_bytes  # noqa: E402
+from repro_torch.kernels import meta as kernel_meta  # noqa: E402
+from repro_torch.kernels.flash_decode import _lib as decode_lib  # noqa: E402
 from repro_torch.kernels.meta import attention_work, decode_work, wkv_cost  # noqa: E402
 from repro_torch.kernels.meta import wkv_tiling  # noqa: E402
 from repro_torch.kernels.ref import attention_ref, decode_attention_ref, rwkv6_ref  # noqa: E402
 from repro_torch.kernels.rwkv6_scan import KERNELS_PER_CALL as WKV_KERNELS_PER_CALL  # noqa: E402
 from repro_torch.kernels.rwkv6_scan import kernel_chunk, rwkv6_scan, smem_bytes  # noqa: E402
 from repro_torch.launch import dryrun, roofline  # noqa: E402
-from repro_torch.launch.mesh import make_host_mesh, make_mesh, mesh_axis_sizes  # noqa: E402
+from repro_torch import memtrace  # noqa: E402
+from repro_torch.launch.mesh import AbstractMesh, make_host_mesh, make_mesh  # noqa: E402
+from repro_torch.launch.mesh import mesh_axis_sizes  # noqa: E402
 from repro_torch.launch.train import frontend_stubs, train  # noqa: E402
 from repro_torch.models import LM  # noqa: E402
 from repro_torch.models import moe as moe_module  # noqa: E402
@@ -3226,9 +3235,19 @@ def vlm_audio_phase(dev):
 # make_train_step(model, Adafactor(lr=1e-3)) with remat="block", as the JAX
 # dry-run composes them for its big configs
 MOE_HYBRID_TRAIN = (("qwen2-moe-a2.7b", 1, 2048, 4), ("recurrentgemma-9b", 1, 4096, 4))
-# the share of the card's memory the printed reckoning may take before the
-# run cuts the model in depth (room for the allocator's fragmentation)
+# the share of the card's memory the dry-run's traced peak may take before
+# the run cuts the model in depth (room for the allocator's fragmentation)
 TRAIN_MEMORY_SHARE = 0.9
+# the traced peak against the card's max_memory_allocated over the steps
+# (phase 13's models; the twin of phase 14 (e) within TWIN_PEAK_RTOL): room
+# for the caching allocator's 512-byte rounding and the cuBLAS workspaces
+# (32 MiB a handle and stream) it hands out, which no aten op makes
+TRAIN_PEAK_RTOL = 0.01
+# the softmax backward at RecurrentGemma-9B's training attention (B, Hk, g,
+# S, S), whose CUDA kernel's own buffers memtrace.CUDA_TEMPS prices
+SOFTMAX_CHECK_SHAPE = (1, 1, 16, 4096, 4096)
+# the one-card mesh the dry-run prices phase 13's models on
+ONE_CARD = AbstractMesh((1, 1, 1), ("pod", "data", "model"))
 # step 1 on the full models: the kernel's bf16 loss and gradient norm
 # against the plain attention's bf16 ones within two bf16 ulps of the value
 # (no float32 copy of the full model fits; phase 7's float32 and bf16 rules
@@ -3242,66 +3261,42 @@ STEP1_CUT_UNITS = 2
 REMAT_STEPS, REMAT_GNORM_RTOL = 3, 1e-3
 
 
-def train_reckoning(cfg, B, S):
-    """``(bytes, {term: bytes})`` a train step of ``cfg`` at (B, S) with
-    Adafactor and remat="block" is reckoned to need, from the JAX tree's
-    shapes (the model built on the meta device): weights and gradients; the
-    largest stacked leaf's gradient gathered into one stack while its
-    per-layer parts live; Adafactor's state and the float32 temporaries of
-    its slices; the float32 logits, their exponentials and their gradient;
-    the head's float32 cast and its gradient; the saved input of each
-    checkpointed layer; one layer's recompute and backward (16 float32
-    copies of its widest activation, and for the RG-LRU the scan's
-    ceil(log2 S) steps of (a, b))."""
-    model = LM(cfg, device="meta")
-    params = model.init(torch.Generator())
-    leaves = tree_leaves(params)
-    nbytes = sum(t.numel() * t.element_size() for t in leaves)
-    state = Adafactor().init(params)
-    V, d = cfg.vocab, cfg.d_model
-    lru = cfg.recurrent.lru_width if cfg.recurrent and cfg.recurrent.lru_width else 0
-    width = max(cfg.d_ff, d, lru,
-                cfg.moe.n_shared_experts * cfg.moe.d_expert if cfg.moe else 0)
-    units = sum(seg.n for seg in model.segments)
-    work = 16 * B * S * width * 4
-    if lru:
-        work += 2 * int(np.ceil(np.log2(S))) * B * S * lru * 4
-    terms = {
-        "weights": nbytes,
-        "gradients": nbytes,
-        "largest leaf's gradient stack": max(t.numel() * t.element_size() for t in leaves),
-        "Adafactor state": sum(t.numel() * 4 for t in tree_leaves(state["v"])),
-        "Adafactor slices": 8 * optimizers.UPDATE_SLICE * 4,
-        "f32 logits, exp and gradient": 3 * B * S * V * 4,
-        "f32 head and its gradient": 2 * V * d * 4,
-        "saved layer inputs": units * B * S * d * 2,
-        "one layer's recompute and backward": work,
-    }
-    return sum(terms.values()), terms
+def traced_peak(cfg, B, S, optimizer="adafactor"):
+    """``(bytes, memory record)``: the dry-run's traced peak of a train step
+    of ``cfg`` at (B, S) with ``optimizer`` on the one-card mesh (the step
+    traced on the meta device, its live bytes logged op by op, the
+    optimizer's update priced in the card's slices)."""
+    cell = dryrun.build_cell(cfg.name, ShapeSpec("train", "train", S, B), opt=optimizer,
+                             cfg=cfg)
+    mem = dryrun.cell_memory(cell, dryrun.trace_cell(cell), ONE_CARD)
+    return mem["peak_bytes"], mem
 
 
 def fitted_config(tag, arch, B, S):
-    """The config phase 13 trains: uncut if its reckoning fits
+    """The config phase 13 trains: uncut if its traced peak fits
     TRAIN_MEMORY_SHARE of the card, else cut in depth (whole hybrid
-    groups) until it does.  Prints the reckoning and the decision."""
+    groups) until it does.  Prints the peak and the decision."""
     full = dataclasses.replace(get_config(arch), remat="block")
     budget = TRAIN_MEMORY_SHARE * torch.cuda.get_device_properties(0).total_memory
     step = len(full.recurrent.pattern) if full.family == "hybrid" else 1
     cfg = full
+    t = time.perf_counter()
     while True:
-        total, terms = train_reckoning(cfg, B, S)
+        total, mem = traced_peak(cfg, B, S)
         if total <= budget or cfg.n_layers <= step:
             break
         cfg = dataclasses.replace(cfg, n_layers=cfg.n_layers - step)
-    print(f"[{tag}] reckoning for {cfg.name} at {cfg.n_layers} of {full.n_layers} layers, "
-          f"B={B} S={S}: {total / 1e9:.2f} GB against {budget / 1e9:.2f} GB "
-          f"({TRAIN_MEMORY_SHARE} of the card): "
-          + "; ".join(f"{k} {v / 1e9:.2f}" for k, v in terms.items()), flush=True)
+    print(f"[{tag}] traced peak for {cfg.name} at {cfg.n_layers} of {full.n_layers} layers, "
+          f"B={B} S={S}, Adafactor, remat block, on the one-card mesh: "
+          f"{total / 2**30:.2f} GiB ({total / 1e9:.2f} GB) against {budget / 2**30:.2f} GiB "
+          f"({TRAIN_MEMORY_SHARE} of the card); its parts at the peak (GiB): "
+          + ", ".join(f"{k} {v / 2**30:.2f}" for k, v in mem["peak_parts"].items())
+          + f"; traced in {time.perf_counter() - t:.1f} s", flush=True)
     check(total <= budget, f"{cfg.name} does not fit the card even at {cfg.n_layers} layers")
     cut = ("uncut" if cfg.n_layers == full.n_layers
-           else f"cut in depth to {cfg.n_layers} of {full.n_layers} layers by the reckoning")
+           else f"cut in depth to {cfg.n_layers} of {full.n_layers} layers by the traced peak")
     print(f"[{tag}] {cfg.name} trains {cut}", flush=True)
-    return cfg, total, terms, cut
+    return cfg, total, mem, cut
 
 
 def adafactor_train(tag, cfg, dev, B, S, steps):
@@ -3314,12 +3309,15 @@ def adafactor_train(tag, cfg, dev, B, S, steps):
     n_attn = sum(seg.n for seg in model.segments
                  if seg.kind == "attn" or (seg.kind == "group" and seg.has_attn))
     torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     params = model.init(torch.Generator(device=dev).manual_seed(0))
     optimizer = Adafactor(lr=1e-3)
     opt_state = optimizer.init(params)
     step_fn = make_train_step(model, optimizer)
+    init_peak = torch.cuda.max_memory_allocated() - base
+    torch.cuda.reset_peak_memory_stats()
     n_params = sum(t.numel() for t in _leaves(params))
     print(f"[{tag}] {cfg.name}: {n_params} parameters, weights and Adafactor state "
           f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB, init "
@@ -3339,7 +3337,7 @@ def adafactor_train(tag, cfg, dev, B, S, steps):
         gnorms.append(float(metrics["grad_norm"]))
         auxes.append(float(metrics["moe_aux"]))
     launches = flash_attention.launches
-    peak = torch.cuda.max_memory_allocated()
+    peak = torch.cuda.max_memory_allocated() - base
     total = torch.cuda.get_device_properties(0).total_memory
     check(peak < total, f"peak memory {peak} beyond the card's {total}")
     check(launches == 2 * n_attn * steps,
@@ -3358,8 +3356,9 @@ def adafactor_train(tag, cfg, dev, B, S, steps):
           f"{[round(x, 5) for x in gnorms]}; aux loss {[round(x, 5) for x in auxes]}; step ms "
           f"{[round(float(x), 2) for x in step_ms]} (the first cold), median "
           f"{np.median(step_ms):.2f}; {B * S / np.median(step_ms) * 1e3:.1f} tokens/s at the "
-          f"median; peak memory {peak / 2**30:.2f} GiB ({peak / 1e9:.2f} GB) of "
-          f"{total / 2**30:.2f}; flash_attention launches {launches} = {n_attn} attention "
+          f"median; peak memory over the steps {peak / 2**30:.2f} GiB ({peak / 1e9:.2f} GB) "
+          f"of {total / 2**30:.2f} (the weights' init {init_peak / 2**30:.2f}); "
+          f"flash_attention launches {launches} = {n_attn} attention "
           f"layers x 2 (forward, recompute) x {steps} steps, all through the tensor-core "
           f"kernel", flush=True)
     batch = to_device(frontend_stubs(cfg, next(stream)), dev)
@@ -3370,7 +3369,8 @@ def adafactor_train(tag, cfg, dev, B, S, steps):
                 losses=losses, grad_norms=gnorms, aux=auxes, step_ms=step_ms.tolist(),
                 step_ms_median=float(np.median(step_ms)),
                 tokens_per_s=float(B * S / np.median(step_ms) * 1e3), peak_gib=peak / 2**30,
-                peak_bytes=peak, launches=launches, attn_layers=n_attn)
+                peak_bytes=peak, init_peak_bytes=init_peak, launches=launches,
+                attn_layers=n_attn)
 
 
 def full_step1_check(tag, cfg, dev, kern16, shape):
@@ -3443,10 +3443,55 @@ def remat_comparison(dev):
     return out
 
 
+def softmax_backward_check(dev):
+    """``memtrace.CUDA_TEMPS`` against the card: one softmax backward at
+    SOFTMAX_CHECK_SHAPE, its gradient laid out as the oracle attention
+    backward hands it on (the cast of the weights' backward keeps the
+    einsum's permuted (q, g, k) order), the card's peak above its operands
+    against the tracker's on meta, to 512 bytes a buffer."""
+    B, Hk, g, S, _ = SOFTMAX_CHECK_SHAPE
+
+    def operands(device):
+        return (torch.zeros((B, Hk, S, g, S), device=device).permute(0, 1, 3, 2, 4),
+                torch.zeros(SOFTMAX_CHECK_SHAPE, device=device))
+
+    op = torch.ops.aten._softmax_backward_data.default
+    grad, out = operands(dev)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    gi = op(grad, out, -1, torch.float32)
+    torch.cuda.synchronize()
+    card = torch.cuda.max_memory_allocated() - base
+    del grad, out, gi
+    torch.cuda.empty_cache()
+    traced = {}
+    for name, table in (("with", memtrace.CUDA_TEMPS), ("without", {})):
+        saved, memtrace.CUDA_TEMPS = memtrace.CUDA_TEMPS, table
+        try:
+            grad, out = operands("meta")
+            live = memtrace.LiveBytes()
+            with live:
+                live.slot(grad)
+                live.slot(out)
+                op(grad, out, -1, torch.float32)
+            live.close()
+            traced[name] = live.peak - 2 * out.numel() * out.element_size()
+        finally:
+            memtrace.CUDA_TEMPS = saved
+    print(f"[train-hybrid] softmax backward at {SOFTMAX_CHECK_SHAPE} f32, permuted gradient: "
+          f"the card's peak above its operands {card} bytes; traced with memtrace.CUDA_TEMPS "
+          f"{traced['with']}, without {traced['without']} (the output alone)", flush=True)
+    check(abs(card - traced["with"]) <= 512 * 3, f"the softmax backward took {card} bytes on "
+          f"the card, {traced['with']} traced")
+    return dict(shape=list(SOFTMAX_CHECK_SHAPE), card_bytes=card, traced_bytes=traced["with"],
+                traced_without_temps=traced["without"])
+
+
 def train_moe_hybrid_phase(dev):
     """Phase 13: train Qwen1.5-MoE-A2.7B and RecurrentGemma-9B with
-    Adafactor and remat="block", uncut or cut in depth as the printed
-    reckoning says; step 1 against the plain attention at full depth in
+    Adafactor and remat="block", uncut or cut in depth as the dry-run's
+    traced peak says; step 1 against the plain attention at full depth in
     bf16 and on a cut copy by phase 7's rules; then the remat comparison on
     phase 7's model.  Returns the ``train_moe_hybrid`` line and the
     attention launches by path."""
@@ -3473,15 +3518,19 @@ def train_moe_hybrid_phase(dev):
 
 def train_moe_hybrid_runs(dev):
     """Phase 13's runs: returns its line's parts and the launches by path."""
-    line, launches = {}, {}
+    line, launches = {"softmax_backward": softmax_backward_check(dev)}, {}
     for arch, B, S, steps in MOE_HYBRID_TRAIN:
         tag = "train-moe" if arch == MOE_ARCH else "train-hybrid"
-        cfg, reckoned, terms, cut = fitted_config(tag, arch, B, S)
+        cfg, traced, mem, cut = fitted_config(tag, arch, B, S)
         part = adafactor_train(tag, cfg, dev, B, S, steps)
-        print(f"[{tag}] peak {part['peak_bytes'] / 1e9:.2f} GB against the reckoning "
-              f"{reckoned / 1e9:.2f} GB", flush=True)
-        part.update(cut=cut, reckoning_gb=reckoned / 1e9,
-                    reckoning_terms_gb={k: v / 1e9 for k, v in terms.items()})
+        ratio = traced / part["peak_bytes"]
+        print(f"[{tag}] traced peak {traced / 2**30:.2f} GiB against the card's "
+              f"max_memory_allocated over the steps {part['peak_bytes'] / 2**30:.2f} GiB: "
+              f"{ratio:.6f}x, {part['peak_bytes'] - traced} bytes apart (tol "
+              f"{TRAIN_PEAK_RTOL})", flush=True)
+        check(abs(ratio - 1) <= TRAIN_PEAK_RTOL, f"{cfg.name}: traced peak {traced} against "
+              f"the card's {part['peak_bytes']}")
+        part.update(cut=cut, traced_peak_bytes=traced, traced_over_card=ratio, memory=mem)
         part["step1"] = full_step1_check(tag, cfg, dev, (part["losses"][0],
                                                          part["grad_norms"][0]), (B, S))
         small = dataclasses.replace(cfg, n_layers=len(cfg.recurrent.pattern)
@@ -3517,6 +3566,10 @@ INT8_GRAD_REL = 2.0 ** -7
 ROUNDTRIP_SLACK = 2 * 127 * 2.0 ** -24
 INT8_SEED = 7                        # the stochastic step's generator
 TWIN_ARCH, TWIN_SHAPE, TWIN_B, TWIN_STEPS = "qwen1.5-0.5b", "train_4k", 4, 3
+# the twin's traced peak against the card's max_memory_allocated over its
+# steps: room for the caching allocator's 512-byte rounding and the cuBLAS
+# workspaces it holds, which the trace of aten ops does not see
+TWIN_PEAK_RTOL = 0.01
 GRID_CELLS, GRID_OK, GRID_SKIP = 80, 64, 16
 # the recurrent, MLA/MoE and Adafactor cells whose plan is held to the JAX
 # dry-run's records; phase 14 (d) prints their collective terms
@@ -3799,9 +3852,16 @@ def grid_part():
     check(all("|long_500k|" in k for k in skips), f"unexpected skips: {skips}")
     for mk in ("single", "multi"):
         print(f"[dist] (d) H100 roofline, {mk} mesh (seconds a step; 989 TFLOP/s bf16, "
-              f"3.35 TB/s, NVLink 450 GB/s in a node, InfiniBand 50 GB/s across):", flush=True)
+              f"3.35 TB/s, NVLink 450 GB/s in a node, InfiniBand 50 GB/s across; the traced "
+              f"peak GiB a device, and whether it fits one card):", flush=True)
         for line in roofline.format_table(roofline.build_table(records, mk)).splitlines():
             print(f"[dist] (d)   {line}", flush=True)
+    fits = {mk: sum(r["fits"] for r in roofline.build_table(records, mk))
+            for mk in ("single", "multi")}
+    n_rows = {mk: len(roofline.build_table(records, mk)) for mk in ("single", "multi")}
+    print("[dist] (d) cells whose traced peak fits one card (" + f"{roofline.HBM_BYTES} "
+          "bytes): " + "; ".join(f"{mk} mesh {fits[mk]} of {n_rows[mk]}" for mk in fits),
+          flush=True)
     rows = {mk: {(r["arch"], r["shape"]): r for r in roofline.build_table(records, mk)}
             for mk in ("single", "multi")}
     held = {f"{a} {s}": {mk: [rows[mk][a, s]["collective_s"], rows[mk][a, s]["dominant"]]
@@ -3833,8 +3893,10 @@ def grid_part():
                 fail=status.count("fail"), seconds=seconds, cell_s_mean=float(np.mean(cell_s)),
                 cell_s_max=max(cell_s), int8_pod_wire=w_int8, bf16_pod_wire=w_plain,
                 seq_shard=seq, held_cells=held,
+                fits=fits,
                 roofline={mk: [{k: r[k] for k in ("arch", "shape", "compute_s", "memory_s",
-                                                    "collective_s", "dominant", "mfu_bound")}
+                                                    "collective_s", "dominant", "mfu_bound",
+                                                    "hbm_temp_gib", "peak_gib", "fits")}
                                for r in rs] for mk, rs in rows.items()})
 
 
@@ -3902,6 +3964,8 @@ def twin_part(dev, mesh):
     batches = [to_device(frontend_stubs(cfg, b), dev) for b in itertools.islice(
         iter(SyntheticLM(cfg.vocab, TWIN_B, shape.seq_len, seed=0)), TWIN_STEPS)]
     torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated() - sum(
+        t.numel() * t.element_size() for t in tree_leaves([params, state] + batches[:1]))
     step_s = []
     for b in batches:
         torch.cuda.synchronize()
@@ -3910,17 +3974,30 @@ def twin_part(dev, mesh):
         torch.cuda.synchronize()
         step_s.append(time.perf_counter() - t)
         check(bool(np.isfinite(float(m["loss"]))), "the twin step's loss is not finite")
-    peak = torch.cuda.max_memory_allocated()
+    peak = torch.cuda.max_memory_allocated() - base
     med = float(np.median(step_s))
     tflops = rec["flops_global"] / med / 1e12
+    mem = rec["memory"]
+    ratio = mem["peak_bytes"] / peak
     print(f"[dist] (e) the step on the card (remat block, bf16, AdamW bf16 state): "
           f"{[round(1e3 * x, 2) for x in step_s]} ms, median {1e3 * med:.2f} ms; roofline "
           f"bound {1e3 * row['bound_s']:.2f} ms ({row['dominant']}: compute "
           f"{1e3 * row['compute_s']:.2f} ms from {rec['flops_global']:.4e} counted FLOPs, "
           f"memory {1e3 * row['memory_s']:.2f} ms from {rec['bytes_global']:.4e} counted "
           f"bytes, an upper bound); measured / bound {med / row['bound_s']:.2f}; "
-          f"{tflops:.1f} TFLOP/s achieved on the counted FLOPs; peak memory "
-          f"{peak / 2**30:.2f} GiB", flush=True)
+          f"{tflops:.1f} TFLOP/s achieved on the counted FLOPs", flush=True)
+    total = torch.cuda.get_device_properties(0).total_memory
+    print(f"[dist] (e) twin memory record (bytes): {json.dumps(mem)}; the card holds {total} "
+          f"bytes (roofline.HBM_BYTES {roofline.HBM_BYTES})", flush=True)
+    check(total == roofline.HBM_BYTES, f"the card holds {total} bytes, the roofline prices "
+          f"{roofline.HBM_BYTES}")
+    print(f"[dist] (e) traced peak {mem['peak_bytes'] / 2**30:.4f} GiB against the card's "
+          f"max_memory_allocated over the same steps {peak / 2**30:.4f} GiB (less what the "
+          f"card held before but the step's own arguments): {ratio:.6f}x, "
+          f"{peak - mem['peak_bytes']} bytes apart (tol {TWIN_PEAK_RTOL}); temporaries {mem['temp_size_in_bytes'] / 2**30:.4f} GiB",
+          flush=True)
+    check(abs(ratio - 1) <= TWIN_PEAK_RTOL, f"the twin's traced peak {mem['peak_bytes']} "
+          f"against the card's {peak}")
     del params, state, step, batches
     torch.cuda.empty_cache()
     return dict(arch=TWIN_ARCH, shape=TWIN_SHAPE, batch=TWIN_B, resident=rec["resident"],
@@ -3928,7 +4005,7 @@ def twin_part(dev, mesh):
                 bound_ms=1e3 * row["bound_s"], bound_by=row["dominant"],
                 compute_ms=1e3 * row["compute_s"], memory_ms=1e3 * row["memory_s"],
                 flops=rec["flops_global"], bytes=rec["bytes_global"], tflops=tflops,
-                peak_gib=peak / 2**30)
+                peak_gib=peak / 2**30, peak_bytes=peak, memory=mem, traced_over_card=ratio)
 
 
 def distribution_phase(dev, backend="nccl"):
@@ -4316,6 +4393,19 @@ def audit_kvdtype_phase(dev, report="", kinds=None):
 SHAPE_KEYS = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")
 
 
+def meta_plan_check():
+    """The decode wrapper and the dry-run's meta route plan the split scratch
+    from ``flash_decode.HEADS_PER_BLOCK`` and the meta route for an H100's
+    SMs: both must be the built kernel's and the card's."""
+    for qd in (torch.bfloat16, torch.float32):
+        check(HEADS_PER_BLOCK[qd] == decode_lib().flash_decode_heads_per_block(
+            int(qd == torch.bfloat16)), f"HEADS_PER_BLOCK[{qd}] differs from the kernel's")
+    check(kernel_meta.H100_SMS == torch.cuda.get_device_properties(0).multi_processor_count,
+          "meta's decode split plan assumes another SM count")
+    print(f"[build] flash_decode.HEADS_PER_BLOCK equals the built kernel's heads a block; "
+          f"the meta route's {kernel_meta.H100_SMS} SMs are the card's", flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card",
@@ -4367,6 +4457,7 @@ def main() -> int:
             check(decode_smem_bytes(d, qd, FLOAT8_KV) <= decode_smem_bytes(d, qd),
                   f"the float8 ring at D={d} takes more shared memory than {qd}'s: the split "
                   "plan would not hold")
+    meta_plan_check()
     for name in ("rwkv6_scan", "flash_decode"):
         for kern, regs, st, ld in ptxas_report(reports.get(name, "")):
             print(f"[build] {name} {kern}: {regs} registers, spill stores {st} bytes, "

@@ -32,7 +32,7 @@ import torch
 from .build import load
 
 __all__ = ["flash_decode", "check_decode_args", "kv_kind", "split_plan", "smem_bytes",
-           "blocks_per_sm"]
+           "blocks_per_sm", "HEADS_PER_BLOCK"]
 
 _SUPPORTED_D = (32, 64, 128, 256)
 # the kernel's kv_kind for K/V in q's dtype (0) and, by (q dtype, K/V
@@ -45,6 +45,10 @@ _KV_KIND = {
     (torch.bfloat16, torch.float32): 5,
 }
 _TILE = 64              # cache slots per tile of the kernel
+# query heads a block holds, by q's dtype: ``Cfg<T>::kHeads`` of
+# csrc/flash_decode.cu (the rows of bf16's mma A operand; f32's SIMT rows),
+# which the built library reports (``flash_decode_heads_per_block``)
+HEADS_PER_BLOCK = {torch.bfloat16: 16, torch.float32: 8}
 _BLOCKS_PER_SM = 2      # a full cache gives about this many blocks per SM, all resident
 # At D=256 one block fills an SM, and a split of one or two tiles spends
 # more on its fixed costs and the merge than its ring overlaps: splits of
@@ -226,7 +230,7 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                     blocks_per_sm(D, q.dtype, k.dtype))
     is_bf16 = int(q.dtype == torch.bfloat16)
     lib = _lib()
-    kh = lib.flash_decode_heads_per_block(is_bf16)
+    kh = HEADS_PER_BLOCK[q.dtype]
     rows = B * Hk * -(-(Hq // Hk) // kh)
     part_acc, part_ml, counters = _scratch(q.device).get(
         rows * nsplit * kh * D, rows * nsplit * kh * 2, rows)

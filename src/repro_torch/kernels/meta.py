@@ -29,6 +29,21 @@ products (a multiply and an add are two):
     ``FlopCounterMode`` counts in that backward, 6*N^2 a (b, h, t); bytes:
     the inputs and the state read and written at each step, forward and
     backward, and the gradients written once.
+
+Each route also allocates what its CUDA wrapper allocates, so that a trace
+of live bytes (``launch/dryrun.py``) sees the kernels' buffers: the WKV
+kernel's float32 chunk states and decays beside its outputs (freed on
+return); the decode kernel's split scratch (float32 partials, their (m, l)
+and the int32 merge counters), which the wrapper keeps across calls, so
+here it lives as long as the :class:`KernelWork` that counts the trace
+(one made and dropped with no count open), planned by the wrapper's
+``split_plan`` for an H100's ``H100_SMS`` SMs at its default blocks an SM
+and ``flash_decode.HEADS_PER_BLOCK`` (a K/V dtype wider than q's, which
+the wrapper plans at one block an SM and so in fewer splits, is priced at
+the default's splits, an upper bound); and the WKV backward's peak, the oracle backward's live bytes
+(``rwkv6_ref`` recomputed and differentiated) traced at 8 and 9 tokens and
+extended by their step to T (from 8 tokens on each step adds the same
+bytes), held a moment before the gradients are made.
 """
 from __future__ import annotations
 
@@ -40,8 +55,15 @@ from typing import Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.utils._python_dispatch import _disable_current_modes
 
+from ..memtrace import LiveBytes
 from .build import CSRC
+from .flash_decode import HEADS_PER_BLOCK, _Scratch, split_plan
+from .ref import rwkv6_ref
+
+# SMs of an H100 SXM: the decode kernel's split plan aims at blocks per SM
+H100_SMS = 132
 
 __all__ = ["KernelWork", "count_kernel_work", "attention_work", "decode_work", "wkv_tiling",
            "wkv_cost", "wkv_work", "wkv_backward_work", "attention", "decode_attention",
@@ -54,6 +76,7 @@ class KernelWork:
     flops: int = 0
     bytes: int = 0
     calls: Dict[str, int] = field(default_factory=dict)
+    scratch: Dict[torch.device, _Scratch] = field(default_factory=dict)
 
     def add(self, name: str, flops: int, nbytes: int) -> None:
         self.flops += flops
@@ -174,19 +197,64 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      lengths: torch.Tensor) -> torch.Tensor:
     B, Hq, D = q.shape
-    _count("flash_decode", *decode_work(B, Hq, k.shape[2], D, B * k.shape[1],
-                                        q.element_size(), k.element_size()))
+    C, Hk = k.shape[1], k.shape[2]
+    _count("flash_decode", *decode_work(B, Hq, Hk, D, B * C, q.element_size(), k.element_size()))
+    _, nsplit = split_plan(B, Hk, C, H100_SMS, D)
+    kh = HEADS_PER_BLOCK[q.dtype]
+    rows = B * Hk * -(-(Hq // Hk) // kh)
+    scratch = _open[-1].scratch.setdefault(q.device, _Scratch(q.device)) if _open else \
+        _Scratch(q.device)
+    scratch.get(rows * nsplit * kh * D, rows * nsplit * kh * 2, rows)
     return torch.empty((B, Hq, D), dtype=q.dtype, device=q.device)
 
 
 def rwkv6(r, k, v, w, u, S0) -> Tuple[torch.Tensor, torch.Tensor]:
     B, T, H, N = r.shape
     _count("rwkv6_scan", *wkv_work(B, T, H, N, r.element_size()))
-    return torch.empty_like(r), torch.empty((B, H, N, N), dtype=torch.float32, device=r.device)
+    nch = -(-T // wkv_tiling()[0])
+    y = torch.empty_like(r)
+    sT = torch.empty((B, H, N, N), dtype=torch.float32, device=r.device)
+    ds = torch.empty((B, H, nch, N, N), dtype=torch.float32, device=r.device)
+    decay = torch.empty((B, H, nch, N), dtype=torch.float32, device=r.device)
+    del ds, decay
+    return y, sT
+
+
+def _wkv_backward_traced(B: int, T: int, H: int, N: int, dtype: torch.dtype) -> int:
+    def t(*shape, dt=torch.float32):
+        return torch.empty(shape, dtype=dt, device="meta")
+
+    ins = [t(B, T, H, N, dt=dtype) for _ in range(3)] + [t(B, T, H, N), t(H, N), t(B, H, N, N)]
+    gy, gs = t(B, T, H, N, dt=dtype), t(B, H, N, N)
+    live = LiveBytes()
+    with _disable_current_modes(), live, torch.enable_grad():
+        for x in ins + [gy, gs]:
+            live.slot(x)
+        base = live.live
+        leaves = [x.detach().requires_grad_() for x in ins]
+        y, sT = rwkv6_ref(*leaves)
+        torch.autograd.grad((y, sT), leaves, (gy, gs))
+    live.close()
+    return live.peak - base
+
+
+@functools.lru_cache(maxsize=None)
+def wkv_backward_peak(B: int, T: int, H: int, N: int, dtype: torch.dtype) -> int:
+    """Bytes above its inputs and output gradients that the oracle WKV
+    backward holds at its peak: traced on meta up to 9 tokens, and from 8
+    on extended by the step of 8 to 9 (each further token adds the same)."""
+    if T <= 9:
+        return _wkv_backward_traced(B, T, H, N, dtype)
+    p8, p9 = (_wkv_backward_traced(B, t, H, N, dtype) for t in (8, 9))
+    return p8 + (T - 8) * (p9 - p8)
 
 
 def rwkv6_backward(r, k, v, w, u, S0) -> Tuple[torch.Tensor, ...]:
-    """The gradients of the WKV backward's inputs, empty, its work counted."""
+    """The gradients of the WKV backward's inputs, empty, its work counted,
+    after a block of its traced peak's bytes."""
     B, T, H, N = r.shape
     _count("rwkv6_scan backward", *wkv_backward_work(B, T, H, N, r.element_size()))
+    peak = torch.empty(wkv_backward_peak(B, T, H, N, r.dtype), dtype=torch.uint8,
+                       device=r.device)
+    del peak
     return tuple(torch.empty_like(t) for t in (r, k, v, w, u, S0))

@@ -40,8 +40,55 @@ counterpart:
     registers, as the reference's CPU-HLO bytes over-count too;
   * ``collectives``: per-device bytes by kind and by mesh axis, from the
     plan below (there is no partitioned program to read them from);
+  * ``memory``: a device's bytes, the reference's ``memory_analysis()``
+    keys (below, "Memory"): ``argument_size_in_bytes``,
+    ``output_size_in_bytes``, ``alias_size_in_bytes`` and
+    ``temp_size_in_bytes``; beside them ``peak_bytes``, ``fits`` (the peak
+    within one H100's ``roofline.HBM_BYTES``) and ``peak_parts``, the peak's
+    bytes by kind.  ``generated_code_size_in_bytes`` has no counterpart (no
+    program is compiled) and is left out;
   * ``trace_s`` and ``total_s`` (the reference's ``lower_s`` and
     ``total_s``).
+
+Memory.  The same pass traces the step's live bytes
+(:class:`repro_torch.memtrace.LiveBytes`): every storage an aten op makes is
+taken on, and taken off when freed, so the log holds the global program's
+bytes op by op, the kernels' own buffers included (their meta route
+allocates what their CUDA wrappers allocate).
+The arguments (parameters, optimizer state or caches, inputs) are taken on
+first.  Under a dispatch mode, and on meta tensors, autograd takes its
+out-of-place paths for tensor subclasses; the tracker runs those ops in
+place as a card runs them (``memtrace._as_on_the_card``), so the log is the
+card's: ``tests/test_torch_memory.py`` holds it to the allocations of the
+same step on the CPU with no tracker.  The optimizer's update is kept out
+of the trace (:class:`TracedUpdate`; the trace updates each leaf whole) and
+priced in the card's slices from a trace of two slices of each leaf
+(:func:`update_temps`), on what the step holds when it starts.
+
+A device's bytes come from the log by pricing each storage by what it is:
+  * an argument by its spec on the mesh, exactly
+    (:func:`sharded_bytes_per_device`, the batch's shardings for the
+    inputs);
+  * a tensor the step makes in a leaf's shape, a layer's part of it, or
+    its transpose (gradients, an update's temporaries, a cast of a weight)
+    by its leaf's spec; one in a cache leaf's shape (or a layer's) by the
+    cache's;
+  * anything else by the stream's shards: led by the batch (a multiple of
+    B rows, B the microbatch's), over the batch's data-parallel devices;
+    also over "model" under SP for a tensor that carries the sequence (a
+    multiple of B x S rows, or S among its dims), and for the logits (last
+    dim the vocab) where ``logits_sharding`` splits the vocab; routed
+    experts' dispatched tokens (experts, then a multiple of B) also over
+    the expert axis's shards of the expert weights; anything not led by the
+    batch (masks, tables) is replicated;
+  * plus the largest weight group gathered at once beyond a device's own
+    shards (:func:`_gathered_weights`), twice in training.
+On a one-device mesh every divisor is 1 and the peak is the global
+program's.  The step's arguments, what it returns (weights and state
+updated in place and the caches written in place alias their arguments, as
+the reference donates them) and its peak give the reference's keys:
+``temp_size_in_bytes`` is the peak less the arguments and the outputs that
+alias none, as XLA counts temporaries.
 
 The port counts every layer, since nothing is a ``lax.scan`` whose body
 XLA's cost analysis counts once; so the reference's ``probe_configs``,
@@ -194,6 +241,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import functools
 import json
 import math
 import os
@@ -201,10 +249,11 @@ import re
 import sys
 import time
 import traceback
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
-from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils._python_dispatch import TorchDispatchMode, _disable_current_modes
 from torch.utils._pytree import tree_leaves as _pytree_leaves
 from torch.utils.flop_counter import FlopCounterMode
 
@@ -212,15 +261,19 @@ from ..configs import ARCHS, get_config
 from ..configs.shapes import SHAPES, ShapeSpec, cell_applicable
 from ..data.synthetic import batch_specs
 from ..kernels.meta import count_kernel_work
+from ..memtrace import LiveBytes
 from ..models.transformer import LM, build_segments
-from ..optim.optimizers import Adafactor, AdamW
+from ..optim import optimizers
+from ..optim.optimizers import Adafactor, AdamW, Optimizer
 from ..train.step import make_train_step
 from ..tree import tree_flatten, tree_paths
 from .mesh import make_production_mesh, mesh_axis_sizes, mesh_size
+from .roofline import HBM_BYTES
 from .sharding import (
     NamedSharding,
     PartitionSpec,
     _dp_for,
+    batch_shardings,
     cache_shardings,
     param_pspec,
     param_shardings,
@@ -233,8 +286,11 @@ __all__ = ["ADAFACTOR_ARCHS", "pick_optimizer", "input_specs", "make_cell_config
            "plan_collectives", "run_cell", "SkipCell",
            "sharded_bytes_per_device", "cell_key", "main"]
 
-# Big configs use Adafactor (factored second moments) so optimizer state
-# fits 16 GB/chip; everything else uses AdamW.
+# Big configs use Adafactor (factored second moments) to keep the optimizer
+# state small; everything else uses AdamW.  With it their train_4k cells'
+# traced peaks fit one H100 on both production meshes: DeepSeek-V3 53.03 /
+# 33.89 GiB a device (single / multi), Command R+ 39.19 / 25.86, Qwen2-VL
+# 23.89 / 14.56 (chip_smoke.py phase 14 (d), NVIDIA H100 80GB HBM3, 700.00 W).
 ADAFACTOR_ARCHS = {"deepseek-v3-671b", "command-r-plus-104b", "qwen2-vl-72b"}
 
 _COLL_KINDS = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all", "collective-permute")
@@ -328,7 +384,7 @@ class _Cell:
     pmode: str = "train"
 
 
-def build_cell(arch: str, shape_name: str, *,
+def build_cell(arch: str, shape_name: Any, *,
                opt: str = "auto", dispatch: Optional[str] = None,
                remat: str = "block", xent_chunk: int = 0,
                compression: str = "none", microbatches: int = 1,
@@ -336,8 +392,9 @@ def build_cell(arch: str, shape_name: str, *,
                group_size: int = 0, moe_shard: str = "fsdp",
                batch_override: int = 0, cfg=None) -> _Cell:
     """The model, parameters, optimizer state or caches and inputs of a
-    cell, all on meta; raises :class:`SkipCell` for a cell the grid skips."""
-    shape = SHAPES[shape_name]
+    cell, all on meta; raises :class:`SkipCell` for a cell the grid skips.
+    ``shape_name`` names a shape of ``SHAPES`` or is a ``ShapeSpec``."""
+    shape = SHAPES[shape_name] if isinstance(shape_name, str) else shape_name
     if batch_override:
         shape = dataclasses.replace(shape, global_batch=batch_override)
     if cfg is None:
@@ -400,11 +457,104 @@ class _BytesMode(TorchDispatchMode):
         return out
 
 
-def _step_fn(cell: _Cell, microbatches: int):
+class TracedUpdate(Optimizer):
+    """``optimizer`` with its update kept out of ``live``'s trace: the
+    update marks where it runs, gives the gradients it is handed their
+    leaf's category, and pauses the trace, whose whole-leaf update
+    (``update_slice``) would overstate the float32 temporaries of the
+    card's slices; :func:`update_temps` prices those instead."""
+
+    def __init__(self, optimizer: Optimizer, live: "LiveBytes"):
+        self.optimizer, self.live = optimizer, live
+
+    def init(self, params):
+        return self.optimizer.init(params)
+
+    def update(self, grads, state, params, update_slice: Optional[int] = None):
+        live = self.live
+        for i, g in enumerate(tree_flatten(grads)[0]):
+            live.slot(g, ("leaf", i))
+        live.update_at = len(live.ev_slot)
+        live.paused = True
+        try:
+            return self.optimizer.update(grads, state, params, update_slice)
+        finally:
+            live.paused = False
+
+
+def _cut_leaf(optimizer, shape: Tuple[int, ...], n: int) -> Tuple[Tuple[int, ...], int]:
+    """``(shape, M / M_cut)``: the leaf traced for the update of a leaf of
+    ``shape`` in slices of ``n`` elements, and the factor its per-matrix
+    statistics scale by.  Adafactor's factored leaf is cut to two slices'
+    matrices (two matrices when one spans slices); every other leaf (AdamW,
+    a full second moment) to two slices along its first axis."""
+    shape = tuple(shape)
+    probe = torch.empty(shape, device="meta")
+    if isinstance(optimizer, Adafactor) and optimizer._factored(probe):
+        R, C = shape[-2:]
+        M = math.prod(shape[:-2])
+        keep = 2 * (n // (R * C)) if R * C <= n else 2
+        return ((keep, R, C), M // keep) if M > keep else (shape, 1)
+    if not shape:
+        return shape, 1
+    rows = max(1, n // max(1, math.prod(shape[1:])))
+    return ((2 * rows,) + shape[1:], 1) if shape[0] > 2 * rows else (shape, 1)
+
+
+def update_temps(optimizer, leaves) -> Dict[str, Any]:
+    """The temporaries of ``optimizer.update`` over parameters shaped like
+    ``leaves`` (tensors in leaf order), in the card's slices
+    (``optimizers.UPDATE_SLICE``): a log of (leaf or -1, bytes) above the
+    parameters, gradients and state, for :func:`cell_memory` to price.
+
+    Each leaf is traced cut (:func:`_cut_leaf`): a slice's temporaries are
+    freed before the next slice's are made, so two slices reach the peak of
+    any number, but for Adafactor's statistics over every matrix of a
+    stacked leaf (row and column sums, the normalised row statistics),
+    two-dimensional with one row a matrix; their bytes are scaled by the
+    leaf's matrices over the cut's."""
+    return _update_log(optimizer, tuple((tuple(t.shape), t.dtype) for t in leaves),
+                       optimizers.UPDATE_SLICE)
+
+
+@functools.lru_cache(maxsize=None)
+def _update_log(optimizer, shapes, n: int) -> Dict[str, Any]:
+    cuts = [_cut_leaf(optimizer, shape, n) for shape, _ in shapes]
+    with _disable_current_modes():
+        params = [torch.empty(c, dtype=dt, device="meta") for (c, _), (_, dt) in
+                  zip(cuts, shapes)]
+        grads = [torch.empty_like(p) for p in params]
+        state = optimizer.init(params)
+        live = LiveBytes(inherit=True)
+        with live:
+            for i, (p, g) in enumerate(zip(params, grads)):
+                live.slot(p, i)
+                live.slot(g, i)
+            for part in ("m", "v"):                     # each leaf's state
+                for i, sub in enumerate(state.get(part, ())):
+                    for t in tree_flatten(sub)[0]:
+                        live.slot(t, i)
+            for t in tree_flatten(state)[0]:            # the step count
+                live.slot(t)
+            start = len(live.ev_slot)
+            optimizer.update(grads, state, params, None)
+        live.close()
+    log_leaf, log_bytes = [], []
+    for s, b in zip(live.ev_slot[start:], live.ev_bytes[start:]):
+        leaf, shape = live.slot_cat[s], live.slot_shape[s]
+        scale = (cuts[leaf][1] if leaf is not None and len(shape) == 2
+                 and shape[0] == cuts[leaf][0][0] and cuts[leaf][1] > 1 else 1)
+        log_leaf.append(-1 if leaf is None else leaf)
+        log_bytes.append(b * scale)
+    return {"leaf": np.asarray(log_leaf, dtype=np.int64),
+            "bytes": np.asarray(log_bytes, dtype=np.float64)}
+
+
+def _step_fn(cell: _Cell, microbatches: int, live: LiveBytes):
     model, shape = cell.model, cell.shape
     if shape.kind == "train":
-        step = make_train_step(model, cell.optimizer, microbatches=microbatches,
-                               update_slice=sys.maxsize)
+        step = make_train_step(model, TracedUpdate(cell.optimizer, live),
+                               microbatches=microbatches, update_slice=sys.maxsize)
         return lambda: step(cell.params, cell.opt_state, cell.specs)
     if shape.kind == "prefill":
         return lambda: model.prefill(cell.params, cell.specs, cell.caches)
@@ -413,19 +563,39 @@ def _step_fn(cell: _Cell, microbatches: int):
                                      s.get("position_ids"))
 
 
+def _arguments(cell: _Cell):
+    """The step's argument trees, by category: parameters, optimizer state
+    or caches, inputs."""
+    args = [("param", cell.params)]
+    args.append(("opt", cell.opt_state) if cell.opt_state is not None else ("cache", cell.caches))
+    args.append(("input", cell.specs))
+    return args
+
+
 def trace_cell(cell: _Cell, microbatches: int = 1) -> Dict[str, Any]:
     """Run the cell's step once on meta and count its work: ``flops`` and
     ``bytes`` of the whole program (aten ops and kernels), the kernels'
-    FLOPs and calls by kernel."""
-    fn = _step_fn(cell, microbatches)
-    flop_mode, bytes_mode = FlopCounterMode(display=False), _BytesMode()
+    FLOPs and calls by kernel; and ``live``, the :class:`LiveBytes` log of
+    the step, its arguments registered first and the slots of what it
+    returns in ``out_slots``."""
+    flop_mode, bytes_mode, live = FlopCounterMode(display=False), _BytesMode(), LiveBytes()
+    fn = _step_fn(cell, microbatches, live)
     t0 = time.perf_counter()
     grad = torch.enable_grad() if cell.shape.kind == "train" else torch.no_grad()
-    with grad, count_kernel_work() as kernels, flop_mode, bytes_mode:
-        fn()
+    with grad, count_kernel_work() as kernels, flop_mode, bytes_mode, live:
+        for kind, tree in _arguments(cell):
+            for j, t in enumerate(tree_flatten(tree)[0]):
+                live.slot(t, (kind, j))
+        out = fn()
+        out_slots = sorted({live.slot_of(t) for t in tree_flatten(out)[0]
+                            if isinstance(t, torch.Tensor)} - {None})
+        del out
+    live.close()
+    live.out_slots = out_slots
     return {"flops": int(flop_mode.get_total_flops()) + kernels.flops,
             "kernel_flops": kernels.flops, "bytes": bytes_mode.bytes + kernels.bytes,
-            "kernel_calls": dict(kernels.calls), "trace_s": time.perf_counter() - t0}
+            "kernel_calls": dict(kernels.calls), "live": live,
+            "trace_s": time.perf_counter() - t0}
 
 
 # ------------------------------------------------------------- the plan --
@@ -570,6 +740,7 @@ def plan_collectives(cell: _Cell, mesh, compression: str = "none",
         plan.add("all-reduce", shard_axes, 4)
 
     param_sh = param_shardings(cell.params, mesh, mode=cell.pmode)
+    shared_tp = _shared_beside_routed(cfg, cell.params, param_sh)
     leaves = tree_flatten(cell.params)[0]
     groups: Dict[Tuple[str, str], Tuple[float, int, int]] = {}
     attn_mods: Dict[str, Dict[str, float]] = {}
@@ -590,8 +761,7 @@ def plan_collectives(cell: _Cell, mesh, compression: str = "none",
         # RG-LRU with a state runs on the state's width shard, which only
         # its input projections leave from the sequence shard
         name = path.split("/")[-2] if path.endswith("/w") else path.split("/")[-1]
-        on_width = ("/rec/rec/" in path and not train and name not in ("proj_x", "proj_g"))
-        cp_leaf = sp and not (on_width or "experts/" in path or path.startswith("lm_head/"))
+        cp_leaf = _cp_leaf(path, train, sp, shared_tp)
         if train:
             if data_sharded:
                 plan.add("all-gather", ("data",), b * d / n, 2)
@@ -655,6 +825,14 @@ def plan_collectives(cell: _Cell, mesh, compression: str = "none",
                 width = (cfg.mla.qk_rope_head_dim if name == "wdkv"
                          else shp[-1 if role != "o" else -2])
                 widths[role] = widths.get(role, 0) + width_tok * width
+            continue
+        if sp and shared_tp and "/shared/" in path:
+            # the shared experts beside the routed ones read the stream
+            # those gather, and the routed combine's output gradient: the
+            # down projection's partial sums reduce each forward pass, and
+            # each up projection's input gradient apart in the backward
+            plan.add("reduce-scatter", M, tok * cfg.d_model * act / m,
+                     (fwd if name == "wo" else bwd) * math.prod(shp[:-2]))
             continue
         if "experts/" in path:
             e_axes = spec.axes(nd - 3)
@@ -859,6 +1037,184 @@ def plan_collectives(cell: _Cell, mesh, compression: str = "none",
     return plan.record()
 
 
+# ----------------------------------------------------------- the memory --
+def _stacked_dims(path: str) -> int:
+    """Leading layer axes of a parameter or cache leaf: two for a hybrid
+    group's RG-LRU blocks (groups, blocks), one for any other segment's."""
+    if not path.startswith("segments/"):
+        return 0
+    return 2 if re.match(r"segments/\d+/rec/", path) else 1
+
+
+def _shared_beside_routed(cfg, params, param_sh) -> bool:
+    """Whether the shared experts run tensor-parallel beside routed experts
+    sharded over "model" alone under einsum dispatch: on the stream those
+    gather, as XLA's partitioner runs them (the records' HLO reduces the
+    shared down projection's partial sums and the combine's over "model"
+    in one all-reduce of two (T, d) elements, each a dot of its own)."""
+    if cfg.moe is None or (cfg.moe.dispatch or "einsum") != "einsum":
+        return False
+    return any(path.endswith("experts/wi") and sh.spec.axes(leaf.dim() - 3) == ("model",)
+               for path, leaf, sh in zip(tree_paths(params), tree_flatten(params)[0],
+                                         tree_flatten(param_sh)[0]))
+
+
+def _cp_leaf(path: str, train: bool, sp: bool, shared_tp: bool = False) -> bool:
+    """Whether a leaf is on the context-parallel path under SP: it meets
+    the stream on its sequence shard (not the routed experts, the shared
+    experts beside them (``shared_tp``), the untied head, nor an RG-LRU
+    with a state, which runs on the state's width shard past its input
+    projections)."""
+    name = path.split("/")[-2] if path.endswith("/w") else path.split("/")[-1]
+    on_width = "/rec/rec/" in path and not train and name not in ("proj_x", "proj_g")
+    beside = shared_tp and "/shared/" in path
+    return sp and not (on_width or beside or "experts/" in path or path.startswith("lm_head/"))
+
+
+def _gathered_weights(cell: _Cell, mesh, sp: bool) -> float:
+    """A device's bytes of the largest weight group live gathered at once,
+    beyond its own shards: a layer's leaves (a hybrid group's block), the
+    table or the head, each gathered as :func:`plan_collectives` prices it
+    (over "data" when split there, and whole over "model" on the
+    context-parallel path); in training twice that, for the gradient before
+    its reduce-scatter."""
+    sizes = mesh_axis_sizes(mesh)
+    d, m = sizes.get("data", 1), sizes.get("model", 1)
+    train = cell.shape.kind == "train"
+    groups: Dict[str, float] = {}
+    param_sh = param_shardings(cell.params, mesh, mode=cell.pmode)
+    shardings = tree_flatten(param_sh)[0]
+    shared_tp = _shared_beside_routed(cell.cfg, cell.params, param_sh)
+    for path, leaf, sh in zip(tree_paths(cell.params), tree_flatten(cell.params)[0],
+                              shardings):
+        n = shard_count(sh.spec, sizes)
+        axes = {a for i in range(leaf.dim()) for a in sh.spec.axes(i)}
+        b = leaf.numel() * leaf.element_size()
+        full = b * (d if "data" in axes else 1) * (
+            m if "model" in axes and _cp_leaf(path, train, sp, shared_tp) else 1) / n
+        k = _stacked_dims(path)
+        group = "/".join(path.split("/")[:3 if k == 2 else 2]) if k else path.split("/")[0]
+        groups[group] = groups.get(group, 0.0) + (full - b / n) / math.prod(leaf.shape[:k])
+    return max(groups.values(), default=0.0) * (2 if train else 1)
+
+
+def _slot_kinds(cell: _Cell, live: LiveBytes, microbatches: int) -> List[Any]:
+    """The category of each slot of a cell's live-bytes log: its argument
+    or leaf, else by its shape (module docstring, "Memory")."""
+    B, S, V = cell.shape.global_batch // microbatches, cell.shape.seq_len, cell.cfg.vocab
+    E = cell.cfg.moe.n_experts if cell.cfg.moe is not None else 0
+    like: Dict[Tuple[int, ...], Any] = {}
+    trees = [("leaf", cell.params)] + ([("cacheleaf", cell.caches)] if cell.caches else [])
+    for kind, tree in trees:
+        for j, (path, leaf) in enumerate(zip(tree_paths(tree), tree_flatten(tree)[0])):
+            shape = tuple(leaf.shape)
+            for cut in range(_stacked_dims(path) + 1):
+                like.setdefault(shape[cut:], (kind, j))
+                if len(shape) - cut == 2:
+                    like.setdefault(shape[cut:][::-1], (kind, j))
+    kinds = []
+    for shape, cat in zip(live.slot_shape, live.slot_cat):
+        if cat is None:
+            cat = like.get(shape)
+        if cat is None:
+            while shape[:1] == (1,) and len(shape) > 1:     # unsqueezed
+                shape = shape[1:]
+            rows = bool(shape) and shape[0] % B == 0        # batch-led (rows, tokens, heads)
+            if (E and len(shape) >= 2 and shape[0] == E and shape[1] % B == 0):
+                cat = "experts"                              # expert-major dispatched tokens
+            elif rows and len(shape) >= 2 and shape[-1] == V:
+                cat = "logits"
+            elif rows and (shape[0] % (B * S) == 0 or S in shape[1:]):
+                cat = "seq"
+            else:
+                cat = "act" if rows else "rep"
+        kinds.append(cat)
+    return kinds
+
+
+def _divisors(cell: _Cell, mesh, seq_shard: str) -> Dict[Any, int]:
+    """The devices each category of bytes is split over on ``mesh``."""
+    sizes = mesh_axis_sizes(mesh)
+    act_sh, logits_sh = model_shardings(cell.cfg, cell.shape, mesh, seq_shard)
+    dp = math.prod(sizes[a] for a in _dp_for(cell.shape.global_batch, mesh))
+    m = sizes.get("model", 1)
+    param_sh = param_shardings(cell.params, mesh, mode=cell.pmode)
+    dp_axes = _dp_for(cell.shape.global_batch, mesh)
+    # the routed experts' axis is split as their weights' is
+    e_split = next((math.prod(sizes[a] for a in sh.spec.axes(len(leaf.shape) - 3)
+                              if a not in dp_axes)
+                    for path, leaf, sh in zip(tree_paths(cell.params), tree_flatten(cell.params)[0],
+                                              tree_flatten(param_sh)[0])
+                    if path.endswith("experts/wi")), 1)
+    out: Dict[Any, int] = {"rep": 1, "act": dp, "experts": dp * e_split,
+                           "seq": dp * (m if "model" in act_sh.spec.axes(1) else 1),
+                           "logits": dp * (m if "model" in logits_sh.spec.axes(2) else 1)}
+    trees = {"param": param_sh, "input": batch_shardings(cell.specs, mesh)}
+    if cell.opt_state is not None:
+        trees["opt"] = _opt_state_shardings(cell.opt_state, mesh, mode=cell.pmode)
+    else:
+        trees["cache"] = cache_shardings(cell.caches, mesh)
+    for kind, tree in trees.items():
+        for j, sh in enumerate(tree_flatten(tree)[0]):
+            out[(kind, j)] = shard_count(sh.spec, sizes)
+            if kind in ("param", "cache"):
+                out[("leaf" if kind == "param" else "cacheleaf", j)] = out[(kind, j)]
+    return out
+
+
+def cell_memory(cell: _Cell, count: Dict[str, Any], mesh, seq_shard: str = "sp",
+                microbatches: int = 1) -> Dict[str, Any]:
+    """A device's memory on ``mesh`` from the cell's traced live bytes
+    (module docstring, "Memory"): the reference's argument, output, alias
+    and temporary bytes, the peak, whether it fits one card, and the
+    peak's parts."""
+    live = count["live"]
+    div = _divisors(cell, mesh, seq_shard)
+    kinds = _slot_kinds(cell, live, microbatches)
+    slot_div = np.asarray([div[k] for k in kinds], dtype=np.float64)
+    names = ("arguments", "leaves", "stream", "activations")
+    group = {"param": 0, "opt": 0, "cache": 0, "input": 0, "leaf": 1, "seq": 2}
+    slot_group = np.asarray([group.get(k[0] if isinstance(k, tuple) else k, 3) for k in kinds])
+    ev_slot = np.asarray(live.ev_slot, dtype=np.int64)
+    price = np.asarray(live.ev_bytes, dtype=np.float64) / slot_div[ev_slot]
+    by_group = np.stack([np.cumsum(np.where(slot_group[ev_slot] == g, price, 0.0))
+                         for g in range(len(names))])
+    total = by_group.sum(axis=0)
+    at = int(np.argmax(total))
+    parts = dict(zip(names, by_group[:, at].tolist()))
+    parts["update"] = 0.0
+    peak = float(total[at])
+    if live.update_at is not None:
+        # the update's temporaries, in the card's slices, on what the step
+        # holds when it starts
+        upd = update_temps(cell.optimizer, tree_flatten(cell.params)[0])
+        leaf_div = np.asarray([div[("leaf", j)] for j in
+                               range(len(tree_flatten(cell.params)[0]))] + [1], dtype=np.float64)
+        temps = float(np.cumsum(upd["bytes"] / leaf_div[upd["leaf"]]).max(initial=0.0))
+        at_update = by_group[:, live.update_at - 1]
+        if float(at_update.sum()) + temps > peak:
+            peak = float(at_update.sum()) + temps
+            parts = dict(zip(names, at_update.tolist()))
+            parts["update"] = temps
+    parts["gathered"] = _gathered_weights(cell, mesh, "model" in model_shardings(
+        cell.cfg, cell.shape, mesh, seq_shard)[0].spec.axes(1))
+    peak += parts["gathered"]
+    argument = sum(live.slot_bytes[s] / slot_div[s] for s, k in enumerate(kinds)
+                   if isinstance(k, tuple) and k[0] in ("param", "opt", "cache", "input"))
+    output = alias = 0.0
+    for s in live.out_slots:
+        b = live.slot_bytes[s] / slot_div[s]
+        output += b
+        if isinstance(kinds[s], tuple) and kinds[s][0] in ("param", "opt", "cache"):
+            alias += b
+    return {"argument_size_in_bytes": int(round(argument)),
+            "output_size_in_bytes": int(round(output)),
+            "alias_size_in_bytes": int(round(alias)),
+            "temp_size_in_bytes": int(round(peak - argument - (output - alias))),
+            "peak_bytes": int(round(peak)), "fits": bool(peak <= HBM_BYTES),
+            "peak_parts": {k: int(round(v)) for k, v in parts.items()}}
+
+
 # ------------------------------------------------------------- the cells --
 def _variant_tag(variant: Dict[str, Any]) -> Dict[str, Any]:
     return {k: v for k, v in variant.items() if v not in _VARIANT_DEFAULTS}
@@ -886,6 +1242,7 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str, mesh=None,
             cell = build_cell(arch, shape_name, **build)
             traces[key] = (cell, trace_cell(cell, variant.get("microbatches", 1)))
         cell, count = traces[key]
+        seq_shard = variant.get("seq_shard", "sp")
         rec.update({
             "status": "ok",
             "trace_s": count["trace_s"],
@@ -900,6 +1257,7 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str, mesh=None,
             "params": cell.cfg.param_count(),
             "active_params": cell.cfg.active_param_count(),
             "resident": cell_resident(cell, mesh),
+            "memory": cell_memory(cell, count, mesh, seq_shard, variant.get("microbatches", 1)),
         })
     except SkipCell as e:
         rec.update({"status": "skip", "reason": str(e)})
@@ -964,7 +1322,9 @@ def main(argv=None) -> int:
     traces: Dict[Any, Any] = {}
     for arch, shape, mk in cells:
         key = cell_key(arch, shape, mk, variant)
-        if key in results and results[key].get("status") == "ok" and not args.force:
+        cached = results.get(key, {})
+        # an ok record written before records carried ``memory`` is run again
+        if cached.get("status") == "ok" and "memory" in cached and not args.force:
             print(f"[cached] {key}")
             continue
         print(f"[dryrun] {key} ...", flush=True)

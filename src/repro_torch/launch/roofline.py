@@ -27,10 +27,11 @@ bottleneck.  Also reported, as in the reference:
     mfu_bound    = MODEL_FLOPS / (chips * peak * bound)
 
 The memory term is an upper bound: the dry-run's bytes count every aten
-op's operands and results in full.  ``hbm_temp_gib`` is the trace's peak
-of live bytes where the dry-run measures it; it does not, so the field is
-always None, kept so the table has the reference's columns (the tests read
-it).
+op's operands and results in full.  From the dry-run's ``memory`` record
+(a device's bytes from the traced peak of live bytes) each row also gives
+``hbm_temp_gib``, its temporaries (the reference's column, read from
+``temp_size_in_bytes`` as there), ``peak_gib``, the whole peak, and
+``fits``, the peak within ``HBM_BYTES``, one card's memory.
 """
 from __future__ import annotations
 
@@ -42,11 +43,14 @@ import numpy as np
 
 from ..configs.shapes import SHAPES
 
-__all__ = ["PEAK_FLOPS", "HBM_BW", "NVLINK_BW", "IB_BW", "GPUS_PER_NODE", "model_flops",
+__all__ = ["PEAK_FLOPS", "HBM_BW", "HBM_BYTES", "NVLINK_BW", "IB_BW", "GPUS_PER_NODE", "model_flops",
            "axis_bandwidth", "roofline_row", "build_table", "format_table", "main"]
 
 PEAK_FLOPS = 989e12        # dense bf16 a card (H100 SXM data sheet)
 HBM_BW = 3.35e12           # bytes/s a card (H100 SXM data sheet)
+# bytes a card holds: torch.cuda.get_device_properties(0).total_memory on an
+# NVIDIA H100 80GB HBM3 (power limit 700.00 W), read by chip_smoke.py phase 14
+HBM_BYTES = 85_017_493_504
 NVLINK_BW = 450e9          # bytes/s a direction a card, NVLink 4 inside a node
 IB_BW = 50e9               # bytes/s a card, InfiniBand NDR 400 Gb/s between nodes
 GPUS_PER_NODE = 8
@@ -96,14 +100,15 @@ def roofline_row(rec: Dict[str, Any]) -> Optional[Dict[str, Any]]:
     mf = model_flops(rec)
     useful = mf / max(rec["flops_per_device"] * chips, 1e-30)
     mfu_bound = mf / (chips * PEAK_FLOPS * max(bound, 1e-30))
-    peak = rec.get("peak_live_bytes")
+    mem = rec["memory"]
     return {
         "arch": rec["arch"], "shape": rec["shape"], "mesh": rec["mesh"],
         "chips": chips,
         "compute_s": compute, "memory_s": memory, "collective_s": coll,
         "dominant": dominant, "bound_s": bound,
         "model_flops": mf, "useful_ratio": useful, "mfu_bound": mfu_bound,
-        "hbm_temp_gib": peak / 2**30 if peak is not None else None,
+        "hbm_temp_gib": mem["temp_size_in_bytes"] / 2**30,
+        "peak_gib": mem["peak_bytes"] / 2**30, "fits": mem["fits"],
         "variant": rec.get("variant", {}),
     }
 
@@ -125,13 +130,15 @@ def build_table(results: Dict[str, Any], mesh: str = "single",
 
 def format_table(rows: List[Dict[str, Any]]) -> str:
     hdr = (f"{'arch':22s} {'shape':12s} {'compute':>9s} {'memory':>9s} "
-           f"{'collect':>9s} {'dominant':>10s} {'useful':>7s} {'mfu<=':>6s}")
+           f"{'collect':>9s} {'dominant':>10s} {'useful':>7s} {'mfu<=':>6s} "
+           f"{'peak GiB':>9s} {'fits':>4s}")
     out = [hdr, "-" * len(hdr)]
     for r in rows:
         out.append(
             f"{r['arch']:22s} {r['shape']:12s} {r['compute_s']:9.3g} "
             f"{r['memory_s']:9.3g} {r['collective_s']:9.3g} "
-            f"{r['dominant']:>10s} {r['useful_ratio']:7.2f} {r['mfu_bound']:6.2f}"
+            f"{r['dominant']:>10s} {r['useful_ratio']:7.2f} {r['mfu_bound']:6.2f} "
+            f"{r['peak_gib']:9.2f} {'yes' if r['fits'] else 'no':>4s}"
         )
     return "\n".join(out)
 

@@ -218,7 +218,7 @@ for cid, (arch, shape, mk, variant) in cells.items():
         "by_axis": {a: ext([b.get(a, 0) for _, _, b, _ in parts])
                     for a in set().union(*(b for _, _, b, _ in parts))},
         "looped": {k: ext([lp.get(k, 0) for _, _, _, lp in parts]) for k in dr._COLL_KINDS},
-        "temp_bytes": rec["memory"].get("temp_size_in_bytes"),
+        "memory": rec["memory"],
         "seconds": time.perf_counter() - t0,
     }
 json.dump(out, open(sys.argv[4], "w"))
@@ -274,6 +274,25 @@ def port_normalised(rec):
     for axes, nbytes in c["by_kind_axis"].get("reduce-scatter", {}).items():
         kinds["all-reduce"] += nbytes * math.prod(sizes[a] for a in axes.split("+"))
     return kinds
+
+
+MEMORY_KEYS = ("argument_size_in_bytes", "output_size_in_bytes", "alias_size_in_bytes")
+
+
+def assert_memory_within(jax, port, cid):
+    """A device's argument and alias bytes equal to the record's (no leaf or
+    input is padded on these meshes: every sharded dim divides), its output
+    bytes within 1% (the step's float32 metrics or the last position's
+    logits beside the aliased state, a few bytes apart).  The record's
+    temporaries are the CPU compiler's figure, not a card's: printed beside
+    the port's, not held."""
+    for key in MEMORY_KEYS[::2]:
+        assert port[key] == jax[key], (cid, key, port[key], jax[key])
+    key = MEMORY_KEYS[1]
+    assert abs(port[key] / jax[key] - 1) <= 0.01, (cid, key, port[key], jax[key])
+    print(f"{cid}: output {port[key]} against {jax[key]} bytes; temporaries "
+          f"{port['temp_size_in_bytes']} traced against {jax['temp_size_in_bytes']} on the "
+          f"CPU compiler")
 
 
 def assert_within(jax, port, cid):

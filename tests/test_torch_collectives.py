@@ -17,6 +17,7 @@ counted so.
 import pytest
 
 from _jax_collectives import (
+    assert_memory_within,
     assert_within,
     jax_normalised,
     jax_records as run_jax,
@@ -137,3 +138,10 @@ def test_sequence_parallel_sends_more_over_model(jax_records, port_records):
 def test_train_flops_within_3_percent_of_jax(jax_records, port_records, cid):
     jax, port = jax_records[cid]["flops_per_device"], port_records[cid]["flops_per_device"]
     assert abs(port / jax - 1) <= 0.03, (cid, port / jax)
+
+
+@pytest.mark.parametrize("cid", list(CELLS))
+def test_memory_within_the_jax_record(jax_records, port_records, cid):
+    """The memory proof: a device's argument, output and alias bytes from
+    the port's trace against the record's ``memory_analysis()``."""
+    assert_memory_within(jax_records[cid]["memory"], port_records[cid]["memory"], cid)

@@ -12,6 +12,7 @@ within 2 (a kind under 1% of both totals excepted), train FLOPs within 3%.
 import pytest
 
 from _jax_collectives import (
+    assert_memory_within,
     assert_within,
     jax_normalised,
     jax_records as run_jax,
@@ -59,7 +60,7 @@ def jax_records(tmp_path_factory):
 
 @pytest.fixture(scope="module")
 def port_records():
-    return run_port(CELLS)
+    return run_port({**CELLS, **FULL})
 
 
 def test_probes_alone_give_the_run_cell_record(jax_records):
@@ -70,7 +71,7 @@ def test_probes_alone_give_the_run_cell_record(jax_records):
     assert probes["total"] == pytest.approx(whole["total"], rel=1e-9)
     for key in ("kinds", "widened", "looped"):
         assert probes[key] == pytest.approx(whole[key], rel=1e-9), key
-    assert whole["temp_bytes"] and probes["temp_bytes"] is None
+    assert whole["memory"]["temp_size_in_bytes"] and probes["memory"] == {}
 
 
 def test_every_exception_takes_out_bytes(jax_records):
@@ -100,3 +101,11 @@ def test_plan_within_the_jax_record(jax_records, port_records, cid):
 def test_train_flops_within_3_percent_of_jax(jax_records, port_records, cid):
     jax, port = jax_records[cid]["flops_per_device"], port_records[cid]["flops_per_device"]
     assert abs(port / jax - 1) <= 0.03, (cid, port / jax)
+
+
+def test_memory_within_the_jax_record(jax_records, port_records):
+    """The memory proof of the cell run whole: a device's argument, output
+    and alias bytes from the port's trace against the record's
+    ``memory_analysis()``."""
+    assert_memory_within(jax_records["rwkv-prefill-whole"]["memory"],
+                         port_records["rwkv-prefill-whole"]["memory"], "rwkv-prefill-whole")

@@ -596,11 +596,14 @@ def test_model_flops_and_roofline_row():
     for shape in SHAPES:
         rec["shape"] = shape
         assert roofline.model_flops(rec) == jax_model_flops(rec)
+    rec["memory"] = {"temp_size_in_bytes": 3 * 2**30, "peak_bytes": 81 * 2**30, "fits": False}
     row = roofline.roofline_row(dict(rec, shape="train_4k"))
     assert row["compute_s"] == 2e12 / 989e12
     assert row["memory_s"] == 6.7e10 / 3.35e12
     assert row["collective_s"] == 1e9 / 50e9 + 5e8 / 50e9
-    assert row["dominant"] == "collective" and row["hbm_temp_gib"] is None
+    assert row["dominant"] == "collective" and row["hbm_temp_gib"] == 3.0
+    assert row["peak_gib"] == 81.0 and row["fits"] is False
+    assert "  81.00   no" in roofline.format_table([row])
     assert roofline.axis_bandwidth({"data": 2, "model": 4}, ["model"]) == 450e9
     assert roofline.axis_bandwidth({"data": 2, "model": 4}, ["data"]) == 450e9
     assert roofline.axis_bandwidth({"data": 16, "model": 16}, ["model"]) == 50e9
@@ -624,8 +627,21 @@ def test_cli_writes_and_rereads_its_results(tmp_path, capsys):
     rec = results["whisper-tiny|decode_32k|single|remat=block"]
     assert rec["status"] == "ok" and rec["chips"] == 256
     assert rec["kernel_calls"] == {"flash_decode": 4}
+    assert set(rec["memory"]) == {"argument_size_in_bytes", "output_size_in_bytes",
+                                  "alias_size_in_bytes", "temp_size_in_bytes", "peak_bytes",
+                                  "fits", "peak_parts"}
+    assert rec["memory"]["alias_size_in_bytes"] == rec["resident"]["cache_bytes_per_device"]
     assert dryrun.main(args) == 0
     assert capsys.readouterr().out.count("[cached]") == 2
+    # a record written before records carried ``memory`` is run again
+    single = "whisper-tiny|decode_32k|single|remat=block"
+    results = json.loads(out.read_text())
+    del results[single]["memory"]
+    out.write_text(json.dumps(results))
+    assert dryrun.main(args) == 0
+    printed = capsys.readouterr().out
+    assert printed.count("[cached]") == 1 and f"[dryrun] {single}" in printed
+    assert json.loads(out.read_text())[single]["memory"] == rec["memory"]
     rows = roofline.build_table(json.loads(out.read_text()), "single")
     assert [r["arch"] for r in rows] == ["whisper-tiny"]
     roofline.main(["--results", str(out)])
