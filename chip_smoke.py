@@ -7,7 +7,9 @@ Phases, each failing the run with a non-zero exit if anything is wrong:
 1. device    requires CUDA; prints the card's name and power limit.
 2. build     builds every CUDA kernel from ``src/repro_torch/csrc`` for
              sm_90a in one parallel build and prints nvcc's register and
-             shared-memory reports.
+             shared-memory reports; every bf16-q variant of the decode
+             kernel's registers, spills and blocks an SM, failing on a
+             spill or on fewer blocks an SM than its split plan counts on.
 3. kernels   holds each kernel against its plain PyTorch version on the
              card at the main paths' shapes (the WKV kernel also under a
              strong decay; the bf16 attention, decode and WKV kernels also
@@ -17,7 +19,8 @@ Phases, each failing the run with a non-zero exit if anything is wrong:
              attention kernel at the training shape and at the dense
              prefill shape, the WKV kernel at 128, 200 and 512 tokens (a
              CUDA graph of calls, so the gaps between its three passes
-             count), and the host's time a call of each; checks by the
+             count; the decode times from profiles that saw every kernel
+             of their calls), and the host's time a call of each; checks by the
              profiler that a call of attention or decode runs one kernel on
              the card and a WKV call three.  The decode kernel also on
              float8_e4m3fn K/V (a float8 cache) at the dense and the hybrid
@@ -305,7 +308,9 @@ from repro_torch.kernels.build import build  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
 from repro_torch.kernels.flash_attention import smem_bytes as attn_smem_bytes  # noqa: E402
 from repro_torch.kernels.flash_attention import tile_plan  # noqa: E402
-from repro_torch.kernels.flash_decode import HEADS_PER_BLOCK, flash_decode, split_plan  # noqa: E402
+from repro_torch.kernels.flash_decode import HEADS_PER_BLOCK, MAX_CLUSTER, flash_decode  # noqa: E402
+from repro_torch.kernels.flash_decode import call_plan, clustered, kv_kind  # noqa: E402
+from repro_torch.kernels.flash_decode import planned_blocks_per_sm  # noqa: E402
 from repro_torch.kernels.flash_decode import blocks_per_sm as decode_blocks_per_sm  # noqa: E402
 from repro_torch.kernels.flash_decode import smem_bytes as decode_smem_bytes  # noqa: E402
 from repro_torch.kernels import meta as kernel_meta  # noqa: E402
@@ -1122,22 +1127,31 @@ def decode_cost(B, Hq, Hk, D, lengths, elem_bytes, kv_bytes=None):
 # torch.profiler now and then misses device events of a profile on an H100
 # (in whole runs of this script: every event of one 0.26 ms attention call,
 # one of a WKV call's three kernels, each seen by other profiles of the same
-# call); a profile that saw none is taken again, and a call's kernels are
-# the most that this many profiles of it saw
+# call; in PR 27's run one SDPA timing read 0.0057 ms against 0.0161 on the
+# same shape); a profile that saw too few events is taken again, up to this
+# many times, and a call's kernels are the most that this many profiles of
+# it saw
 PROFILE_TRIES = 3
 
 
-def device_events(fn, calls: int) -> list:
-    """The card's events of ``calls`` calls of ``fn`` under torch.profiler."""
+def profile_events(fn, calls: int) -> list:
+    """The card's events of one profile of ``calls`` calls of ``fn`` under
+    torch.profiler."""
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+
+
+def device_events(fn, calls: int, want: int = 1) -> list:
+    """The card's events of ``calls`` calls of ``fn``: the first of
+    PROFILE_TRIES profiles that saw at least ``want``, else the last."""
     for _ in range(PROFILE_TRIES):
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(calls):
-                fn()
-            torch.cuda.synchronize()
-        events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-        if events:
-            return events
-    return []
+        events = profile_events(fn, calls)
+        if len(events) >= want:
+            break
+    return events
 
 
 def device_times(fn, iters: int, warmup: int = 3) -> dict:
@@ -1155,12 +1169,36 @@ def device_times(fn, iters: int, warmup: int = 3) -> dict:
     return by_name
 
 
+def counted_ms(fn, iters: int, warmup: int = 3) -> tuple:
+    """``(ms, events seen, events expected)``: ``device_ms`` from a profile
+    that saw every kernel of its calls, ``iters`` x ``kernels_per_call(fn)``
+    events (the decode phases' yardstick, for calls whose kernels a call do
+    not vary); fails if PROFILE_TRIES profiles fell short."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    want = iters * kernels_per_call(fn)
+    events = device_events(fn, iters, want)
+    check(want > 0 and len(events) >= want,
+          f"{PROFILE_TRIES} profiles of {iters} calls saw fewer device events than the {want} "
+          f"their kernels make ({len(events)} the last)")
+    return sum(e.time_range.elapsed_us() for e in events) / iters / 1e3, len(events), want
+
+
 def kernels_per_call(fn) -> int:
     """The kernels one call of ``fn`` runs on the card, by torch.profiler:
-    the most that PROFILE_TRIES profiles of one call saw."""
+    the most that PROFILE_TRIES profiles of one call that saw any event saw,
+    of at most PROFILE_TRIES ** 2 profiles (0 if none saw any)."""
     fn()
     torch.cuda.synchronize()
-    return max(len(device_events(fn, 1)) for _ in range(PROFILE_TRIES))
+    seen = []
+    for _ in range(PROFILE_TRIES ** 2):
+        n = len(profile_events(fn, 1))
+        if n:
+            seen.append(n)
+        if len(seen) == PROFILE_TRIES:
+            break
+    return max(seen, default=0)
 
 
 def graph_ms(fn, calls: int, replays: int = 10) -> float:
@@ -1180,6 +1218,20 @@ def graph_ms(fn, calls: int, replays: int = 10) -> float:
     ms = time_ms(graph.replay, replays) / calls
     del graph
     return ms
+
+
+def decode_plan(q, k) -> tuple:
+    """``(split_keys, nsplit)`` of a decode call on these tensors, as the
+    wrapper plans it on this card."""
+    B, Hq, D = q.shape
+    return call_plan(B, Hq, k.shape[2], k.shape[1], D, q.dtype, k.dtype,
+                     torch.cuda.get_device_properties(0).multi_processor_count)[:2]
+
+
+def events_seen(row) -> str:
+    """The profile counts behind a decode row's three times, for its line."""
+    return "device events seen / expected: " + ", ".join(
+        f"{who} {seen}/{want}" for who, (seen, want) in row["events"].items())
 
 
 def device_ms(fn, iters: int, warmup: int = 3) -> float:
@@ -1249,17 +1301,18 @@ def decode_phase(dev):
             lib_err = float((lib.float() - decode_attention_ref(q[0], k[0], v[0], lens).float())
                             .abs().max())
 
-            ms = device_ms(layers(lambda i: flash_decode(q[i], k[i], v[i], lens), L), 4 * L)
-            plain_ms = device_ms(layers(lambda i: decode_attention_ref(q[i], k[i], v[i], lens),
-                                        L), L)
-            library_ms = device_ms(layers(lambda i: sdpa(q[i][:, :, None], kt[i], vt[i],
-                                                          attn_mask=mask, enable_gqa=True), L),
-                                   4 * L)
+            ms, *ev = counted_ms(layers(lambda i: flash_decode(q[i], k[i], v[i], lens), L), 4 * L)
+            plain_ms, *plain_ev = counted_ms(
+                layers(lambda i: decode_attention_ref(q[i], k[i], v[i], lens), L), L)
+            library_ms, *lib_ev = counted_ms(
+                layers(lambda i: sdpa(q[i][:, :, None], kt[i], vt[i], attn_mask=mask,
+                                      enable_gqa=True), L), 4 * L)
             nbytes, ops = decode_cost(B, Hq, Hk, D, lengths, 2)
             t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / BF16_OPS_PER_S * 1e3
             bound = max(t_bytes, t_ops)
             timing[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound,
-                                bound_by="bytes" if t_bytes >= t_ops else "operations")
+                                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                                events=dict(kernel=ev, plain=plain_ev, library=lib_ev))
             if name == "served":
                 # one kernel on the card a call, and the host's time a call
                 per_call = kernels_per_call(lambda: flash_decode(q[0], k[0], v[0], lens))
@@ -1272,12 +1325,11 @@ def decode_phase(dev):
                       f"{timing['host_us']:.2f} us", flush=True)
             print(f"[kernels] flash_decode B={B} C={C} Hq={Hq} Hk={Hk} D={D} bf16, lengths "
                   f"{lengths_name} (sum {sum(lengths)}), (split_keys, nsplit) "
-                  f"{split_plan(B, Hk, C, torch.cuda.get_device_properties(0).multi_processor_count, D)}"
-                  f": device {ms:.4f} ms a launch; plain version {plain_ms:.4f} ms; "
+                  f"{decode_plan(q[0], k[0])}: device {ms:.4f} ms a launch; plain version {plain_ms:.4f} ms; "
                   f"scaled_dot_product_attention {library_ms:.4f} ms (max abs diff from the plain "
                   f"version {lib_err:.3e}); bound {bound:.4f} ms ({nbytes} bytes -> "
                   f"{t_bytes:.4f} ms, {ops} bf16 ops -> {t_ops:.4f} ms), {100 * bound / ms:.1f}% "
-                  f"of bound", flush=True)
+                  f"of bound; {events_seen(timing[name])}", flush=True)
         del q, k, v, kt, vt
         torch.cuda.empty_cache()
     return worst, timing
@@ -1330,17 +1382,18 @@ def float8_decode_phase(dev):
             name = path + lengths_name
             lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
             mask = (torch.arange(C, device=dev)[None, :] < lens[:, None])[:, None, None, :]
-            ms = device_ms(layers(lambda i: flash_decode(q[i], k[i], v[i], lens), L), 4 * L)
-            plain_ms = device_ms(layers(lambda i: decode_attention_ref(q[i], k[i], v[i], lens),
-                                        L), L)
-            library_ms = device_ms(layers(lambda i: sdpa(q[i][:, :, None], kt[i], vt[i],
-                                                          attn_mask=mask, enable_gqa=True), L),
-                                   4 * L)
+            ms, *ev = counted_ms(layers(lambda i: flash_decode(q[i], k[i], v[i], lens), L), 4 * L)
+            plain_ms, *plain_ev = counted_ms(
+                layers(lambda i: decode_attention_ref(q[i], k[i], v[i], lens), L), L)
+            library_ms, *lib_ev = counted_ms(
+                layers(lambda i: sdpa(q[i][:, :, None], kt[i], vt[i], attn_mask=mask,
+                                      enable_gqa=True), L), 4 * L)
             nbytes, ops = decode_cost(B, Hq, Hk, D, lengths, 2, kv_bytes=1)
             t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / BF16_OPS_PER_S * 1e3
             bound = max(t_bytes, t_ops)
             timing[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound,
-                                bound_by="bytes" if t_bytes >= t_ops else "operations")
+                                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                                events=dict(kernel=ev, plain=plain_ev, library=lib_ev))
             if name == "float8 served":
                 per_call = kernels_per_call(lambda: flash_decode(q[0], k[0], v[0], lens))
                 check(per_call == 1, f"one float8 flash_decode call ran {per_call} kernels")
@@ -1350,7 +1403,7 @@ def float8_decode_phase(dev):
                   f"launch; plain version {plain_ms:.4f} ms; scaled_dot_product_attention on "
                   f"the widened K/V {library_ms:.4f} ms; bound {bound:.5f} ms ({nbytes} bytes "
                   f"-> {t_bytes:.5f} ms, {ops} bf16 ops -> {t_ops:.5f} ms), "
-                  f"{100 * bound / ms:.1f}% of bound", flush=True)
+                  f"{100 * bound / ms:.1f}% of bound; {events_seen(timing[name])}", flush=True)
         del q, k, v, kt, vt
         torch.cuda.empty_cache()
     return worst, timing
@@ -4100,7 +4153,6 @@ def kv_kinds_part(dev):
     gen = torch.Generator(device=dev).manual_seed(7)
     B, C, L = SERVE_B, SERVE_C, DECODE_TIMING_LAYERS
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
     out = {}
     for qd, kvd in KV_KINDS:
         worst, timing = 0.0, {}
@@ -4126,12 +4178,13 @@ def kv_kinds_part(dev):
                       f"{tol} abs+rel")
                 worst = max(worst, err)
                 mask = (torch.arange(C, device=dev)[None, :] < lens[:, None])[:, None, None, :]
-                ms = device_ms(layers(lambda i: flash_decode(q[i], k[i], v[i], lens), L), 2 * L)
-                plain_ms = device_ms(
+                ms, *ev = counted_ms(
+                    layers(lambda i: flash_decode(q[i], k[i], v[i], lens), L), 2 * L)
+                plain_ms, *plain_ev = counted_ms(
                     layers(lambda i: decode_attention_ref(q[i], k[i], v[i], lens), L), L)
-                library_ms = device_ms(layers(lambda i: sdpa(q[i][:, :, None], kt[i], vt[i],
-                                                              attn_mask=mask, enable_gqa=True),
-                                              L), 2 * L)
+                library_ms, *lib_ev = counted_ms(
+                    layers(lambda i: sdpa(q[i][:, :, None], kt[i], vt[i], attn_mask=mask,
+                                          enable_gqa=True), L), 2 * L)
                 nbytes, ops = decode_cost(B, Hq, Hk, D, lengths, q.element_size(),
                                           kv_bytes=k.element_size())
                 t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / peak * 1e3
@@ -4139,13 +4192,14 @@ def kv_kinds_part(dev):
                 timing[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
                                     bound_ms=bound,
                                     bound_by="bytes" if t_bytes >= t_ops else "operations",
-                                    max_abs_err=err)
+                                    max_abs_err=err,
+                                    events=dict(kernel=ev, plain=plain_ev, library=lib_ev))
                 if name == "served":
                     per_call = kernels_per_call(lambda: flash_decode(q[0], k[0], v[0], lens))
                     check(per_call == 1, f"one flash_decode call on {kind_name(qd, kvd)} ran "
                           f"{per_call} kernels on the card")
                     timing["kernels_per_call"] = per_call
-                plan = split_plan(B, Hk, C, n_sm, D, decode_blocks_per_sm(D, qd, kvd))
+                plan = decode_plan(q[0], k[0])
                 print(f"[kvdtype] flash_decode {kind_name(qd, kvd)} B={B} C={C} Hq={Hq} "
                       f"Hk={Hk} D={D}, lengths {lengths_name} (sum {sum(lengths)}), "
                       f"(split_keys, nsplit) {plan}: max abs err {err:.3e} (tol {tol} "
@@ -4153,20 +4207,58 @@ def kv_kinds_part(dev):
                       f"launch; plain version {plain_ms:.4f} ms; scaled_dot_product_attention "
                       f"on K/V cast to q's dtype {library_ms:.4f} ms; bound {bound:.5f} ms "
                       f"({nbytes} bytes -> {t_bytes:.5f} ms, {ops} ops -> {t_ops:.5f} ms), "
-                      f"{100 * bound / ms:.1f}% of bound", flush=True)
+                      f"{100 * bound / ms:.1f}% of bound; {events_seen(timing[name])}",
+                      flush=True)
             del q, k, v, kt, vt
             torch.cuda.empty_cache()
         out[(qd, kvd)] = (worst, timing)
     return out
 
 
-def kv_variants(report):
-    """``(kernel, registers, spill stores, spill loads)`` of the decode
-    kernel's variants for KV_KINDS in an ``nvcc -Xptxas -v`` report: kinds 3
-    (bf16 K/V), 4 (f16) and 5 (f32)."""
-    return [row for row in ptxas_report(report)
-            if re.search(r"flash_decode_kernel\s*<[^,]+,\s*[345]\s*,", row[0])
-            or re.search(r"flash_decode_kernelI\w+?Li[345]ELi", row[0])]
+# the decode kernel's K/V kinds under a bf16 q, by the kernel's kv_kind
+BF16_Q_KV = {0: torch.bfloat16, 1: torch.float8_e4m3fn, 2: torch.float8_e5m2, 4: torch.float16,
+             5: torch.float32}
+
+
+def bf16_q_variants(report):
+    """``[(kv_kind, D, kernel, registers, spill stores, spill loads, blocks an
+    SM)]`` for every variant of the decode kernel under a bf16 q at D = 64,
+    128 and 256 in an ``nvcc -Xptxas -v`` report, with the blocks one SM of
+    this card holds at once (CUDA's occupancy calculator)."""
+    rows = []
+    for kern, regs, st, ld in ptxas_report(report):
+        m = (re.search(r"flash_decode_split_kernel\s*<\s*(\d+)\s*,\s*(\d+)\s*>", kern)
+             or re.search(r"flash_decode_split_kernelILi(\d+)ELi(\d+)E", kern)
+             or re.search(r"flash_decode_kernel\s*<\s*__nv_bfloat16\s*,\s*(\d+)\s*,\s*(\d+)\s*>",
+                          kern)
+             or re.search(r"flash_decode_kernelI13__nv_bfloat16Li(\d+)ELi(\d+)E", kern))
+        if m and int(m.group(2)) in (64, 128, 256):
+            kind, D = int(m.group(1)), int(m.group(2))
+            rows.append((kind, D, kern, regs, st, ld,
+                         decode_blocks_per_sm(D, torch.bfloat16, BF16_Q_KV[kind])))
+    return sorted(rows)
+
+
+def report_bf16_q_variants(report):
+    """Print and check every bf16-q variant's registers, spills and blocks an
+    SM: no spill, and at least the blocks an SM the split plan counts on."""
+    rows = bf16_q_variants(report)
+    for kind, D, kern, regs, st, ld, blocks in rows:
+        print(f"[build] flash_decode bf16 q, {str(BF16_Q_KV[kind])[6:]} K/V, D={D} ({kern}): "
+              f"{regs} registers, spill stores {st} bytes, spill loads {ld} bytes, {blocks} "
+              f"blocks an SM", flush=True)
+    if not report:
+        print("[build] flash_decode was already built: no register report", flush=True)
+        return rows
+    check(sorted((kind, D) for kind, D, *_ in rows) ==
+          sorted((kind, D) for kind in BF16_Q_KV for D in (64, 128, 256)),
+          "the register report lacks a bf16-q variant of flash_decode")
+    for kind, D, kern, regs, st, ld, blocks in rows:
+        check(st == 0 and ld == 0, f"flash_decode {kern} spills")
+        want = planned_blocks_per_sm(D, torch.bfloat16, BF16_Q_KV[kind])
+        check(blocks >= want, f"flash_decode {kern}: {blocks} blocks an SM, below the split "
+              f"plan's {want}")
+    return rows
 
 
 def serve_kv(tag, base, params, requests, kv_dtype):
@@ -4364,22 +4456,18 @@ def audit_kvdtype_phase(dev, report="", kinds=None):
     """Phase 15: (a) the kernel audit on the card, (b) the decode kernel's
     kinds for K/V in another float dtype against the plain version with
     their times (``kv_kinds_part``, unless ``kinds`` holds its result) and
-    the registers and spills of their variants (from ``report``, the
-    build's ``-Xptxas -v`` output, where this run built the kernel), (c) a
+    the registers, spills and blocks an SM of every bf16-q variant (from
+    ``report``, the build's ``-Xptxas -v`` output, where this run built the
+    kernel), (c) a
     float32 Minitron-8B served from a bfloat16 cache and the other kinds'
     caches.  Returns the ``audit_kvdtype`` line, the kinds' held results,
     the main-path decode launches by kind and path, the kind-0 decode
     launches and the attention launches by path."""
     t_phase = time.perf_counter()
     line = {"audit": audit_part(dev)}
-    variants = kv_variants(report)
-    for kern, regs, st, ld in variants:
-        print(f"[kvdtype] flash_decode {kern}: {regs} registers, spill stores {st} bytes, "
-              f"spill loads {ld} bytes", flush=True)
-    if not variants:
-        print("[kvdtype] flash_decode was already built: no register report", flush=True)
-    line["registers"] = [dict(kernel=k, registers=r, spill_stores=s, spill_loads=ld)
-                         for k, r, s, ld in variants]
+    line["registers"] = [dict(kv_dtype=str(BF16_Q_KV[kind])[6:], D=D, kernel=k, registers=r,
+                              spill_stores=st, spill_loads=ld, blocks_per_sm=blocks)
+                         for kind, D, k, r, st, ld, blocks in bf16_q_variants(report)]
     kinds = kinds or kv_kinds_part(dev)
     line["kinds"] = {kind_name(*key): timing for key, (_, timing) in kinds.items()}
     served, launches, same_kind, attn = kvdtype_serve_part(dev)
@@ -4395,14 +4483,28 @@ SHAPE_KEYS = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")
 
 def meta_plan_check():
     """The decode wrapper and the dry-run's meta route plan the split scratch
-    from ``flash_decode.HEADS_PER_BLOCK`` and the meta route for an H100's
-    SMs: both must be the built kernel's and the card's."""
-    for qd in (torch.bfloat16, torch.float32):
-        check(HEADS_PER_BLOCK[qd] == decode_lib().flash_decode_heads_per_block(
-            int(qd == torch.bfloat16)), f"HEADS_PER_BLOCK[{qd}] differs from the kernel's")
+    from ``flash_decode.HEADS_PER_BLOCK`` and ``clustered`` (whose variants'
+    splits, at most MAX_CLUSTER, are one cluster and take no scratch), the
+    meta route for an H100's SMs: all must be the built kernel's and the
+    card's, at every head size and K/V kind."""
+    kinds = {torch.bfloat16: tuple(BF16_Q_KV.values()),
+             torch.float32: (torch.float32, FLOAT8_KV, torch.float8_e5m2, torch.bfloat16,
+                             torch.float16)}
+    for qd, kv_dtypes in kinds.items():
+        for D in (32, 64, 128, 256):
+            check(HEADS_PER_BLOCK[qd] == decode_lib().flash_decode_heads_per_block(
+                D, int(qd == torch.bfloat16)),
+                f"HEADS_PER_BLOCK[{qd}] differs from the kernel's at D={D}")
+            for kvd in kv_dtypes:
+                got = decode_lib().flash_decode_max_splits(D, int(qd == torch.bfloat16),
+                                                           kv_kind(qd, kvd))
+                want = MAX_CLUSTER if clustered(D, qd) else 0
+                check(got == want, f"the kernel's most splits at D={D}, {qd} q, {kvd} K/V are "
+                      f"{got}, the wrapper plans for {want}")
     check(kernel_meta.H100_SMS == torch.cuda.get_device_properties(0).multi_processor_count,
           "meta's decode split plan assumes another SM count")
-    print(f"[build] flash_decode.HEADS_PER_BLOCK equals the built kernel's heads a block; "
+    print(f"[build] flash_decode.HEADS_PER_BLOCK and clustered equal the built kernel's "
+          f"heads a block and clustered variants at every head size and K/V kind; "
           f"the meta route's {kernel_meta.H100_SMS} SMs are the card's", flush=True)
 
 
@@ -4462,6 +4564,7 @@ def main() -> int:
         for kern, regs, st, ld in ptxas_report(reports.get(name, "")):
             print(f"[build] {name} {kern}: {regs} registers, spill stores {st} bytes, "
                   f"spill loads {ld} bytes", flush=True)
+    report_bf16_q_variants(reports.get("flash_decode", ""))
 
     worst, timing = kernel_phase(dev)
     attn_worst, attn_t = attention_phase(dev)

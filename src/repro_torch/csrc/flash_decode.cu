@@ -23,69 +23,96 @@
 // instructions as it can on each byte that lands.
 //
 // What the design does about it.
-//  * Splits of several tiles.  The cache axis of each (b, kv head) is cut
-//    into splits of `split_keys` slots, several 64-slot tiles each; the
-//    wrapper sizes them from the SM count so that a full cache gives about
-//    two blocks an SM, all resident at once.  A split that starts at or past
-//    lengths[b] returns at once, so a short row costs only its used splits
-//    and no slot past the length is ever read.  The grid is one dimension,
-//    (b, kv head, head chunk, split), so any B and Hk run.
-//  * A ring of cp.async stages.  K and V tiles land in shared memory in
-//    their own dtype through 16-byte cp.async copies, three stages deep in
-//    bf16 (two in f32, and in bf16 at D = 256, where a 64-slot K tile is
-//    32 KB; f32 tiles hold 32 slots at D = 256), so the next tiles load
-//    while this one is in use.  At D = 256 one block fills an SM's shared
-//    memory (128 KB of ring).  A ragged last tile is zero-filled past its
-//    end and masked.  bf16 rows are stored with their 16-byte chunks
-//    XOR-swizzled by row, so the ldmatrix reads below hit eight distinct
-//    bank groups.
-//  * bfloat16: both products on the tensor cores (mma.sync m16n8k16).  The
-//    g grouped queries are the 16 rows of the A operand (padded with zeros;
-//    head chunks of 16 when g > 16), held in registers for the whole split.
-//    Each warp owns 16 slots of every tile: S = Q K^T with K through
-//    ldmatrix, the online softmax in registers (a row's 16 slots sit in one
-//    quad of lanes), P rounded to bf16 (as the plain version rounds its
-//    weights) and fed back from the S accumulators as the A operand of
-//    O += P V, V through ldmatrix.trans.  Each K and V element is read from
-//    shared memory once for all g heads.  mma.sync over the padded group
-//    was chosen over SIMT dot products in a slice of D because the SIMT
-//    form spends a shuffle reduction on every score and an f32 conversion
-//    on every element, more instructions than the bytes leave time for;
-//    the padding costs tensor-core time, of which this kernel uses little.
-//  * float32: the same splits, ring and merges with SIMT FMAs in full f32
-//    (no TF32): a lane owns D/32 elements of each head's query and
+//  * Splits.  The cache axis of each (b, kv head) is cut into splits of
+//    `split_keys` slots, a multiple of 64; the wrapper sizes them from the
+//    SM count so that a full cache gives about two blocks an SM (one where
+//    a block takes more than half an SM's shared memory), all resident at
+//    once.  A split past lengths[b] reads no slot, so a short row costs only
+//    its used splits and no slot past the length is ever read.  The grid is
+//    one dimension, (b, kv head, head chunk, split), so any B and Hk run.
+//  * A ring of cp.async stages.  K and V tiles land in shared memory as
+//    they are stored through 16-byte cp.async copies, so the next tiles
+//    load while this one is in use.  A ragged last tile is zero-filled past
+//    its end and masked.
+//  * One launch, no host sync and no allocation, so a CUDA graph can
+//    capture it.  A row with one used split writes o at once; otherwise its
+//    splits' partials (acc, m, l) are merged by their maxima in the same
+//    launch (how, below).
+//
+// Two kernels share that frame.
+//
+// The split-D kernel (flash_decode_split_kernel): a bfloat16 q at D = 256
+// (RecurrentGemma: g = 16 query heads over one K/V head), over K/V in any
+// kind.  A block takes one split; a full cache at B = 8 is 16 splits of 64
+// slots a row, 128 blocks, each streaming 64 KB of K/V in bf16.  So a
+// block's time is a chain (the length, its tiles landing at the rate one
+// SM fetches, their products, the merge), and the design shortens it:
+//  * Both products on the tensor cores (mma.sync m16n8k16, bf16 operands,
+//    f32 accumulators; the 16 rows of the A operand are the g grouped
+//    queries, padded with zeros; head chunks of 16 when g > 16).  The four
+//    warps split the head dimension: warp w owns 64 of the 256 columns of
+//    q, K, V and o, so a warp holds q's A operand (16 registers) and o (32)
+//    for its columns only, not the 64 and 128 a warp owning all of D needs,
+//    which spilled at 255 registers.  Each 32-slot tile: each warp
+//    multiplies its columns of every slot and writes its partial S (the mma
+//    accumulators, a float4 a lane); after a barrier warp w sums the four
+//    partials of 8-slot block w in one order, masks and scales them and
+//    writes its rows' maxima; after a barrier every warp reads the tile's
+//    maxima (so m is the same in every warp), and warp w exponentiates its
+//    block and writes P, rounded to bf16 (as the plain version rounds its
+//    weights), as words of the A operand of O += P V; after a barrier each
+//    warp multiplies P by its columns of V.  Each warp's l covers its own
+//    blocks and is summed over the warps at the end.
+//  * Tiles of 32 slots in two stages (one for f32 K/V, whose 32-slot tile
+//    is 32 KB), so a 64-slot split's second tile lands while its first is
+//    used, and a block takes at most 92 KB: two blocks an SM.
+//  * One cluster a row.  The nsplit (at most 16) blocks of a (b, kv head,
+//    head chunk) are launched as one thread block cluster.  When its loop
+//    ends, a block pushes its partial acc, a float4 for each (warp, n-block,
+//    lane), with remote stores into the shared memory of the block that
+//    merges that float4, and its (m, l) by head into every block's; the
+//    cluster meets once (its barrier releases the pushes); then each block
+//    merges its slice of the float4s from its own shared memory, with each
+//    head's weights 2^(m_s - M) computed once, and writes them to o.  A
+//    last block reading every split's partial from global memory (the
+//    slot-split kernel's merge) reads 16 partials of 16 KB through one SM
+//    at the end of the call; the cluster's merge reads none from global
+//    memory, spreads over the cluster's SMs and takes no scratch.
+//    A 16-block cluster needs its blocks on one GPC at once, which two
+//    blocks an SM allows.
+//
+// The slot-split kernel (flash_decode_kernel): a bfloat16 q at D <= 128,
+// and a float32 q.  Each split's last block to finish, counted by an int in
+// scratch that it resets to 0 itself, merges the partials from global
+// memory (each head's weight a split once, into shared memory).
+//  * bfloat16: 64-slot tiles, three stages (two for f32 K/V at D = 128,
+//    whose 64-slot tile is 32 KB).  Each warp owns 16 slots of every tile
+//    and all of D: S = Q K^T with Q in registers for the whole split, the
+//    online softmax in registers, P fed back from the S accumulators as the
+//    A operand of O += P V; the warps' (m, l, acc) merge in shared memory at
+//    the end.  K/V in q's dtype are read through ldmatrix (.trans for V),
+//    rows swizzled for it.
+//  * float32: two stages (of 32-slot tiles at D = 256) and SIMT FMAs in
+//    full f32 (no TF32): a lane owns D/32 elements of each head's query and
 //    accumulator (heads in chunks of 8), and each score is reduced across
-//    the warp's lanes.
-//  * One launch.  The warps of a block merge their (m, l, acc) in shared
-//    memory.  A row with one used split writes o at once; otherwise each
-//    block writes an f32 partial, and the last block of its (b, kv head,
-//    head chunk) to finish, counted by an int in scratch that it resets to
-//    0 itself, merges the partials by their maxima (each head's weight a
-//    split computed once, into shared memory) and writes o.  No host
-//    sync and no allocation, so a CUDA graph can capture the launch.
+//    the warp's lanes.  K/V in float8, bf16 or f16 land at their own width
+//    and, once landed, are widened into one tile of f32 in shared memory
+//    (exact), which the products then read.
 //
-// Float8 K/V.  A cache kept in float8_e4m3fn or float8_e5m2 under a bf16
-// or f32 query (the served model's kv_dtype) is read as it is stored: the
-// ring lands its tiles at one byte an element (half the bytes of bf16, a
-// quarter of f32), and once a tile has landed the block widens it into one
-// tile of q's dtype in shared memory, laid out as above, which the products
-// then read.  Widening float8 to bf16 or f32 is exact, so the kernel
-// computes what the plain version computes on the cache widened to q's
-// dtype; q and P are not quantised.  The ring and the widened tile together
-// take no more shared memory than the same ring in q's dtype, so the split
-// plan stands as it is.
-//
-// Other float K/V.  bfloat16 or float16 K/V under an f32 query, and float32
-// or float16 K/V under a bf16 query (a cache in another kv_dtype than the
-// model's), take the same path: the tile lands at K/V's own width and is
-// converted into one tile of q's dtype in shared memory.  Widening bf16 or
-// f16 to f32 is exact; narrowing f32 or f16 to bf16 rounds to nearest even,
-// as the plain version's cast (and jnp.astype) does.  A 2-byte tile under an
-// f32 query is half an f32 one, so the ring keeps its two stages; under a
-// bf16 query the converted tile is extra, so f16 K/V take two stages, and
-// f32 K/V, whose landed tile is twice a bf16 one, two below D = 256 and one
-// at D = 256 (160 KB and 192 KB a block with the converted tile): one block
-// an SM, for which the wrapper plans its splits.
+// K/V in another dtype under a bf16 q (float8, f16, f32; and the split-D
+// kernel's bf16), in both kernels: a lane reads the K and V elements its
+// mma fragments need with ld.shared from the tile as it landed and
+// converts them in registers into bf16 pairs (float8, bf16 and f16 widen
+// exactly, f32 and f16 narrow to bf16 rounding to nearest even, as the
+// plain version's cast and jnp.astype do), so no second tile in q's dtype is
+// built and no barrier waits for one.  The mma's k index may follow any
+// order of the columns as long as q's fragments follow it: a lane owns
+// whole 16-byte chunks of a K row (chunks t, t+4, .. of the columns its
+// warp multiplies) and of a V row (chunks g, g+8, ..), and o's columns
+// follow V's.  Such a tile's 16-byte chunks are XOR-swizzled by row (bit 0
+// of the row into bit 2 of the chunk, bits 1-2 in place) so that the reads
+// of a quarter warp, two adjacent rows of K and four rows two apart of V,
+// fall in distinct bank groups.
 
 // Lengths are taken in [1, C]: a length above C counts as C, and a length
 // below 1 gives a zero output (the reference has no meaning for it).  The
@@ -95,6 +122,7 @@
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_fp8.h>
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -108,7 +136,7 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kBK = 64;                 // cache slots a split is a multiple of
 constexpr float kNegInf = -1e30f;
 // K/V storage: q's dtype, or float8, bf16, f16 or f32 converted into q's
-// dtype in shared memory
+// dtype (in registers under a bf16 q, in shared memory under an f32 q)
 constexpr int kKvSame = 0, kKvE4M3 = 1, kKvE5M2 = 2, kKvBF16 = 3, kKvF16 = 4, kKvF32 = 5;
 
 template <typename T> struct Cfg;
@@ -119,15 +147,13 @@ template <> struct Cfg<float> {
   static constexpr int kHeads = 8;
 };
 
-// The ring at head size D: kRows cache slots a tile (warp w owns rows
-// kRows/4 * w ..), kStages tiles of K and of V.  bf16 keeps 64-slot tiles
-// (16 slots a warp, the mma's n); three stages below D=256, two at D=256,
-// where a 64-slot tile of K is 32 KB.  f32 takes two stages, of 32-slot
-// tiles at D=256, where a 64-slot tile of K would be 64 KB.
+// The slot-split kernel's ring at head size D: kRows cache slots a tile
+// (warp w owns rows kRows/4 * w ..) of K and of V.  bf16 (D <= 128) keeps
+// 64-slot tiles (16 slots a warp, the mma's n); f32 32-slot tiles at D=256,
+// where a 64-slot tile of K would be 64 KB.
 template <typename T, int D> struct Geo {
   static constexpr bool kF32 = std::is_same<T, float>::value;
   static constexpr int kRows = kF32 && D == 256 ? 32 : kBK;
-  static constexpr int kStages = kF32 || D == 256 ? 2 : 3;
 };
 
 // bytes of a K/V element in device memory and in the ring
@@ -138,20 +164,21 @@ __host__ __device__ constexpr int kv_bytes() {
          : KV == kKvBF16 || KV == kKvF16 ? 2
                                           : 1;
 }
-// stages of the ring: float8 K/V keep q's dtype's; a converted tile of
-// wider K/V costs a tile of q's dtype besides the ring, so two stages, and
-// one for f32 K/V under bf16 q at D=256 (two would need 256 KB)
+// stages of the slot-split ring: an f32 q two; a bf16 q three where they
+// take at most 96 KB (two blocks an SM), else two (f32 K/V at D = 128)
 template <typename T, int KV, int D>
-__host__ __device__ constexpr int stages() {
-  return KV == kKvSame || kv_bytes<T, KV>() == 1 ? Geo<T, D>::kStages
-         : kv_bytes<T, KV>() > (int)sizeof(T) && D == 256 ? 1
-                                                           : 2;
+__host__ __device__ constexpr int slot_stages() {
+  return std::is_same<T, float>::value ? 2
+         : 3 * 2 * Geo<T, D>::kRows * D * kv_bytes<T, KV>() <= 98304 ? 3
+                                                                     : 2;
 }
-// the ring; for converted K/V also the converted tile of K and of V in T
+// the ring; for K/V widened under an f32 q also the widened tile of K and
+// of V, which takes no more than the f32 ring would
 template <typename T, int KV, int D>
 __host__ __device__ constexpr int ring_bytes() {
-  return stages<T, KV, D>() * 2 * Geo<T, D>::kRows * D * kv_bytes<T, KV>()
-         + (KV == kKvSame ? 0 : 2 * Geo<T, D>::kRows * D * (int)sizeof(T));
+  constexpr bool widened = std::is_same<T, float>::value && KV != kKvSame;
+  return slot_stages<T, KV, D>() * 2 * Geo<T, D>::kRows * D * kv_bytes<T, KV>()
+         + (widened ? 2 * Geo<T, D>::kRows * D * (int)sizeof(T) : 0);
 }
 template <typename T, int D>
 __host__ __device__ constexpr int merge_bytes() {
@@ -165,17 +192,62 @@ __host__ __device__ constexpr int smem_bytes_for() {
          + 16;
 }
 
-// Raise `kernel`'s dynamic shared-memory limit to `smem` bytes on the current
-// device, once: `done` holds a bit for each device it was set on.  Setting it
-// once keeps the launch free of calls a CUDA graph capture would refuse.
+// The split-D kernel (D = 256): warp w of four owns columns [w*DS, (w+1)*DS).
+template <int D> struct Split {
+  static constexpr int NW = 4;                          // warps a block
+  static constexpr int DS = D / NW;                     // columns a warp owns
+  static constexpr int NT = 32 * NW;                    // threads a block
+};
+// The most splits a row of the split-D kernel takes: its blocks are one
+// thread block cluster, 16 at most on an H100 (a non-portable size).
+constexpr int kMaxCluster = 16;
+// Its shared memory for K/V of kind KV under a bf16 q: a ring of 32-slot
+// tiles of K and of V as stored (16 KB of K at 2 bytes an element, 8 KB in
+// float8, 32 KB in f32), so a 64-slot split of the plan is two tiles, the
+// second landing while the first is used: two stages where a block still
+// fits twice on an SM, else one (f32); each warp's partial S of a tile (a
+// float4 a lane for each 8-slot block), P as the A operand of O += P V (a
+// uint4 a lane for each 16-slot k step), each warp's row maxima and sums; and
+// what the blocks of the cluster push for this block's slice of the merge,
+// their partials' float4s and their (m, l) by head, outside the ring so
+// that a block may push while another works.  At most 92 KB, two blocks an
+// SM, so that a 16-block cluster finds its SMs in one GPC.
+template <int KV, int D> struct Ring {
+  static constexpr int NW = Split<D>::NW, KH = Cfg<__nv_bfloat16>::kHeads;
+  static constexpr int EB = kv_bytes<__nv_bfloat16, KV>();
+  static constexpr int BK = 32;
+  static constexpr int kTile = BK * D * EB;                        // bytes a K or V tile
+  static constexpr int kSBuf = NW * (BK / 8) * 32 * 16             // the warps' partial S
+                               + (BK / 16) * 32 * 16 + 2 * NW * KH * 4;  // P, row maxima, l
+  static constexpr int kParts = KH * D / 4;                        // float4s of a partial
+  static constexpr int kRecv = (kParts + kMaxCluster) * 16          // the slices pushed here
+                               + kMaxCluster * KH * 8;              // and (m, l)
+  static constexpr int kStages = 2 * 2 * kTile + kSBuf + kRecv <= 113 * 1024 ? 2 : 1;
+  static constexpr int kRing = kStages * 2 * kTile;
+  static constexpr int kSmem = kRing + kSBuf + kRecv;
+  static_assert(kBK % BK == 0, "a split is whole tiles");
+  static_assert(kSmem <= 113 * 1024, "two blocks an SM");
+};
+
+// Set `kernel`'s dynamic shared-memory limit to `smem` bytes on the current
+// device (and, for the clustered split-D kernel, its carveout to the most
+// shared memory and cluster sizes up to 16), once: `done` holds a bit for
+// each device it was set on.  Setting it once keeps the launch free of
+// calls a CUDA graph capture would refuse.
 template <typename Kernel>
-cudaError_t set_smem_once(Kernel kernel, int smem, std::atomic<uint64_t>& done) {
+cudaError_t set_smem_once(Kernel kernel, int smem, std::atomic<uint64_t>& done,
+                          bool clustered = false) {
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return e;
   const uint64_t bit = dev < 64 ? 1ull << dev : 0;
   if (bit && (done.load() & bit)) return cudaSuccess;
   e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e == cudaSuccess && clustered)
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                             (int)cudaSharedmemCarveoutMaxShared);
+  if (e == cudaSuccess && clustered)
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
   if (e == cudaSuccess) done.fetch_or(bit);
   return e;
 }
@@ -244,9 +316,11 @@ __device__ __forceinline__ float2 fp8x2_to_float2(uint32_t two) {
   return __half22float2(__half2(h));
 }
 
-// The 16 / kv_bytes K/V values of one landed 16-byte chunk as f32, exactly.
+// The 16 / kv_bytes K/V values of one landed 16-byte chunk (float8, bf16
+// or f16) as f32, exactly.
 template <int KV>
 __device__ __forceinline__ void chunk_to_float(const uint4 raw, float* f) {
+  static_assert(KV != kKvSame && KV != kKvF32, "widened kinds only");
   const uint32_t w[4] = {raw.x, raw.y, raw.z, raw.w};
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
@@ -260,55 +334,133 @@ __device__ __forceinline__ void chunk_to_float(const uint4 raw, float* f) {
     } else if constexpr (KV == kKvBF16) {
       f[2 * i] = __uint_as_float(w[i] << 16);
       f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
-    } else if constexpr (KV == kKvF16) {
+    } else {
       __half2_raw h;
       h.x = static_cast<unsigned short>(w[i] & 0xffffu);
       h.y = static_cast<unsigned short>(w[i] >> 16);
       const float2 x = __half22float2(__half2(h));
       f[2 * i] = x.x;
       f[2 * i + 1] = x.y;
-    } else {
-      f[i] = __uint_as_float(w[i]);
     }
   }
 }
 
-// Convert a landed K/V tile (BK rows of D elements in KV's dtype, row-major,
-// unswizzled) into BK rows of T laid out as WarpState::tile reads them
-// (swizzled as a T tile lands).  Each thread takes one landed 16-byte chunk
-// at a time, 16 / kv_bytes values: widened to f32 exactly, then stored as
-// f32 or rounded to bf16 (to nearest even), one or more 16-byte chunks of T
-// out, or half of one (f32 K/V under bf16 q).
-template <typename T, int KV, int D, int BK>
+// Widen a landed K/V tile (BK rows of D elements in KV's dtype, row-major)
+// into BK rows of f32 as WarpState<float>::tile reads them (f32 rows are not
+// swizzled).  Each thread takes one landed 16-byte chunk at a time,
+// 16 / kv_bytes values, widened exactly.
+template <int KV, int D, int BK>
 __device__ __forceinline__ void widen_tile(const unsigned char* src, unsigned char* dst,
                                            int tid) {
-  constexpr int KB = kv_bytes<T, KV>();
+  constexpr int KB = kv_bytes<float, KV>();
   constexpr int E = 16 / KB;                    // values a landed chunk
   constexpr int CPRL = D * KB / 16;             // landed chunks a row
-  constexpr int OB = E * (int)sizeof(T);        // bytes of T a landed chunk gives
-  constexpr int RB = D * (int)sizeof(T);        // bytes a converted row
   for (int idx = tid; idx < BK * CPRL; idx += kThreads) {
     const int r = idx / CPRL, c = idx % CPRL;
     float f[E];
     chunk_to_float<KV>(*reinterpret_cast<const uint4*>(src + r * D * KB + c * 16), f);
-    unsigned char* row = dst + r * RB;
-    if constexpr (std::is_same<T, float>::value) {
+    float* row = reinterpret_cast<float*>(dst) + r * D + c * E;
 #pragma unroll
-      for (int j = 0; j < OB / 16; ++j)
-        *reinterpret_cast<float4*>(row + swz<T, D>(r, c * (OB / 16) + j) * 16) =
-            make_float4(f[4 * j], f[4 * j + 1], f[4 * j + 2], f[4 * j + 3]);
-    } else if constexpr (OB >= 16) {
+    for (int j = 0; j < E / 4; ++j)
+      *reinterpret_cast<float4*>(row + 4 * j) =
+          make_float4(f[4 * j], f[4 * j + 1], f[4 * j + 2], f[4 * j + 3]);
+  }
+}
+
+// Physical 16-byte chunk of chunk c in row r of a tile of K/V read by
+// converting loads (every tile of the split-D kernel; K/V in another dtype
+// than a bf16 q in the slot-split one), CPR chunks a row: bit 0 of the row into bit 2 of the chunk, bits 1-2 in place, so
+// that a quarter warp's reads (two adjacent rows of K, or four rows two
+// apart of V) fall in distinct 16-byte bank groups.
+template <int CPR>
+__device__ __forceinline__ int swz_split(int r, int c) {
+  constexpr int M = CPR >= 8 ? 7 : CPR - 1;
+  return c ^ ((((r & 1) << 2) ^ (r & 6)) & M);
+}
+
+// The column, within the DS columns a warp multiplies (D/4 of them in the
+// split-D kernel, all D in the slot-split one), of the i-th element that
+// lane t of a quad owns for S = q K^T, in the order of the mma's k index (k step kk
+// takes elements 4kk .. 4kk+3: k = 2t, 2t+1, 2t+8, 2t+9): whole 16-byte
+// chunks t, t+4, .. of the slice where its DS/4 elements fill chunks, else
+// one run of them.
+template <int DS, int EB>
+__device__ __forceinline__ int k_col(int t, int i) {
+  constexpr int CE = 16 / EB, RUN = DS / 4;
+  if constexpr (RUN >= CE) return (t + 4 * (i / CE)) * CE + i % CE;
+  else return t * RUN + i;
+}
+// The column, within the DS columns a warp multiplies, of the j-th element that lane group g
+// (lane / 4) owns for O += P V: column g of the mma's n-block j; chunks g,
+// g+8, .. or one run of DS/8.
+template <int DS, int EB>
+__device__ __forceinline__ int v_col(int g, int j) {
+  constexpr int CE = 16 / EB, RUN = DS / 8;
+  if constexpr (RUN >= CE) return (g + 8 * (j / CE)) * CE + j % CE;
+  else return g * RUN + j;
+}
+
+// NO bf16 pairs from raw words of K/V of kind KV (elements in order, the
+// first in the low half): bf16 as it is, float8 widened exactly, f16 and
+// f32 rounded to bf16 to nearest even.
+template <int KV, int NO>
+__device__ __forceinline__ void to_bf16(const uint32_t* raw, uint32_t* out) {
 #pragma unroll
-      for (int j = 0; j < OB / 16; ++j)
-        *reinterpret_cast<uint4*>(row + swz<T, D>(r, c * (OB / 16) + j) * 16) =
-            make_uint4(pack_bf16(f[8 * j], f[8 * j + 1]), pack_bf16(f[8 * j + 2], f[8 * j + 3]),
-                       pack_bf16(f[8 * j + 4], f[8 * j + 5]),
-                       pack_bf16(f[8 * j + 6], f[8 * j + 7]));
+  for (int i = 0; i < NO; ++i) {
+    if constexpr (KV == kKvSame) {
+      out[i] = raw[i];
+    } else if constexpr (KV == kKvF32) {
+      out[i] = pack_bf16(__uint_as_float(raw[2 * i]), __uint_as_float(raw[2 * i + 1]));
+    } else if constexpr (KV == kKvF16) {
+      __half2_raw h;
+      h.x = static_cast<unsigned short>(raw[i] & 0xffffu);
+      h.y = static_cast<unsigned short>(raw[i] >> 16);
+      const float2 x = __half22float2(__half2(h));
+      out[i] = pack_bf16(x.x, x.y);
     } else {
-      // 8 bytes: half of logical chunk c / 2
-      *reinterpret_cast<uint2*>(row + swz<T, D>(r, c >> 1) * 16 + (c & 1) * 8) =
-          make_uint2(pack_bf16(f[0], f[1]), pack_bf16(f[2], f[3]));
+      const float2 x = fp8x2_to_float2<KV>(raw[i / 2] >> (16 * (i & 1)));
+      out[i] = pack_bf16(x.x, x.y);
     }
+  }
+}
+
+// The RUN elements that `idx` (t for K, g for V) owns in row r of a landed
+// tile (the row's bytes at `rowp`), within the warp's slice from chunk c0
+// on, as RUN/2 bf16 pairs: whole chunks idx, idx + STRIDE, .. or one run of
+// RUN elements inside a chunk.
+template <int KV, int CPR, int RUN, int STRIDE>
+__device__ __forceinline__ void lane_run(const unsigned char* rowp, int r, int c0, int idx,
+                                         uint32_t* out) {
+  constexpr int EB = kv_bytes<__nv_bfloat16, KV>();
+  constexpr int CE = 16 / EB;
+  if constexpr (RUN >= CE) {
+    constexpr int NC = RUN / CE;
+    uint32_t raw[4 * NC];
+#pragma unroll
+    for (int i = 0; i < NC; ++i) {
+      const uint4 x = *reinterpret_cast<const uint4*>(
+          rowp + swz_split<CPR>(r, c0 + idx + STRIDE * i) * 16);
+      raw[4 * i] = x.x;
+      raw[4 * i + 1] = x.y;
+      raw[4 * i + 2] = x.z;
+      raw[4 * i + 3] = x.w;
+    }
+    to_bf16<KV, RUN / 2>(raw, out);
+  } else {
+    constexpr int NB = RUN * EB;                  // 2, 4 or 8 bytes
+    const int byte = idx * NB;
+    const unsigned char* p = rowp + swz_split<CPR>(r, c0 + byte / 16) * 16 + byte % 16;
+    uint32_t raw[2] = {0u, 0u};
+    if constexpr (NB == 8) {
+      const uint2 x = *reinterpret_cast<const uint2*>(p);
+      raw[0] = x.x;
+      raw[1] = x.y;
+    } else if constexpr (NB == 4) {
+      raw[0] = *reinterpret_cast<const uint32_t*>(p);
+    } else {
+      raw[0] = *reinterpret_cast<const unsigned short*>(p);
+    }
+    to_bf16<KV, RUN / 2>(raw, out);
   }
 }
 
@@ -325,19 +477,30 @@ struct Args {
   float scale_log2;  // 1/sqrt(D) * log2(e)
 };
 
-// One warp's running state over its slots of every tile of the split.
-template <typename T, int D> struct WarpState;
+// One warp's running state over its slots of every tile of the split, for
+// K/V of kind KV.
+template <typename T, int D, int KV> struct WarpState;
 
 // bfloat16: rows g and g + 8 of the mma tiles (g = lane / 4) are heads
-// h0 + g and h0 + g + 8; a lane holds columns 2t, 2t + 1 of each 8-wide
-// block (t = lane % 4).
-template <int D>
-struct WarpState<__nv_bfloat16, D> {
+// h0 + g and h0 + g + 8.  K/V in q's dtype are read through ldmatrix, and a
+// lane holds columns 2t, 2t + 1 of each 8-wide block (t = lane % 4); K/V in
+// another dtype through converting loads (lane_run), the columns in k_col's
+// order for S and v_col's for O.
+template <int D, int KV>
+struct WarpState<__nv_bfloat16, D, KV> {
   static_assert(Geo<__nv_bfloat16, D>::kRows == 4 * 16, "a warp owns 16 slots of a tile");
-  static constexpr int RB = D * 2;    // bytes a tile row
+  static constexpr int EB = kv_bytes<__nv_bfloat16, KV>();
+  static constexpr int RB = D * EB;   // bytes a tile row
+  static constexpr int CPR = RB / 16; // 16-byte chunks a tile row
   uint32_t qa[D / 16][4];             // Q as the A operand, one per 16-wide k step
   float o[D / 8][4];                  // O accumulators, one per 8-wide block of D
   float m[2], l[2];                   // rows g and g + 8; l is this lane's share
+
+  // the column of D that element e of n-block nd of O holds
+  __device__ static int o_col(int nd, int e, int t) {
+    if constexpr (KV == kKvSame) return nd * 8 + 2 * t + (e & 1);
+    else return v_col<D, EB>(2 * t + (e & 1), nd);
+  }
 
   __device__ void init(const __nv_bfloat16* qh, int hb, int lane) {
     const int g = lane >> 2, t = lane & 3;
@@ -345,7 +508,9 @@ struct WarpState<__nv_bfloat16, D> {
     for (int kk = 0; kk < D / 16; ++kk)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const int row = g + 8 * (e & 1), col = kk * 16 + 2 * t + 8 * (e >> 1);
+        const int row = g + 8 * (e & 1);
+        const int col = KV == kKvSame ? kk * 16 + 2 * t + 8 * (e >> 1)
+                                      : k_col<D, EB>(t, 4 * kk + 2 * (e >> 1));
         qa[kk][e] = row < hb ? *reinterpret_cast<const uint32_t*>(qh + row * D + col) : 0u;
       }
 #pragma unroll
@@ -366,15 +531,29 @@ struct WarpState<__nv_bfloat16, D> {
     for (int nb = 0; nb < 2; ++nb)
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[nb][e] = 0.f;
+    if constexpr (KV == kKvSame) {
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      // matrices: (slots 0-7, d lo), (0-7, d hi), (8-15, d lo), (8-15, d hi)
-      const int row = 16 * warp + 8 * (mi >> 1) + (lane & 7);
-      const int ch = 2 * kk + (mi & 1);
-      uint32_t b0, b1, b2, b3;
-      ldmatrix_x4(b0, b1, b2, b3, smem_u32(ks + row * RB + swz<__nv_bfloat16, D>(row, ch) * 16));
-      mma_bf16(s[0], qa[kk], b0, b1);
-      mma_bf16(s[1], qa[kk], b2, b3);
+      for (int kk = 0; kk < D / 16; ++kk) {
+        // matrices: (slots 0-7, d lo), (0-7, d hi), (8-15, d lo), (8-15, d hi)
+        const int row = 16 * warp + 8 * (mi >> 1) + (lane & 7);
+        const int ch = 2 * kk + (mi & 1);
+        uint32_t b0, b1, b2, b3;
+        ldmatrix_x4(b0, b1, b2, b3,
+                    smem_u32(ks + row * RB + swz<__nv_bfloat16, D>(row, ch) * 16));
+        mma_bf16(s[0], qa[kk], b0, b1);
+        mma_bf16(s[1], qa[kk], b2, b3);
+      }
+    } else {
+      // slot 16 warp + 8 nb + g of n-block nb: its elements in k_col's order
+#pragma unroll
+      for (int nb = 0; nb < 2; ++nb) {
+        const int row = 16 * warp + 8 * nb + (lane >> 2);
+        uint32_t kb[D / 8];
+        lane_run<KV, CPR, D / 4, 4>(reinterpret_cast<const unsigned char*>(ks) + row * RB, row,
+                                    0, t, kb);
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk) mma_bf16(s[nb], qa[kk], kb[2 * kk], kb[2 * kk + 1]);
+      }
     }
     float mx[2] = {kNegInf, kNegInf};
 #pragma unroll
@@ -415,16 +594,34 @@ struct WarpState<__nv_bfloat16, D> {
       o[nd][2] *= alpha[1];
       o[nd][3] *= alpha[1];
     }
+    if constexpr (KV == kKvSame) {
 #pragma unroll
-    for (int nd = 0; nd < D / 8; nd += 2) {
-      // matrices: (slots 0-7, block nd), (8-15, nd), (0-7, nd+1), (8-15, nd+1)
-      const int row = 16 * warp + 8 * (mi & 1) + (lane & 7);
-      const int ch = nd + (mi >> 1);
-      uint32_t b0, b1, b2, b3;
-      ldmatrix_x4_trans(b0, b1, b2, b3,
-                        smem_u32(vs + row * RB + swz<__nv_bfloat16, D>(row, ch) * 16));
-      mma_bf16(o[nd], pa, b0, b1);
-      mma_bf16(o[nd + 1], pa, b2, b3);
+      for (int nd = 0; nd < D / 8; nd += 2) {
+        // matrices: (slots 0-7, block nd), (8-15, nd), (0-7, nd+1), (8-15, nd+1)
+        const int row = 16 * warp + 8 * (mi & 1) + (lane & 7);
+        const int ch = nd + (mi >> 1);
+        uint32_t b0, b1, b2, b3;
+        ldmatrix_x4_trans(b0, b1, b2, b3,
+                          smem_u32(vs + row * RB + swz<__nv_bfloat16, D>(row, ch) * 16));
+        mma_bf16(o[nd], pa, b0, b1);
+        mma_bf16(o[nd + 1], pa, b2, b3);
+      }
+    } else {
+      // B's pairs are rows (2t, 2t + 1) and (2t + 8, 2t + 9) of this warp's
+      // slots at one column, v_col's
+      uint32_t vw[4][D / 16];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int row = 16 * warp + 2 * t + (q & 1) + 8 * (q >> 1);
+        lane_run<KV, CPR, D / 8, 8>(reinterpret_cast<const unsigned char*>(vs) + row * RB, row,
+                                    0, lane >> 2, vw[q]);
+      }
+#pragma unroll
+      for (int nd = 0; nd < D / 8; ++nd) {
+        const uint32_t sel = (nd & 1) ? 0x7632u : 0x5410u;   // the high or the low halves
+        mma_bf16(o[nd], pa, __byte_perm(vw[0][nd >> 1], vw[1][nd >> 1], sel),
+                 __byte_perm(vw[2][nd >> 1], vw[3][nd >> 1], sel));
+      }
     }
   }
 
@@ -441,8 +638,8 @@ struct WarpState<__nv_bfloat16, D> {
       float* dst = mo + (warp * KH + row) * D;
 #pragma unroll
       for (int nd = 0; nd < D / 8; ++nd) {
-        dst[nd * 8 + 2 * t] = o[nd][2 * rh];
-        dst[nd * 8 + 2 * t + 1] = o[nd][2 * rh + 1];
+        dst[o_col(nd, 0, t)] = o[nd][2 * rh];
+        dst[o_col(nd, 1, t)] = o[nd][2 * rh + 1];
       }
       if (t == 0) {
         mm[warp * KH + row] = m[rh];
@@ -452,9 +649,10 @@ struct WarpState<__nv_bfloat16, D> {
   }
 };
 
-// float32: lane owns elements lane*VEC .. lane*VEC+VEC-1 of every head.
-template <int D>
-struct WarpState<float, D> {
+// float32: lane owns elements lane*VEC .. lane*VEC+VEC-1 of every head (K/V
+// of another dtype are widened into an f32 tile first).
+template <int D, int KV>
+struct WarpState<float, D, KV> {
   static constexpr int KH = Cfg<float>::kHeads;
   static constexpr int RW = Geo<float, D>::kRows / kWarps;   // slots a warp owns a tile
   static constexpr int VEC = D / 32;
@@ -527,7 +725,10 @@ __global__ void __launch_bounds__(kThreads)
 flash_decode_kernel(const Args a) {
   static_assert(D % 32 == 0, "head size");
   constexpr int KH = Cfg<T>::kHeads;
-  constexpr int S = stages<T, KV, D>();
+  static_assert(std::is_same<T, float>::value || D <= 128,
+                "a bf16 q at D = 256 takes the split-D kernel");
+  constexpr bool kWiden = std::is_same<T, float>::value && KV != kKvSame;
+  constexpr int S = slot_stages<T, KV, D>();
   constexpr int BK = Geo<T, D>::kRows;          // cache slots a tile
   constexpr int KB = kv_bytes<T, KV>();         // bytes a K/V element as stored
   constexpr int RBK = D * KB;                   // bytes a landed tile row
@@ -564,8 +765,9 @@ flash_decode_kernel(const Args a) {
   const unsigned char* kg = static_cast<const unsigned char*>(a.k) + kv_off * KB;
   const unsigned char* vg = static_cast<const unsigned char*>(a.v) + kv_off * KB;
 
-  // a tile lands in its stored dtype: a T tile swizzled as tile() reads it,
-  // a tile to convert row-major (widen_tile swizzles)
+  // a tile lands in its stored dtype, swizzled as tile() reads it (ldmatrix's
+  // order for bf16, converting loads' for other K/V under a bf16 q), or
+  // row-major to be widened
   auto load_tile = [&](int stage, int k0) {
     unsigned char* ks = smem + stage * 2 * TILEK;
     unsigned char* vs = ks + TILEK;
@@ -573,49 +775,40 @@ flash_decode_kernel(const Args a) {
       const int r = idx / CPR, c = idx % CPR;
       const bool valid = k0 + r < k_end;
       const long long off = valid ? (long long)(k0 + r) * row * KB + c * 16 : 0;
-      const int dst = r * RBK + (KV == kKvSame ? swz<T, D>(r, c) : c) * 16;
+      const int dst = r * RBK + (KV == kKvSame ? swz<T, D>(r, c)
+                                 : kWiden        ? c
+                                                 : swz_split<CPR>(r, c)) * 16;
       cp_async16(ks + dst, kg + off, valid);
       cp_async16(vs + dst, vg + off, valid);
     }
   };
 
-  WarpState<T, D> st;
+  WarpState<T, D, KV> st;
   st.init(static_cast<const T*>(a.q) + ((long long)b * a.Hq + h0) * D, hb, lane);
 
   const int ntiles = (k_end - k_begin + BK - 1) / BK;
-  if constexpr (S > 1) {
 #pragma unroll
-    for (int s = 0; s < S - 1; ++s) {
-      if (s < ntiles) load_tile(s, k_begin + s * BK);
-      cp_async_commit();
-    }
+  for (int s = 0; s < S - 1; ++s) {
+    if (s < ntiles) load_tile(s, k_begin + s * BK);
+    cp_async_commit();
   }
   for (int it = 0; it < ntiles; ++it) {
-    if constexpr (S > 1) {
-      cp_async_wait<S - 2>();   // tile `it` has landed, for this thread's copies
-      __syncthreads();          // for every thread's; and stage (it - 1) % S is free
-      const int nt = it + S - 1;
-      if (nt < ntiles) load_tile(nt % S, k_begin + nt * BK);
-      cp_async_commit();
-    } else {
-      // one stage: every thread is past the last conversion (the barrier
-      // after it), so the stage is free; load, wait, and the barrier below
-      // also frees the converted tile the last products read
-      load_tile(0, k_begin + it * BK);
-      cp_async_commit();
-      cp_async_wait<0>();
-      __syncthreads();
-    }
+    cp_async_wait<S - 2>();   // tile `it` has landed, for this thread's copies
+    __syncthreads();          // for every thread's; and stage (it - 1) % S is free
+    const int nt = it + S - 1;
+    if (nt < ntiles) load_tile(nt % S, k_begin + nt * BK);
+    cp_async_commit();
     const unsigned char* ks = smem + (it % S) * 2 * TILEK;
-    if constexpr (KV != kKvSame) {
-      // every warp is past the barrier above, done with the last converted tile
+    if constexpr (kWiden) {
+      // every warp is past the barrier above, done with the last widened tile
       unsigned char* wide = smem + S * 2 * TILEK;
-      widen_tile<T, KV, D, BK>(ks, wide, tid);
-      widen_tile<T, KV, D, BK>(ks + TILEK, wide + TILE, tid);
+      widen_tile<KV, D, BK>(ks, wide, tid);
+      widen_tile<KV, D, BK>(ks + TILEK, wide + TILE, tid);
       __syncthreads();
       ks = wide;
     }
-    st.tile(reinterpret_cast<const char*>(ks), reinterpret_cast<const char*>(ks + TILE),
+    st.tile(reinterpret_cast<const char*>(ks),
+            reinterpret_cast<const char*>(ks + (kWiden ? TILE : TILEK)),
             k_begin + it * BK, k_end, warp, lane, a.scale_log2);
   }
   cp_async_wait<0>();
@@ -709,6 +902,357 @@ flash_decode_kernel(const Args a) {
   }
 }
 
+// ---- the split-D kernel -----------------------------------------------------
+
+// One block a split; the nsplit blocks of a (b, kv head, head chunk) are one
+// thread block cluster.  Each block pushes its partial into the shared
+// memory of the blocks that merge it (distributed shared memory), the
+// cluster meets once, and each block merges its slice of the output.
+template <int KV, int D>
+__global__ void __launch_bounds__(Split<D>::NT, 2)
+flash_decode_split_kernel(const Args a) {
+  using R = Ring<KV, D>;
+  constexpr int DS = Split<D>::DS, NW = Split<D>::NW, NT = Split<D>::NT;
+  constexpr int KH = Cfg<__nv_bfloat16>::kHeads;
+  constexpr int BK = R::BK, S = R::kStages, EB = R::EB, TILE = R::kTile;
+  constexpr int RB = D * EB;                        // bytes a landed row
+  constexpr int CPR = RB / 16;                      // 16-byte chunks a landed row
+  constexpr int NB = BK / 8;                        // S's 8-slot n-blocks a tile
+  constexpr int NK = DS / 16;                       // S's k steps over a warp's columns
+  constexpr int NJ = DS / 8;                        // O's 8-column n-blocks a warp
+  constexpr int CPT = BK * CPR / NT;                // chunks of a K (or V) tile a thread loads
+  constexpr int NBW = NB / NW;                      // 8-slot blocks whose softmax a warp takes
+  static_assert(NB % NW == 0, "each warp takes whole 8-slot blocks of the softmax");
+  static_assert(NT % CPR == 0 && (BK * CPR) % NT == 0, "a thread loads one column of chunks");
+
+  const int split = (int)(blockIdx.x % a.nsplit);   // the block's rank in its cluster
+  const int rowid = (int)(blockIdx.x / a.nsplit);   // (b * Hk + hk) * HC + hc
+  const int hc = rowid % a.HC;
+  const int bh = rowid / a.HC;
+  const int hk = bh % a.Hk, b = bh / a.Hk;
+  const int g = a.Hq / a.Hk;
+  const int h0 = hk * g + hc * KH;                  // first q head of this block
+  const int hb = min(KH, g - hc * KH);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int gq = lane >> 2, t = lane & 3;
+
+  const long long row = (long long)a.Hk * D * EB;   // bytes from a slot of k (v) to the next
+  const long long kv_off = ((long long)b * a.C * a.Hk + hk) * D * EB;
+  const unsigned char* kg = static_cast<const unsigned char*>(a.k) + kv_off;
+  const unsigned char* vg = static_cast<const unsigned char*>(a.v) + kv_off;
+  const int k_begin = split * a.split_keys;         // below C
+  const int len = min(a.lengths[b], a.C);
+  // q as the A operand over this warp's columns, in k_col's order (rows g
+  // and g + 8 of the mma tiles are heads h0 + g and h0 + g + 8), its loads
+  // in flight beside the length's
+  uint32_t qa[NK][4];
+  {
+    const __nv_bfloat16* qh =
+        static_cast<const __nv_bfloat16*>(a.q) + ((long long)b * a.Hq + h0) * D + warp * DS;
+#pragma unroll
+    for (int kk = 0; kk < NK; ++kk)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int hr = gq + 8 * (e & 1);
+        const int col = k_col<DS, EB>(t, 4 * kk + 2 * (e >> 1));
+        qa[kk][e] = hr < hb ? *reinterpret_cast<const uint32_t*>(qh + hr * D + col) : 0u;
+      }
+  }
+  __nv_bfloat16* out = static_cast<__nv_bfloat16*>(a.o) + ((long long)b * a.Hq + h0) * D;
+  if (len < 1) {                                    // no valid slot: zeros
+    if (split == 0)
+      for (int e = tid; e < hb * D; e += NT) out[e] = __float2bfloat16(0.f);
+    return;
+  }
+  const int used = (len + a.split_keys - 1) / a.split_keys;
+  // one used split writes o itself, and the cluster never meets; past the
+  // used splits a block only takes its slice of the merge
+  if (used == 1 && split > 0) return;
+  const int k_end = min(k_begin + a.split_keys, len);
+
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  unsigned char* smem = smem_raw;
+  float4* sbuf = reinterpret_cast<float4*>(smem + R::kRing);    // (NW, NB, 32 lanes)
+  uint4* pbuf = reinterpret_cast<uint4*>(sbuf + NW * NB * 32);  // (BK / 16, 32 lanes)
+  float* rmax = reinterpret_cast<float*>(pbuf + BK / 16 * 32);  // (NW, KH)
+  float* lsum = rmax + NW * KH;                                 // (NW, KH)
+  // what the blocks of the cluster push here (see below)
+  constexpr int NF = R::kParts;
+  float4* recv = reinterpret_cast<float4*>(smem + R::kRing + R::kSBuf);   // (nsplit, per)
+  float2* mlrecv = reinterpret_cast<float2*>(recv + NF + kMaxCluster);    // (kMaxCluster, KH)
+  const int per = (NF + a.nsplit - 1) / a.nsplit;   // float4s a block merges
+  namespace cg = cooperative_groups;
+  cg::cluster_group cluster = cg::this_cluster();
+
+  float o[NJ][4];
+#pragma unroll
+  for (int j = 0; j < NJ; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[j][e] = 0.f;
+  // m is the same in every warp; l is this lane's share of this warp's slots
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+
+  if (k_begin < len) {
+    // a tile lands as it is stored, its rows' chunks swizzled: this thread
+    // copies chunk c of rows r0, r0 + NT/CPR, ..
+    const int c = tid % CPR, r0 = tid / CPR;
+    auto load_tile = [&](int stage, int k0) {
+      unsigned char* ks = smem + stage * 2 * TILE;
+      unsigned char* vs = ks + TILE;
+      const long long base = (long long)k0 * row + c * 16;
+#pragma unroll
+      for (int i = 0; i < CPT; ++i) {
+        const int r = r0 + i * (NT / CPR);
+        const bool valid = k0 + r < k_end;
+        const long long off = valid ? base + r * row : 0;
+        const int dst = r * RB + swz_split<CPR>(r, c) * 16;
+        cp_async16(ks + dst, kg + off, valid);
+        cp_async16(vs + dst, vg + off, valid);
+      }
+    };
+
+    const int ntiles = (k_end - k_begin + BK - 1) / BK;
+#pragma unroll
+    for (int s = 0; s < (S > 1 ? S - 1 : 1); ++s) {
+      if (s < ntiles) load_tile(s, k_begin + s * BK);
+      cp_async_commit();
+    }
+    const int c0 = warp * DS * EB / 16;             // this warp's first chunk of a row
+    for (int it = 0; it < ntiles; ++it) {
+      if constexpr (S > 1) {
+        cp_async_wait<S - 2>();   // tile `it` has landed, for this thread's copies
+        __syncthreads();          // for every thread's; stage (it - 1) % S is free
+        const int nt = it + S - 1;
+        if (nt < ntiles) load_tile(nt % S, k_begin + nt * BK);
+        cp_async_commit();
+      } else {
+        if (it > 0) {
+          __syncthreads();        // every warp is done with the last tile
+          load_tile(0, k_begin + it * BK);
+          cp_async_commit();
+        }
+        cp_async_wait<0>();
+        __syncthreads();
+      }
+      const unsigned char* ks = smem + (it % S) * 2 * TILE;
+      const unsigned char* vs = ks + TILE;
+      const int k0 = k_begin + it * BK;
+
+      // this warp's columns' share of S = q K^T, every slot of the tile
+#pragma unroll
+      for (int nb = 0; nb < NB; ++nb) {
+        const int r = 8 * nb + gq;
+        uint32_t kb[2 * NK];
+        lane_run<KV, CPR, DS / 4, 4>(ks + r * RB, r, c0, t, kb);
+        float x[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+        for (int kk = 0; kk < NK; ++kk) mma_bf16(x, qa[kk], kb[2 * kk], kb[2 * kk + 1]);
+        sbuf[(warp * NB + nb) * 32 + lane] = make_float4(x[0], x[1], x[2], x[3]);
+      }
+      __syncthreads();
+      // the softmax of this warp's NBW 8-slot blocks: S summed over the
+      // warps' shares in one order; a lane holds slots 8nb + 2t, 8nb + 2t + 1
+      // of rows g and g + 8
+      float s[NBW][4];
+      float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+      for (int u = 0; u < NBW; ++u) {
+        const int nb = warp * NBW + u;
+        float4 x = sbuf[nb * 32 + lane];
+#pragma unroll
+        for (int w = 1; w < NW; ++w) {
+          const float4 y = sbuf[(w * NB + nb) * 32 + lane];
+          x.x += y.x;
+          x.y += y.y;
+          x.z += y.z;
+          x.w += y.w;
+        }
+        const float v[4] = {x.x, x.y, x.z, x.w};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int j = k0 + 8 * nb + 2 * t + (e & 1);
+          s[u][e] = j < k_end ? v[e] * a.scale_log2 : kNegInf;
+          mx[e >> 1] = fmaxf(mx[e >> 1], s[u][e]);
+        }
+      }
+#pragma unroll
+      for (int rh = 0; rh < 2; ++rh) {
+        mx[rh] = fmaxf(mx[rh], __shfl_xor_sync(0xffffffffu, mx[rh], 1));
+        mx[rh] = fmaxf(mx[rh], __shfl_xor_sync(0xffffffffu, mx[rh], 2));
+        if (t == 0) rmax[warp * KH + gq + 8 * rh] = mx[rh];
+      }
+      __syncthreads();
+      // the tile's row maxima from every warp's, the same in every warp
+      float alpha[2];
+#pragma unroll
+      for (int rh = 0; rh < 2; ++rh) {
+        float M = rmax[gq + 8 * rh];
+#pragma unroll
+        for (int w = 1; w < NW; ++w) M = fmaxf(M, rmax[w * KH + gq + 8 * rh]);
+        const float m_new = fmaxf(m[rh], M);
+        alpha[rh] = exp2f(m[rh] - m_new);
+        m[rh] = m_new;
+        l[rh] *= alpha[rh];
+      }
+      // P of this warp's blocks, rounded to bf16, as words of the A operand
+      // of the k step that holds them (words 0-1 an even block, 2-3 an odd)
+#pragma unroll
+      for (int u = 0; u < NBW; ++u) {
+        const int nb = warp * NBW + u;
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int j = k0 + 8 * nb + 2 * t + (e & 1);
+          const float p = j < k_end ? exp2f(s[u][e] - m[e >> 1]) : 0.f;
+          s[u][e] = p;
+          l[e >> 1] += p;
+        }
+        reinterpret_cast<uint2*>(pbuf + (nb >> 1) * 32 + lane)[nb & 1] =
+            make_uint2(pack_bf16(s[u][0], s[u][1]), pack_bf16(s[u][2], s[u][3]));
+      }
+      __syncthreads();
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        o[j][0] *= alpha[0];
+        o[j][1] *= alpha[0];
+        o[j][2] *= alpha[1];
+        o[j][3] *= alpha[1];
+      }
+
+      // O += P V over this warp's columns, 16 slots a k step; B's pairs are
+      // rows (2t, 2t + 1) and (2t + 8, 2t + 9) at one column
+#pragma unroll
+      for (int kq = 0; kq < BK / 16; ++kq) {
+        const uint4 pq = pbuf[kq * 32 + lane];
+        const uint32_t pa[4] = {pq.x, pq.y, pq.z, pq.w};
+        uint32_t vw[4][NJ / 2];
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const int r = 16 * kq + 2 * t + (q & 1) + 8 * (q >> 1);
+          lane_run<KV, CPR, DS / 8, 8>(vs + r * RB, r, c0, gq, vw[q]);
+        }
+#pragma unroll
+        for (int j = 0; j < NJ; ++j) {
+          const uint32_t sel = (j & 1) ? 0x7632u : 0x5410u;   // the high or the low halves
+          mma_bf16(o[j], pa, __byte_perm(vw[0][j >> 1], vw[1][j >> 1], sel),
+                   __byte_perm(vw[2][j >> 1], vw[3][j >> 1], sel));
+        }
+      }
+    }
+    cp_async_wait<0>();
+    if (used > 1) {
+      // acc pushed to the blocks of the cluster that merge it: float4 f of
+      // it (warp, n-block j, lane, as the lanes hold it) to block f / per
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        const int f = (warp * NJ + j) * 32 + lane, owner = f / per;
+        *cluster.map_shared_rank(recv + split * per + f - owner * per, owner) =
+            make_float4(o[j][0], o[j][1], o[j][2], o[j][3]);
+      }
+    }
+    // l summed over the lanes of a quad, then over the warps
+#pragma unroll
+    for (int rh = 0; rh < 2; ++rh) {
+      l[rh] += __shfl_xor_sync(0xffffffffu, l[rh], 1);
+      l[rh] += __shfl_xor_sync(0xffffffffu, l[rh], 2);
+    }
+    if (t == 0) {
+      lsum[warp * KH + gq] = l[0];
+      lsum[warp * KH + gq + 8] = l[1];
+    }
+    __syncthreads();
+#pragma unroll
+    for (int rh = 0; rh < 2; ++rh) {
+      l[rh] = lsum[gq + 8 * rh];
+#pragma unroll
+      for (int w = 1; w < NW; ++w) l[rh] += lsum[w * KH + gq + 8 * rh];
+    }
+  }
+
+  // lane (g, t) holds o of heads g and g + 8 at this warp's columns
+  // v_col(2t, j) and v_col(2t + 1, j); m and l of those heads, the same in
+  // every warp
+  if (used == 1) {
+#pragma unroll
+    for (int rh = 0; rh < 2; ++rh) {
+      const int hr = gq + 8 * rh;
+      if (hr >= hb) continue;
+      const float L = fmaxf(l[rh], 1e-30f);
+      __nv_bfloat16* dst = out + hr * D + warp * DS;
+#pragma unroll
+      for (int j = 0; j < NJ; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          dst[v_col<DS, EB>(2 * t + e, j)] = __float2bfloat16(o[j][2 * rh + e] / L);
+    }
+    return;
+  }
+
+  // (m, l) of every head pushed to every block of the cluster, block
+  // 4 warp + t by the lanes of quad t (acc was, as the loop ended)
+  if (k_begin < len && warp * 4 + t < a.nsplit) {
+#pragma unroll
+    for (int rh = 0; rh < 2; ++rh)
+      *cluster.map_shared_rank(mlrecv + split * KH + gq + 8 * rh, warp * 4 + t) =
+          make_float2(m[rh], l[rh]);
+  }
+  cluster.sync();             // every push has landed; no block reads another's memory after
+
+  // each head's weight for each used split, 2^(m_s - M), and its sum L,
+  // once a head into the ring (free: every block is past its loop)
+  float* fs = reinterpret_cast<float*>(smem);       // (kMaxCluster, KH)
+  float* Ls = fs + kMaxCluster * KH;                // (KH)
+  if (tid < KH) {
+    float M = kNegInf;
+    float2 ml[kMaxCluster];
+#pragma unroll
+    for (int s = 0; s < kMaxCluster; ++s)
+      if (s < used) {
+        ml[s] = mlrecv[s * KH + tid];
+        M = fmaxf(M, ml[s].x);
+      }
+    float L = 0.f;
+#pragma unroll
+    for (int s = 0; s < kMaxCluster; ++s)
+      if (s < used) {
+        const float f = exp2f(ml[s].x - M);
+        fs[s * KH + tid] = f;
+        L = fmaf(f, ml[s].y, L);
+      }
+    Ls[tid] = fmaxf(L, 1e-30f);
+  }
+  __syncthreads();
+  // this block's slice, float4s [split * per, (split + 1) * per) of the
+  // partials: the used splits' float4s weighted, then written where the
+  // lane that held them would write them
+  const int end = min(NF, (split + 1) * per);
+  for (int f = split * per + tid; f < end; f += NT) {
+    const int w = f / (NJ * 32), j = f / 32 % NJ, fg = f % 32 >> 2, ft = f % 4;
+    float4 x[kMaxCluster];
+#pragma unroll
+    for (int s = 0; s < kMaxCluster; ++s)
+      if (s < used) x[s] = recv[s * per + f - split * per];
+    float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+    for (int s = 0; s < kMaxCluster; ++s)
+      if (s < used) {
+        const float f0 = fs[s * KH + fg], f1 = fs[s * KH + fg + 8];
+        acc.x = fmaf(f0, x[s].x, acc.x);
+        acc.y = fmaf(f0, x[s].y, acc.y);
+        acc.z = fmaf(f1, x[s].z, acc.z);
+        acc.w = fmaf(f1, x[s].w, acc.w);
+      }
+    const int d0 = w * DS + v_col<DS, EB>(2 * ft, j), d1 = w * DS + v_col<DS, EB>(2 * ft + 1, j);
+    if (fg < hb) {
+      out[fg * D + d0] = __float2bfloat16(acc.x / Ls[fg]);
+      out[fg * D + d1] = __float2bfloat16(acc.y / Ls[fg]);
+    }
+    if (fg + 8 < hb) {
+      out[(fg + 8) * D + d0] = __float2bfloat16(acc.z / Ls[fg + 8]);
+      out[(fg + 8) * D + d1] = __float2bfloat16(acc.w / Ls[fg + 8]);
+    }
+  }
+}
+
 template <typename T, int KV, int D>
 cudaError_t launch(const Args& a, int B, cudaStream_t st) {
   constexpr int smem = smem_bytes_for<T, KV, D>();
@@ -723,61 +1267,106 @@ cudaError_t launch(const Args& a, int B, cudaStream_t st) {
   return cudaGetLastError();
 }
 
-template <typename T, int KV>
-cudaError_t dispatch_d(const Args& a, int B, int D, cudaStream_t st) {
+template <int KV, int D>
+cudaError_t launch_split(const Args& a, int B, cudaStream_t st) {
+  using R = Ring<KV, D>;
+  if (a.nsplit > kMaxCluster) return cudaErrorInvalidValue;   // a row's splits are one cluster
+  static std::atomic<uint64_t> smem_set{0};
+  const cudaError_t e =
+      set_smem_once(flash_decode_split_kernel<KV, D>, R::kSmem, smem_set, true);
+  if (e != cudaSuccess) return e;
+  const long long blocks = (long long)B * a.Hk * a.HC * a.nsplit;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)blocks);
+  cfg.blockDim = dim3(Split<D>::NT);
+  cfg.dynamicSmemBytes = R::kSmem;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = a.nsplit;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, flash_decode_split_kernel<KV, D>, a);
+}
+
+// A bf16 q at D = 256 takes the split-D kernel; the rest the slot-split one.
+template <typename T, int KV, int D>
+constexpr bool uses_split() {
+  return std::is_same<T, __nv_bfloat16>::value && D == 256;
+}
+
+// What the entry points below do with the variant for (T, KV, D).
+struct LaunchVariant {
+  const Args& a;
+  int B;
+  cudaStream_t st;
+  template <typename T, int KV, int D> int run() const {
+    if constexpr (uses_split<T, KV, D>()) return launch_split<KV, D>(a, B, st);
+    else return launch<T, KV, D>(a, B, st);
+  }
+};
+struct SmemVariant {
+  template <typename T, int KV, int D> int run() const {
+    if constexpr (uses_split<T, KV, D>()) return Ring<KV, D>::kSmem;
+    else return smem_bytes_for<T, KV, D>();
+  }
+};
+template <typename Kernel>
+int occupancy(Kernel kernel, int threads, int smem, bool clustered) {
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e == cudaSuccess && clustered)
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                             (int)cudaSharedmemCarveoutMaxShared);
+  if (e == cudaSuccess && clustered)
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  int n = 0;
+  if (e == cudaSuccess) e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, threads, smem);
+  return e == cudaSuccess ? n : -1;
+}
+struct MaxSplitsVariant {
+  template <typename T, int KV, int D> int run() const {
+    return uses_split<T, KV, D>() ? kMaxCluster : 0;
+  }
+};
+struct OccupancyVariant {
+  template <typename T, int KV, int D> int run() const {
+    if constexpr (uses_split<T, KV, D>())
+      return occupancy(flash_decode_split_kernel<KV, D>, Split<D>::NT, Ring<KV, D>::kSmem, true);
+    else
+      return occupancy(flash_decode_kernel<T, KV, D>, kThreads, smem_bytes_for<T, KV, D>(), false);
+  }
+};
+
+template <typename T, int KV, typename F>
+int on_d(int D, const F& f, int none) {
   switch (D) {
-    case 32: return launch<T, KV, 32>(a, B, st);
-    case 64: return launch<T, KV, 64>(a, B, st);
-    case 128: return launch<T, KV, 128>(a, B, st);
-    case 256: return launch<T, KV, 256>(a, B, st);
-    default: return cudaErrorInvalidValue;
+    case 32: return f.template run<T, KV, 32>();
+    case 64: return f.template run<T, KV, 64>();
+    case 128: return f.template run<T, KV, 128>();
+    case 256: return f.template run<T, KV, 256>();
+    default: return none;
   }
 }
 
-template <typename T>
-cudaError_t dispatch(const Args& a, int B, int D, int kv_kind, cudaStream_t st) {
+// f.run<T, KV, D>() for the variant built for (D, kv_kind), else `none`
+template <typename T, typename F>
+int on_variant(int D, int kv_kind, const F& f, int none) {
   constexpr bool kF32 = std::is_same<T, float>::value;
   switch (kv_kind) {
-    case kKvSame: return dispatch_d<T, kKvSame>(a, B, D, st);
-    case kKvE4M3: return dispatch_d<T, kKvE4M3>(a, B, D, st);
-    case kKvE5M2: return dispatch_d<T, kKvE5M2>(a, B, D, st);
-    case kKvF16: return dispatch_d<T, kKvF16>(a, B, D, st);
+    case kKvSame: return on_d<T, kKvSame>(D, f, none);
+    case kKvE4M3: return on_d<T, kKvE4M3>(D, f, none);
+    case kKvE5M2: return on_d<T, kKvE5M2>(D, f, none);
+    case kKvF16: return on_d<T, kKvF16>(D, f, none);
     case kKvBF16:
-      if constexpr (kF32) return dispatch_d<T, kKvBF16>(a, B, D, st);
-      else return cudaErrorInvalidValue;     // bf16 under bf16 q is kind 0
+      if constexpr (kF32) return on_d<T, kKvBF16>(D, f, none);
+      else return none;                     // bf16 under bf16 q is kind 0
     case kKvF32:
-      if constexpr (!kF32) return dispatch_d<T, kKvF32>(a, B, D, st);
-      else return cudaErrorInvalidValue;     // f32 under f32 q is kind 0
-    default: return cudaErrorInvalidValue;
-  }
-}
-
-template <typename T, int KV>
-int smem_of(int D) {
-  switch (D) {
-    case 32: return smem_bytes_for<T, KV, 32>();
-    case 64: return smem_bytes_for<T, KV, 64>();
-    case 128: return smem_bytes_for<T, KV, 128>();
-    case 256: return smem_bytes_for<T, KV, 256>();
-    default: return -1;
-  }
-}
-
-template <typename T>
-int smem_of_kind(int D, int kv_kind) {
-  constexpr bool kF32 = std::is_same<T, float>::value;
-  switch (kv_kind) {
-    case kKvSame: return smem_of<T, kKvSame>(D);
-    case kKvE4M3: return smem_of<T, kKvE4M3>(D);
-    case kKvE5M2: return smem_of<T, kKvE5M2>(D);
-    case kKvF16: return smem_of<T, kKvF16>(D);
-    case kKvBF16:
-      if constexpr (kF32) return smem_of<T, kKvBF16>(D);
-      else return -1;
-    case kKvF32:
-      if constexpr (!kF32) return smem_of<T, kKvF32>(D);
-      else return -1;
-    default: return -1;
+      if constexpr (!kF32) return on_d<T, kKvF32>(D, f, none);
+      else return none;                     // f32 under f32 q is kind 0
+    default: return none;
   }
 }
 
@@ -787,11 +1376,13 @@ int smem_of_kind(int D, int kv_kind) {
 // (B, C, Hk, D) in q's dtype (kv_kind = 0), float8_e4m3fn (1), float8_e5m2
 // (2), bfloat16 under f32 q (3), float16 (4) or float32 under bf16 q (5);
 // all contiguous and 16-byte aligned; lengths: (B,)
-// int32.  Scratch, with HC = ceil(g / flash_decode_heads_per_block) and
-// rows = B * Hk * HC: part_acc (rows, nsplit, heads_per_block, D) and
-// part_ml (rows, nsplit, heads_per_block, 2) float32; counters (rows,) int32,
-// all zero before the first call (each call leaves them zero).
-// nsplit * split_keys >= C, split_keys a multiple of 64.  D in {32, 64, 128, 256},
+// int32.  Scratch for the slot-split variants (the split-D ones merge in
+// shared memory and leave it unread), with HC = ceil(g /
+// flash_decode_heads_per_block) and rows = B * Hk * HC: part_acc (rows,
+// nsplit, heads_per_block, D) and part_ml (rows, nsplit, heads_per_block, 2)
+// float32; counters (rows,) int32, all zero before the first call (each
+// call leaves them zero).  nsplit * split_keys >= C, split_keys a multiple
+// of 64, nsplit at most flash_decode_max_splits.  D in {32, 64, 128, 256},
 // Hq % Hk == 0.  Calls that share scratch must be ordered on one stream.
 extern "C" int flash_decode_fwd(const void* q, const void* k, const void* v,
                                 const void* lengths, void* o, void* part_acc,
@@ -806,20 +1397,40 @@ extern "C" int flash_decode_fwd(const void* q, const void* k, const void* v,
   Args a{q, k, v, static_cast<const int*>(lengths), o, static_cast<float*>(part_acc),
          static_cast<float*>(part_ml), static_cast<int*>(counters), C, Hq, Hk,
          (g + kh - 1) / kh, split_keys, nsplit, scale * 1.4426950408889634f};
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (is_bf16) return dispatch<__nv_bfloat16>(a, B, D, kv_kind, st);
-  return dispatch<float>(a, B, D, kv_kind, st);
+  const LaunchVariant f{a, B, static_cast<cudaStream_t>(stream)};
+  constexpr int none = cudaErrorInvalidValue;
+  if (is_bf16) return on_variant<__nv_bfloat16>(D, kv_kind, f, none);
+  return on_variant<float>(D, kv_kind, f, none);
 }
 
-// Query heads one block holds (the head chunk): bf16 16, float32 8.
-extern "C" int flash_decode_heads_per_block(int is_bf16) {
+// Query heads one block holds (the head chunk) at head size D: bf16 16,
+// float32 8; -1 if D is not built.
+extern "C" int flash_decode_heads_per_block(int D, int is_bf16) {
+  if (D != 32 && D != 64 && D != 128 && D != 256) return -1;
   return is_bf16 ? Cfg<__nv_bfloat16>::kHeads : Cfg<float>::kHeads;
 }
 
 // Dynamic shared memory one block takes at head size D for K/V of kv_kind,
 // in bytes; -1 if D or kv_kind is not built.
 extern "C" int flash_decode_smem_bytes(int D, int is_bf16, int kv_kind) {
-  return is_bf16 ? smem_of_kind<__nv_bfloat16>(D, kv_kind) : smem_of_kind<float>(D, kv_kind);
+  return is_bf16 ? on_variant<__nv_bfloat16>(D, kv_kind, SmemVariant{}, -1)
+                 : on_variant<float>(D, kv_kind, SmemVariant{}, -1);
+}
+
+// Blocks of the variant for (D, q's dtype, kv_kind) that one SM of the
+// current device holds at once, by cudaOccupancyMaxActiveBlocksPerMultiprocessor
+// at its threads and shared memory; -1 if it is not built or on a CUDA error.
+extern "C" int flash_decode_blocks_per_sm(int D, int is_bf16, int kv_kind) {
+  return is_bf16 ? on_variant<__nv_bfloat16>(D, kv_kind, OccupancyVariant{}, -1)
+                 : on_variant<float>(D, kv_kind, OccupancyVariant{}, -1);
+}
+
+// The most splits a row may take in the variant for (D, q's dtype,
+// kv_kind): 16 where a row's splits are one cluster, 0 for no limit; -1 if
+// it is not built.
+extern "C" int flash_decode_max_splits(int D, int is_bf16, int kv_kind) {
+  return is_bf16 ? on_variant<__nv_bfloat16>(D, kv_kind, MaxSplitsVariant{}, -1)
+                 : on_variant<float>(D, kv_kind, MaxSplitsVariant{}, -1);
 }
 
 extern "C" const char* flash_decode_error_string(int code) {

@@ -15,7 +15,11 @@ dtype, in float8 (``float8_e4m3fn``, ``float8_e5m2``: a float8 KV cache,
 read as it is stored and widened in the kernel), or in another float dtype:
 bf16 or f16 under an f32 q, f32 or f16 under a bf16 q (a cache in another
 ``kv_dtype`` than the model's, converted into q's dtype in the kernel, a
-narrowing rounded to nearest even).  ``flash_decode.kind_launches`` counts
+narrowing rounded to nearest even; under a bf16 q in registers, as the
+products read them).  A bf16 q at D = 256 runs the kernel's split-D variant
+(:func:`clustered`), which launches a row's splits as one thread block
+cluster that merges them in shared memory, so it takes no scratch; the
+rest its slot-split variant.  ``flash_decode.kind_launches`` counts
 the launches on K/V in another dtype than q's, by (q dtype, K/V dtype).
 It takes CUDA tensors only: CPU tensors go to the plain version through
 :func:`repro_torch.kernels.ops.decode_attention`.
@@ -31,8 +35,9 @@ import torch
 
 from .build import load
 
-__all__ = ["flash_decode", "check_decode_args", "kv_kind", "split_plan", "smem_bytes",
-           "blocks_per_sm", "HEADS_PER_BLOCK"]
+__all__ = ["flash_decode", "check_decode_args", "kv_kind", "clustered", "planned_blocks_per_sm",
+           "split_plan", "call_plan", "smem_bytes", "blocks_per_sm", "HEADS_PER_BLOCK",
+           "MAX_CLUSTER"]
 
 _SUPPORTED_D = (32, 64, 128, 256)
 # the kernel's kv_kind for K/V in q's dtype (0) and, by (q dtype, K/V
@@ -44,17 +49,17 @@ _KV_KIND = {
     (torch.float32, torch.float16): 4, (torch.bfloat16, torch.float16): 4,
     (torch.bfloat16, torch.float32): 5,
 }
-_TILE = 64              # cache slots per tile of the kernel
-# query heads a block holds, by q's dtype: ``Cfg<T>::kHeads`` of
-# csrc/flash_decode.cu (the rows of bf16's mma A operand; f32's SIMT rows),
-# which the built library reports (``flash_decode_heads_per_block``)
+_TILE = 64              # cache slots a split is a multiple of (``kBK`` of the kernel)
+# query heads a block holds, by q's dtype, at every head size: ``Cfg<T>::kHeads``
+# of csrc/flash_decode.cu (the rows of bf16's mma A operand; f32's SIMT
+# rows), which the built library reports (``flash_decode_heads_per_block``)
 HEADS_PER_BLOCK = {torch.bfloat16: 16, torch.float32: 8}
-_BLOCKS_PER_SM = 2      # a full cache gives about this many blocks per SM, all resident
-# At D=256 one block fills an SM, and a split of one or two tiles spends
-# more on its fixed costs and the merge than its ring overlaps: splits of
-# four tiles were among the fastest at RecurrentGemma's decode shapes on an
-# H100 (21.6-28.5 us against 25.4-65.0 us for one tile; PERF.md, §6).
-_MIN_TILES = {256: 4}
+# a full cache gives about this many blocks per SM, all resident, where two
+# blocks of the variant fit on an SM (:func:`planned_blocks_per_sm`)
+_BLOCKS_PER_SM = 2
+# the most splits a row of the split-D variant takes: its splits are one
+# thread block cluster (``kMaxCluster``; ``flash_decode_max_splits``)
+MAX_CLUSTER = 16
 
 
 def kv_kind(q_dtype: torch.dtype, kv_dtype: torch.dtype) -> Optional[int]:
@@ -103,24 +108,56 @@ def check_decode_args(q, k, v, lengths) -> None:
             raise ValueError(f"{name} must start on a 16-byte boundary")
 
 
-def split_plan(B: int, Hk: int, C: int, n_sm: int, D: int = 128,
-               per_sm: int = _BLOCKS_PER_SM) -> Tuple[int, int]:
+def clustered(D: int, dtype: torch.dtype) -> bool:
+    """Whether the kernel's variants for head size ``D`` and q in ``dtype``
+    are the split-D ones (a bf16 q at D = 256, every K/V dtype), whose row's
+    splits are one thread block cluster."""
+    return dtype == torch.bfloat16 and D == 256
+
+
+def planned_blocks_per_sm(D: int, dtype: torch.dtype, kv_dtype: torch.dtype) -> int:
+    """Blocks an SM the split plan counts on for the kernel's variant: one
+    for f32 K/V under a bf16 q at D = 128, whose two stages of 64-slot f32
+    tiles take 128 KB, else two.  ``chip_smoke.py`` holds the built kernel's
+    bf16-q variants to at least this many (``flash_decode_blocks_per_sm``)."""
+    if dtype == torch.bfloat16 and D == 128 and kv_dtype == torch.float32:
+        return 1
+    return _BLOCKS_PER_SM
+
+
+def split_plan(B: int, Hk: int, C: int, n_sm: int, per_sm: int = _BLOCKS_PER_SM,
+               max_splits: Optional[int] = None) -> Tuple[int, int]:
     """``(split_keys, nsplit)``: the cache axis cut into ``nsplit`` splits of
-    ``split_keys`` slots, a multiple of the kernel's 64-slot tile and at
-    least ``_MIN_TILES`` tiles at head size ``D``, so that the ``B * Hk * nsplit`` blocks come
-    to about ``per_sm`` per SM when the cache is full: two fit on an SM
-    at once in bf16 at D=128, so a full cache is one wave, and each split
-    holds several tiles for its load ring to overlap (four at the serving
-    shape).  The same plan serves float8 K/V: their ring and widened tile
-    take no more shared memory than q's dtype's ring (:func:`smem_bytes`), so
-    as many blocks fit on an SM.  K/V kinds whose ring and converted tile
-    take more than q's dtype's ring (f16 or f32 K/V under bf16 q) are
-    planned at one block an SM (:func:`blocks_per_sm`): half the splits,
-    twice the tiles a split."""
+    ``split_keys`` slots, a multiple of 64, so that the ``B * Hk * nsplit``
+    blocks come to about ``per_sm`` per SM when the cache is full, and as few
+    splits as that allows (each split's partial is merged at the end), at
+    most ``max_splits``.  At the dense serving shape (B=8, Hk=8, C=1024) and
+    two blocks an SM that is four 256-slot splits a row; at RecurrentGemma's
+    (B=8, Hk=1) 16 splits of 64 slots, 128 blocks, the most 64-slot splits
+    give."""
     tiles = -(-C // _TILE)
-    want = max(1, min(tiles, -(-per_sm * n_sm // (B * Hk))))
-    split_keys = _TILE * max(-(-tiles // want), min(_MIN_TILES.get(D, 1), tiles))
+    want = max(1, min(tiles, -(-per_sm * n_sm // (B * Hk)), max_splits or tiles))
+    split_keys = _TILE * -(-tiles // want)
     return split_keys, -(-C // split_keys)
+
+
+def call_plan(B: int, Hq: int, Hk: int, C: int, D: int, dtype: torch.dtype,
+              kv_dtype: torch.dtype, n_sm: int) -> Tuple[int, int, Tuple[int, int, int]]:
+    """``(split_keys, nsplit, scratch)`` of a call on ``n_sm`` SMs: its split
+    plan (at :func:`planned_blocks_per_sm`, at most ``MAX_CLUSTER`` splits a
+    row where it is :func:`clustered`) and the elements of the split scratch
+    it takes, the float32 partials ``(rows, nsplit, heads a block, D)``,
+    their (m, l) ``(rows, nsplit, heads a block, 2)`` and the int32 merge
+    counters ``(rows,)``, where ``rows = B * Hk * head chunks``; none for a
+    clustered variant."""
+    cluster = clustered(D, dtype)
+    split_keys, nsplit = split_plan(B, Hk, C, n_sm, planned_blocks_per_sm(D, dtype, kv_dtype),
+                                    MAX_CLUSTER if cluster else None)
+    if cluster:
+        return split_keys, nsplit, (0, 0, 0)
+    kh = HEADS_PER_BLOCK[dtype]
+    rows = B * Hk * -(-(Hq // Hk) // kh)
+    return split_keys, nsplit, (rows * nsplit * kh * D, rows * nsplit * kh * 2, rows)
 
 
 @functools.cache
@@ -134,8 +171,11 @@ def _lib() -> ctypes.CDLL:
     lib.flash_decode_error_string.restype = ctypes.c_char_p
     lib.flash_decode_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int]
     lib.flash_decode_smem_bytes.restype = ctypes.c_int
-    lib.flash_decode_heads_per_block.argtypes = [ctypes.c_int]
+    lib.flash_decode_heads_per_block.argtypes = [ctypes.c_int, ctypes.c_int]
     lib.flash_decode_heads_per_block.restype = ctypes.c_int
+    for name in ("flash_decode_blocks_per_sm", "flash_decode_max_splits"):
+        getattr(lib, name).argtypes = [ctypes.c_int] * 3
+        getattr(lib, name).restype = ctypes.c_int
     return lib
 
 
@@ -150,12 +190,20 @@ def smem_bytes(D: int, dtype: torch.dtype = torch.bfloat16,
     return _lib().flash_decode_smem_bytes(D, int(dtype == torch.bfloat16), kind)
 
 
-@functools.cache
-def blocks_per_sm(D: int, dtype: torch.dtype, kv_dtype: torch.dtype) -> int:
-    """Blocks an SM the split plan aims at for q in ``dtype`` and K/V in
-    ``kv_dtype``: ``_BLOCKS_PER_SM``, or one where the K/V kind's shared
-    memory exceeds that of q's dtype's ring (builds the kernel if needed)."""
-    return _BLOCKS_PER_SM if smem_bytes(D, dtype, kv_dtype) <= smem_bytes(D, dtype) else 1
+def blocks_per_sm(D: int, dtype: torch.dtype = torch.bfloat16,
+                  kv_dtype: Optional[torch.dtype] = None) -> int:
+    """Blocks of the kernel's variant for head size ``D``, q in ``dtype``
+    and K/V in ``kv_dtype`` (q's if None) that one SM of the current CUDA
+    device holds at once, by CUDA's occupancy calculator (builds the
+    kernel if needed)."""
+    kind = kv_kind(dtype, dtype if kv_dtype is None else kv_dtype)
+    if kind is None:
+        raise TypeError(f"no kernel for K/V in {kv_dtype} under q in {dtype}")
+    n = _lib().flash_decode_blocks_per_sm(D, int(dtype == torch.bfloat16), kind)
+    if n < 0:
+        raise RuntimeError(f"no occupancy for the decode kernel at D={D}, {dtype} q, "
+                           f"{kv_dtype} K/V")
+    return n
 
 
 class _Scratch:
@@ -226,14 +274,11 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         )
     B, Hq, D = q.shape
     C, Hk = k.shape[1], k.shape[2]
-    split_keys, nsplit = split_plan(B, Hk, C, _sm_count(q.device.index or 0), D,
-                                    blocks_per_sm(D, q.dtype, k.dtype))
+    split_keys, nsplit, scratch = call_plan(B, Hq, Hk, C, D, q.dtype, k.dtype,
+                                            _sm_count(q.device.index or 0))
     is_bf16 = int(q.dtype == torch.bfloat16)
     lib = _lib()
-    kh = HEADS_PER_BLOCK[q.dtype]
-    rows = B * Hk * -(-(Hq // Hk) // kh)
-    part_acc, part_ml, counters = _scratch(q.device).get(
-        rows * nsplit * kh * D, rows * nsplit * kh * 2, rows)
+    part_acc, part_ml, counters = _scratch(q.device).get(*scratch)
     o = torch.empty_like(q)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream

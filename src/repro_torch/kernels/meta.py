@@ -36,11 +36,10 @@ kernel's float32 chunk states and decays beside its outputs (freed on
 return); the decode kernel's split scratch (float32 partials, their (m, l)
 and the int32 merge counters), which the wrapper keeps across calls, so
 here it lives as long as the :class:`KernelWork` that counts the trace
-(one made and dropped with no count open), planned by the wrapper's
-``split_plan`` for an H100's ``H100_SMS`` SMs at its default blocks an SM
-and ``flash_decode.HEADS_PER_BLOCK`` (a K/V dtype wider than q's, which
-the wrapper plans at one block an SM and so in fewer splits, is priced at
-the default's splits, an upper bound); and the WKV backward's peak, the oracle backward's live bytes
+(one made and dropped with no count open), sized by the wrapper's own
+``call_plan`` for an H100's ``H100_SMS`` SMs (none for the kernel's
+clustered variants, which merge in shared memory); and the WKV backward's
+peak, the oracle backward's live bytes
 (``rwkv6_ref`` recomputed and differentiated) traced at 8 and 9 tokens and
 extended by their step to T (from 8 tokens on each step adds the same
 bytes), held a moment before the gradients are made.
@@ -59,7 +58,7 @@ from torch.utils._python_dispatch import _disable_current_modes
 
 from ..memtrace import LiveBytes
 from .build import CSRC
-from .flash_decode import HEADS_PER_BLOCK, _Scratch, split_plan
+from .flash_decode import _Scratch, call_plan
 from .ref import rwkv6_ref
 
 # SMs of an H100 SXM: the decode kernel's split plan aims at blocks per SM
@@ -199,12 +198,9 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     B, Hq, D = q.shape
     C, Hk = k.shape[1], k.shape[2]
     _count("flash_decode", *decode_work(B, Hq, Hk, D, B * C, q.element_size(), k.element_size()))
-    _, nsplit = split_plan(B, Hk, C, H100_SMS, D)
-    kh = HEADS_PER_BLOCK[q.dtype]
-    rows = B * Hk * -(-(Hq // Hk) // kh)
     scratch = _open[-1].scratch.setdefault(q.device, _Scratch(q.device)) if _open else \
         _Scratch(q.device)
-    scratch.get(rows * nsplit * kh * D, rows * nsplit * kh * 2, rows)
+    scratch.get(*call_plan(B, Hq, Hk, C, D, q.dtype, k.dtype, H100_SMS)[2])
     return torch.empty((B, Hq, D), dtype=q.dtype, device=q.device)
 
 

@@ -29,7 +29,8 @@ from repro.serve.engine import ServingEngine as JaxServingEngine
 from repro_torch.configs import get_config
 from repro_torch.kernels import ops
 from repro_torch.kernels.flash_attention import flash_attention
-from repro_torch.kernels.flash_decode import check_decode_args, flash_decode, split_plan
+from repro_torch.kernels.flash_decode import (MAX_CLUSTER, call_plan, check_decode_args,
+                                              clustered, flash_decode, split_plan)
 from repro_torch.kernels.rwkv6_scan import rwkv6_scan
 from repro_torch.launch.serve import serve_demo
 from repro_torch.models import LM, params_from_jax, reduced
@@ -129,12 +130,20 @@ def test_split_plan_covers_the_cache(B, Hk, C, n_sm):
 
 
 @pytest.mark.parametrize("B,Hk,C,want", [
-    (8, 1, 1024, (256, 4)),      # RecurrentGemma's decode: four tiles a split
-    (1, 1, 2048, (256, 8)),      # past its ring's wrap
-    (1, 1, 100, (128, 1)),       # a cache shorter than four tiles: one split
+    (8, 1, 1024, (64, 16)),      # RecurrentGemma's decode: a 64-slot split a block
+    (1, 1, 2048, (128, 16)),     # past its ring's wrap: a row's splits are one cluster
+    (1, 1, 40, (64, 1)),         # a cache shorter than a split: one split
 ])
-def test_split_plan_holds_four_tiles_at_d256(B, Hk, C, want):
-    assert split_plan(B, Hk, C, 132, D=256) == want
+def test_split_plan_at_d256_gives_64_slot_splits_in_one_cluster(B, Hk, C, want):
+    """At D = 256 a bf16 q runs the split-D variant: 64-slot splits, as many
+    as a full cache gives, at most MAX_CLUSTER (16) a row, one cluster, and
+    no split scratch (the cluster merges in shared memory)."""
+    split_keys, nsplit, scratch = call_plan(B, 16 * Hk, Hk, C, 256, torch.bfloat16,
+                                            torch.bfloat16, 132)
+    assert (split_keys, nsplit) == want and nsplit <= MAX_CLUSTER
+    assert scratch == (0, 0, 0)
+    assert clustered(256, torch.bfloat16) and not clustered(128, torch.bfloat16)
+    assert not clustered(256, torch.float32)
 
 
 # -- the cache routes of gqa_apply against the JAX model's mask-bias route ------------

@@ -420,6 +420,105 @@ def test_decode_graph_replays_beside_eager_calls_on_another_stream(cuda_device):
     assert all(torch.equal(a, want2) for a in got2)
 
 
+# (B, C, Hq, Hk, D, lengths): the split-D variant (a bf16 q at D = 256) at the
+# edges of its plan: 64-slot splits of two 32-slot tiles, a row's splits one
+# cluster of at most 16, so a long cache takes longer splits; lengths 1 and
+# C, a split of one tile, one slot into a split, a ragged C, g = 16 in one
+# head chunk and g = 32 in two, a cache of one split
+SPLIT_D_CASES = [
+    (8, 1024, 16, 1, 256, [1, 1024, 33, 64, 65, 97, 500, 1023]),
+    (3, 1000, 16, 1, 256, [1000, 1, 999]),
+    (2, 777, 32, 1, 256, [777, 300]),
+    (4, 64, 16, 1, 256, [64, 1, 32, 33]),
+    (1, 4096, 16, 1, 256, [4096]),
+    (2, 3000, 32, 2, 256, [2999, 65]),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,C,Hq,Hk,D,lengths", SPLIT_D_CASES)
+def test_split_d_decode_matches_plain_version(cuda_device, B, C, Hq, Hk, D, lengths):
+    q, k, v, lens = _decode_inputs(40, B, C, Hq, Hk, D, torch.bfloat16, cuda_device, lengths)
+    out = flash_decode(q, k, v, lens)
+    torch.cuda.synchronize()
+    assert torch.equal(out, flash_decode(q, k, v, lens))     # the cluster's merge is ordered
+    np.testing.assert_allclose(_np(out), _np(decode_attention_ref(q, k, v, lens)),
+                               **ATTN_TOL[torch.bfloat16])
+
+
+# (B, C, Hq, Hk, D, lengths): K/V converted into a bf16 q's dtype as the
+# products read them, at D = 128 (the slot-split variant) and 256 (split-D),
+# with lengths that cross a split and a tile
+CONVERTED_CASES = [
+    (2, 1024, 32, 8, 128, [257, 1024]),
+    (3, 1000, 16, 16, 128, [385, 1, 1000]),
+    (2, 1024, 16, 1, 256, [65, 1000]),
+    (2, 300, 32, 2, 256, [300, 129]),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,C,Hq,Hk,D,lengths", CONVERTED_CASES)
+@pytest.mark.parametrize("kv_dtype", [torch.float32, torch.float16, torch.float8_e4m3fn,
+                                      torch.float8_e5m2])
+def test_decode_kernel_converts_kv_for_a_bf16_q(cuda_device, B, C, Hq, Hk, D, lengths, kv_dtype):
+    """The kernel on K/V in another dtype under a bf16 q against the plain
+    version on the same K/V (which casts them to bf16, rounding to nearest
+    even), and against it on K/V cast first: the products see the same
+    values."""
+    q, k, v, lens = _decode_inputs(41, B, C, Hq, Hk, D, torch.float32, cuda_device, lengths)
+    q, k, v = q.to(torch.bfloat16), astype(k, kv_dtype), astype(v, kv_dtype)
+    out = flash_decode(q, k, v, lens)
+    torch.cuda.synchronize()
+    kb, vb = astype(k, torch.bfloat16), astype(v, torch.bfloat16)
+    assert torch.equal(flash_decode(q, kb, vb, lens), flash_decode(q, kb, vb, lens))
+    np.testing.assert_allclose(_np(out), _np(decode_attention_ref(q, k, v, lens)),
+                               **ATTN_TOL[torch.bfloat16])
+    np.testing.assert_allclose(_np(out), _np(decode_attention_ref(q, kb, vb, lens)),
+                               **ATTN_TOL[torch.bfloat16])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D,Hq,Hk,kv_dtype", [(256, 16, 1, torch.bfloat16),
+                                               (128, 32, 8, torch.float32)])
+def test_decode_graph_replays_beside_eager_calls_at_d256_and_on_f32_kv(cuda_device, D, Hq, Hk,
+                                                                       kv_dtype):
+    """As ``test_decode_graph_replays_beside_eager_calls_on_another_stream``
+    for the split-D variant (RecurrentGemma's heads: a row's splits one
+    cluster, no scratch) and for f32 K/V under a bf16 q (the slot-split
+    variant with its scratch): replays on one stream beside eager calls on
+    other inputs on a second, each giving its own inputs' output."""
+    B, C = 8, 1024
+
+    def inputs(seed, lengths):
+        q, k, v, lens = _decode_inputs(seed, B, C, Hq, Hk, D, torch.float32, cuda_device, lengths)
+        return q.to(torch.bfloat16), astype(k, kv_dtype), astype(v, kv_dtype), lens
+
+    q, k, v, lens = inputs(42, [C] * B)
+    q2, k2, v2, lens2 = inputs(43, [C, 700, 1, 513, C, 64, 999, 300])
+    want, want2 = flash_decode(q, k, v, lens), flash_decode(q2, k2, v2, lens2)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = flash_decode(q, k, v, lens)
+    side1, side2 = torch.cuda.Stream(), torch.cuda.Stream()
+    got, got2 = [], []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        for side in (side1, side2):
+            with torch.cuda.stream(side):
+                torch.cuda._sleep(20_000_000)      # about 10 ms
+        for _ in range(20):
+            with torch.cuda.stream(side1):
+                graph.replay()
+                got.append(out.clone())
+            with torch.cuda.stream(side2):
+                got2.append(flash_decode(q2, k2, v2, lens2))
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, want) for a in got)
+    assert all(torch.equal(a, want2) for a in got2)
+
+
 @pytest.mark.cuda
 def test_decode_kernel_reads_no_slot_past_the_length(cuda_device):
     q, k, v, lens = _decode_inputs(12, 2, 300, 8, 2, 64, torch.float32, cuda_device, [100, 257])

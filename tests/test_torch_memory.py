@@ -28,6 +28,7 @@ from repro_torch.configs import get_config
 from repro_torch.configs.shapes import SHAPES, ShapeSpec
 from repro_torch.data.synthetic import materialize_batch
 from repro_torch.kernels import meta
+from repro_torch.kernels.flash_decode import call_plan
 from repro_torch.kernels import ref as ref_module
 from repro_torch.launch import dryrun
 from repro_torch.launch.mesh import AbstractMesh
@@ -232,6 +233,31 @@ def test_meta_routes_allocate_the_wrappers_buffers():
     assert (scratch.acc.numel(), scratch.ml.numel(), scratch.counters.numel()) == (
         4 * 2 * 16 * 32, 4 * 2 * 16 * 2, 4)
     assert live.live == (4 * 2 * 16 * 32 + 4 * 2 * 16 * 2) * 4 + 4 * 4
+
+
+@pytest.mark.parametrize("D,kv_dtype,want", [
+    # RecurrentGemma's heads at D = 256: a row's 16 splits are one cluster,
+    # which merges in shared memory: no scratch
+    (256, torch.bfloat16, (0, 0, 0)),
+    # the dense serving heads over an f32 cache under a bf16 q: one block an
+    # SM, three 384-slot splits of 64 rows (B * Hk) of 16 heads
+    (128, torch.float32, (64 * 3 * 16 * 128, 64 * 3 * 16 * 2, 64)),
+])
+def test_meta_decode_scratch_is_the_wrappers(D, kv_dtype, want):
+    """The decode route on meta allocates the split scratch the CUDA
+    wrapper's own plan (``call_plan`` on an H100's SMs) gives, for K/V in
+    q's dtype at D = 256 and for f32 K/V under a bf16 q, both counted by
+    hand."""
+    B, C, Hk = 8, 1024, 1 if D == 256 else 8
+    Hq = 16 * Hk if D == 256 else 32
+    q = torch.empty((B, Hq, D), dtype=torch.bfloat16, device="meta")
+    k = torch.empty((B, C, Hk, D), dtype=kv_dtype, device="meta")
+    lengths = torch.empty((B,), dtype=torch.int32, device="meta")
+    with meta.count_kernel_work() as work:
+        meta.decode_attention(q, k, k, lengths)
+    scratch = work.scratch[q.device]
+    got = (scratch.acc.numel(), scratch.ml.numel(), scratch.counters.numel())
+    assert got == call_plan(B, Hq, Hk, C, D, torch.bfloat16, kv_dtype, meta.H100_SMS)[2] == want
 
 
 @pytest.mark.parametrize("g", [1, 16])
