@@ -7,17 +7,26 @@ Phases, each failing the run with a non-zero exit if anything is wrong:
 1. device    requires CUDA; prints the card's name and power limit.
 2. build     builds every CUDA kernel from ``src/repro_torch/csrc`` for
              sm_90a in one parallel build and prints nvcc's register and
-             shared-memory reports; every bf16-q variant of the decode
-             kernel's registers, spills and blocks an SM, failing on a
-             spill or on fewer blocks an SM than its split plan counts on.
+             shared-memory reports; every bf16 attention instantiation's
+             (head size; one warpgroup a block, no cluster) registers,
+             spills and blocks an SM, failing on a spill;
+             every bf16-q variant of the decode kernel's registers, spills
+             and blocks an SM, failing on a spill or on fewer blocks an SM
+             than its split plan counts on; every f32-q variant's (K/V
+             kinds 0-4 at D = 64, 128, 256) registers, spills and blocks
+             an SM.
 3. kernels   holds each kernel against its plain PyTorch version on the
              card at the main paths' shapes (the WKV kernel also under a
              strong decay; the bf16 attention, decode and WKV kernels also
              against the plain version on their inputs cast up to float32),
              and times both (and, for attention and decode,
              ``scaled_dot_product_attention`` as a yardstick); the bf16
-             attention kernel at the training shape and at the dense
-             prefill shape, the WKV kernel at 128, 200 and 512 tokens (a
+             attention kernel at the training shape, the prefill shapes and
+             the hybrid, Whisper and vlm training shapes, each with the K/V
+             bytes its plan fetches from L2 and those bytes over its time;
+             the f32 SIMT
+             attention kernel at the dense prefill shape with its bound at
+             the f32 peak and SDPA in f32; the WKV kernel at 128, 200 and 512 tokens (a
              CUDA graph of calls, so the gaps between its three passes
              count; the decode times from profiles that saw every kernel
              of their calls), and the host's time a call of each; checks by the
@@ -208,7 +217,8 @@ Phases, each failing the run with a non-zero exit if anything is wrong:
              the cache written in place), their op counts, launches and
              cache pointers printed; (b) the decode kernel on K/V in another
              float dtype than q's (bf16 and f16 K/V under f32 q, f32 and f16
-             K/V under bf16 q) at phase 3's dense, MoE and hybrid heads, B=8,
+             K/V under bf16 q) and an f32 q over f32 K/V (the float32
+             model's own cache) at phase 3's dense, MoE and hybrid heads, B=8,
              C=1024, served and full, against the plain version, with its
              time, the plain version's, SDPA's on K/V cast to q's dtype and
              the bound from the bytes at K/V's own width, and the registers
@@ -308,7 +318,8 @@ from repro_torch.kernels.build import build  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
 from repro_torch.kernels.flash_attention import smem_bytes as attn_smem_bytes  # noqa: E402
 from repro_torch.kernels.flash_attention import tile_plan  # noqa: E402
-from repro_torch.kernels.flash_decode import HEADS_PER_BLOCK, MAX_CLUSTER, flash_decode  # noqa: E402
+from repro_torch.kernels.flash_attention import occupancy as attention_occupancy  # noqa: E402
+from repro_torch.kernels.flash_decode import MAX_CLUSTER, flash_decode, heads_per_block  # noqa: E402
 from repro_torch.kernels.flash_decode import call_plan, clustered, kv_kind  # noqa: E402
 from repro_torch.kernels.flash_decode import planned_blocks_per_sm  # noqa: E402
 from repro_torch.kernels.flash_decode import blocks_per_sm as decode_blocks_per_sm  # noqa: E402
@@ -1039,6 +1050,7 @@ def attention_phase(dev):
         check(per_call == 1, f"one flash_attention call ran {per_call} kernels on the card")
         ms = timer(layers(lambda i: flash_attention(q[i], k[i], v[i], causal=True,
                                                     window=window), n), iters)
+        plan = tile_plan(B, S, Hq, Hk, D, window=window)
         plain_ms = timer(layers(lambda i: attention_ref(q[i], k[i], v[i], causal=True,
                                                         window=window), n),
                          iters=3, warmup=1)
@@ -1049,18 +1061,19 @@ def attention_phase(dev):
         ops, nbytes = attention_work(B, S, Hq, Hk, D, 2, window=window)
         t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / BF16_OPS_PER_S * 1e3
         bound = max(t_bytes, t_ops)
-        plan = tile_plan(B, S, Hq, Hk)
         timing[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound,
                             bound_by="bytes" if t_bytes >= t_ops else "operations",
-                            kernels_per_call=per_call)
+                            kernels_per_call=per_call, kv_l2_bytes=plan["kv_l2_bytes"])
         print(f"[kernels] flash_attention {name} shape B={B} S={S} Hq={Hq} Hk={Hk} D={D} "
-              f"causal window={window} bf16, {per_call} kernel on the card a call, {clock} time ({plan['blocks']} blocks of {plan['tokens_per_block']} tokens x "
+              f"causal window={window} bf16, {per_call} kernel on the card a call, {clock} time "
+              f"({plan['blocks']} blocks of {plan['tokens_per_block']} tokens x "
               f"{plan['heads_per_block']} heads): {ms:.4f} ms; "
               f"plain version {plain_ms:.3f} ms; scaled_dot_product_attention "
               f"{library_ms:.4f} ms (max abs diff from the plain version {lib_err:.3e}); bound "
               f"{bound:.4f} ms ({nbytes} bytes -> {t_bytes:.4f} ms, {ops} bf16 ops -> "
-              f"{t_ops:.4f} ms), {100 * bound / ms:.2f}% of bound; {ops / ms / 1e9:.1f} TFLOP/s",
-              flush=True)
+              f"{t_ops:.4f} ms), {100 * bound / ms:.2f}% of bound; {ops / ms / 1e9:.1f} TFLOP/s; "
+              f"the plan's K/V bytes from L2 {plan['kv_l2_bytes']}, "
+              f"{plan['kv_l2_bytes'] / ms / 1e9:.2f} TB/s", flush=True)
         if name == "dense prefill":
             # the bf16 call encodes three tensor maps on the host; the f32 call
             # of the same shape encodes none
@@ -1076,7 +1089,39 @@ def attention_phase(dev):
                   f"{bf16_us - f32_us:.2f} us)", flush=True)
         del q, k, v, qt, kt, vt
         torch.cuda.empty_cache()
+    timing["f32 dense prefill"] = f32_attention_timing(dev, gen)
     return worst, timing
+
+
+def f32_attention_timing(dev, gen):
+    """The f32 SIMT attention kernel at the dense serving path's longest
+    prefill (B=1, S=512, Hq=32, Hk=8, D=128; the float32 Minitron-8B's
+    prefill), device time over 8 copies of its inputs, beside the plain
+    version and SDPA in f32 (TF32 off); its bound from 4-byte elements and
+    the f32 peak outside the tensor cores."""
+    B, S, Hq, Hk, D, n = 1, 512, 32, 8, 128, 8
+    q, k, v = (torch.randn((n, B, S, H_, D), generator=gen, device=dev) for H_ in (Hq, Hk, Hk))
+    qt, kt, vt = (t.transpose(2, 3).contiguous() for t in (q, k, v))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    call = lambda: flash_attention(q[0], k[0], v[0], causal=True)   # noqa: E731
+    per_call = kernels_per_call(call)
+    check(per_call == 1, f"one f32 flash_attention call ran {per_call} kernels on the card")
+    ms = device_ms(layers(lambda i: flash_attention(q[i], k[i], v[i], causal=True), n), 20 * n)
+    plain_ms = device_ms(layers(lambda i: attention_ref(q[i], k[i], v[i], causal=True), n),
+                         iters=3, warmup=1)
+    library_ms = device_ms(layers(lambda i: sdpa(qt[i], kt[i], vt[i], is_causal=True,
+                                                 enable_gqa=True), n), 20 * n)
+    ops, nbytes = attention_work(B, S, Hq, Hk, D, 4)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / F32_OPS_PER_S * 1e3
+    bound = max(t_bytes, t_ops)
+    print(f"[kernels] flash_attention f32 dense prefill shape B={B} S={S} Hq={Hq} Hk={Hk} "
+          f"D={D} causal f32 (the SIMT kernel), {per_call} kernel on the card a call, device "
+          f"time: {ms:.4f} ms; plain version {plain_ms:.3f} ms; scaled_dot_product_attention "
+          f"in f32 {library_ms:.4f} ms; bound {bound:.4f} ms ({nbytes} bytes -> {t_bytes:.4f} "
+          f"ms, {ops} f32 ops at the f32 peak outside the tensor cores, no TF32 -> "
+          f"{t_ops:.4f} ms), {100 * bound / ms:.2f}% of bound", flush=True)
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound,
+                bound_by="bytes" if t_bytes >= t_ops else "operations", kernels_per_call=per_call)
 
 
 def ptxas_report(report):
@@ -4093,7 +4138,8 @@ def distribution_phase(dev, backend="nccl"):
 # dense serving path's heads (Minitron-8B, g = 4), the MoE path's (Qwen-MoE,
 # g = 1) and the hybrid's (RecurrentGemma, g = 16, D = 256).
 KV_KINDS = ((torch.float32, torch.bfloat16), (torch.float32, torch.float16),
-            (torch.bfloat16, torch.float32), (torch.bfloat16, torch.float16))
+            (torch.bfloat16, torch.float32), (torch.bfloat16, torch.float16),
+            (torch.float32, torch.float32))
 KV_KIND_SHAPES = (("", 32, 8, 128), ("moe ", 16, 16, 128), ("hybrid ", 16, 1, 256))
 
 
@@ -4236,6 +4282,58 @@ def bf16_q_variants(report):
             kind, D = int(m.group(1)), int(m.group(2))
             rows.append((kind, D, kern, regs, st, ld,
                          decode_blocks_per_sm(D, torch.bfloat16, BF16_Q_KV[kind])))
+    return sorted(rows)
+
+
+def report_attention_variants(report):
+    """Print every attention kernel's registers and spills, and each bf16
+    (wgmma) instantiation's blocks an SM (CUDA's occupancy calculator; one
+    warpgroup a block, no cluster); check that every head size is built
+    and that no bf16 instantiation spills."""
+    rows = []
+    for kern, regs, st, ld in ptxas_report(report):
+        m = (re.search(r"flash_attention_wgmma_kernel\s*<\s*(\d+)\s*,", kern)
+             or re.search(r"flash_attention_wgmma_kernelILi(\d+)E", kern))
+        occ = ""
+        if m:
+            D = int(m.group(1))
+            occ = f", {attention_occupancy(D)} blocks an SM, no cluster"
+            rows.append((D, regs, st, ld))
+            check(st == 0 and ld == 0, f"flash_attention {kern} spills")
+        print(f"[build] flash_attention {kern}: {regs} registers, spill stores {st} bytes, "
+              f"spill loads {ld} bytes{occ}", flush=True)
+    if report:
+        check(sorted(D for D, *_ in rows) == [32, 64, 128, 256],
+              "the register report lacks a bf16 instantiation of flash_attention")
+    return rows
+
+
+F32_Q_KV = {0: torch.float32, 1: torch.float8_e4m3fn, 2: torch.float8_e5m2, 3: torch.bfloat16,
+            4: torch.float16}
+
+
+def report_f32_q_variants(report):
+    """Print every f32-q variant of the decode kernel's registers, spills and
+    blocks an SM at D = 64, 128 and 256, kinds 0-4; check that each holds at
+    least the blocks an SM its split plan counts on."""
+    rows = []
+    for kern, regs, st, ld in ptxas_report(report):
+        m = (re.search(r"flash_decode_f32_kernel\s*<\s*(\d+)\s*,\s*(\d+)\s*>", kern)
+             or re.search(r"flash_decode_f32_kernelILi(\d+)ELi(\d+)E", kern))
+        if m and int(m.group(2)) in (64, 128, 256):
+            kind, D = int(m.group(1)), int(m.group(2))
+            blocks = decode_blocks_per_sm(D, torch.float32, F32_Q_KV[kind])
+            rows.append((kind, D, kern, regs, st, ld, blocks))
+            print(f"[build] flash_decode f32 q, {str(F32_Q_KV[kind])[6:]} K/V, D={D} ({kern}): "
+                  f"{regs} registers, spill stores {st} bytes, spill loads {ld} bytes, {blocks} "
+                  f"blocks an SM", flush=True)
+            want = planned_blocks_per_sm(D, torch.float32, F32_Q_KV[kind])
+            check(blocks >= want, f"flash_decode {kern}: {blocks} blocks an SM, below the split "
+                  f"plan's {want}")
+    if report:
+        check(sorted((kind, D) for kind, D, *_ in rows) ==
+              sorted((kind, D) for kind in F32_Q_KV for D in (64, 128, 256)),
+              "the register report lacks an f32-q variant of flash_decode")
     return sorted(rows)
 
 
@@ -4425,6 +4523,7 @@ def kvdtype_serve_part(dev):
     line["float32 model, float32 cache"] = {key: ref[key] for key in (
         "steps", "step_ms_median", "peak_gib", "tokens_per_s")}
     launches[(torch.float32, torch.bfloat16)] = {"kvdtype float32 model": main["dec"]}
+    launches[(torch.float32, torch.float32)] = {"kvdtype float32 cache": ref["dec"]}
     launches[(torch.float32, torch.float16)] = {"kvdtype float32 model": f16["dec"]}
     same_kind = {"kvdtype float32 cache": ref["dec"]}
     attn = {"kvdtype float32 model": ref["attn"] + main["attn"] + f16["attn"]}
@@ -4483,7 +4582,7 @@ SHAPE_KEYS = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")
 
 def meta_plan_check():
     """The decode wrapper and the dry-run's meta route plan the split scratch
-    from ``flash_decode.HEADS_PER_BLOCK`` and ``clustered`` (whose variants'
+    from ``flash_decode.heads_per_block`` and ``clustered`` (whose variants'
     splits, at most MAX_CLUSTER, are one cluster and take no scratch), the
     meta route for an H100's SMs: all must be the built kernel's and the
     card's, at every head size and K/V kind."""
@@ -4492,9 +4591,9 @@ def meta_plan_check():
                              torch.float16)}
     for qd, kv_dtypes in kinds.items():
         for D in (32, 64, 128, 256):
-            check(HEADS_PER_BLOCK[qd] == decode_lib().flash_decode_heads_per_block(
+            check(heads_per_block(D, qd) == decode_lib().flash_decode_heads_per_block(
                 D, int(qd == torch.bfloat16)),
-                f"HEADS_PER_BLOCK[{qd}] differs from the kernel's at D={D}")
+                f"heads_per_block({D}, {qd}) differs from the kernel's")
             for kvd in kv_dtypes:
                 got = decode_lib().flash_decode_max_splits(D, int(qd == torch.bfloat16),
                                                            kv_kind(qd, kvd))
@@ -4503,7 +4602,7 @@ def meta_plan_check():
                       f"{got}, the wrapper plans for {want}")
     check(kernel_meta.H100_SMS == torch.cuda.get_device_properties(0).multi_processor_count,
           "meta's decode split plan assumes another SM count")
-    print(f"[build] flash_decode.HEADS_PER_BLOCK and clustered equal the built kernel's "
+    print(f"[build] flash_decode.heads_per_block and clustered equal the built kernel's "
           f"heads a block and clustered variants at every head size and K/V kind; "
           f"the meta route's {kernel_meta.H100_SMS} SMs are the card's", flush=True)
 
@@ -4539,9 +4638,7 @@ def main() -> int:
                       for d in (32, 64, 128, 256))
           + " (bf16: 160 threads a block, two blocks an SM, one at D=256; f32: 256 "
           "threads)", flush=True)
-    for kern, regs, st, ld in ptxas_report(reports.get("flash_attention", "")):
-        print(f"[build] flash_attention {kern}: {regs} registers, spill stores {st} bytes, "
-              f"spill loads {ld} bytes", flush=True)
+    report_attention_variants(reports.get("flash_attention", ""))
     print(f"[build] flash_decode dynamic shared memory per block: bf16 "
           + ", ".join(f"D={d} {decode_smem_bytes(d)} bytes" for d in (32, 64, 128, 256))
           + "; f32 "
@@ -4554,17 +4651,21 @@ def main() -> int:
           + ", ".join(f"D={d} {decode_smem_bytes(d, torch.float32, FLOAT8_KV)} bytes"
                       for d in (32, 64, 128, 256))
           + " (128 threads a block)", flush=True)
+    # under a bf16 q the float8 ring may take no more than q's own; the f32
+    # kernel sizes its tiles by the element width (more float8 slots a
+    # tile), and report_f32_q_variants holds each of its variants to the
+    # blocks an SM the split plan counts on instead
     for d in (32, 64, 128, 256):
-        for qd in (torch.bfloat16, torch.float32):
-            check(decode_smem_bytes(d, qd, FLOAT8_KV) <= decode_smem_bytes(d, qd),
-                  f"the float8 ring at D={d} takes more shared memory than {qd}'s: the split "
-                  "plan would not hold")
+        check(decode_smem_bytes(d, torch.bfloat16, FLOAT8_KV) <= decode_smem_bytes(d),
+              f"the float8 ring at D={d} takes more shared memory than bf16's: the split "
+              "plan would not hold")
     meta_plan_check()
     for name in ("rwkv6_scan", "flash_decode"):
         for kern, regs, st, ld in ptxas_report(reports.get(name, "")):
             print(f"[build] {name} {kern}: {regs} registers, spill stores {st} bytes, "
                   f"spill loads {ld} bytes", flush=True)
     report_bf16_q_variants(reports.get("flash_decode", ""))
+    report_f32_q_variants(reports.get("flash_decode", ""))
 
     worst, timing = kernel_phase(dev)
     attn_worst, attn_t = attention_phase(dev)

@@ -43,19 +43,18 @@
 //    (D, H, S, B) array.  Tiles land in shared memory with the 128-byte
 //    swizzle (64-byte at D=32) that the wgmma descriptors name, D=128 as
 //    two 64-column panels.  K and V each have a ring of two stages with a
-//    `full` mbarrier (TMA bytes) and an `empty` one (the four consumer
-//    warps are done), so S starts as soon as K has landed and the next
-//    tiles load while this one is in use.  TMA fills rows past S with
-//    zeros; those keys are masked and those query rows are not stored, so
-//    any S >= 1 runs.
+//    `full` mbarrier (TMA bytes) and an `empty` one (the consumer warps are
+//    done).  The producer keeps K one tile ahead of V, and the consumer
+//    issues S = Q K^T of a tile as soon as its K has landed and only then
+//    waits for the previous tile's V, so neither product waits on the
+//    other's load.  TMA fills rows past S with zeros; those keys are masked
+//    and those query rows are not stored, so any S >= 1 runs.
 //  * Warp specialisation.  A block is one consumer warpgroup (64 query
 //    rows) and one producer warp, and two blocks share an SM (one at
 //    D = 256: its Q tile and K and V rings take 161 KB), so one block's
 //    first loads and last stores overlap the other's work.  In the
 //    consumer, P V of the previous kv tile runs on the tensor cores while
-//    the softmax of this tile runs beside it.  (Blocks of two consumer
-//    warpgroups and a producer warpgroup, one an SM, measured slower, and
-//    setmaxnreg did not lift the compiler's 168-register cap there.)
+//    the softmax of this tile runs beside it.
 //  * One K/V tile for a whole GQA group, as the TPU kernel does.  A block
 //    owns 64/hb token positions of hb = min(g, 64) heads of one kv head
 //    (the heads of a group are adjacent in memory, so the Q tile is one
@@ -68,10 +67,12 @@
 //    masked, in a pass of their own so full tiles run straight-line code.
 //    Blocks are numbered heaviest token tiles first, so the tail of the
 //    grid is short.
-//  What bounds it now (PERF.md): at D = 64 each score costs one ex2 on the
-//  special-function units (16 a clock per SM), as much time as its share of
-//  the two products on the tensor cores, and the compiler schedules the
-//  exponentials after the wait for P V, so the two do not overlap.
+//  What bounds it now (PERF.md): the tensor cores run at about 40% of their
+//  peak at D = 128.  Blocks of two consumer warpgroups, and clusters of 2-8
+//  blocks that multicast each K/V tile, read 1/2-1/8 of the K/V bytes from
+//  L2 and ran slower at every shape measured on an H100; their own load
+//  pipeline, timed with no math, was already slower than this one's, so
+//  whether the L2 bytes bind is still open.
 
 // float32: `flash_attention_simt_kernel`, kept in full f32 so the float32
 // checks hold at 1e-4 (tensor cores in f32 would mean TF32).  Its tiles take
@@ -623,10 +624,11 @@ struct TcParams {
 };
 
 // Warps 0-3 consume; warp 4 produces: one of its threads issues every TMA
-// load.  K and V have rings of their own, so S = Q K^T starts as soon as K
-// has landed and a K stage is refilled as soon as S is done.  In the
-// consumer, P V of the previous kv tile runs on the tensor cores while the
-// softmax of this tile runs beside it.
+// load.  K and V have rings of their own, and K runs one tile ahead of V, so
+// S = Q K^T of a tile starts as soon as its K has landed, while P V of the
+// previous tile still waits for V, and a K stage is refilled as soon as S is
+// done.  In the consumer, P V of the previous kv tile runs on the tensor
+// cores while the softmax of this tile runs beside it.
 template <int D, int BN>
 __global__ void __launch_bounds__(kTcThreads, tc_blocks_per_sm<D>())
 flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
@@ -685,30 +687,42 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
 #pragma unroll
       for (int pn = 0; pn < L::NP; ++pn)
         tma_load_4d(sQ + pn * kRows * L::PW, &tm_q, bar_q, pn * L::PC, head0, tok0, b);
-      for (int it = 0; it < n_tiles; ++it) {
+      auto load_k = [&](int it) {
         const int s = it % kStages, u = it / kStages;
-        const int k0 = (kt_begin + it) * BN;
         if (u > 0) mbar_wait(empty_k + 8 * s, (u - 1) & 1);
         mbar_expect_tx(full_k + 8 * s, kKVBytes);
 #pragma unroll
         for (int pn = 0; pn < L::NP; ++pn)
           tma_load_4d(sK + s * kKVBytes + pn * BN * L::PW, &tm_k, full_k + 8 * s,
-                      pn * L::PC, hk, k0, b);
+                      pn * L::PC, hk, (kt_begin + it) * BN, b);
+      };
+      load_k(0);
+      for (int it = 0; it < n_tiles; ++it) {
+        const int s = it % kStages, u = it / kStages;
+        if (it + 1 < n_tiles) load_k(it + 1);   // K one tile ahead of V
         if (u > 0) mbar_wait(empty_v + 8 * s, (u - 1) & 1);
         mbar_expect_tx(full_v + 8 * s, kKVBytes);
 #pragma unroll
         for (int pn = 0; pn < L::NP; ++pn)
           tma_load_4d(sV + s * kKVBytes + pn * BN * L::PW, &tm_v, full_v + 8 * s,
-                      pn * L::PC, hk, k0, b);
+                      pn * L::PC, hk, (kt_begin + it) * BN, b);
       }
     }
   } else {
-    // ---- consumers
-    // this thread's two rows (r0 and r0 + 8 of the block) and their tokens
-    const int r0 = warp * 16 + (lane >> 2);
+    // ---- consumers: warpgroup cw, its warp wl.  A block has one warpgroup,
+    // so cw is 0 and wtok0 is tok0, but indexing the Q tile, the tokens and
+    // the rows by warpgroup lets ptxas schedule the consumer with more
+    // registers (241 against 213 at D = 256), which ran 2-5% faster on an
+    // H100 (PERF.md)
+    const int cw = warp / 4, wl = warp % 4;
+    const int wtok0 = (tile + cw) * p.T;             // this warpgroup's tokens
+    const int wtok_hi = min(wtok0 + p.T, p.S) - 1;
+    const uint32_t sQw = sQ + cw * kQBytes;
+    // this thread's two rows (r0 and r0 + 8 of the warpgroup) and their tokens
+    const int r0 = wl * 16 + (lane >> 2);
     int tq[2];
 #pragma unroll
-    for (int h = 0; h < 2; ++h) tq[h] = tok0 + (r0 + 8 * h) / p.hb;
+    for (int h = 0; h < 2; ++h) tq[h] = wtok0 + (r0 + 8 * h) / p.hb;
     const int cq = 2 * (lane & 3);   // this thread's first column in each n8 block
 
     float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
@@ -721,7 +735,7 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk) {
         const int pn = kk * 32 / L::PW, off = kk * 32 % L::PW;
-        const uint64_t da = smem_desc(sQ + pn * kRows * L::PW + off, 16, 8 * L::PW,
+        const uint64_t da = smem_desc(sQw + pn * kRows * L::PW + off, 16, 8 * L::PW,
                                       L::kLayout);
         const uint64_t db = smem_desc(sK + s * kKVBytes + pn * BN * L::PW + off, 16,
                                       8 * L::PW, L::kLayout);
@@ -747,8 +761,8 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     // returns each row's rescale factor for O
     auto softmax = [&](float (&s_acc)[NS_ACC], int k0, float (&alpha)[2]) {
       bool full = k0 + BN <= p.S;
-      if (p.causal) full = full && k0 + BN - 1 <= tok0;
-      if (p.window > 0) full = full && k0 > tok_hi - p.window;
+      if (p.causal) full = full && k0 + BN - 1 <= wtok0;
+      if (p.window > 0) full = full && k0 > wtok_hi - p.window;
       if (!full) {
 #pragma unroll
         for (int j = 0; j < NS_ACC; ++j) {
@@ -808,11 +822,11 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
       const int s = it % kStages, sp = (it - 1) % kStages;
       float s_acc[NS_ACC], alpha[2];
       mbar_wait(full_k + 8 * s, (it / kStages) & 1);
-      mbar_wait(full_v + 8 * sp, ((it - 1) / kStages) & 1);
       __syncwarp();
       fence_regs(o_acc);
       wgmma_fence();
-      issue_s(s_acc, s);
+      issue_s(s_acc, s);   // as soon as K has landed, before waiting for V
+      mbar_wait(full_v + 8 * sp, ((it - 1) / kStages) & 1);
       issue_pv(sp);
       asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");   // S is done
       fence_regs(s_acc);
@@ -844,7 +858,7 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
       l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
       const int r = r0 + 8 * h;
       const int hh = r % p.hb;
-      if (r >= rows || tq[h] >= p.S || hc * p.hb + hh >= p.g) continue;
+      if (wtok0 >= p.S || r >= rows || tq[h] >= p.S || hc * p.hb + hh >= p.g) continue;
       const float inv = 1.f / fmaxf(l[h], 1e-30f);
       __nv_bfloat16* dst = p.o + (((long long)b * p.S + tq[h]) * p.Hq + head0 + hh) * D + cq;
 #pragma unroll
@@ -935,6 +949,21 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* o, i
   return cudaGetLastError();
 }
 
+// Blocks of the bf16 kernel one SM of the current device holds at head size
+// D, by CUDA's occupancy calculator; -1 on a CUDA error.
+template <int D>
+int wgmma_occupancy() {
+  constexpr int BN = tc_block_n<D>();
+  const int smem = tc_smem_bytes<D, BN>();
+  cudaError_t e = cudaFuncSetAttribute(flash_attention_wgmma_kernel<D, BN>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  int n = 0;
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, flash_attention_wgmma_kernel<D, BN>,
+                                                      kTcThreads, smem);
+  return e == cudaSuccess ? n : -1;
+}
+
 }  // namespace
 
 // q, o: (B, S, Hq, D); k, v: (B, S, Hk, D); all float32 (is_bf16 = 0) or all
@@ -961,6 +990,18 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
     case 128: return launch_simt<128>(q, k, v, o, B, S, Hq, Hk, scale, causal, window, st);
     case 256: return launch_simt<256>(q, k, v, o, B, S, Hq, Hk, scale, causal, window, st);
     default: return cudaErrorInvalidValue;
+  }
+}
+
+// Blocks of the bf16 kernel one SM of the current device holds at head size
+// D; -1 if D is not built or on a CUDA error.
+extern "C" int flash_attention_occupancy(int D) {
+  switch (D) {
+    case 32: return wgmma_occupancy<32>();
+    case 64: return wgmma_occupancy<64>();
+    case 128: return wgmma_occupancy<128>();
+    case 256: return wgmma_occupancy<256>();
+    default: return -1;
   }
 }
 

@@ -39,7 +39,7 @@
 //    splits' partials (acc, m, l) are merged by their maxima in the same
 //    launch (how, below).
 //
-// Two kernels share that frame.
+// Three kernels share that frame.
 //
 // The split-D kernel (flash_decode_split_kernel): a bfloat16 q at D = 256
 // (RecurrentGemma: g = 16 query heads over one K/V head), over K/V in any
@@ -81,26 +81,43 @@
 //    A 16-block cluster needs its blocks on one GPC at once, which two
 //    blocks an SM allows.
 //
-// The slot-split kernel (flash_decode_kernel): a bfloat16 q at D <= 128,
-// and a float32 q.  Each split's last block to finish, counted by an int in
-// scratch that it resets to 0 itself, merges the partials from global
-// memory (each head's weight a split once, into shared memory).
-//  * bfloat16: 64-slot tiles, three stages (two for f32 K/V at D = 128,
-//    whose 64-slot tile is 32 KB).  Each warp owns 16 slots of every tile
-//    and all of D: S = Q K^T with Q in registers for the whole split, the
-//    online softmax in registers, P fed back from the S accumulators as the
-//    A operand of O += P V; the warps' (m, l, acc) merge in shared memory at
-//    the end.  K/V in q's dtype are read through ldmatrix (.trans for V),
-//    rows swizzled for it.
-//  * float32: two stages (of 32-slot tiles at D = 256) and SIMT FMAs in
-//    full f32 (no TF32): a lane owns D/32 elements of each head's query and
-//    accumulator (heads in chunks of 8), and each score is reduced across
-//    the warp's lanes.  K/V in float8, bf16 or f16 land at their own width
-//    and, once landed, are widened into one tile of f32 in shared memory
-//    (exact), which the products then read.
+// The slot-split kernel (flash_decode_kernel): a bfloat16 q at D <= 128.
+// Each split's last block to finish, counted by an int in scratch that it
+// resets to 0 itself, merges the partials from global memory (each head's
+// (m, l) read eight splits at a time, its weight a split once into shared
+// memory; the partials as float4s).  64-slot tiles, three stages (two for
+// f32 K/V at D = 128, whose 64-slot tile is 32 KB).  Each warp owns 16 slots
+// of every tile and all of D: S = Q K^T with Q in registers for the whole
+// split, the online softmax in registers, P fed back from the S
+// accumulators as the A operand of O += P V; the warps' (m, l, acc) merge in
+// shared memory at the end.  K/V in q's dtype are read through ldmatrix
+// (.trans for V), rows swizzled for it.
+//
+// The f32 kernel (flash_decode_f32_kernel): a float32 q, over K/V in f32,
+// bf16, f16 or float8, in full f32 FMAs (no TF32), merged as the slot-split
+// kernel merges.  A block holds 16 heads (8 at D = 256, so RecurrentGemma's
+// 16 make two blocks a split and 256 blocks fill the card).  The online
+// softmax is taken a tile at a time, not a slot at a time:
+//  * scores: each thread takes one slot of the tile and its heads, reading
+//    its K row against q, which the block holds once in shared memory (the
+//    lanes of a warp read one q address, a broadcast), so no score waits on
+//    a reduction across lanes; where the block has fewer heads than head
+//    groups (MoE's g = 1), the idle groups take a share of the head's
+//    16-byte chunks and the softmax sums the partial scores;
+//  * softmax: warp w takes heads w, w + 4, ..: the tile's max in one
+//    shuffle reduction a head, one rescale a head a tile, the exponentials
+//    of its slots, P in place of S, l kept a lane's share until the end;
+//  * P V: each thread owns columns of D and heads (all 16 where D >= 128),
+//    P read four slots at a time as a broadcast float4;
+//  * K/V are read as they landed and converted in registers as they are
+//    read (exactly: float8, bf16 and f16 widen to f32), so no widened tile
+//    and no barrier for one.  Tiles hold at most 16 KB of K (64 slots, 32
+//    of f32 at D = 128, 16 at D = 256) and their rows are padded by 16
+//    bytes, so the 8 rows a quarter warp reads at one column fall in 8 bank
+//    groups; three stages where two blocks still fit an SM, else two.
 //
 // K/V in another dtype under a bf16 q (float8, f16, f32; and the split-D
-// kernel's bf16), in both kernels: a lane reads the K and V elements its
+// kernel's bf16), in the bf16 kernels: a lane reads the K and V elements its
 // mma fragments need with ld.shared from the tile as it landed and
 // converts them in registers into bf16 pairs (float8, bf16 and f16 widen
 // exactly, f32 and f16 narrow to bf16 rounding to nearest even, as the
@@ -136,24 +153,28 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kBK = 64;                 // cache slots a split is a multiple of
 constexpr float kNegInf = -1e30f;
 // K/V storage: q's dtype, or float8, bf16, f16 or f32 converted into q's
-// dtype (in registers under a bf16 q, in shared memory under an f32 q)
+// dtype in registers
 constexpr int kKvSame = 0, kKvE4M3 = 1, kKvE5M2 = 2, kKvBF16 = 3, kKvF16 = 4, kKvF32 = 5;
 
 template <typename T> struct Cfg;
 template <> struct Cfg<__nv_bfloat16> {
   static constexpr int kHeads = 16;     // rows of the mma A operand
 };
-template <> struct Cfg<float> {
-  static constexpr int kHeads = 8;
-};
+// The f32 kernel's heads a block: 16, which share each K/V tile it loads;
+// 8 at D = 256, where 16 heads would leave a block the whole of a split's
+// work and one block an SM at RecurrentGemma's shape (B = 8, Hk = 1).
+__host__ __device__ constexpr int f32_heads(int D) { return D == 256 ? 8 : 16; }
+// query heads a block of the variant for (D, q's dtype) holds
+__host__ __device__ constexpr int heads_per_block(int D, bool bf16) {
+  return bf16 ? Cfg<__nv_bfloat16>::kHeads : f32_heads(D);
+}
 
 // The slot-split kernel's ring at head size D: kRows cache slots a tile
-// (warp w owns rows kRows/4 * w ..) of K and of V.  bf16 (D <= 128) keeps
-// 64-slot tiles (16 slots a warp, the mma's n); f32 32-slot tiles at D=256,
-// where a 64-slot tile of K would be 64 KB.
+// (warp w owns rows kRows/4 * w ..) of K and of V: 64-slot tiles, 16 slots a
+// warp, the mma's n.
 template <typename T, int D> struct Geo {
-  static constexpr bool kF32 = std::is_same<T, float>::value;
-  static constexpr int kRows = kF32 && D == 256 ? 32 : kBK;
+  static_assert(std::is_same<T, __nv_bfloat16>::value, "the f32 kernel has its own");
+  static constexpr int kRows = kBK;
 };
 
 // bytes of a K/V element in device memory and in the ring
@@ -164,21 +185,15 @@ __host__ __device__ constexpr int kv_bytes() {
          : KV == kKvBF16 || KV == kKvF16 ? 2
                                           : 1;
 }
-// stages of the slot-split ring: an f32 q two; a bf16 q three where they
-// take at most 96 KB (two blocks an SM), else two (f32 K/V at D = 128)
+// stages of the slot-split ring: three where they take at most 96 KB (two
+// blocks an SM), else two (f32 K/V at D = 128)
 template <typename T, int KV, int D>
 __host__ __device__ constexpr int slot_stages() {
-  return std::is_same<T, float>::value ? 2
-         : 3 * 2 * Geo<T, D>::kRows * D * kv_bytes<T, KV>() <= 98304 ? 3
-                                                                     : 2;
+  return 3 * 2 * Geo<T, D>::kRows * D * kv_bytes<T, KV>() <= 98304 ? 3 : 2;
 }
-// the ring; for K/V widened under an f32 q also the widened tile of K and
-// of V, which takes no more than the f32 ring would
 template <typename T, int KV, int D>
 __host__ __device__ constexpr int ring_bytes() {
-  constexpr bool widened = std::is_same<T, float>::value && KV != kKvSame;
-  return slot_stages<T, KV, D>() * 2 * Geo<T, D>::kRows * D * kv_bytes<T, KV>()
-         + (widened ? 2 * Geo<T, D>::kRows * D * (int)sizeof(T) : 0);
+  return slot_stages<T, KV, D>() * 2 * Geo<T, D>::kRows * D * kv_bytes<T, KV>();
 }
 template <typename T, int D>
 __host__ __device__ constexpr int merge_bytes() {
@@ -230,20 +245,21 @@ template <int KV, int D> struct Ring {
 };
 
 // Set `kernel`'s dynamic shared-memory limit to `smem` bytes on the current
-// device (and, for the clustered split-D kernel, its carveout to the most
-// shared memory and cluster sizes up to 16), once: `done` holds a bit for
-// each device it was set on.  Setting it once keeps the launch free of
-// calls a CUDA graph capture would refuse.
+// device (where `max_shared`, its carveout to the most shared memory, so two
+// blocks of up to 113 KB share an SM; for the clustered split-D kernel also
+// cluster sizes up to 16), once: `done` holds a bit for each device it was
+// set on.  Setting it once keeps the launch free of calls a CUDA graph
+// capture would refuse.
 template <typename Kernel>
 cudaError_t set_smem_once(Kernel kernel, int smem, std::atomic<uint64_t>& done,
-                          bool clustered = false) {
+                          bool max_shared = false, bool clustered = false) {
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return e;
   const uint64_t bit = dev < 64 ? 1ull << dev : 0;
   if (bit && (done.load() & bit)) return cudaSuccess;
   e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (e == cudaSuccess && clustered)
+  if (e == cudaSuccess && max_shared)
     e = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
                              (int)cudaSharedmemCarveoutMaxShared);
   if (e == cudaSuccess && clustered)
@@ -342,28 +358,6 @@ __device__ __forceinline__ void chunk_to_float(const uint4 raw, float* f) {
       f[2 * i] = x.x;
       f[2 * i + 1] = x.y;
     }
-  }
-}
-
-// Widen a landed K/V tile (BK rows of D elements in KV's dtype, row-major)
-// into BK rows of f32 as WarpState<float>::tile reads them (f32 rows are not
-// swizzled).  Each thread takes one landed 16-byte chunk at a time,
-// 16 / kv_bytes values, widened exactly.
-template <int KV, int D, int BK>
-__device__ __forceinline__ void widen_tile(const unsigned char* src, unsigned char* dst,
-                                           int tid) {
-  constexpr int KB = kv_bytes<float, KV>();
-  constexpr int E = 16 / KB;                    // values a landed chunk
-  constexpr int CPRL = D * KB / 16;             // landed chunks a row
-  for (int idx = tid; idx < BK * CPRL; idx += kThreads) {
-    const int r = idx / CPRL, c = idx % CPRL;
-    float f[E];
-    chunk_to_float<KV>(*reinterpret_cast<const uint4*>(src + r * D * KB + c * 16), f);
-    float* row = reinterpret_cast<float*>(dst) + r * D + c * E;
-#pragma unroll
-    for (int j = 0; j < E / 4; ++j)
-      *reinterpret_cast<float4*>(row + 4 * j) =
-          make_float4(f[4 * j], f[4 * j + 1], f[4 * j + 2], f[4 * j + 3]);
   }
 }
 
@@ -649,92 +643,110 @@ struct WarpState<__nv_bfloat16, D, KV> {
   }
 };
 
-// float32: lane owns elements lane*VEC .. lane*VEC+VEC-1 of every head (K/V
-// of another dtype are widened into an f32 tile first).
-template <int D, int KV>
-struct WarpState<float, D, KV> {
-  static constexpr int KH = Cfg<float>::kHeads;
-  static constexpr int RW = Geo<float, D>::kRows / kWarps;   // slots a warp owns a tile
-  static constexpr int VEC = D / 32;
-  float qf[KH][VEC], acc[KH][VEC], m[KH], l[KH];
-  int hb;
-
-  __device__ void init(const float* qh, int hb_, int lane) {
-    hb = hb_;
-#pragma unroll
-    for (int i = 0; i < KH; ++i) {
-#pragma unroll
-      for (int e = 0; e < VEC; ++e) {
-        qf[i][e] = i < hb ? qh[i * D + lane * VEC + e] : 0.f;
-        acc[i][e] = 0.f;
-      }
-      m[i] = kNegInf;
-      l[i] = 0.f;
-    }
+// The cross-split merge of a row's used splits (more than one), whose
+// partials (acc (KH, D) and (m, l) by head) each block wrote to the scratch:
+// the last block of the row to finish merges them into o.  `smem` holds at
+// least (used + 1) * KH floats and is free once every thread is past the
+// first barrier here; `flag`, a shared int, is free on entry.
+template <typename T, int KH, int D, int NT>
+__device__ __forceinline__ void merge_splits(const Args& a, unsigned char* smem, int* flag,
+                                             int rowid, int used, int hb, T* out, int tid) {
+  // the last block of this row to finish merges the used splits
+  __threadfence();            // this thread's partial is visible device-wide
+  __syncthreads();
+  if (tid == 0) {
+    const int done = atomicAdd(a.counters + rowid, 1);
+    const int last = done == used - 1;
+    if (last) a.counters[rowid] = 0;   // every other block has counted: reset
+    *flag = last;
   }
-
-  __device__ void tile(const char* ks, const char* vs, int k0, int k_end, int warp, int lane,
-                       float scale_log2) {
-    const float* kf = reinterpret_cast<const float*>(ks);
-    const float* vf = reinterpret_cast<const float*>(vs);
-    for (int jj = 0; jj < RW; ++jj) {
-      const int r = RW * warp + jj;
-      if (k0 + r >= k_end) break;                 // the same for the whole warp
-      float kv[VEC], vv[VEC];
+  __syncthreads();
+  const bool merges = *flag;
+  __syncthreads();            // every thread has read the flag: the area is free
+  if (!merges) return;
+  __threadfence();
+  // each head's weight for each used split, 2^(m_s - M), and its sum L,
+  // once a head into shared memory (the warps' merge area is free again),
+  // so each element below reads one partial a split
+  const long long base = (long long)rowid * a.nsplit;
+  float* fs = reinterpret_cast<float*>(smem);       // (used, KH)
+  float* Ls = fs + used * KH;                       // (KH)
+  // the splits' (m, l) of a head are read MS at a time, their loads in
+  // flight together
+  constexpr int MS = 8;
+  for (int i = tid; i < hb; i += NT) {
+    const float2* ml = reinterpret_cast<const float2*>(a.part_ml) + base * KH + i;
+    float M = kNegInf;
+    for (int s0 = 0; s0 < used; s0 += MS) {
+      float x[MS];
 #pragma unroll
-      for (int e = 0; e < VEC; ++e) {
-        kv[e] = kf[r * D + lane * VEC + e];
-        vv[e] = vf[r * D + lane * VEC + e];
-      }
+      for (int u = 0; u < MS; ++u) x[u] = s0 + u < used ? __ldcg(ml + (s0 + u) * KH).x : kNegInf;
 #pragma unroll
-      for (int i = 0; i < KH; ++i) {
-        if (i >= hb) break;
-        float s = 0.f;
-#pragma unroll
-        for (int e = 0; e < VEC; ++e) s = fmaf(qf[i][e], kv[e], s);
-#pragma unroll
-        for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
-        s *= scale_log2;
-        const float m_new = fmaxf(m[i], s);
-        const float alpha = exp2f(m[i] - m_new);
-        const float p = exp2f(s - m_new);
-        l[i] = l[i] * alpha + p;
-        m[i] = m_new;
-#pragma unroll
-        for (int e = 0; e < VEC; ++e) acc[i][e] = fmaf(p, vv[e], acc[i][e] * alpha);
-      }
+      for (int u = 0; u < MS; ++u) M = fmaxf(M, x[u]);
     }
-  }
-
-  __device__ void finish(float* mo, float* mm, float* ml, int hb_, int warp, int lane) {
+    float L = 0.f;
+    for (int s0 = 0; s0 < used; s0 += MS) {
+      float2 x[MS];
 #pragma unroll
-    for (int i = 0; i < KH; ++i) {
-      if (i >= hb_) break;
+      for (int u = 0; u < MS; ++u)
+        x[u] = s0 + u < used ? __ldcg(ml + (s0 + u) * KH) : make_float2(kNegInf, 0.f);
 #pragma unroll
-      for (int e = 0; e < VEC; ++e) mo[(warp * KH + i) * D + lane * VEC + e] = acc[i][e];
-      if (lane == 0) {
-        mm[warp * KH + i] = m[i];
-        ml[warp * KH + i] = l[i];
+      for (int u = 0; u < MS; ++u) {
+        const float f = exp2f(x[u].x - M);
+        if (s0 + u < used) fs[(s0 + u) * KH + i] = f;
+        L = fmaf(f, x[u].y, L);
       }
     }
+    Ls[i] = L;
   }
-};
+  __syncthreads();
+  // splits outermost: a thread's EPT float4 loads of one split are
+  // independent, so they are in flight together
+  constexpr int EPT = (KH * D / 4 + NT - 1) / NT;   // float4s a thread
+  float4 acc[EPT];
+#pragma unroll
+  for (int j = 0; j < EPT; ++j) acc[j] = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int s = 0; s < used; ++s) {
+    const float4* part = reinterpret_cast<const float4*>(a.part_acc + (base + s) * KH * D);
+#pragma unroll
+    for (int j = 0; j < EPT; ++j) {
+      const int e = tid + j * NT;
+      if (e < hb * D / 4) {
+        const float f = fs[s * KH + 4 * e / D];
+        const float4 x = __ldcg(part + e);
+        acc[j].x = fmaf(f, x.x, acc[j].x);
+        acc[j].y = fmaf(f, x.y, acc[j].y);
+        acc[j].z = fmaf(f, x.z, acc[j].z);
+        acc[j].w = fmaf(f, x.w, acc[j].w);
+      }
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < EPT; ++j) {
+    const int e = tid + j * NT;
+    if (e < hb * D / 4) {
+      const float L = fmaxf(Ls[4 * e / D], 1e-30f);
+      store_as(out + 4 * e, acc[j].x / L);
+      store_as(out + 4 * e + 1, acc[j].y / L);
+      store_as(out + 4 * e + 2, acc[j].z / L);
+      store_as(out + 4 * e + 3, acc[j].w / L);
+    }
+  }
+}
 
 template <typename T, int KV, int D>
 __global__ void __launch_bounds__(kThreads)
 flash_decode_kernel(const Args a) {
   static_assert(D % 32 == 0, "head size");
   constexpr int KH = Cfg<T>::kHeads;
-  static_assert(std::is_same<T, float>::value || D <= 128,
-                "a bf16 q at D = 256 takes the split-D kernel");
-  constexpr bool kWiden = std::is_same<T, float>::value && KV != kKvSame;
+  static_assert(std::is_same<T, __nv_bfloat16>::value && D <= 128,
+                "an f32 q takes the f32 kernel, a bf16 q at D = 256 the split-D one");
   constexpr int S = slot_stages<T, KV, D>();
   constexpr int BK = Geo<T, D>::kRows;          // cache slots a tile
   constexpr int KB = kv_bytes<T, KV>();         // bytes a K/V element as stored
   constexpr int RBK = D * KB;                   // bytes a landed tile row
   constexpr int CPR = RBK / 16;                 // 16-byte chunks a landed row
   constexpr int TILEK = BK * RBK;               // bytes a landed K or V tile
-  constexpr int TILE = BK * D * (int)sizeof(T); // bytes a K or V tile in T
 
   const int split = (int)(blockIdx.x % a.nsplit);
   const int rowid = (int)(blockIdx.x / a.nsplit);   // (b * Hk + hk) * HC + hc
@@ -766,8 +778,7 @@ flash_decode_kernel(const Args a) {
   const unsigned char* vg = static_cast<const unsigned char*>(a.v) + kv_off * KB;
 
   // a tile lands in its stored dtype, swizzled as tile() reads it (ldmatrix's
-  // order for bf16, converting loads' for other K/V under a bf16 q), or
-  // row-major to be widened
+  // order for bf16, converting loads' for other K/V)
   auto load_tile = [&](int stage, int k0) {
     unsigned char* ks = smem + stage * 2 * TILEK;
     unsigned char* vs = ks + TILEK;
@@ -775,9 +786,7 @@ flash_decode_kernel(const Args a) {
       const int r = idx / CPR, c = idx % CPR;
       const bool valid = k0 + r < k_end;
       const long long off = valid ? (long long)(k0 + r) * row * KB + c * 16 : 0;
-      const int dst = r * RBK + (KV == kKvSame ? swz<T, D>(r, c)
-                                 : kWiden        ? c
-                                                 : swz_split<CPR>(r, c)) * 16;
+      const int dst = r * RBK + (KV == kKvSame ? swz<T, D>(r, c) : swz_split<CPR>(r, c)) * 16;
       cp_async16(ks + dst, kg + off, valid);
       cp_async16(vs + dst, vg + off, valid);
     }
@@ -799,16 +808,7 @@ flash_decode_kernel(const Args a) {
     if (nt < ntiles) load_tile(nt % S, k_begin + nt * BK);
     cp_async_commit();
     const unsigned char* ks = smem + (it % S) * 2 * TILEK;
-    if constexpr (kWiden) {
-      // every warp is past the barrier above, done with the last widened tile
-      unsigned char* wide = smem + S * 2 * TILEK;
-      widen_tile<KV, D, BK>(ks, wide, tid);
-      widen_tile<KV, D, BK>(ks + TILEK, wide + TILE, tid);
-      __syncthreads();
-      ks = wide;
-    }
-    st.tile(reinterpret_cast<const char*>(ks),
-            reinterpret_cast<const char*>(ks + (kWiden ? TILE : TILEK)),
+    st.tile(reinterpret_cast<const char*>(ks), reinterpret_cast<const char*>(ks + TILEK),
             k_begin + it * BK, k_end, warp, lane, a.scale_log2);
   }
   cp_async_wait<0>();
@@ -846,60 +846,323 @@ flash_decode_kernel(const Args a) {
     }
   }
   if (used == 1) return;
+  merge_splits<T, KH, D, kThreads>(a, smem, flag, rowid, used, hb, out, tid);
+}
 
-  // the last block of this row to finish merges the used splits
-  __threadfence();            // this thread's partial is visible device-wide
-  __syncthreads();
-  if (tid == 0) {
-    const int done = atomicAdd(a.counters + rowid, 1);
-    const int last = done == used - 1;
-    if (last) a.counters[rowid] = 0;   // every other block has counted: reset
-    *flag = last;
+// ---- the f32 kernel ----------------------------------------------------------
+
+// The f32 kernel's geometry for K/V of kind KV at head size D.  Tiles of BK
+// slots hold at most 16 KB of K (or V) as stored, 64 slots where that fits;
+// each landed row is padded by 16 bytes, so the 8 rows that a quarter warp
+// reads at one 16-byte column of a tile fall in 8 distinct bank groups; three
+// stages where they and the block's q, S and P leave room for two blocks an
+// SM, else two.  The scores give each thread one slot of the tile and HPT of
+// the KH heads (head groups NG apart); P V gives each thread CPT columns
+// (CT apart) of HPV heads (HG apart).
+template <int KV, int D> struct F32Tile {
+  static constexpr int KH = f32_heads(D);
+  static constexpr int KB = kv_bytes<float, KV>();   // bytes an element as stored
+  static constexpr int RB = D * KB;                  // bytes a landed row
+  static constexpr int CPR = RB / 16;                // 16-byte chunks a row
+  static constexpr int E = 16 / KB;                  // values a chunk
+  static constexpr int RS = RB + 16;                 // row stride in the ring
+  static constexpr int BK = 16384 / RB < kBK ? 16384 / RB : kBK;
+  static constexpr int TILE = BK * RS;               // bytes a K or V tile
+  static constexpr int SP = BK + 4;                  // row stride of S and P, floats
+  // q (KH, D), S and P (KH, SP), the rescale, m and l by head, the merge flag
+  static constexpr int kExtra = (KH * D + KH * SP + 3 * KH) * 4 + 16;
+  static constexpr int kStages = 3 * 2 * TILE + kExtra <= 113 * 1024 ? 3 : 2;
+  static constexpr int kSmem = kStages * 2 * TILE + kExtra;
+  static constexpr int NG = kThreads / BK, HPT = KH / NG;
+  static constexpr int CT = D < kThreads ? D : kThreads, HG = kThreads / CT;
+  static constexpr int CPT = D / CT, HPV = KH / HG;
+  static_assert(kBK % BK == 0 && BK % 4 == 0 && kThreads % BK == 0 && KH % NG == 0 &&
+                    KH % HG == 0,
+                "tile shape");
+  static_assert(kSmem <= 113 * 1024, "two blocks an SM");
+};
+
+// the E values of a landed 16-byte chunk of K/V of kind KV as f32, exactly
+template <int KV>
+__device__ __forceinline__ void chunk_f32(const unsigned char* p, float* f) {
+  const uint4 raw = *reinterpret_cast<const uint4*>(p);
+  if constexpr (KV == kKvSame) {
+    f[0] = __uint_as_float(raw.x);
+    f[1] = __uint_as_float(raw.y);
+    f[2] = __uint_as_float(raw.z);
+    f[3] = __uint_as_float(raw.w);
+  } else {
+    chunk_to_float<KV>(raw, f);
   }
-  __syncthreads();
-  const bool merges = *flag;
-  __syncthreads();            // every thread has read the flag: the area is free
-  if (!merges) return;
-  __threadfence();
-  // each head's weight for each used split, 2^(m_s - M), and its sum L,
-  // once a head into shared memory (the warps' merge area is free again),
-  // so each element below reads one partial a split
-  const long long base = (long long)rowid * a.nsplit;
-  float* fs = reinterpret_cast<float*>(smem);       // (used, KH)
-  float* Ls = fs + used * KH;                       // (KH)
-  for (int i = tid; i < hb; i += kThreads) {
-    float M = kNegInf;
-    for (int s = 0; s < used; ++s)
-      M = fmaxf(M, __ldcg(a.part_ml + ((base + s) * KH + i) * 2));
-    float L = 0.f;
-    for (int s = 0; s < used; ++s) {
-      const long long p = (base + s) * KH + i;
-      const float f = exp2f(__ldcg(a.part_ml + p * 2) - M);
-      fs[s * KH + i] = f;
-      L = fmaf(f, __ldcg(a.part_ml + p * 2 + 1), L);
+}
+
+// one landed K/V element of kind KV as f32, exactly
+template <int KV>
+__device__ __forceinline__ float elem_f32(const unsigned char* p) {
+  if constexpr (KV == kKvSame) {
+    return *reinterpret_cast<const float*>(p);
+  } else if constexpr (KV == kKvBF16) {
+    return __uint_as_float((uint32_t)*reinterpret_cast<const unsigned short*>(p) << 16);
+  } else if constexpr (KV == kKvF16) {
+    return __half2float(__ushort_as_half(*reinterpret_cast<const unsigned short*>(p)));
+  } else {
+    const __half_raw h = __nv_cvt_fp8_to_halfraw(*reinterpret_cast<const __nv_fp8_storage_t*>(p),
+                                                 KV == kKvE4M3 ? __NV_E4M3 : __NV_E5M2);
+    return __half2float(__half(h));
+  }
+}
+
+// The f32 kernel: an f32 q over K/V in any kind, in full f32 FMAs (no TF32).
+// One block a split of a (b, kv head, head chunk of 16 heads); the online
+// softmax is taken a tile at a time: each thread scores one slot of the tile
+// against its heads from q in shared memory, with no reduction across lanes;
+// then warp w takes heads w, w + 4, .. : one max, one rescale and the
+// exponentials of the tile's slots a head; then each thread adds P V for its
+// columns and heads, P read four slots at a time.  K/V are converted as they
+// are read from the tile as it landed, in registers.  Each split's last
+// block merges the row's partials from global memory.
+template <int KV, int D>
+__global__ void __launch_bounds__(kThreads, 2)
+flash_decode_f32_kernel(const Args a) {
+  using G = F32Tile<KV, D>;
+  constexpr int KH = G::KH, BK = G::BK, S = G::kStages, KB = G::KB, RS = G::RS;
+  constexpr int CPR = G::CPR, E = G::E, TILE = G::TILE, SP = G::SP;
+
+  const int split = (int)(blockIdx.x % a.nsplit);
+  const int rowid = (int)(blockIdx.x / a.nsplit);   // (b * Hk + hk) * HC + hc
+  const int hc = rowid % a.HC;
+  const int bh = rowid / a.HC;
+  const int hk = bh % a.Hk, b = bh / a.Hk;
+  const int g = a.Hq / a.Hk;
+  const int h0 = hk * g + hc * KH;                  // first q head of this block
+  const int hb = min(KH, g - hc * KH);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+
+  const int len = min(a.lengths[b], a.C);
+  float* out = static_cast<float*>(a.o) + ((long long)b * a.Hq + h0) * D;
+  if (len < 1) {                                    // no valid slot: zeros
+    if (split == 0)
+      for (int e = tid; e < hb * D; e += kThreads) out[e] = 0.f;
+    return;
+  }
+  const int k_begin = split * a.split_keys;
+  if (k_begin >= len) return;                       // the empty tail: never read
+  const int k_end = min(k_begin + a.split_keys, len);
+  const int used = (len + a.split_keys - 1) / a.split_keys;
+
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  unsigned char* ring = smem_raw;                   // S stages of (K tile, V tile)
+  float* q_s = reinterpret_cast<float*>(ring + S * 2 * TILE);   // (KH, D)
+  float* sp = q_s + KH * D;                         // (KH, SP): S, then P
+  float* alpha_s = sp + KH * SP;                    // (KH)
+  float* m_s = alpha_s + KH;                        // (KH)
+  float* l_s = m_s + KH;                            // (KH)
+  int* flag = reinterpret_cast<int*>(l_s + KH);
+
+  const long long row = (long long)a.Hk * D * KB;   // bytes from a slot of k (v) to the next
+  const long long kv_off = ((long long)b * a.C * a.Hk + hk) * D * KB;
+  const unsigned char* kg = static_cast<const unsigned char*>(a.k) + kv_off;
+  const unsigned char* vg = static_cast<const unsigned char*>(a.v) + kv_off;
+  auto load_tile = [&](int stage, int k0) {
+    unsigned char* ks = ring + stage * 2 * TILE;
+    unsigned char* vs = ks + TILE;
+    for (int idx = tid; idx < BK * CPR; idx += kThreads) {
+      const int r = idx / CPR, c = idx % CPR;
+      const bool valid = k0 + r < k_end;
+      const long long off = valid ? (long long)(k0 + r) * row + c * 16 : 0;
+      cp_async16(ks + r * RS + c * 16, kg + off, valid);
+      cp_async16(vs + r * RS + c * 16, vg + off, valid);
     }
-    Ls[i] = L;
+  };
+
+  const int ntiles = (k_end - k_begin + BK - 1) / BK;
+#pragma unroll
+  for (int s = 0; s < S - 1; ++s) {
+    if (s < ntiles) load_tile(s, k_begin + s * BK);
+    cp_async_commit();
   }
-  __syncthreads();
-  // splits outermost: a thread's EPT loads of one split are independent, so
-  // they are in flight together
-  constexpr int EPT = (KH * D + kThreads - 1) / kThreads;   // elements a thread
-  float acc[EPT];
+  {   // q of this block's heads once, zeros past hb
+    const float4* qg = reinterpret_cast<const float4*>(
+        static_cast<const float*>(a.q) + ((long long)b * a.Hq + h0) * D);
+    float4* qs4 = reinterpret_cast<float4*>(q_s);
+    for (int e = tid; e < KH * D / 4; e += kThreads)
+      qs4[e] = e < hb * D / 4 ? qg[e] : make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+
+  // scores: slot js, heads hs + NG i; where the block has fewer heads than
+  // head groups, `parts` groups split each head's chunks (part p takes
+  // chunks p, p + parts, ..) and the softmax sums their partial scores
+  const int js = tid % BK, hs0 = tid / BK;
+  const int parts = hb >= G::NG ? 1 : G::NG / hb;
+  const int hs = parts == 1 ? hs0 : hs0 % hb, part = parts == 1 ? 0 : hs0 / hb;
+  const int pc = tid % G::CT, ph0 = tid / G::CT;    // P V: columns pc + CT x, heads ph0 + HG i
+  float m[KH / 4], lp[KH / 4];                      // softmax: heads warp + 4u; l a lane's share
 #pragma unroll
-  for (int j = 0; j < EPT; ++j) acc[j] = 0.f;
-  for (int s = 0; s < used; ++s) {
-    const float* part = a.part_acc + (base + s) * KH * D;
+  for (int u = 0; u < KH / 4; ++u) {
+    m[u] = kNegInf;
+    lp[u] = 0.f;
+  }
+  float acc[G::HPV][G::CPT];
 #pragma unroll
-    for (int j = 0; j < EPT; ++j) {
-      const int e = tid + j * kThreads;
-      if (e < hb * D) acc[j] = fmaf(fs[s * KH + e / D], __ldcg(part + e), acc[j]);
+  for (int i = 0; i < G::HPV; ++i)
+#pragma unroll
+    for (int x = 0; x < G::CPT; ++x) acc[i][x] = 0.f;
+
+  for (int it = 0; it < ntiles; ++it) {
+    cp_async_wait<S - 2>();   // tile `it` has landed, for this thread's copies
+    __syncthreads();          // for every thread's; stage (it - 1) % S and P are free
+    const int nt = it + S - 1;
+    if (nt < ntiles) load_tile(nt % S, k_begin + nt * BK);
+    cp_async_commit();
+    const unsigned char* ks = ring + (it % S) * 2 * TILE;
+    const unsigned char* vs = ks + TILE;
+    const int k0 = k_begin + it * BK;
+
+    if (part < parts) {   // 1) this thread's slot against its heads: S = q K^T
+      float sc[G::HPT];
+#pragma unroll
+      for (int i = 0; i < G::HPT; ++i) sc[i] = 0.f;
+      const unsigned char* krow = ks + js * RS;
+      auto chunk = [&](int c) {
+        float kf[E];
+        chunk_f32<KV>(krow + c * 16, kf);
+#pragma unroll
+        for (int i = 0; i < G::HPT; ++i) {
+          if (hs + G::NG * i >= hb) break;
+          const float* qh = q_s + (hs + G::NG * i) * D + c * E;
+#pragma unroll
+          for (int e = 0; e < E; e += 4) {
+            const float4 qv = *reinterpret_cast<const float4*>(qh + e);
+            sc[i] = fmaf(qv.x, kf[e], sc[i]);
+            sc[i] = fmaf(qv.y, kf[e + 1], sc[i]);
+            sc[i] = fmaf(qv.z, kf[e + 2], sc[i]);
+            sc[i] = fmaf(qv.w, kf[e + 3], sc[i]);
+          }
+        }
+      };
+      if (parts == 1) {
+#pragma unroll 4
+        for (int c = 0; c < CPR; ++c) chunk(c);
+      } else {
+        for (int c = part; c < CPR; c += parts) chunk(c);
+      }
+      // a head's partial sums of part p in row p * hb + h, its S in row h
+#pragma unroll
+      for (int i = 0; i < G::HPT; ++i) {
+        const int h = hs + G::NG * i;
+        if (h >= hb) break;
+        sp[(part * hb + h) * SP + js] = sc[i];
+      }
+    }
+    __syncthreads();
+
+    // 2) a head at a time: the tile's max, one rescale, P in place of S
+    constexpr int NV = BK >= 32 ? BK / 32 : 1;      // slots a lane
+#pragma unroll
+    for (int u = 0; u < KH / 4; ++u) {
+      const int h = warp + 4 * u;
+      if (h >= hb) break;                           // the same for the whole warp
+      float x[NV];
+      float mx = kNegInf;
+#pragma unroll
+      for (int v = 0; v < NV; ++v) {
+        const int j = lane + 32 * v;
+        x[v] = kNegInf;
+        if (j < BK) {
+          float sj = sp[h * SP + j];
+          for (int q = 1; q < parts; ++q) sj += sp[(q * hb + h) * SP + j];
+          if (k0 + j < k_end) x[v] = sj * a.scale_log2;   // base 2; masked past the length
+        }
+        mx = fmaxf(mx, x[v]);
+      }
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+      const float m_new = fmaxf(m[u], mx);
+      const float alpha = exp2f(m[u] - m_new);
+      m[u] = m_new;
+      float ps = 0.f;
+#pragma unroll
+      for (int v = 0; v < NV; ++v) {
+        const int j = lane + 32 * v;
+        if (j < BK) {
+          const float pj = k0 + j < k_end ? exp2f(x[v] - m_new) : 0.f;
+          sp[h * SP + j] = pj;
+          ps += pj;
+        }
+      }
+      lp[u] = fmaf(lp[u], alpha, ps);
+      if (lane == 0) alpha_s[h] = alpha;
+    }
+    __syncthreads();
+
+    // 3) O = alpha O + P V over this thread's columns and heads
+#pragma unroll
+    for (int i = 0; i < G::HPV; ++i) {
+      const int h = ph0 + G::HG * i;
+      const float al = h < hb ? alpha_s[h] : 0.f;
+#pragma unroll
+      for (int x = 0; x < G::CPT; ++x) acc[i][x] *= al;
+    }
+#pragma unroll 2
+    for (int j = 0; j < BK; j += 4) {
+      float vv[4][G::CPT];
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj)
+#pragma unroll
+        for (int x = 0; x < G::CPT; ++x)
+          vv[jj][x] = elem_f32<KV>(vs + (j + jj) * RS + (pc + G::CT * x) * KB);
+#pragma unroll
+      for (int i = 0; i < G::HPV; ++i) {
+        const int h = ph0 + G::HG * i;
+        if (h >= hb) break;
+        const float4 pv = *reinterpret_cast<const float4*>(sp + h * SP + j);
+#pragma unroll
+        for (int x = 0; x < G::CPT; ++x) {
+          acc[i][x] = fmaf(pv.x, vv[0][x], acc[i][x]);
+          acc[i][x] = fmaf(pv.y, vv[1][x], acc[i][x]);
+          acc[i][x] = fmaf(pv.z, vv[2][x], acc[i][x]);
+          acc[i][x] = fmaf(pv.w, vv[3][x], acc[i][x]);
+        }
+      }
     }
   }
+  cp_async_wait<0>();
+
+  // each head's m and l (l summed over its warp's lanes)
 #pragma unroll
-  for (int j = 0; j < EPT; ++j) {
-    const int e = tid + j * kThreads;
-    if (e < hb * D) store_as(out + e, acc[j] / fmaxf(Ls[e / D], 1e-30f));
+  for (int u = 0; u < KH / 4; ++u) {
+    const int h = warp + 4 * u;
+    if (h >= hb) break;
+    float l = lp[u];
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) l += __shfl_xor_sync(0xffffffffu, l, off);
+    if (lane == 0) {
+      m_s[h] = m[u];
+      l_s[h] = l;
+    }
   }
+  __syncthreads();
+  // o, or this split's partial; a row with one used split is done here
+  const long long pid = (long long)rowid * a.nsplit + split;   // this partial
+#pragma unroll
+  for (int i = 0; i < G::HPV; ++i) {
+    const int h = ph0 + G::HG * i;
+    if (h >= hb) break;
+#pragma unroll
+    for (int x = 0; x < G::CPT; ++x) {
+      const int col = pc + G::CT * x;
+      if (used == 1)
+        out[h * D + col] = acc[i][x] / fmaxf(l_s[h], 1e-30f);
+      else
+        a.part_acc[(pid * KH + h) * D + col] = acc[i][x];
+    }
+  }
+  if (used == 1) return;
+  if (tid < hb) {
+    a.part_ml[(pid * KH + tid) * 2] = m_s[tid];
+    a.part_ml[(pid * KH + tid) * 2 + 1] = l_s[tid];
+  }
+  merge_splits<float, KH, D, kThreads>(a, ring, flag, rowid, used, hb, out, tid);
 }
 
 // ---- the split-D kernel -----------------------------------------------------
@@ -1268,12 +1531,27 @@ cudaError_t launch(const Args& a, int B, cudaStream_t st) {
 }
 
 template <int KV, int D>
+cudaError_t launch_f32(const Args& a, int B, cudaStream_t st) {
+  constexpr int smem = F32Tile<KV, D>::kSmem;
+  // the cross-split merge keeps a weight a (split, head) in the ring
+  if ((a.nsplit + 1) * F32Tile<KV, D>::KH * (int)sizeof(float) > 2 * F32Tile<KV, D>::TILE)
+    return cudaErrorInvalidValue;
+  static std::atomic<uint64_t> smem_set{0};
+  const cudaError_t e = set_smem_once(flash_decode_f32_kernel<KV, D>, smem, smem_set, true);
+  if (e != cudaSuccess) return e;
+  const long long blocks = (long long)B * a.Hk * a.HC * a.nsplit;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  flash_decode_f32_kernel<KV, D><<<(unsigned)blocks, kThreads, smem, st>>>(a);
+  return cudaGetLastError();
+}
+
+template <int KV, int D>
 cudaError_t launch_split(const Args& a, int B, cudaStream_t st) {
   using R = Ring<KV, D>;
   if (a.nsplit > kMaxCluster) return cudaErrorInvalidValue;   // a row's splits are one cluster
   static std::atomic<uint64_t> smem_set{0};
   const cudaError_t e =
-      set_smem_once(flash_decode_split_kernel<KV, D>, R::kSmem, smem_set, true);
+      set_smem_once(flash_decode_split_kernel<KV, D>, R::kSmem, smem_set, true, true);
   if (e != cudaSuccess) return e;
   const long long blocks = (long long)B * a.Hk * a.HC * a.nsplit;
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
@@ -1305,19 +1583,21 @@ struct LaunchVariant {
   cudaStream_t st;
   template <typename T, int KV, int D> int run() const {
     if constexpr (uses_split<T, KV, D>()) return launch_split<KV, D>(a, B, st);
+    else if constexpr (std::is_same<T, float>::value) return launch_f32<KV, D>(a, B, st);
     else return launch<T, KV, D>(a, B, st);
   }
 };
 struct SmemVariant {
   template <typename T, int KV, int D> int run() const {
     if constexpr (uses_split<T, KV, D>()) return Ring<KV, D>::kSmem;
+    else if constexpr (std::is_same<T, float>::value) return F32Tile<KV, D>::kSmem;
     else return smem_bytes_for<T, KV, D>();
   }
 };
 template <typename Kernel>
-int occupancy(Kernel kernel, int threads, int smem, bool clustered) {
+int occupancy(Kernel kernel, int threads, int smem, bool max_shared, bool clustered) {
   cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (e == cudaSuccess && clustered)
+  if (e == cudaSuccess && max_shared)
     e = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
                              (int)cudaSharedmemCarveoutMaxShared);
   if (e == cudaSuccess && clustered)
@@ -1334,9 +1614,14 @@ struct MaxSplitsVariant {
 struct OccupancyVariant {
   template <typename T, int KV, int D> int run() const {
     if constexpr (uses_split<T, KV, D>())
-      return occupancy(flash_decode_split_kernel<KV, D>, Split<D>::NT, Ring<KV, D>::kSmem, true);
+      return occupancy(flash_decode_split_kernel<KV, D>, Split<D>::NT, Ring<KV, D>::kSmem, true,
+                       true);
+    else if constexpr (std::is_same<T, float>::value)
+      return occupancy(flash_decode_f32_kernel<KV, D>, kThreads, F32Tile<KV, D>::kSmem, true,
+                       false);
     else
-      return occupancy(flash_decode_kernel<T, KV, D>, kThreads, smem_bytes_for<T, KV, D>(), false);
+      return occupancy(flash_decode_kernel<T, KV, D>, kThreads, smem_bytes_for<T, KV, D>(), false,
+                       false);
   }
 };
 
@@ -1392,7 +1677,7 @@ extern "C" int flash_decode_fwd(const void* q, const void* k, const void* v,
   if (B < 1 || C < 1 || Hq < 1 || Hk < 1 || Hq % Hk != 0 || split_keys < kBK ||
       split_keys % kBK != 0 || nsplit < 1 || (long long)nsplit * split_keys < C)
     return cudaErrorInvalidValue;
-  const int kh = is_bf16 ? Cfg<__nv_bfloat16>::kHeads : Cfg<float>::kHeads;
+  const int kh = heads_per_block(D, is_bf16);
   const int g = Hq / Hk;
   Args a{q, k, v, static_cast<const int*>(lengths), o, static_cast<float*>(part_acc),
          static_cast<float*>(part_ml), static_cast<int*>(counters), C, Hq, Hk,
@@ -1404,10 +1689,10 @@ extern "C" int flash_decode_fwd(const void* q, const void* k, const void* v,
 }
 
 // Query heads one block holds (the head chunk) at head size D: bf16 16,
-// float32 8; -1 if D is not built.
+// float32 16 (8 at D = 256); -1 if D is not built.
 extern "C" int flash_decode_heads_per_block(int D, int is_bf16) {
   if (D != 32 && D != 64 && D != 128 && D != 256) return -1;
-  return is_bf16 ? Cfg<__nv_bfloat16>::kHeads : Cfg<float>::kHeads;
+  return heads_per_block(D, is_bf16);
 }
 
 // Dynamic shared memory one block takes at head size D for K/V of kv_kind,

@@ -33,7 +33,7 @@ from .build import load
 from .ref import attention_ref
 
 __all__ = ["flash_attention", "flash_attention_trainable", "check_attention_args",
-           "smem_bytes", "tile_plan"]
+           "smem_bytes", "tile_plan", "occupancy"]
 
 _SUPPORTED_D = (32, 64, 128, 256)
 # query rows a block of the bf16 kernel owns: one warpgroup's 64
@@ -71,17 +71,29 @@ def check_attention_args(q, k, v, window: Optional[int] = None) -> None:
         raise ValueError(f"window must be >= 1, got {window}")
 
 
-def tile_plan(B: int, S: int, Hq: int, Hk: int) -> dict:
+def tile_plan(B: int, S: int, Hq: int, Hk: int, D: int, causal: bool = True,
+              window: Optional[int] = None) -> dict:
     """How the bf16 kernel cuts the work into blocks of ROWS_PER_BLOCK query
     rows: ``heads_per_block`` heads of one group (all g of them, up to 64)
     times ``tokens_per_block`` token positions; ``head_chunks`` blocks cover
-    a group's heads, ``token_tiles`` cover S."""
+    a group's heads, ``token_tiles`` cover S.  ``kv_l2_bytes``: the K and V
+    bytes a call fetches from L2, every block loading each kv tile (of
+    ``tc_block_n`` keys: 128 at D <= 64, else 64) that the causal mask and
+    the window let its tokens see, its rows inside S once."""
     g = Hq // Hk
     hb = min(g, ROWS_PER_BLOCK)
     T = ROWS_PER_BLOCK // hb
     chunks, tiles = -(-g // hb), -(-S // T)
+    BN = 128 if D <= 64 else 64
+    kv_rows = 0
+    for t in range(tiles):
+        lo, hi = t * T, min(t * T + T, S) - 1
+        end = hi // BN + 1 if causal else -(-S // BN)
+        begin = (lo - window + 1) // BN if window and lo - window + 1 > 0 else 0
+        kv_rows += sum(min(BN, S - kt * BN) for kt in range(begin, end))
     return dict(heads_per_block=hb, tokens_per_block=T, head_chunks=chunks,
-                token_tiles=tiles, blocks=B * Hk * chunks * tiles)
+                token_tiles=tiles, blocks=B * Hk * chunks * tiles,
+                kv_l2_bytes=B * Hk * chunks * kv_rows * 2 * D * 2)
 
 
 @functools.cache
@@ -95,6 +107,8 @@ def _lib() -> ctypes.CDLL:
     lib.flash_attention_error_string.restype = ctypes.c_char_p
     lib.flash_attention_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
     lib.flash_attention_smem_bytes.restype = ctypes.c_int
+    lib.flash_attention_occupancy.argtypes = [ctypes.c_int]
+    lib.flash_attention_occupancy.restype = ctypes.c_int
     return lib
 
 
@@ -104,6 +118,16 @@ def smem_bytes(D: int, dtype: torch.dtype = torch.bfloat16) -> int:
     n = _lib().flash_attention_smem_bytes(D, int(dtype == torch.bfloat16))
     if n < 0:
         raise ValueError(f"no kernel built for D={D}")
+    return n
+
+
+def occupancy(D: int) -> int:
+    """Blocks of the bf16 kernel at head size ``D`` that one SM of the
+    current CUDA device holds, by CUDA's occupancy calculator (builds the
+    kernel if needed)."""
+    n = _lib().flash_attention_occupancy(D)
+    if n < 0:
+        raise RuntimeError(f"no occupancy for the bf16 attention kernel at D={D}")
     return n
 
 

@@ -14,12 +14,13 @@ counters with eager calls on another stream.  K and V may be in q's
 dtype, in float8 (``float8_e4m3fn``, ``float8_e5m2``: a float8 KV cache,
 read as it is stored and widened in the kernel), or in another float dtype:
 bf16 or f16 under an f32 q, f32 or f16 under a bf16 q (a cache in another
-``kv_dtype`` than the model's, converted into q's dtype in the kernel, a
-narrowing rounded to nearest even; under a bf16 q in registers, as the
-products read them).  A bf16 q at D = 256 runs the kernel's split-D variant
-(:func:`clustered`), which launches a row's splits as one thread block
-cluster that merges them in shared memory, so it takes no scratch; the
-rest its slot-split variant.  ``flash_decode.kind_launches`` counts
+``kv_dtype`` than the model's, converted into q's dtype in registers as the
+kernel reads it, a narrowing rounded to nearest even).  A bf16 q at D = 256
+runs the kernel's split-D variant (:func:`clustered`), which launches a
+row's splits as one thread block cluster that merges them in shared memory,
+so it takes no scratch; a bf16 q below D = 256 its slot-split variant, and
+an f32 q its f32 variant (full f32 FMAs, the softmax a tile at a time), both
+merging in a global scratch.  ``flash_decode.kind_launches`` counts
 the launches on K/V in another dtype than q's, by (q dtype, K/V dtype).
 It takes CUDA tensors only: CPU tensors go to the plain version through
 :func:`repro_torch.kernels.ops.decode_attention`.
@@ -36,7 +37,7 @@ import torch
 from .build import load
 
 __all__ = ["flash_decode", "check_decode_args", "kv_kind", "clustered", "planned_blocks_per_sm",
-           "split_plan", "call_plan", "smem_bytes", "blocks_per_sm", "HEADS_PER_BLOCK",
+           "split_plan", "call_plan", "smem_bytes", "blocks_per_sm", "heads_per_block",
            "MAX_CLUSTER"]
 
 _SUPPORTED_D = (32, 64, 128, 256)
@@ -50,10 +51,15 @@ _KV_KIND = {
     (torch.bfloat16, torch.float32): 5,
 }
 _TILE = 64              # cache slots a split is a multiple of (``kBK`` of the kernel)
-# query heads a block holds, by q's dtype, at every head size: ``Cfg<T>::kHeads``
-# of csrc/flash_decode.cu (the rows of bf16's mma A operand; f32's SIMT
-# rows), which the built library reports (``flash_decode_heads_per_block``)
-HEADS_PER_BLOCK = {torch.bfloat16: 16, torch.float32: 8}
+
+
+def heads_per_block(D: int, dtype: torch.dtype) -> int:
+    """Query heads a block holds at head size ``D`` for q in ``dtype``:
+    ``heads_per_block`` of csrc/flash_decode.cu (the rows of bf16's mma A
+    operand; the f32 kernel's heads, which share each K/V tile it loads, 8
+    at D = 256 so RecurrentGemma's 16 heads make two blocks a split), which
+    the built library reports (``flash_decode_heads_per_block``)."""
+    return 8 if dtype == torch.float32 and D == 256 else 16
 # a full cache gives about this many blocks per SM, all resident, where two
 # blocks of the variant fit on an SM (:func:`planned_blocks_per_sm`)
 _BLOCKS_PER_SM = 2
@@ -155,7 +161,7 @@ def call_plan(B: int, Hq: int, Hk: int, C: int, D: int, dtype: torch.dtype,
                                     MAX_CLUSTER if cluster else None)
     if cluster:
         return split_keys, nsplit, (0, 0, 0)
-    kh = HEADS_PER_BLOCK[dtype]
+    kh = heads_per_block(D, dtype)
     rows = B * Hk * -(-(Hq // Hk) // kh)
     return split_keys, nsplit, (rows * nsplit * kh * D, rows * nsplit * kh * 2, rows)
 

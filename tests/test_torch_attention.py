@@ -125,24 +125,82 @@ def test_kernel_wrapper_rejects_what_it_does_not_take():
     assert flash_attention.launches == before
 
 
-@pytest.mark.parametrize("B,S,Hq,Hk,want", [
-    (4, 2048, 16, 16, (1, 64, 1, 32, 2048)),    # the training shape
-    (1, 512, 32, 8, (4, 16, 1, 32, 256)),       # the dense prefill: 2 blocks on 128 SMs
-    (1, 100, 64, 1, (64, 1, 1, 100, 100)),      # g=64: one token of 64 heads a block
-    (2, 100, 6, 2, (3, 21, 1, 5, 20)),          # g=3: 63 of 64 rows busy
-    (1, 9, 160, 1, (64, 1, 3, 9, 27)),          # g > 64: three head chunks
-    (1, 512, 16, 1, (16, 4, 1, 128, 128)),      # RecurrentGemma's prefill: 4 tokens x 16 heads
+def _kv_l2_bytes_brute(B, S, Hq, Hk, D, causal, window):
+    """The K/V bytes a call loads from L2, row by row: a block loads each kv
+    tile of BN keys that any of its rows may see, its keys inside S."""
+    plan = tile_plan(B, S, Hq, Hk, D, causal=causal, window=window)
+    T, BN = plan["tokens_per_block"], 128 if D <= 64 else 64
+    rows = 0
+    for t in range(plan["token_tiles"]):
+        tiles = {key // BN for tok in range(t * T, min(t * T + T, S)) for key in range(S)
+                 if (not causal or key <= tok) and (not window or key > tok - window)}
+        rows += sum(min(BN, S - kt * BN) for kt in tiles)
+    return B * Hk * plan["head_chunks"] * rows * 2 * D * 2
+
+
+@pytest.mark.parametrize("B,S,Hq,Hk,D,window,want", [
+    # the training shape: 64 tokens of one head a block
+    pytest.param(4, 2048, 16, 16, 64, None, (1, 64, 1, 32, 2048), id="4-2048-16-16-want0"),
+    # the dense prefill: 16 tokens x 4 heads, 2 blocks on 128 SMs
+    pytest.param(1, 512, 32, 8, 128, None, (4, 16, 1, 32, 256), id="1-512-32-8-want1"),
+    # g=64: one token of 64 heads a block
+    pytest.param(1, 100, 64, 1, 128, None, (64, 1, 1, 100, 100), id="1-100-64-1-want2"),
+    # g=3: 63 of 64 rows busy
+    pytest.param(2, 100, 6, 2, 32, None, (3, 21, 1, 5, 20), id="2-100-6-2-want3"),
+    # g > 64: three head chunks
+    pytest.param(1, 9, 160, 1, 128, None, (64, 1, 3, 9, 27), id="1-9-160-1-want4"),
+    # RecurrentGemma's prefill: 4 tokens x 16 heads
+    pytest.param(1, 512, 16, 1, 256, 2048, (16, 4, 1, 128, 128), id="1-512-16-1-want5"),
+    # MHA at D = 64: two adjacent blocks' 64 tokens share one 128-key
+    # diagonal tile, which the first block sees only in part
+    (1, 256, 8, 8, 64, None, (1, 64, 1, 4, 32)),
+    # S = 100 is not a multiple of a block's 8 tokens: the last block holds 4
+    (1, 100, 64, 8, 128, None, (8, 8, 1, 13, 104)),
+    # a 100-token window starts inside a block's 16 tokens and mid-tile
+    (1, 512, 32, 8, 128, 100, (4, 16, 1, 32, 256)),
 ])
-def test_tile_plan_covers_every_row_once(B, S, Hq, Hk, want):
+def test_tile_plan_covers_every_row_once(B, S, Hq, Hk, D, window, want):
     """The bf16 kernel's blocks: heads_per_block x tokens_per_block rows of
     at most 64, head chunks covering each group's g heads and token tiles
-    covering S."""
-    plan = tile_plan(B, S, Hq, Hk)
+    covering S; the K/V bytes the plan counts from L2 are those of the kv
+    tiles each block's rows may see, counted row by row."""
+    plan = tile_plan(B, S, Hq, Hk, D, window=window)
     keys = ("heads_per_block", "tokens_per_block", "head_chunks", "token_tiles", "blocks")
     assert tuple(plan[key] for key in keys) == want
     hb, T = plan["heads_per_block"], plan["tokens_per_block"]
     assert hb * T <= 64 and hb * plan["head_chunks"] >= Hq // Hk
     assert T * plan["token_tiles"] >= S > T * (plan["token_tiles"] - 1)
+    if S <= 512:
+        assert plan["kv_l2_bytes"] == _kv_l2_bytes_brute(B, S, Hq, Hk, D, True, window)
+
+
+@pytest.mark.parametrize("B,S,Hq,Hk,D,window,tiles,want", [
+    # Qwen2-VL's training shape: a block (8 tokens x 8 heads) j sees the
+    # 64-key tiles 0..(8j+7)//64, for each of 8 kv heads
+    (1, 2048, 64, 8, 128, None, 8 * sum((8 * j + 7) // 64 + 1 for j in range(256)),
+     1_107_296_256),
+    # the training shape: a block (64 tokens) j sees the 128-key tiles
+    # 0..(64j+63)//128, for each of 4 x 16 (b, head)
+    (4, 2048, 16, 16, 64, None, 64 * sum((64 * j + 63) // 128 + 1 for j in range(32)),
+     570_425_344),
+    # the dense prefill: a block (16 tokens x 4 heads) j sees the 64-key
+    # tiles 0..(16j+15)//64, for each of 8 kv heads
+    (1, 512, 32, 8, 128, None, 8 * sum((16 * j + 15) // 64 + 1 for j in range(32)),
+     37_748_736),
+    # RecurrentGemma's training shape, a 2048-token window: a block (4
+    # tokens x 16 heads) j sees the 64-key tiles from (4j-2047)//64 (from 0
+    # while 4j < 2048) to (4j+3)//64
+    (1, 4096, 16, 1, 256, 2048,
+     sum((4 * j + 3) // 64 + 1 - max(0, (4 * j - 2047) // 64) for j in range(1024)),
+     1_660_944_384),
+])
+def test_tile_plan_counts_the_l2_bytes_by_hand(B, S, Hq, Hk, D, window, tiles, want):
+    """The K/V bytes a call fetches from L2 under the plan: each kv tile a
+    block loads, BN keys of D bf16 values of K and of V, for every (b, kv
+    head), counted by hand."""
+    plan = tile_plan(B, S, Hq, Hk, D, window=window)
+    BN = 128 if D <= 64 else 64
+    assert plan["kv_l2_bytes"] == tiles * BN * D * 2 * 2 == want
 
 
 # -- layers ------------------------------------------------------------------------

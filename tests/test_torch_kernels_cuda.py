@@ -211,6 +211,40 @@ def test_attention_kernel_matches_plain_version(cuda_device, B, S, Hq, Hk, D, ca
     np.testing.assert_allclose(_np(out), _np(ref), **ATTN_TOL[dtype])
 
 
+# (B, S, Hq, Hk, D, causal, window): the bf16 kernel's plan at its edges:
+# S = 1, 63, 65 and 2048 (a ragged last tile, the training length), g = 1,
+# 3, 4, 8 and 160 (three head chunks), a window that starts mid-tile and
+# inside a block's tokens, non-causal D = 32, and B > 1
+PLAN_EDGE_CASES = [
+    (1, 1, 8, 8, 64, True, None),
+    (1, 63, 12, 4, 128, True, None),
+    (1, 65, 24, 8, 128, True, None),
+    (1, 2048, 64, 8, 128, True, None),
+    (2, 2048, 4, 4, 64, True, None),
+    (1, 65, 2, 2, 128, True, None),
+    (2, 100, 6, 2, 64, True, None),
+    (1, 9, 160, 1, 128, True, None),
+    (1, 300, 32, 8, 128, True, 100),
+    (2, 333, 2, 2, 64, True, 77),
+    (1, 600, 16, 1, 256, True, 130),
+    (1, 190, 16, 2, 32, False, None),
+    (1, 200, 4, 2, 32, False, 128),
+    (3, 130, 16, 16, 128, True, None),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,Hq,Hk,D,causal,window", PLAN_EDGE_CASES)
+def test_attention_plan_edges_match_plain_version(cuda_device, B, S, Hq, Hk, D, causal, window):
+    """The bf16 kernel, K a tile ahead of V, against the plain version at
+    the edges of its plan."""
+    q, k, v = _attn_inputs(31, B, S, Hq, Hk, D, torch.bfloat16, cuda_device)
+    out = flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    ref = attention_ref(q, k, v, causal=causal, window=window)
+    np.testing.assert_allclose(_np(out), _np(ref), **ATTN_TOL[torch.bfloat16])
+
+
 @pytest.mark.cuda
 def test_f32_attention_kernel_takes_more_than_65535_heads(cuda_device):
     """B * Hq = 65,568 rows of (b, head), past the 65535 of one grid axis."""
@@ -496,6 +530,77 @@ def test_decode_graph_replays_beside_eager_calls_at_d256_and_on_f32_kv(cuda_devi
 
     q, k, v, lens = inputs(42, [C] * B)
     q2, k2, v2, lens2 = inputs(43, [C, 700, 1, 513, C, 64, 999, 300])
+    want, want2 = flash_decode(q, k, v, lens), flash_decode(q2, k2, v2, lens2)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = flash_decode(q, k, v, lens)
+    side1, side2 = torch.cuda.Stream(), torch.cuda.Stream()
+    got, got2 = [], []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        for side in (side1, side2):
+            with torch.cuda.stream(side):
+                torch.cuda._sleep(20_000_000)      # about 10 ms
+        for _ in range(20):
+            with torch.cuda.stream(side1):
+                graph.replay()
+                got.append(out.clone())
+            with torch.cuda.stream(side2):
+                got2.append(flash_decode(q2, k2, v2, lens2))
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, want) for a in got)
+    assert all(torch.equal(a, want2) for a in got2)
+
+
+# (B, C, Hq, Hk, D, lengths): the f32 kernel (an f32 q) at its plan's edges:
+# lengths 1 and C, a ragged C, lengths that cross a split (the dense heads'
+# 256-slot splits, RecurrentGemma's 64-slot ones), g = 1, 4, 12 and 16 (two
+# head chunks of 8 at D = 256), at D = 64, 128 and 256
+F32_Q_CASES = [
+    (2, 512, 16, 16, 64, [1, 512]),
+    (3, 1000, 4, 1, 64, [1000, 257, 1]),
+    (8, 1024, 32, 8, 128, [1, 1024, 257, 256, 513, 17, 999, 65]),
+    (2, 1000, 16, 16, 128, [1000, 385]),
+    (2, 777, 96, 8, 128, [777, 300]),
+    (4, 1024, 16, 1, 256, [1, 1024, 65, 129]),
+    (2, 300, 32, 2, 256, [300, 64]),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,C,Hq,Hk,D,lengths", F32_Q_CASES)
+@pytest.mark.parametrize("kv_dtype", [torch.float32, torch.bfloat16, torch.float16,
+                                      torch.float8_e4m3fn, torch.float8_e5m2])
+def test_f32_q_decode_matches_plain_version(cuda_device, B, C, Hq, Hk, D, lengths, kv_dtype):
+    """The f32 kernel over K/V in f32 and in each kind it converts (exactly,
+    in registers) against the plain version at the f32 tolerance; its
+    partials merge in one order, so a second call gives the same output."""
+    q, k, v, lens = _decode_inputs(44, B, C, Hq, Hk, D, torch.float32, cuda_device, lengths)
+    k, v = astype(k, kv_dtype), astype(v, kv_dtype)
+    out = flash_decode(q, k, v, lens)
+    torch.cuda.synchronize()
+    assert out.dtype == torch.float32 and torch.equal(out, flash_decode(q, k, v, lens))
+    np.testing.assert_allclose(_np(out), _np(decode_attention_ref(q, k, v, lens)),
+                               **ATTN_TOL[torch.float32])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D,Hq,Hk,kv_dtype", [(128, 32, 8, torch.float32),
+                                               (128, 32, 8, torch.bfloat16),
+                                               (256, 16, 1, torch.float16)])
+def test_f32_q_decode_graph_replays_beside_eager_calls(cuda_device, D, Hq, Hk, kv_dtype):
+    """As ``test_decode_graph_replays_beside_eager_calls_on_another_stream``
+    for the f32 kernel: replays on one stream beside eager calls on other
+    inputs on a second, each giving its own inputs' output."""
+    B, C = 8, 1024
+
+    def inputs(seed, lengths):
+        q, k, v, lens = _decode_inputs(seed, B, C, Hq, Hk, D, torch.float32, cuda_device, lengths)
+        return q, astype(k, kv_dtype), astype(v, kv_dtype), lens
+
+    q, k, v, lens = inputs(45, [C] * B)
+    q2, k2, v2, lens2 = inputs(46, [C, 700, 1, 513, C, 64, 999, 300])
     want, want2 = flash_decode(q, k, v, lens), flash_decode(q2, k2, v2, lens2)
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()

@@ -235,29 +235,38 @@ def test_meta_routes_allocate_the_wrappers_buffers():
     assert live.live == (4 * 2 * 16 * 32 + 4 * 2 * 16 * 2) * 4 + 4 * 4
 
 
-@pytest.mark.parametrize("D,kv_dtype,want", [
+@pytest.mark.parametrize("D,q_dtype,kv_dtype,want", [
     # RecurrentGemma's heads at D = 256: a row's 16 splits are one cluster,
     # which merges in shared memory: no scratch
-    (256, torch.bfloat16, (0, 0, 0)),
+    pytest.param(256, torch.bfloat16, torch.bfloat16, (0, 0, 0), id="256-kv_dtype0-want0"),
     # the dense serving heads over an f32 cache under a bf16 q: one block an
     # SM, three 384-slot splits of 64 rows (B * Hk) of 16 heads
-    (128, torch.float32, (64 * 3 * 16 * 128, 64 * 3 * 16 * 2, 64)),
+    pytest.param(128, torch.bfloat16, torch.float32, (64 * 3 * 16 * 128, 64 * 3 * 16 * 2, 64),
+                 id="128-kv_dtype1-want1"),
+    # an f32 q: the f32 kernel's 16 heads a block, two blocks an SM; the
+    # dense heads (g = 4 in one chunk) in four 256-slot splits of 64 rows,
+    # over an f32 cache and a bf16 one alike
+    (128, torch.float32, torch.float32, (64 * 4 * 16 * 128, 64 * 4 * 16 * 2, 64)),
+    (128, torch.float32, torch.bfloat16, (64 * 4 * 16 * 128, 64 * 4 * 16 * 2, 64)),
+    # RecurrentGemma's 16 heads in two chunks of 8 under an f32 q: 16 splits
+    # of 64 slots of 16 rows, merged from the scratch (no cluster)
+    (256, torch.float32, torch.float32, (16 * 16 * 8 * 256, 16 * 16 * 8 * 2, 16)),
 ])
-def test_meta_decode_scratch_is_the_wrappers(D, kv_dtype, want):
+def test_meta_decode_scratch_is_the_wrappers(D, q_dtype, kv_dtype, want):
     """The decode route on meta allocates the split scratch the CUDA
     wrapper's own plan (``call_plan`` on an H100's SMs) gives, for K/V in
-    q's dtype at D = 256 and for f32 K/V under a bf16 q, both counted by
-    hand."""
+    q's dtype at D = 256, for f32 K/V under a bf16 q, and for an f32 q at
+    D = 128 and 256, all counted by hand."""
     B, C, Hk = 8, 1024, 1 if D == 256 else 8
     Hq = 16 * Hk if D == 256 else 32
-    q = torch.empty((B, Hq, D), dtype=torch.bfloat16, device="meta")
+    q = torch.empty((B, Hq, D), dtype=q_dtype, device="meta")
     k = torch.empty((B, C, Hk, D), dtype=kv_dtype, device="meta")
     lengths = torch.empty((B,), dtype=torch.int32, device="meta")
     with meta.count_kernel_work() as work:
         meta.decode_attention(q, k, k, lengths)
     scratch = work.scratch[q.device]
     got = (scratch.acc.numel(), scratch.ml.numel(), scratch.counters.numel())
-    assert got == call_plan(B, Hq, Hk, C, D, torch.bfloat16, kv_dtype, meta.H100_SMS)[2] == want
+    assert got == call_plan(B, Hq, Hk, C, D, q_dtype, kv_dtype, meta.H100_SMS)[2] == want
 
 
 @pytest.mark.parametrize("g", [1, 16])
