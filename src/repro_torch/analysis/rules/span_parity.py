@@ -1,17 +1,19 @@
-"""span-parity: every span kind the port emits must be in its SPAN_SCHEMA
-and pinned by its test suite.
+"""span-parity: every span kind the port emits must be in its schema and
+pinned by its test suite.
 
 The observability contract (repro_torch.obs): emitters pass the span
 ``kind`` as a string literal from the port's
-:data:`repro_torch.obs.tracing.SPAN_SCHEMA`, so the whole span vocabulary
-is statically enumerable.  Emissions are audited under ``src/repro_torch``
+:data:`repro_torch.obs.tracing.SPAN_SCHEMA` (the simulator's ``Tracer``)
+or :data:`repro_torch.obs.tracing.RUNTIME_SCHEMA` (the runtime's
+``span(kind, ...)`` or ``runtime.span(kind, ...)``), so the whole
+span vocabulary is statically enumerable.  Emissions are audited under ``src/repro_torch``
 and pins counted in the port's tests (``tests/test_torch_*``).  This rule enforces the three
 halves of that contract:
 
-  * a ``Tracer.add_span`` / ``open_span`` / ``event`` call whose kind
-    argument is NOT a string literal defeats static auditing — finding at
-    the call site;
-  * a literal kind that is missing from the schema table would raise at
+  * a ``Tracer.add_span`` / ``open_span`` / ``event`` or runtime
+    ``span`` call whose kind argument is NOT a string literal defeats
+    static auditing — finding at the call site;
+  * a literal kind that is missing from its schema table would raise at
     runtime (the tracer validates) but should be caught at lint time —
     finding at the call site;
   * a kind emitted somewhere in src but never named in any scanned test
@@ -31,22 +33,40 @@ from ..framework import FileContext, Finding, ProjectContext, Rule, register_rul
 
 # Tracer emission methods whose second positional argument is a span kind.
 _EMIT_METHODS = ("add_span", "open_span", "event")
+# The runtime's emission function, whose first positional argument is a kind:
+# called as ``span(...)`` or ``runtime.span(...)`` (not ``match.span(0)``).
+_RUNTIME_EMIT = "span"
 
 
-def _live_schema() -> Tuple[str, ...]:
-    from repro_torch.obs.tracing import SPAN_SCHEMA
+def _live_schema(name: str) -> Tuple[str, ...]:
+    from repro_torch.obs import tracing
 
-    return tuple(SPAN_SCHEMA)
+    return tuple(getattr(tracing, name))
 
 
-def _kind_arg(call: ast.Call) -> Optional[ast.expr]:
-    """The span-kind argument of an emission call: positional #2
-    (after tid) or the ``kind=`` keyword."""
-    if len(call.args) >= 2:
-        return call.args[1]
+def _kind_arg(call: ast.Call, position: int) -> Optional[ast.expr]:
+    """The span-kind argument of an emission call: positional ``position``
+    (1 after a tracer's tid, 0 for the runtime's ``span``) or the ``kind=``
+    keyword."""
+    if len(call.args) > position:
+        return call.args[position]
     for kw in call.keywords:
         if kw.arg == "kind":
             return kw.value
+    return None
+
+
+def _emission(node: ast.AST) -> Optional[Tuple[str, str, int]]:
+    """``(callee, schema name, kind position)`` of an emission call, else None."""
+    if not isinstance(node, ast.Call):
+        return None
+    func = node.func
+    if isinstance(func, ast.Attribute) and func.attr in _EMIT_METHODS:
+        return f".{func.attr}", "SPAN_SCHEMA", 1
+    if (isinstance(func, ast.Name) and func.id == _RUNTIME_EMIT) or (
+            isinstance(func, ast.Attribute) and func.attr == _RUNTIME_EMIT
+            and isinstance(func.value, ast.Name) and func.value.id == "runtime"):
+        return _RUNTIME_EMIT, "RUNTIME_SCHEMA", 0
     return None
 
 
@@ -55,14 +75,15 @@ class SpanParityRule(Rule):
     name = "span-parity"
     severity = "error"
     description = (
-        "every span kind emitted via Tracer.add_span/open_span/event must "
-        "be a string literal, present in SPAN_SCHEMA, and named in the "
-        "scanned port test suite (repro_torch.obs contract)"
+        "every span kind emitted via Tracer.add_span/open_span/event or the "
+        "runtime's span() must be a string literal, present in SPAN_SCHEMA "
+        "or RUNTIME_SCHEMA, and named in the scanned port test suite "
+        "(repro_torch.obs contract)"
     )
     default_paths = ("",)
     TEST_PATHS_OPTION = "test_paths"      # prefixes that count as test files
     SRC_PATHS_OPTION = "src_paths"        # prefixes whose emissions are audited
-    SCHEMA_OPTION = "schema"              # schema override (fixtures)
+    SCHEMA_OPTION = "schema"              # SPAN_SCHEMA override (fixtures)
 
     def _test_paths(self) -> Tuple[str, ...]:
         return tuple(self.options.get(self.TEST_PATHS_OPTION, ("tests/test_torch_",)))
@@ -83,49 +104,50 @@ class SpanParityRule(Rule):
                     literals.add(node.value)
         if not any(ctx.path.startswith(p) for p in self._src_paths()):
             return
-        emits: List[Tuple[str, str, int]] = project.store.setdefault(
+        emits: List[Tuple[str, str, str, int]] = project.store.setdefault(
             "span_emits", [])  # type: ignore[assignment]
         for node in ast.walk(ctx.tree):
-            if not (isinstance(node, ast.Call)
-                    and isinstance(node.func, ast.Attribute)
-                    and node.func.attr in _EMIT_METHODS):
+            found = _emission(node)
+            if found is None:
                 continue
-            kind = _kind_arg(node)
+            method, schema, position = found
+            kind = _kind_arg(node, position)
             if kind is None:
                 continue
             if not (isinstance(kind, ast.Constant)
                     and isinstance(kind.value, str)):
                 yield self.finding(
                     ctx, node,
-                    f"span kind passed to .{node.func.attr}() must be a "
-                    "string literal from SPAN_SCHEMA — a computed kind "
+                    f"span kind passed to {method}() must be a "
+                    f"string literal from {schema} — a computed kind "
                     "defeats the static span audit",
                 )
                 continue
-            emits.append((kind.value, ctx.path, node.lineno))
+            emits.append((schema, kind.value, ctx.path, node.lineno))
 
     def finalize(self, project: ProjectContext) -> Iterator[Finding]:
-        emits: List[Tuple[str, str, int]] = project.store.get(
+        emits: List[Tuple[str, str, str, int]] = project.store.get(
             "span_emits", [])  # type: ignore[assignment]
         if not emits:
             return
-        schema = self.options.get(self.SCHEMA_OPTION)
-        if schema is None:
+        schemas = {}
+        for name in sorted({s for s, _, _, _ in emits}):
+            given = self.options.get(self.SCHEMA_OPTION) if name == "SPAN_SCHEMA" else None
             try:
-                schema = _live_schema()
+                schemas[name] = tuple(given) if given is not None else _live_schema(name)
             except Exception as e:  # schema unimportable in this env
+                first = next(e_ for e_ in emits if e_[0] == name)
                 yield self.finding(
-                    emits[0][1], emits[0][2],
-                    f"could not import repro_torch.obs.tracing.SPAN_SCHEMA to "
+                    first[2], first[3],
+                    f"could not import repro_torch.obs.tracing.{name} to "
                     f"cross-check emitted span kinds: {e!r}",
                 )
                 return
-        schema = tuple(schema)
-        for kind, path, line in emits:
-            if kind not in schema:
+        for schema, kind, path, line in emits:
+            if kind not in schemas[schema]:
                 yield self.finding(
                     path, line,
-                    f"span kind {kind!r} is not in SPAN_SCHEMA — add it to "
+                    f"span kind {kind!r} is not in {schema} — add it to "
                     "the schema table (and obs/README.md) or fix the typo",
                 )
         test_files: List[str] = project.store.get(
@@ -135,8 +157,8 @@ class SpanParityRule(Rule):
         literals: Set[str] = project.store.get(
             "span_test_literals", set())  # type: ignore[assignment]
         anchor = self._anchor(test_files)
-        for kind in sorted({k for k, _, _ in emits}):
-            if kind in schema and kind not in literals:
+        for schema, kind in sorted({(s, k) for s, k, _, _ in emits}):
+            if kind in schemas[schema] and kind not in literals:
                 yield self.finding(
                     anchor, 1,
                     f"span kind {kind!r} is emitted in src but never named "

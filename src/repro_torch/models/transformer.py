@@ -54,6 +54,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from ..device import resolve_device
+from ..obs.runtime import span
 from .attention import (AttnFn, DecodeFn, gqa_apply, gqa_init, make_cache, make_mla_cache,
                         mla_apply, mla_init)
 from .config import ModelConfig
@@ -482,7 +483,8 @@ class LM:
         w = (params["embed"]["embedding"].T if cfg.tie_embeddings
              else params["lm_head"]["w"])
         ld = torch_dtype(cfg.logits_dtype)
-        return _constrain(hidden.to(ld) @ w.to(ld), self.logits_sharding)
+        with span("model.logits", device=self.device):
+            return _constrain(hidden.to(ld) @ w.to(ld), self.logits_sharding)
 
     def _xent(self, params, hidden: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
         """Mean cross-entropy over the vocabulary; with ``xent_chunk`` > 1
@@ -525,11 +527,12 @@ class LM:
         """Bulk-process a prompt from position 0, filling caches (an
         encoder-decoder model runs its encoder over ``batch["frames"]`` and
         writes the cross caches).  Returns last-token logits."""
-        enc_out, enc_pos = self._encoder_inputs(params, batch)
-        hidden, caches, _ = self.backbone(params, batch["tokens"], caches=caches,
-                                          position_ids=batch.get("position_ids"),
-                                          enc_out=enc_out, enc_positions=enc_pos)
-        return self.logits(params, hidden[:, -1:, :])[:, 0], caches
+        with span("model.prefill", device=self.device):
+            enc_out, enc_pos = self._encoder_inputs(params, batch)
+            hidden, caches, _ = self.backbone(params, batch["tokens"], caches=caches,
+                                              position_ids=batch.get("position_ids"),
+                                              enc_out=enc_out, enc_positions=enc_pos)
+            return self.logits(params, hidden[:, -1:, :])[:, 0], caches
 
     def decode_step(self, params, tokens: torch.Tensor, pos: torch.Tensor, caches,
                     position_ids: Optional[torch.Tensor] = None):
@@ -545,6 +548,7 @@ class LM:
         Attention then reads slots ``[0, min(pos + 1, C))`` through the
         decode kernel.  Use
         ``backbone`` with explicit positions for anything else."""
-        hidden, caches, _ = self._backbone(params, tokens[:, None], pos[:, None], caches,
-                                           gapless=True, position_ids=position_ids)
-        return self.logits(params, hidden)[:, 0], caches
+        with span("model.decode_step", device=self.device):
+            hidden, caches, _ = self._backbone(params, tokens[:, None], pos[:, None], caches,
+                                               gapless=True, position_ids=position_ids)
+            return self.logits(params, hidden)[:, 0], caches

@@ -13,10 +13,18 @@
     policy / tier / device, slow- and lost-instance reports;
   * :mod:`repro_torch.obs.export` — Chrome/Perfetto ``trace_event`` JSON
     (device rows + instance flows) and summary exports, with the
-    instance ledger recomputable from the exported trace alone.
+    instance ledger recomputable from the exported trace alone;
+  * :mod:`repro_torch.obs.runtime` — the serving engine's, the model's and
+    the trainer's spans on the host clock (:data:`RUNTIME_SCHEMA`: the
+    ``serve.*``, ``model.*`` and ``train.*`` kinds), each also a
+    ``record_function`` range in a running profile and, on a CUDA device,
+    timed on the card by two events.
 
-Enable via ``Orchestrator(cluster, policy, trace=Tracer())`` or
-``SimConfig(trace=True)``.
+Enable the simulator's tracing via ``Orchestrator(cluster, policy,
+trace=Tracer())`` or ``SimConfig(trace=True)``.  The runtime's spans record
+only while a ``torch.profiler`` profile runs or after ``runtime.enable()``;
+otherwise ``runtime.span`` returns a shared no-op, and read them with
+``runtime.profile_spans()`` (the latest profile's) or ``runtime.drain()``.
 """
 from .attribution import (
     attribution_report,
@@ -40,12 +48,13 @@ from .metrics import (
     Histogram,
     MetricsRegistry,
 )
-from .tracing import FLEET_TID, SPAN_SCHEMA, Span, Tracer
+from .tracing import FLEET_TID, RUNTIME_SCHEMA, SPAN_SCHEMA, Span, Tracer
 
 __all__ = [
     "Span",
     "Tracer",
     "SPAN_SCHEMA",
+    "RUNTIME_SCHEMA",
     "FLEET_TID",
     "Counter",
     "Gauge",

@@ -36,7 +36,7 @@ from __future__ import annotations
 from dataclasses import dataclass, field
 from typing import Any, Dict, Iterator, List, Tuple
 
-__all__ = ["Span", "Tracer", "SPAN_SCHEMA", "FLEET_TID"]
+__all__ = ["Span", "Tracer", "SPAN_SCHEMA", "RUNTIME_SCHEMA", "FLEET_TID"]
 
 # Fleet-scoped events (device churn) do not belong to any one instance;
 # they are recorded against this reserved trace id.
@@ -67,6 +67,32 @@ SPAN_SCHEMA: Dict[str, str] = {
     "shed": "admission-control drop instant (attrs: reason)",
     "device_down": "fleet event: device departs (attrs: device)",
     "device_up": "fleet event: device rejoins (attrs: device, until)",
+}
+
+# The runtime's span kinds (repro_torch.obs.runtime): the serving engine's,
+# the model's and the trainer's boundaries on the host clock, emitted by
+# ``runtime.span(kind, ...)`` with the kind a literal from this table.  The
+# span-parity lint rule audits those calls against it as it audits the
+# tracer's against SPAN_SCHEMA; ``span`` rejects unknown kinds at runtime.
+# device_ms: the stream's elapsed time from the span's first queued work to
+# its last, idle gaps included where the host paces the work.
+RUNTIME_SCHEMA: Dict[str, str] = {
+    "serve.add_request": "ServingEngine.add_request: one admission, prefill to the "
+                         "first token on the host (rid: the request's id)",
+    "serve.step": "ServingEngine.step: one decode step of every slot, to the "
+                  "tokens on the host (rid: the busy slots' request ids)",
+    "serve.readback": "the host waiting for the card's tokens (the first token's "
+                      "argmax in add_request, nxt.cpu() in step)",
+    "model.prefill": "LM.prefill: a prompt's layers and its last logits "
+                     "(device_ms)",
+    "model.decode_step": "LM.decode_step: the host issuing every layer's kernels of "
+                         "one step (device_ms)",
+    "model.logits": "LM.logits: the head's cast and product (device_ms)",
+    "train.step": "the step closure of make_train_step: gradients and update",
+    "train.forward": "model.loss in value_and_grad, one a microbatch (device_ms)",
+    "train.backward": "torch.autograd.grad in value_and_grad, one a microbatch "
+                      "(device_ms)",
+    "train.optimizer": "optimizer.update in the step (device_ms)",
 }
 
 _OPEN = float("nan")

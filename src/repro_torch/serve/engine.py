@@ -40,6 +40,7 @@ from ..core.interference import fit_linear_interference
 from ..device import synchronize
 from ..models.layers import FLOAT8
 from ..models.transformer import LM
+from ..obs.runtime import span
 
 __all__ = ["ServingEngine", "measure_interference"]
 
@@ -96,48 +97,54 @@ class ServingEngine:
     @torch.inference_mode()
     def add_request(self, request_id: str, prompt: Sequence[int],
                     max_new_tokens: int) -> int:
-        free = self.free_slots()
-        if not free:
-            raise RuntimeError("no free slots")
-        slot = free[0]
-        prompt = torch.as_tensor(np.asarray(prompt, dtype=np.int64)[None, :],
-                                 device=self.device)                  # (1, P)
-        tmp_cache = self.model.init_cache(1, self.max_seq)
-        logits, tmp_cache = self.model.prefill(
-            self.params, {"tokens": prompt}, tmp_cache)
-        # splice the single-request state into this slot, in place
-        for full, one, axis in zip(self.caches, tmp_cache, self.model.cache_batch_axes()):
-            _splice(full, one, axis, slot)
-        first = int(torch.argmax(logits[0]))
-        st = self.slots[slot]
-        st.request_id = request_id
-        st.pos = prompt.shape[1]
-        st.remaining = max_new_tokens
-        st.generated = [first]
-        self.tokens[slot] = first
-        self.pos[slot] = st.pos
+        with span("serve.add_request", rid=request_id):
+            free = self.free_slots()
+            if not free:
+                raise RuntimeError("no free slots")
+            slot = free[0]
+            prompt = torch.as_tensor(np.asarray(prompt, dtype=np.int64)[None, :],
+                                     device=self.device)                  # (1, P)
+            tmp_cache = self.model.init_cache(1, self.max_seq)
+            logits, tmp_cache = self.model.prefill(
+                self.params, {"tokens": prompt}, tmp_cache)
+            # splice the single-request state into this slot, in place
+            for full, one, axis in zip(self.caches, tmp_cache, self.model.cache_batch_axes()):
+                _splice(full, one, axis, slot)
+            with span("serve.readback"):
+                first = int(torch.argmax(logits[0]))
+            st = self.slots[slot]
+            st.request_id = request_id
+            st.pos = prompt.shape[1]
+            st.remaining = max_new_tokens
+            st.generated = [first]
+            self.tokens[slot] = first
+            self.pos[slot] = st.pos
         return slot
 
     @torch.inference_mode()
     def step(self) -> Dict[str, List[int]]:
         """One decode step for all slots; returns finished requests."""
-        logits, self.caches = self.model.decode_step(self.params, self.tokens, self.pos,
-                                                     self.caches)
-        nxt = torch.argmax(logits, dim=-1)
-        finished: Dict[str, List[int]] = {}
-        new_tokens = nxt.cpu().numpy()
-        for i, st in enumerate(self.slots):
-            if st.request_id is None:
-                continue
-            st.generated.append(int(new_tokens[i]))
-            st.pos += 1
-            st.remaining -= 1
-            if st.remaining <= 0 or st.pos >= self.max_seq - 1:
-                finished[st.request_id] = st.generated
-                st.request_id = None
-                st.generated = None
-        self.tokens = nxt
-        self.pos += 1
+        with span("serve.step") as sp:
+            if sp:
+                sp.set(rid=[st.request_id for st in self.slots if st.request_id is not None])
+            logits, self.caches = self.model.decode_step(self.params, self.tokens, self.pos,
+                                                         self.caches)
+            nxt = torch.argmax(logits, dim=-1)
+            with span("serve.readback"):
+                new_tokens = nxt.cpu().numpy()
+            finished: Dict[str, List[int]] = {}
+            for i, st in enumerate(self.slots):
+                if st.request_id is None:
+                    continue
+                st.generated.append(int(new_tokens[i]))
+                st.pos += 1
+                st.remaining -= 1
+                if st.remaining <= 0 or st.pos >= self.max_seq - 1:
+                    finished[st.request_id] = st.generated
+                    st.request_id = None
+                    st.generated = None
+            self.tokens = nxt
+            self.pos += 1
         return finished
 
 

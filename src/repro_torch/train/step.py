@@ -25,6 +25,7 @@ import torch.distributed as dist
 
 from ..launch.mesh import axis_names, mesh_axis_sizes
 from ..models.transformer import LM
+from ..obs.runtime import span
 from ..optim.compression import int8_quantize
 from ..optim.optimizers import Optimizer, global_norm
 from ..tree import tree_flatten, tree_map, tree_unflatten
@@ -66,8 +67,10 @@ def value_and_grad(model: LM, params, batch: Dict[str, torch.Tensor]
     leaves, structure = tree_flatten(params)
     for leaf in leaves:
         leaf.requires_grad_(True)
-    loss, metrics = model.loss(params, batch)
-    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    with span("train.forward", device=model.device):
+        loss, metrics = model.loss(params, batch)
+    with span("train.backward", device=model.device):
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
     grads = [torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads)]
     return (loss.detach(), {key: val.detach() for key, val in metrics.items()},
             tree_unflatten(structure, grads))
@@ -164,10 +167,12 @@ def make_train_step(
         return tree_map(lambda a: a / microbatches, acc), loss_sum / microbatches, {}
 
     def step(params, opt_state, batch):
-        grads, loss, metrics = accumulate(params, batch)
-        params, opt_state = optimizer.update(grads, opt_state, params, update_slice)
-        out = {"loss": loss, "grad_norm": global_norm(grads)}
-        out.update(metrics)
+        with span("train.step"):
+            grads, loss, metrics = accumulate(params, batch)
+            with span("train.optimizer", device=model.device):
+                params, opt_state = optimizer.update(grads, opt_state, params, update_slice)
+            out = {"loss": loss, "grad_norm": global_norm(grads)}
+            out.update(metrics)
         return params, opt_state, out
 
     if not use_compression:
@@ -177,13 +182,16 @@ def make_train_step(
     npod, rank = dist.get_world_size(group), mesh.get_local_rank("pod")
 
     def compressed_step(params, opt_state, batch, rng: Optional[torch.Generator] = None):
-        grads, loss, _ = accumulate(params, _pod_share(batch, npod, rank))
-        grads = _cross_pod_int8_mean(grads, mesh, rng)
-        loss = loss.to(torch.float32).clone()
-        dist.all_reduce(loss, group=group)
-        loss = loss / npod
-        params, opt_state = optimizer.update(grads, opt_state, params, update_slice)
-        return params, opt_state, {"loss": loss, "grad_norm": global_norm(grads)}
+        with span("train.step"):
+            grads, loss, _ = accumulate(params, _pod_share(batch, npod, rank))
+            grads = _cross_pod_int8_mean(grads, mesh, rng)
+            loss = loss.to(torch.float32).clone()
+            dist.all_reduce(loss, group=group)
+            loss = loss / npod
+            with span("train.optimizer", device=model.device):
+                params, opt_state = optimizer.update(grads, opt_state, params, update_slice)
+            out = {"loss": loss, "grad_norm": global_norm(grads)}
+        return params, opt_state, out
 
     return compressed_step
 
