@@ -2725,14 +2725,19 @@ def deepseek_part(dev):
     report_serve("moe", cfg, requests, done, prefill_s, step_s, wall, batch=DSV3_REQUESTS)
     del engine
 
+    # the held steps run eagerly from the engine's prefilled state, greedy
+    # as the engine's steps: the hold syncs with the host, so the engine's
+    # CUDA graph of the step could neither capture it nor replay it
     rows = []
     engine = ServingEngine(model, params, max_batch=DSV3_REQUESTS, max_seq=SERVE_C)
     for req in requests:
         engine.add_request(*req)
-    with holding_mla(rows):
+    tokens, pos, caches = engine.tokens, engine.pos, engine.caches
+    with holding_mla(rows), torch.inference_mode():
         for _ in range(DECODE_CHECK_STEPS):
-            engine.step()
-    del engine, model, params
+            logits, caches = model.decode_step(params, tokens, pos, caches)
+            tokens, pos = logits.argmax(-1), pos + 1
+    del engine, model, params, caches
     torch.cuda.empty_cache()
     check(len(rows) == DECODE_CHECK_STEPS * cfg.n_layers,
           f"{len(rows)} MLA decode calls held, wanted {DECODE_CHECK_STEPS * cfg.n_layers}")

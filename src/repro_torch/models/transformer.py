@@ -47,6 +47,7 @@ from typing import Any, Dict, List, Optional, Tuple, Union
 
 import dataclasses
 import functools
+import gc
 
 import numpy as np
 import torch
@@ -54,6 +55,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from ..device import resolve_device
+from ..kernels import counts
 from ..obs.runtime import span
 from .attention import (AttnFn, DecodeFn, gqa_apply, gqa_init, make_cache, make_mla_cache,
                         mla_apply, mla_init)
@@ -63,7 +65,8 @@ from .moe import moe_apply, moe_init
 from .recurrent import (MixFn, rglru_apply, rglru_init, rglru_state, rwkv6_apply, rwkv6_init,
                         rwkv6_state)
 
-__all__ = ["Segment", "LM", "build_segments", "sinusoidal_embed", "MOE_AUX_WEIGHT"]
+__all__ = ["Segment", "LM", "DecodeGraph", "build_segments", "sinusoidal_embed",
+           "MOE_AUX_WEIGHT"]
 
 MOE_AUX_WEIGHT = 0.01
 
@@ -548,7 +551,143 @@ class LM:
         Attention then reads slots ``[0, min(pos + 1, C))`` through the
         decode kernel.  Use
         ``backbone`` with explicit positions for anything else."""
-        with span("model.decode_step", device=self.device):
+        with span("model.decode_step", device=self.device) as sp:
+            if sp:
+                sp.set(replay=False)
             hidden, caches, _ = self._backbone(params, tokens[:, None], pos[:, None], caches,
                                                gapless=True, position_ids=position_ids)
             return self.logits(params, hidden)[:, 0], caches
+
+    @property
+    def decode_capturable(self) -> bool:
+        """Whether :meth:`decode_graph` may capture this model's decode step.
+        Not where a hook (``mix_fn``, ``attn_fn``, ``decode_fn``) stands in
+        for a kernel: its Python runs at every eager step (the card checks
+        hold each call's inputs and outputs), and a replay would skip it.
+        Every segment's decode step is capturable: each issues its work on
+        the device with no host sync, at shapes fixed by the batch and the
+        caches."""
+        return self.mix_fn is None and self.attn_fn is None and self.decode_fn is None
+
+    def decode_graph(self, params, tokens: torch.Tensor, pos: torch.Tensor,
+                     caches) -> "DecodeGraph":
+        """:meth:`decode_step` on these very tensors as a :class:`DecodeGraph`,
+        whose call runs one step: the caller updates ``tokens`` and ``pos`` in
+        place between calls, and the caches are written in place as always.
+        Needs a CUDA device and :attr:`decode_capturable`."""
+        if self.device.type != "cuda" or not self.decode_capturable:
+            raise ValueError(f"{self.cfg.name} on {self.device}: no CUDA graph of its decode "
+                             "step (a CUDA device and no kernel hook are needed)")
+        return DecodeGraph(self, params, tokens, pos, caches)
+
+
+class DecodeGraph:
+    """One model's decode step on fixed tensors, replayed as CUDA graphs.
+
+    The first :data:`WARMUP_STEPS` calls run :meth:`LM.decode_step` eagerly
+    on a side stream: the warm-up (libraries' handles and workspaces for
+    that stream, the kernels loaded) is the step's own work, so no state is
+    advanced twice.  The next call captures one call of the model's
+    ``decode_step`` on that stream as two graphs sharing one memory pool,
+    split where the step calls :meth:`LM.logits`: the backbone (embedding,
+    every layer, final norm, into a static hidden buffer), then the head
+    (the cast and product into a static logits buffer, and whatever the step
+    does after them).  The capture goes through ``decode_step`` as the
+    model's class has it at that moment, so a wrapper patched over
+    ``LM.decode_step`` before then is replayed with the step.  A replay
+    opens the eager step's spans: ``model.decode_step`` (with
+    ``replay=True``) over both replays, ``model.logits`` with its device
+    time over the head's.  The capture records no span (none records while
+    a stream captures), runs no garbage collection and counts no launch;
+    each replay adds the launches the capture counted to the kernels'
+    counters (:mod:`repro_torch.kernels.counts`).
+
+    A call returns the logits ``(B, vocab)``: after a capture, the static
+    buffer the next replay overwrites.  The graphs' pool holds the step's
+    activations and the head's cast copy for as long as the object lives.
+    ``captures`` and ``replays`` count what the calls did."""
+
+    WARMUP_STEPS = 1
+
+    def __init__(self, model: LM, params, tokens, pos, caches):
+        self.model = model
+        self.args = (params, tokens, pos, caches)
+        self.stream = torch.cuda.Stream(model.device)
+        self.graphs: Optional[Tuple[torch.cuda.CUDAGraph, torch.cuda.CUDAGraph]] = None
+        self.hidden: Optional[torch.Tensor] = None     # held: the head's graph reads it
+        self.logits: Optional[torch.Tensor] = None
+        self.launches: Optional[counts.Counts] = None
+        self.warmups = self.captures = self.replays = 0
+
+    def serves(self, model: LM, params, caches) -> bool:
+        """Whether this graph steps ``model`` on ``params`` and ``caches``,
+        the very objects it was made for."""
+        return model is self.model and params is self.args[0] and caches is self.args[3]
+
+    def __call__(self) -> torch.Tensor:
+        if self.graphs is None:
+            if self.warmups < self.WARMUP_STEPS:
+                self.warmups += 1
+                return self._on_side_stream(lambda: self.model.decode_step(*self.args)[0])
+            self._on_side_stream(self._capture)
+        return self._replay()
+
+    def _on_side_stream(self, fn):
+        main = torch.cuda.current_stream(self.model.device)
+        self.stream.wait_stream(main)
+        with torch.cuda.stream(self.stream):
+            out = fn()
+        main.wait_stream(self.stream)
+        return out
+
+    def _capture(self) -> None:
+        model = self.model
+        head_of = model.logits
+        backbone, head = torch.cuda.CUDAGraph(), torch.cuda.CUDAGraph()
+        capturing = [backbone]
+
+        def split_logits(params, hidden):
+            if capturing[-1] is backbone:      # the backbone's graph ends at the head
+                backbone.capture_end()
+                head.capture_begin(backbone.pool())
+                capturing.append(head)
+                self.hidden = hidden
+            return head_of(params, hidden)
+
+        before = counts.snapshot()
+        torch.cuda.synchronize(model.device)
+        # no collection inside the capture: one that frees a dead CUDA graph
+        # destroys it, which a capture forbids, and the capture fails
+        collecting = gc.isenabled()
+        gc.disable()
+        model.logits = split_logits            # this instance's, for the capture only
+        try:
+            backbone.capture_begin()
+            try:
+                self.logits = model.decode_step(*self.args)[0]
+            finally:
+                capturing[-1].capture_end()
+        finally:
+            del model.logits
+            if collecting:
+                gc.enable()
+        if capturing[-1] is not head:
+            raise RuntimeError(f"{model.cfg.name}: the decode step never called LM.logits, "
+                               "so its head could not be captured apart")
+        self.launches = counts.since(before)
+        counts.add(self.launches, -1)
+        self.graphs = (backbone, head)
+        self.captures += 1
+
+    def _replay(self) -> torch.Tensor:
+        dev = self.model.device
+        backbone, head = self.graphs
+        with span("model.decode_step", device=dev) as sp:
+            if sp:
+                sp.set(replay=True)
+            backbone.replay()
+            with span("model.logits", device=dev):
+                head.replay()
+        counts.add(self.launches)
+        self.replays += 1
+        return self.logits

@@ -36,14 +36,17 @@ the work queued before the span has).  It is the card's busy time only where
 the card stays behind the host all through the span: where the host paces
 the work, it counts the card's idle gaps too.  Nothing
 synchronises while the span runs; the events are resolved when
-:func:`profile_spans` or :func:`drain` reads them.  On another device, or
-while the stream captures a CUDA graph, no events are recorded and the span
-has no ``device_ms``.
+:func:`profile_spans` or :func:`drain` reads them.  On another device no
+events are recorded and the span has no ``device_ms``.
 
 **Sessions.**  The session number goes up when a span finds a profiler
 running after the last span found none.  So two profiles with no span
 between them count as one session.  A new session drops the older
 sessions' spans and their unread events.
+
+**Capture.**  No span records while the current CUDA stream captures a
+graph: a capture runs the step's code without running its work, and the
+graph's replays open the step's spans themselves.
 
 Spans stay in memory: :func:`profile_spans` returns the closed spans of the
 latest session, :func:`drain` hands over everything recorded and clears it.
@@ -141,8 +144,7 @@ class _Live:
         if self.rf is not None:
             self.rf.__enter__()
         dev = self.device
-        if (dev is not None and getattr(dev, "type", None) == "cuda"
-                and not torch.cuda.is_current_stream_capturing()):
+        if dev is not None and getattr(dev, "type", None) == "cuda":
             stream = torch.cuda.current_stream(dev)
             self.events = (torch.cuda.Event(enable_timing=True),
                            torch.cuda.Event(enable_timing=True))
@@ -172,6 +174,8 @@ def span(kind: str, *, rid: Any = None, device: Optional[torch.device] = None):
     profiled = _profiler._is_profiler_enabled
     if not (profiled or _REC.enabled):
         _REC.profiled = False
+        return _OFF
+    if torch.cuda.is_initialized() and torch.cuda.is_current_stream_capturing():
         return _OFF
     if kind not in RUNTIME_SCHEMA:
         raise ValueError(f"unknown runtime span kind {kind!r}; add it to RUNTIME_SCHEMA "

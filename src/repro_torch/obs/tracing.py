@@ -86,7 +86,8 @@ RUNTIME_SCHEMA: Dict[str, str] = {
     "model.prefill": "LM.prefill: a prompt's layers and its last logits "
                      "(device_ms)",
     "model.decode_step": "LM.decode_step: the host issuing every layer's kernels of "
-                         "one step (device_ms)",
+                         "one step, or the replay of its CUDA graphs (device_ms; replay: "
+                         "whether the step was a replay)",
     "model.logits": "LM.logits: the head's cast and product (device_ms)",
     "train.step": "the step closure of make_train_step: gradients and update",
     "train.forward": "model.loss in value_and_grad, one a microbatch (device_ms)",

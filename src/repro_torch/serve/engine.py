@@ -21,6 +21,12 @@ reference faults".)  As in the JAX engine, an on-device ``pos`` holds each slot'
 position: set when a request is added, advanced for every slot, busy or
 idle, after each step.
 
+On a CUDA device the decode step is captured as CUDA graphs at the second
+step and replayed after that (``LM.decode_graph``): ``tokens``, ``pos`` and
+the caches are this engine's own static tensors, always written in place,
+and the graph is this engine's and its model's alone.  On the CPU the step
+stays eager.
+
 An encoder-decoder model (Whisper) is refused at construction: requests
 carry only tokens, and its prefill needs ``frames``.  (The JAX engine
 passes only tokens too, and fails at ``add_request`` with ``KeyError:
@@ -83,8 +89,11 @@ class ServingEngine:
         self.device = model.device
         self.caches = model.init_cache(max_batch, max_seq)
         self.slots = [_Slot() for _ in range(max_batch)]
+        # static buffers, written in place: a captured decode step reads these very tensors
         self.tokens = torch.zeros(max_batch, dtype=torch.long, device=self.device)
         self.pos = torch.zeros(max_batch, dtype=torch.int32, device=self.device)
+        self.graph = None
+        self.captures = self.replays = 0    # of decode-step graphs, by this engine
 
     # -- request lifecycle ------------------------------------------------------
     def free_slots(self) -> List[int]:
@@ -127,9 +136,7 @@ class ServingEngine:
         with span("serve.step") as sp:
             if sp:
                 sp.set(rid=[st.request_id for st in self.slots if st.request_id is not None])
-            logits, self.caches = self.model.decode_step(self.params, self.tokens, self.pos,
-                                                         self.caches)
-            nxt = torch.argmax(logits, dim=-1)
+            nxt = torch.argmax(self._decode(), dim=-1)
             with span("serve.readback"):
                 new_tokens = nxt.cpu().numpy()
             finished: Dict[str, List[int]] = {}
@@ -143,9 +150,33 @@ class ServingEngine:
                     finished[st.request_id] = st.generated
                     st.request_id = None
                     st.generated = None
-            self.tokens = nxt
+            self.tokens.copy_(nxt)
             self.pos += 1
         return finished
+
+    def _decode(self) -> torch.Tensor:
+        """Every slot's logits for one step: on a CUDA device, through a
+        :class:`~repro_torch.models.transformer.DecodeGraph` of the engine's
+        model on this engine's own tensors (eager at first, then captured and
+        replayed); elsewhere, or for a model whose step cannot be captured
+        (``LM.decode_capturable``), eagerly.  A graph runs only the model it
+        was made from: after ``self.model`` is swapped for another, a
+        capturable one gets a graph of its own, and one with a kernel hook
+        steps eagerly (its hook runs) while the old graph waits for its
+        model to come back."""
+        graph = self.graph
+        if graph is not None and not graph.serves(self.model, self.params, self.caches):
+            graph = None
+        if graph is None and self.device.type == "cuda" and self.model.decode_capturable:
+            graph = self.graph = self.model.decode_graph(self.params, self.tokens, self.pos,
+                                                         self.caches)
+        if graph is None:
+            return self.model.decode_step(self.params, self.tokens, self.pos, self.caches)[0]
+        captures, replays = graph.captures, graph.replays
+        logits = graph()
+        self.captures += graph.captures - captures
+        self.replays += graph.replays - replays
+        return logits
 
 
 # -- the Fig. 4 analogue ---------------------------------------------------------
