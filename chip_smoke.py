@@ -2670,7 +2670,7 @@ def holding_mla(rows):
     expanded from float32 expanded)."""
     real = transformer_module.mla_apply
 
-    def mla(cfg, p, x, positions, *, cache=None, absorbed=None):
+    def mla(cfg, p, x, positions, *, cache=None, absorbed=None, gapless=False):
         if cache is not None and x.shape[1] == 1:
             cfg32 = dataclasses.replace(cfg, dtype="float32")
             p32 = _tree_map(lambda t: t.float(), p)
@@ -2684,7 +2684,7 @@ def holding_mla(rows):
             e32 = outs["32", False]
             rows.append((float((outs["32", True] - e32).abs().max()), float(e32.abs().max()),
                          _rms(outs["16", True], e32), _rms(outs["16", False], e32)))
-        return real(cfg, p, x, positions, cache=cache, absorbed=absorbed)
+        return real(cfg, p, x, positions, cache=cache, absorbed=absorbed, gapless=gapless)
 
     transformer_module.mla_apply = mla
     try:

@@ -76,7 +76,10 @@ MLA (Multi-head Latent Attention, DeepSeek-V3) caches only the compressed
 latent ``ckv`` and the shared RoPE key ``krope`` (per layer ``{"ckv": (B,
 C, rank), "krope": (B, C, dr), "pos": (B, C)}``), and decodes in the
 *absorbed* form, in latent space.  It reaches no Pallas kernel in the JAX
-model, so it is plain torch here and takes no kernel route.
+model, so it is plain torch here and takes no kernel route.  A prefill the
+caller vouches gapless attends over its own keys, not the cache's slots;
+on the card the scores against the keys every head shares are one 16-bit
+product with a float32 output (:func:`_shared_key_scores`).
 
 A cache in another dtype than the model's (``kv_dtype``: float8_e4m3fn or
 float8_e5m2, written through ``uint8`` views; or float32, bfloat16 or
@@ -269,10 +272,14 @@ def mla_init(gen: torch.Generator, cfg: ModelConfig, device: torch.device,
     def ones(n):
         return {"scale": torch.ones(lead + (n,), dtype=dt, device=device)}
 
+    if m.q_lora_rank:
+        q = {"wdq": dense_init(gen, d, m.q_lora_rank, dt, device, layers=layers),
+             "q_norm": ones(m.q_lora_rank),
+             "wuq": dense_init(gen, m.q_lora_rank, H * qk_head, dt, device, layers=layers)}
+    else:       # no low-rank step: one product d -> H * (nope + rope)
+        q = {"wq": dense_init(gen, d, H * qk_head, dt, device, layers=layers)}
     return {
-        "wdq": dense_init(gen, d, m.q_lora_rank, dt, device, layers=layers),
-        "q_norm": ones(m.q_lora_rank),
-        "wuq": dense_init(gen, m.q_lora_rank, H * qk_head, dt, device, layers=layers),
+        **q,
         "wdkv": dense_init(gen, d, m.kv_lora_rank + m.qk_rope_head_dim, dt, device,
                            layers=layers),
         "kv_norm": ones(m.kv_lora_rank),
@@ -296,10 +303,23 @@ def make_mla_cache(cfg: ModelConfig, batch: int, capacity: int, n_layers: int,
     }
 
 
-def _rms(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+def _rms(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
     xf = x.to(torch.float32)
     y = xf * torch.rsqrt(xf.square().mean(dim=-1, keepdim=True) + eps)
     return y.to(x.dtype) * scale
+
+
+def _shared_key_scores(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """``q . k`` in float32 for keys every head shares: q (B, S, H, D), k (B,
+    K, D) -> (B, H, S, K).  On a CUDA device a 16-bit q and k go through
+    one batched product with a float32 output (each product exact, summed in
+    float32), which reads the keys once; elsewhere both are cast to float32
+    first (the JAX route's einsum), which on the card copies every key."""
+    B, S, H, D = q.shape
+    if q.is_cuda and q.dtype in (torch.bfloat16, torch.float16) and k.dtype == q.dtype:
+        qh = q.transpose(1, 2).reshape(B, H * S, D)
+        return torch.bmm(qh, k.transpose(1, 2), out_dtype=torch.float32).view(B, H, S, -1)
+    return torch.einsum("bshd,bkd->bhsk", q.to(torch.float32), k.to(torch.float32))
 
 
 def mla_apply(
@@ -310,11 +330,17 @@ def mla_apply(
     *,
     cache: Optional[Dict] = None,            # per-layer latent cache (no layer axis)
     absorbed: Optional[bool] = None,
+    gapless: bool = False,
 ) -> Tuple[torch.Tensor, Optional[Dict]]:
     """MLA attention.  ``absorbed=None`` picks as the JAX function does: the
     expanded form for prefill and training (S > 1, or no cache), the
     absorbed latent-space form for a decode step (S == 1 with a cache).
-    The cache is written in place at ``clip(p, 0, C-1)``."""
+    The cache is written in place at ``clip(p, 0, C-1)``.  ``gapless``
+    vouches, as for :func:`gqa_apply`, that a call of more than one token
+    starts its rows' sequences at position 0: a prefill of 1 < S <= C
+    tokens then attends over its own S new tokens alone (every other slot
+    of the cache holds -1 or a position >= S, which causality masks), not
+    over the C slots."""
     m = cfg.mla
     B, S, _ = x.shape
     H = cfg.n_heads
@@ -323,14 +349,17 @@ def mla_apply(
         absorbed = S == 1 and cache is not None
     f32 = torch.float32
 
-    # -- queries
-    cq = _rms(dense_apply(p["wdq"], x), p["q_norm"]["scale"])
-    q = dense_apply(p["wuq"], cq).reshape(B, S, H, dn + dr)
+    # -- queries: through the low-rank step and its norm, or one product
+    if m.q_lora_rank:
+        cq = _rms(dense_apply(p["wdq"], x), p["q_norm"]["scale"], cfg.norm_eps)
+        q = dense_apply(p["wuq"], cq).reshape(B, S, H, dn + dr)
+    else:
+        q = dense_apply(p["wq"], x).reshape(B, S, H, dn + dr)
     q_nope, q_rope = q[..., :dn], q[..., dn:]
 
     # -- compressed KV
     dkv = dense_apply(p["wdkv"], x)
-    ckv = _rms(dkv[..., :rank], p["kv_norm"]["scale"])          # (B,S,rank)
+    ckv = _rms(dkv[..., :rank], p["kv_norm"]["scale"], cfg.norm_eps)   # (B,S,rank)
     # RoPE, decoupled: on q_rope and the one shared k_rope
     q_rope, k_rope_new = apply_rope(q_rope, dkv[..., rank:][..., None, :], positions,
                                     cfg.rope_theta)
@@ -343,20 +372,21 @@ def mla_apply(
         b_idx = torch.arange(B, device=x.device)[:, None]
         for key, new in (("ckv", ckv), ("krope", k_rope_new), ("pos", positions)):
             cache[key][b_idx, slots] = new.to(cache[key].dtype)
+    if cache is not None and not (gapless and 1 < S <= cache["ckv"].shape[1]):
         ckv_all, k_rope_all, k_pos = cache["ckv"], cache["krope"], cache["pos"]
-    else:
+    else:       # no cache, or a gapless prefill: the new tokens are every key
         ckv_all, k_rope_all = ckv, k_rope_new
 
     bias = _mask_bias(positions, k_pos, causal=True, window=None)
     scale = 1.0 / np.sqrt(dn + dr)
     wuk = p["wuk"]["w"].reshape(rank, H, dn)
     wuv = p["wuv"]["w"].reshape(rank, H, dv)
-    s_rope = torch.einsum("bshd,bkd->bhsk", q_rope.to(f32), k_rope_all.to(f32))
+    s_rope = _shared_key_scores(q_rope, k_rope_all)
 
     if absorbed:
         # q_nope . k_nope = (W_uk^T q_nope) . c_kv: stay in rank space
         q_lat = torch.einsum("bshd,rhd->bshr", q_nope, wuk)     # (B,S,H,rank)
-        s_nope = torch.einsum("bshr,bkr->bhsk", q_lat.to(f32), ckv_all.to(f32))
+        s_nope = _shared_key_scores(q_lat, ckv_all)
         logits = (s_nope + s_rope) * scale + bias[:, None, :, :]
         w = torch.softmax(logits, dim=-1).to(x.dtype)
         ctx_lat = torch.einsum("bhsk,bkr->bshr", w, ckv_all)     # (B,S,H,rank)

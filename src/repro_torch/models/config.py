@@ -1,7 +1,11 @@
 """Unified model configuration covering all assigned architecture families.
 
 A copy of the JAX package's ``models/config.py``, kept whole so that a
-config built here compares field by field with the reference's.  One
+config built here compares field by field with the reference's, plus a few
+fields of the port's alone (``ModelConfig.norm_eps``, ``MLAConfig``'s
+``q_lora_rank=None``, ``MoEConfig.router_bias``, ``routed_scaling`` and
+``dispatch="dropless"``), each at a default that computes what the JAX
+package computes, so every registered architecture is as the reference's.  One
 ``ModelConfig`` describes dense GQA transformers, MoE (shared+routed, MLA),
 RWKV6-style SSMs, RecurrentGemma-style hybrids, encoder-decoder audio
 backbones, and VLM backbones (M-RoPE).  The architectures ported so far are
@@ -27,18 +31,30 @@ class MoEConfig:
     n_dense_layers: int = 0       # leading layers that use a dense FFN (DeepSeek-V3: 3)
     capacity_factor: float = 1.25
     group_size: int = 256         # tokens per dispatch group (einsum mode)
-    dispatch: str = "einsum"      # "einsum" | "sort"  (sort = beyond-paper opt)
+    # "einsum" | "sort" (sort = beyond-paper opt) | "dropless" (the port's
+    # alone: every claim computed, whatever the load)
+    dispatch: str = "einsum"
     router_dtype: str = "float32"
     # DeepSeek-V3 uses sigmoid routing with bias-based aux-free balancing;
     # Qwen uses softmax.  "softmax" | "sigmoid"
     router_act: str = "softmax"
+    # The port's alone, each at a default that computes as the JAX package
+    # does.  ``router_bias``: a per-layer vector added to the router's
+    # scores for the choice of experts only, never to the gates (DeepSeek-V3's
+    # ``e_score_correction_bias``, ``topk_method="noaux_tc"``).
+    # ``routed_scaling``: multiplies the normalised gates
+    # (``routed_scaling_factor``).
+    router_bias: bool = False
+    routed_scaling: float = 1.0
 
 
 @dataclass(frozen=True)
 class MLAConfig:
-    """DeepSeek-V3 Multi-head Latent Attention dims (arXiv:2412.19437)."""
+    """DeepSeek-V3 Multi-head Latent Attention dims (arXiv:2412.19437).
+    ``q_lora_rank=None`` (the port's alone) projects the queries directly,
+    ``d -> H * (nope + rope)``, with no low-rank step and no query norm."""
 
-    q_lora_rank: int = 1536
+    q_lora_rank: Optional[int] = 1536
     kv_lora_rank: int = 512
     qk_nope_head_dim: int = 128
     qk_rope_head_dim: int = 64
@@ -73,6 +89,9 @@ class ModelConfig:
     act: str = "silu"             # silu | gelu
     mlp: str = "swiglu"           # swiglu | geglu | mlp (plain 2-matrix)
     norm: str = "rmsnorm"         # rmsnorm | layernorm | layernorm_nobias | nonparametric
+    # the port's alone: every norm's epsilon (the LM's RMSNorms and
+    # LayerNorms, MLA's q_norm and kv_norm); the JAX package fixes 1e-6
+    norm_eps: float = 1e-6
     qkv_bias: bool = False        # Qwen1.5-style QKV bias
     attn_logit_softcap: Optional[float] = None
     tie_embeddings: bool = False
@@ -151,7 +170,10 @@ class ModelConfig:
             if self.attention == "mla":
                 m = self.mla
                 qk_head = m.qk_nope_head_dim + m.qk_rope_head_dim
-                p = d * m.q_lora_rank + m.q_lora_rank * self.n_heads * qk_head
+                if m.q_lora_rank:
+                    p = d * m.q_lora_rank + m.q_lora_rank * self.n_heads * qk_head
+                else:
+                    p = d * self.n_heads * qk_head
                 p += d * (m.kv_lora_rank + m.qk_rope_head_dim)
                 p += m.kv_lora_rank * self.n_heads * (m.qk_nope_head_dim + m.v_head_dim)
                 p += self.n_heads * m.v_head_dim * d
@@ -192,6 +214,8 @@ class ModelConfig:
                 total += self.moe.n_experts * ffn_params(self.moe.d_expert)
                 total += self.moe.n_shared_experts * ffn_params(self.moe.d_expert)
                 total += d * self.moe.n_experts  # router
+                if self.moe.router_bias:
+                    total += self.moe.n_experts
             elif self.family != "ssm" or rec.kind != "rwkv6":
                 total += ffn_params(self.d_ff)
             else:
@@ -237,8 +261,8 @@ def reduced(cfg: ModelConfig, **overrides) -> ModelConfig:
         )
     if cfg.mla is not None:
         small["mla"] = MLAConfig(
-            q_lora_rank=64, kv_lora_rank=32, qk_nope_head_dim=32,
-            qk_rope_head_dim=16, v_head_dim=32,
+            q_lora_rank=64 if cfg.mla.q_lora_rank else None, kv_lora_rank=32,
+            qk_nope_head_dim=32, qk_rope_head_dim=16, v_head_dim=32,
         )
     if cfg.recurrent is not None:
         small["recurrent"] = dataclasses.replace(

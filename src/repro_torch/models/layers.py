@@ -98,9 +98,11 @@ def norm_init(cfg: ModelConfig, device: torch.device, dim: Optional[int] = None,
 
 
 def norm_apply(cfg: ModelConfig, p: Dict[str, torch.Tensor], x: torch.Tensor,
-               eps: float = 1e-6) -> torch.Tensor:
+               eps: Optional[float] = None) -> torch.Tensor:
     """RMSNorm or LayerNorm over the last axis in float32, cast back, then
-    the affine part in the activation dtype (the JAX ``norm_apply``)."""
+    the affine part in the activation dtype (the JAX ``norm_apply``); eps
+    ``cfg.norm_eps`` unless given."""
+    eps = cfg.norm_eps if eps is None else eps
     xf = x.to(torch.float32)
     if cfg.norm == "rmsnorm":
         y = xf * torch.rsqrt(xf.square().mean(dim=-1, keepdim=True) + eps)

@@ -21,6 +21,11 @@ priority: claims are taken k-major (every token's first choice, then every
 token's second, ...), in token order within each.  So a token's output
 depends on the other tokens of its group, as in the JAX model.
 
+``dropless``  the port's alone: every claim is computed, so a token's output
+            depends on it alone, as in DeepSeek-V3-style inference.  The
+            claims are sorted by expert and the experts' products run as
+            grouped products over their rows (``_dispatch_dropless``).
+
 The routing and dispatch are plain torch; the expert products are batched
 matrix products (``torch.einsum``), which the JAX package computes with
 ``jnp.einsum`` outside any Pallas kernel.  Three places where torch and JAX
@@ -57,7 +62,8 @@ def moe_init(gen: torch.Generator, cfg: ModelConfig, device: torch.device,
     """Router, routed experts and (if any) shared experts, stacked over
     ``layers`` as the JAX model's ``vmap``-ed init stacks them: ``wi`` and
     ``wg`` (E, d, f) scaled by 1/sqrt(d), ``wo`` (E, f, d) by 1/sqrt(f); the
-    shared experts one gated MLP of width ``n_shared_experts * d_expert``."""
+    shared experts one gated MLP of width ``n_shared_experts * d_expert``;
+    with ``router_bias`` the router's ``bias`` (E,), zero."""
     m = cfg.moe
     dt = torch_dtype(cfg.dtype)
     d, E, f = cfg.d_model, m.n_experts, m.d_expert
@@ -70,6 +76,8 @@ def moe_init(gen: torch.Generator, cfg: ModelConfig, device: torch.device,
             "wo": stacked_normal(gen, lead + (E,), (f, d), 1.0 / np.sqrt(f), dt, device),
         },
     }
+    if m.router_bias:        # zero, as DeepSeek-V3 starts its correction bias
+        p["router"]["bias"] = torch.zeros(lead + (E,), dtype=dt, device=device)
     if m.n_shared_experts:
         fs = m.n_shared_experts * f
         p["shared"] = {
@@ -84,16 +92,26 @@ def _router(cfg: ModelConfig, p: Dict, x2d: torch.Tensor
             ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """x2d: (T, d) -> (gates (T,K) in x's dtype, idx (T,K) int64, probs (T,E)
     float32).  Logits in float32; softmax (Qwen) or sigmoid (DeepSeek-V3),
-    then the top k, ties to the lower index, and gates renormalised."""
+    then the top k, ties to the lower index, and gates renormalised.  With
+    ``router_bias`` the experts are chosen by ``probs + bias`` and gated by
+    ``probs`` at the chosen ones; the normalised gates are multiplied by
+    ``routed_scaling`` where it is not 1."""
     m = cfg.moe
     logits = x2d.to(torch.float32) @ p["router"]["w"].to(torch.float32)
     if m.router_act == "sigmoid":
         probs = torch.sigmoid(logits)
     else:
         probs = torch.softmax(logits, dim=-1)
-    gates, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
-    gates, idx = gates[:, :m.top_k], idx[:, :m.top_k]
+    if m.router_bias:
+        choice = probs + p["router"]["bias"].to(torch.float32)
+        idx = torch.sort(choice, dim=-1, descending=True, stable=True)[1][:, :m.top_k]
+        gates = probs.gather(1, idx)
+    else:
+        gates, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+        gates, idx = gates[:, :m.top_k], idx[:, :m.top_k]
     gates = gates / (gates.sum(dim=-1, keepdim=True) + 1e-9)
+    if m.routed_scaling != 1.0:
+        gates = gates * m.routed_scaling
     return gates.to(x2d.dtype), idx, probs
 
 
@@ -196,14 +214,51 @@ def _dispatch_sort(cfg: ModelConfig, p: Dict, x2d: torch.Tensor, gates: torch.Te
     return y.reshape(T, d)
 
 
-def moe_apply(cfg: ModelConfig, p: Dict, x: torch.Tensor, dispatch: Optional[str] = None
-              ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x: (B, S, d) -> (y (B,S,d), aux loss, a float32 scalar)."""
+def _dispatch_dropless(cfg: ModelConfig, p: Dict, x2d: torch.Tensor, gates: torch.Tensor,
+                       idx: torch.Tensor, load: Optional[torch.Tensor] = None
+                       ) -> torch.Tensor:
+    """Every claim computed, whatever the load: the T*K claims sorted by
+    expert (stably, so token order within an expert), each expert's rows
+    found by a search of the sorted ids, the three products of all experts
+    as grouped products over those rows (``torch._grouped_mm``: one
+    launch a product, each expert's rows against its own matrix), and each
+    token's K outputs weighted by its gates in one batched product.  The
+    sizes are T*K rows whatever the routing, and the offsets stay on the
+    device: no host sync, so a decode step with this route is captured as a
+    CUDA graph like any other."""
+    m = cfg.moe
+    T, d = x2d.shape
+    E, K = m.n_experts, m.top_k
+    flat = idx.reshape(T * K)
+    order = torch.argsort(flat, stable=True)
+    ends = torch.searchsorted(flat[order], torch.arange(E, device=x2d.device), right=True)
+    if load is not None:
+        load += torch.diff(ends, prepend=ends.new_zeros(1))
+    offs = ends.to(torch.int32)
+    ex = p["experts"]
+    xs = x2d[order // K]                                        # (T*K, d), by expert
+    h = torch._grouped_mm(xs, ex["wi"], offs=offs)
+    g = torch._grouped_mm(xs, ex["wg"], offs=offs)
+    ys = torch._grouped_mm(activation(cfg.act)(g) * h, ex["wo"], offs=offs)
+    ye = torch.empty_like(ys)
+    ye[order] = ys                                              # back in claim order
+    return torch.bmm(gates.reshape(T, 1, K), ye.reshape(T, K, d)).reshape(T, d)
+
+
+def moe_apply(cfg: ModelConfig, p: Dict, x: torch.Tensor, dispatch: Optional[str] = None,
+              load: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x: (B, S, d) -> (y (B,S,d), aux loss, a float32 scalar).  On the
+    ``dropless`` route ``load``, an (E,) integer tensor, gains the claims
+    each expert computed, in place, on the device; the other routes leave
+    it."""
     m = cfg.moe
     B, S, d = x.shape
     x2d = x.reshape(B * S, d)
     gates, idx, probs = _router(cfg, p, x2d)
-    if (dispatch or m.dispatch) == "sort":
+    route = dispatch or m.dispatch
+    if route == "dropless":
+        y = _dispatch_dropless(cfg, p, x2d, gates, idx, load)
+    elif route == "sort":
         y = _dispatch_sort(cfg, p, x2d, gates, idx)
     else:
         y = _dispatch_einsum(cfg, p, x2d, gates, idx)

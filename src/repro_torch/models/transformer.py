@@ -197,6 +197,14 @@ class LM:
         # the (B, S, vocab) logits'.
         self.act_sharding = None
         self.logits_sharding = None
+        # claims each expert computed on the dropless route, (MoE layers, E) on
+        # the device, added to in place by every prefill and decode step (a
+        # captured step's replays too; training counts none): read it as a
+        # difference between two points
+        moe_layers = sum(seg.n for seg in self.segments if seg.moe)
+        self.expert_load = (torch.zeros((moe_layers, cfg.moe.n_experts), dtype=torch.int64,
+                                        device=self.device)
+                            if moe_layers and cfg.moe.dispatch == "dropless" else None)
 
     def _wsc(self, x: torch.Tensor) -> torch.Tensor:
         return _constrain(x, self.act_sharding)
@@ -299,11 +307,14 @@ class LM:
 
     # ----------------------------------------------------------------- blocks --
     def _apply_attn_block(self, seg: Segment, p, x, positions, cache, gapless, aux,
-                          position_ids=None, causal=True):
+                          position_ids=None, causal=True, load=None):
+        """Attention (MLA or GQA), then the MLP or (``seg.moe``) the mixture
+        of experts, whose claims a layer are added to ``load`` (E,)."""
         cfg = self.cfg
         h = norm_apply(cfg, p["norm1"], x)
         if cfg.attention == "mla":
-            a, _ = mla_apply(cfg, p["attn"], h, positions, cache=cache)
+            with span("model.mla", device=self.device):
+                a, _ = mla_apply(cfg, p["attn"], h, positions, cache=cache, gapless=gapless)
         else:
             a, _ = gqa_apply(cfg, p["attn"], h, positions, cache=cache, causal=causal,
                              window=seg.window, position_ids=position_ids,
@@ -311,7 +322,8 @@ class LM:
         x = x + a
         h2 = norm_apply(cfg, p["norm2"], x)
         if seg.moe:
-            f, aux_l = moe_apply(cfg, p["ffn"], h2)
+            with span("model.moe", device=self.device):
+                f, aux_l = moe_apply(cfg, p["ffn"], h2, load=load)
             return x + f, aux + aux_l
         return x + mlp_apply(cfg, p["ffn"], h2), aux
 
@@ -439,18 +451,20 @@ class LM:
                 layer = _layer(cache, i) if cache is not None else None
                 block = functools.partial(
                     self._block, seg, positions=positions, cache=layer, gapless=gapless,
-                    position_ids=position_ids, enc_out=enc_out, enc_positions=enc_positions)
+                    position_ids=position_ids, enc_out=enc_out, enc_positions=enc_positions,
+                    load=(self.expert_load[i] if seg.moe and caches is not None
+                          and self.expert_load is not None else None))
                 x, aux = self._layer(block, p, x, aux, remat=caches is None)
                 x = self._wsc(x)
         return norm_apply(cfg, params["final_norm"], x), caches, aux
 
     def _block(self, seg: Segment, p, x, aux, positions, cache, gapless, position_ids,
-               enc_out, enc_positions):
+               enc_out, enc_positions, load=None):
         """One layer of ``seg`` (a group for ``"group"``): ``(x, aux)``
         after it, its new state written into ``cache`` in place."""
         if seg.kind == "attn":
             return self._apply_attn_block(seg, p, x, positions, cache, gapless, aux,
-                                          position_ids)
+                                          position_ids, load=load)
         if seg.kind == "dec":
             return self._apply_dec_block(p, x, positions, cache, enc_out, enc_positions,
                                          gapless), aux
@@ -597,10 +611,12 @@ class DecodeGraph:
     ``LM.decode_step`` before then is replayed with the step.  A replay
     opens the eager step's spans: ``model.decode_step`` (with
     ``replay=True``) over both replays, ``model.logits`` with its device
-    time over the head's.  The capture records no span (none records while
-    a stream captures), runs no garbage collection and counts no launch;
-    each replay adds the launches the capture counted to the kernels'
-    counters (:mod:`repro_torch.kernels.counts`).
+    time over the head's; and ``model.backbone`` with its device time over
+    the backbone's (the layers' own spans, ``model.mla`` and ``model.moe``,
+    are not recorded inside a graph).  The capture records no span (none
+    records while a stream captures), runs no garbage collection and counts
+    no launch; each replay adds the launches the capture counted to the
+    kernels' counters (:mod:`repro_torch.kernels.counts`).
 
     A call returns the logits ``(B, vocab)``: after a capture, the static
     buffer the next replay overwrites.  The graphs' pool holds the step's
@@ -685,7 +701,8 @@ class DecodeGraph:
         with span("model.decode_step", device=dev) as sp:
             if sp:
                 sp.set(replay=True)
-            backbone.replay()
+            with span("model.backbone", device=dev):
+                backbone.replay()
             with span("model.logits", device=dev):
                 head.replay()
         counts.add(self.launches)

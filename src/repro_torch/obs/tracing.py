@@ -89,6 +89,12 @@ RUNTIME_SCHEMA: Dict[str, str] = {
                          "one step, or the replay of its CUDA graphs (device_ms; replay: "
                          "whether the step was a replay)",
     "model.logits": "LM.logits: the head's cast and product (device_ms)",
+    "model.backbone": "DecodeGraph's replay of the backbone's graph: embedding, every "
+                      "layer and the final norm of one decode step (device_ms)",
+    "model.mla": "mla_apply in one layer: MLA attention, its cache written "
+                 "(device_ms; not recorded inside a CUDA graph)",
+    "model.moe": "moe_apply in one layer: router, dispatch, experts and shared "
+                 "experts (device_ms; not recorded inside a CUDA graph)",
     "train.step": "the step closure of make_train_step: gradients and update",
     "train.forward": "model.loss in value_and_grad, one a microbatch (device_ms)",
     "train.backward": "torch.autograd.grad in value_and_grad, one a microbatch "

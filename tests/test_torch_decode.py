@@ -37,6 +37,8 @@ from repro_torch.models import LM, params_from_jax, reduced
 from repro_torch.models.attention import gqa_apply, make_cache
 from repro_torch.serve.engine import ServingEngine
 
+from _torch_config import assert_same_config
+
 # the JAX package's kernel-sweep tolerances (tests/test_kernels.py)
 TOL = {"float32": dict(atol=3e-5, rtol=3e-5), "bfloat16": dict(atol=3e-2, rtol=3e-2)}
 # the dense model against the JAX model in float32 (ROADMAP.md)
@@ -285,15 +287,14 @@ def dense_pair(request):
     arch = request.param
     jcfg = jax_reduced(jax_get_config(arch), **ARCHS[arch])
     cfg = reduced(get_config(arch), **ARCHS[arch])
-    assert dataclasses.asdict(cfg) == dataclasses.asdict(jcfg)
+    assert_same_config(cfg, jcfg)
     jparams = JaxLM(jcfg).init(jax.random.PRNGKey(8))
     params = params_from_jax(jax.tree.map(np.asarray, jparams), device="cpu")
     return jcfg, jparams, LM(cfg, device="cpu"), params
 
 
 def test_config_matches_jax():
-    assert (dataclasses.asdict(get_config("minitron-8b"))
-            == dataclasses.asdict(jax_get_config("minitron-8b")))
+    assert_same_config(get_config("minitron-8b"), jax_get_config("minitron-8b"))
     cfg = reduced(get_config("minitron-8b"), n_kv_heads=2)
     assert cfg.n_heads // cfg.n_kv_heads == 2 and cfg.mlp == "mlp" and cfg.act == "relu2"
 

@@ -12,7 +12,8 @@ gives bit for bit the logits of the eager step run on a copy of its state by
 a twin with the same kernels (an LM with ``decode_fn=ops.decode_attention``,
 whose hook keeps its step eager), and the same launches counted; a model
 swapped into the engine after its capture runs its own step; a graphed
-step's spans under ``runtime.enable()``; and a profile of replays holding
+step's spans under ``runtime.enable()`` (a replay's ``model.backbone``
+among them); and a profile of replays holding
 every decode launch counted.  These tests import neither JAX nor the JAX
 package:
 
@@ -328,7 +329,11 @@ def test_graphed_step_records_the_eager_spans(cuda_device):
 
     steps = [s for s in spans if s.kind == "model.decode_step"]
     heads = [s for s in spans if s.kind == "model.logits" and parent(s) != "model.prefill"]
+    backbones = [s for s in spans if s.kind == "model.backbone"]
     assert (eng.captures, eng.replays) == (1, 4)
+    # each replay's backbone under its step, with the card's time; the eager step has none
+    assert [parent(s) for s in backbones] == ["model.decode_step"] * 4
+    assert all(s.attrs.get("device_ms", 0) > 0 for s in backbones)
     assert [s.attrs["replay"] for s in steps] == [False, True, True, True, True]
     assert [parent(s) for s in steps] == ["serve.step"] * 5
     # the capture recorded none: one head a step, each under its step

@@ -9,7 +9,6 @@ Inputs are made with numpy from a seed and handed to both sides; a float8
 cache is handed over as its bytes.  ``test_torch_kernels_cuda.py`` holds
 the decode kernel on float8 K/V against the plain version on a card.
 """
-import dataclasses
 
 import jax
 import jax.numpy as jnp
@@ -33,6 +32,8 @@ from repro_torch.models import LM, params_from_jax, reduced
 from repro_torch.models.attention import gqa_apply
 from repro_torch.models.layers import FLOAT8, astype
 from repro_torch.serve.engine import ServingEngine
+
+from _torch_config import assert_same_config
 
 FP8 = ["float8_e4m3fn", "float8_e5m2"]
 # the JAX model against the port in float32 (the projections round in
@@ -190,7 +191,7 @@ def fp8_pair(request):
     over = dict(n_kv_heads=2, kv_dtype=request.param)
     jcfg = jax_reduced(jax_get_config("minitron-8b"), **over)
     cfg = reduced(get_config("minitron-8b"), **over)
-    assert dataclasses.asdict(cfg) == dataclasses.asdict(jcfg)
+    assert_same_config(cfg, jcfg)
     jparams = JaxLM(jcfg).init(jax.random.PRNGKey(8))
     params = params_from_jax(jax.tree.map(np.asarray, jparams), device="cpu")
     return jcfg, jparams, LM(cfg, device="cpu"), params

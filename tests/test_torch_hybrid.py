@@ -12,7 +12,6 @@ the wrong axis (ROADMAP.md, "Known reference faults"), so the port's
 engine is held against the JAX model's ``prefill`` and ``decode_step``
 driven one request at a time.
 """
-import dataclasses
 
 import jax
 import jax.numpy as jnp
@@ -37,6 +36,8 @@ from repro_torch.models.recurrent import (_block_diag_mm, _causal_conv, linear_s
                                           rglru_apply, rglru_state)
 from repro_torch.serve.engine import ServingEngine
 
+from _torch_config import assert_same_config
+
 ARCH = "recurrentgemma-9b"
 RGLRU_TOL = dict(atol=1e-5, rtol=1e-5)
 MODEL_TOL = dict(atol=5e-4, rtol=5e-4)
@@ -52,9 +53,9 @@ def _t(a):
 
 def test_config_matches_jax_full_and_reduced():
     assert ARCH in ARCHS
-    assert dataclasses.asdict(get_config(ARCH)) == dataclasses.asdict(jax_get_config(ARCH))
+    assert_same_config(get_config(ARCH), jax_get_config(ARCH))
     cfg = reduced(get_config(ARCH))
-    assert dataclasses.asdict(cfg) == dataclasses.asdict(jax_reduced(jax_get_config(ARCH)))
+    assert_same_config(cfg, jax_reduced(jax_get_config(ARCH)))
     assert (cfg.n_layers, cfg.recurrent.lru_width, cfg.head_dim, cfg.attn_window) == (6, 128,
                                                                                       32, 16)
     full = LM(get_config(ARCH), device="cpu")

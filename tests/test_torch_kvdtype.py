@@ -37,6 +37,8 @@ from repro_torch.models.attention import gqa_apply
 from repro_torch.models.layers import astype
 from repro_torch.serve.engine import ServingEngine
 
+from _torch_config import assert_same_config
+
 FLOATS = ("float32", "bfloat16", "float16")
 # (model dtype, kv_dtype): every pair the decode kernel is built for
 PAIRS = [("float32", "bfloat16"), ("float32", "float16"),
@@ -164,7 +166,7 @@ def test_decode_args_take_the_built_kinds_and_refuse_others():
 def _cfgs(dtype, **over):
     jcfg = jax_reduced(jax_get_config("minitron-8b"), n_kv_heads=2, dtype=dtype, **over)
     cfg = reduced(get_config("minitron-8b"), n_kv_heads=2, dtype=dtype, **over)
-    assert dataclasses.asdict(cfg) == dataclasses.asdict(jcfg)
+    assert_same_config(cfg, jcfg)
     return jcfg, cfg
 
 

@@ -33,6 +33,8 @@ from repro_torch.launch.serve import serve_demo
 from repro_torch.models import LM, params_from_jax, reduced
 from repro_torch.serve.engine import ServingEngine
 
+from _torch_config import assert_same_config
+
 TOL = dict(atol=5e-4, rtol=5e-4)
 MOE_ARCHS = ("qwen2-moe-a2.7b", "deepseek-v3-671b")
 SLICE_ARCHS = ("olmo-1b", "command-r-plus-104b") + MOE_ARCHS
@@ -49,9 +51,8 @@ def _t(a):
 @pytest.mark.parametrize("arch", SLICE_ARCHS)
 def test_config_matches_jax_full_and_reduced(arch):
     assert arch in ARCHS
-    assert dataclasses.asdict(get_config(arch)) == dataclasses.asdict(jax_get_config(arch))
-    assert (dataclasses.asdict(reduced(get_config(arch)))
-            == dataclasses.asdict(jax_reduced(jax_get_config(arch))))
+    assert_same_config(get_config(arch), jax_get_config(arch))
+    assert_same_config(reduced(get_config(arch)), jax_reduced(jax_get_config(arch)))
     if arch == "qwen2-moe-a2.7b":   # the full-width model the card serves
         assert get_config(arch).param_count() == 14_315_732_992
         assert get_config(arch).moe.capacity_factor == 1.25

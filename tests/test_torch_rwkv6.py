@@ -28,6 +28,8 @@ from repro_torch.kernels.rwkv6_scan import check_rwkv6_args, chunk_for, rwkv6_sc
 from repro_torch.models import LM, params_from_jax, reduced
 from repro_torch.models.recurrent import rwkv6_apply
 
+from _torch_config import assert_same_config
+
 CPU = torch.device("cpu")
 TOL = {"xla": dict(atol=1e-4, rtol=1e-4), "kernel_interpret": dict(atol=2e-3, rtol=2e-3)}
 
@@ -226,10 +228,10 @@ def test_chunk_rule(T, chunk):
 
 # -- the model -------------------------------------------------------------------
 def test_configs_match_jax():
-    assert dataclasses.asdict(get_config("rwkv6-3b")) == dataclasses.asdict(jax_get_config("rwkv6-3b"))
+    assert_same_config(get_config("rwkv6-3b"), jax_get_config("rwkv6-3b"))
     ported = reduced(get_config("rwkv6-3b"), dtype="float32")
     ref = jax_reduced(jax_get_config("rwkv6-3b"), dtype="float32")
-    assert dataclasses.asdict(ported) == dataclasses.asdict(ref)
+    assert_same_config(ported, ref)
 
 
 @pytest.fixture(scope="module")

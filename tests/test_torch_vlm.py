@@ -11,7 +11,6 @@ the CPU, the JAX model through its XLA attention (``attention_impl="xla"``,
 the reduced config's own): ``apply_mrope`` at 1e-6, the model at 5e-4,
 greedy tokens exactly.
 """
-import dataclasses
 
 import jax
 import jax.numpy as jnp
@@ -37,6 +36,8 @@ from repro_torch.models.layers import apply_mrope, apply_rope
 from repro_torch.serve.engine import ServingEngine
 from repro_torch.train.step import _split_microbatches, value_and_grad
 from repro_torch.tree import tree_leaves
+
+from _torch_config import assert_same_config
 
 ARCH = "qwen2-vl-72b"
 MROPE_TOL = dict(atol=1e-6, rtol=1e-6)
@@ -77,9 +78,9 @@ def _image_then_text(B, S, grid=(2, 3, 4), seed=0):
 
 def test_config_matches_jax_full_and_reduced():
     assert ARCH in ARCHS
-    assert dataclasses.asdict(get_config(ARCH)) == dataclasses.asdict(jax_get_config(ARCH))
+    assert_same_config(get_config(ARCH), jax_get_config(ARCH))
     cfg = reduced(get_config(ARCH))
-    assert dataclasses.asdict(cfg) == dataclasses.asdict(jax_reduced(jax_get_config(ARCH)))
+    assert_same_config(cfg, jax_reduced(jax_get_config(ARCH)))
     assert cfg.mrope_sections == (4, 6, 6) and cfg.needs_position_ids
     full = LM(get_config(ARCH), device="cpu")
     assert [(s.kind, s.n) for s in full.segments] == [("attn", 80)]

@@ -41,6 +41,8 @@ from repro_torch.serve.engine import ServingEngine
 from repro_torch.train.step import value_and_grad
 from repro_torch.tree import tree_leaves
 
+from _torch_config import assert_same_config
+
 ARCH = "whisper-tiny"
 ENC_TOL = dict(atol=1e-5, rtol=1e-5)
 MODEL_TOL = dict(atol=5e-4, rtol=5e-4)
@@ -65,9 +67,9 @@ def _as_np(tree):
 
 def test_config_matches_jax_full_and_reduced():
     assert ARCH in ARCHS
-    assert dataclasses.asdict(get_config(ARCH)) == dataclasses.asdict(jax_get_config(ARCH))
+    assert_same_config(get_config(ARCH), jax_get_config(ARCH))
     cfg = reduced(get_config(ARCH))
-    assert dataclasses.asdict(cfg) == dataclasses.asdict(jax_reduced(jax_get_config(ARCH)))
+    assert_same_config(cfg, jax_reduced(jax_get_config(ARCH)))
     assert (cfg.n_layers, cfg.enc_len, cfg.enc_dec) == (2, 32, True)
     full = LM(get_config(ARCH), device="cpu")
     assert [(s.kind, s.n) for s in full.segments] == [("enc", 4), ("dec", 4)]
