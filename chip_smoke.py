@@ -314,8 +314,10 @@ from repro_torch.sim.apps import APP_BUILDERS  # noqa: E402
 from repro_torch.sim.runner import policy_for  # noqa: E402
 from repro_torch.data.synthetic import SyntheticLM  # noqa: E402
 from repro_torch.data.pipeline import to_device  # noqa: E402
+from repro_torch.kernels.bf16_split import bf16_split  # noqa: E402
 from repro_torch.kernels.build import build  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
+from repro_torch.kernels.ref import bf16_split_ref  # noqa: E402
 from repro_torch.kernels.flash_attention import smem_bytes as attn_smem_bytes  # noqa: E402
 from repro_torch.kernels.flash_attention import tile_plan  # noqa: E402
 from repro_torch.kernels.flash_attention import occupancy as attention_occupancy  # noqa: E402
@@ -519,6 +521,48 @@ def pass_name(kernel: str) -> str:
     """``state``, ``carry`` or ``output`` for a WKV pass's kernel name."""
     m = re.search(r"rwkv6_(\w+?)_kernel", kernel)
     return m.group(1) if m else kernel[:60]
+
+
+def split_phase(dev):
+    """The head backward's split (``csrc/bf16_split.cu``) against its plain
+    version, bit for bit: on a 10,880-column block of a cross-entropy
+    cotangent at the train cell's shape (16,384 tokens over Qwen1.5-0.5B's
+    151,936 columns: the block the backward splits), on values of every
+    float32 exponent from 2^-100 to 2^100, and on rows of an odd length (the
+    kernel's one-element path); then that block's time (CUDA events over 20
+    launches) against its bound, 10 bytes an element at 3.35 TB/s."""
+    gen = torch.Generator(device=dev).manual_seed(2)
+    T, V, n = 16384, 151936, 10880
+    g = torch.softmax(6.0 * torch.randn(T, V, generator=gen, device=dev), dim=-1)
+    g[torch.arange(T, device=dev), torch.randint(0, V, (T,), generator=gen, device=dev)] -= 1.0
+    sig = torch.randint(1 << 23, 1 << 24, (512, 1004), generator=gen, device=dev).double()
+    exp = torch.randint(-100, 101, (512, 1004), generator=gen, device=dev) - 23
+    wide = (torch.ldexp(sig, exp.double()) * (2 * torch.randint(0, 2, sig.shape, generator=gen,
+                                                                 device=dev) - 1)).float()
+    for name, x in (("cotangent block", g[:, 3 * n:4 * n]), ("wide exponents", wide),
+                    ("wide exponents, odd rows", wide[:, 1:])):
+        got = bf16_split(x)
+        torch.cuda.synchronize()
+        check(torch.equal(got, bf16_split_ref(x)), f"bf16_split differs from its plain "
+              f"version on the {name}")
+        check(bool((got.double().sum(dim=1) == x.double()).all()),
+              f"bf16_split's pieces do not sum to the {name}")
+    blk = g[:, :n]
+    bf16_split(blk)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(20):
+        bf16_split(blk)
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / 20
+    bound_ms = 10 * blk.numel() / HBM_BYTES_PER_S * 1e3
+    print(f"[kernels] bf16_split: bit for bit with its plain version and exact on a "
+          f"cotangent block ({T} x {n} of {V}), on exponents 2^-100..2^100 and on odd rows; "
+          f"the block {ms:.4f} ms against its bound {bound_ms:.4f} ms (bytes: "
+          f"{10 * blk.numel():,} at 3.35 TB/s), {100 * bound_ms / ms:.1f}% of it", flush=True)
+    del g, blk
+    torch.cuda.empty_cache()
 
 
 def kernel_phase(dev):
@@ -4627,8 +4671,8 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     t = time.perf_counter()
-    reports = build(["rwkv6_scan", "flash_attention", "flash_decode"])
-    print(f"[build] all three kernels built in parallel in {time.perf_counter() - t:.1f} s",
+    reports = build(["rwkv6_scan", "flash_attention", "flash_decode", "bf16_split"])
+    print(f"[build] all four kernels built in parallel in {time.perf_counter() - t:.1f} s",
           flush=True)
     for name, report in reports.items():
         print(f"[build] {name}:", flush=True)
@@ -4665,7 +4709,7 @@ def main() -> int:
               f"the float8 ring at D={d} takes more shared memory than bf16's: the split "
               "plan would not hold")
     meta_plan_check()
-    for name in ("rwkv6_scan", "flash_decode"):
+    for name in ("rwkv6_scan", "flash_decode", "bf16_split"):
         for kern, regs, st, ld in ptxas_report(reports.get(name, "")):
             print(f"[build] {name} {kern}: {regs} registers, spill stores {st} bytes, "
                   f"spill loads {ld} bytes", flush=True)
@@ -4673,6 +4717,7 @@ def main() -> int:
     report_f32_q_variants(reports.get("flash_decode", ""))
 
     worst, timing = kernel_phase(dev)
+    split_phase(dev)
     attn_worst, attn_t = attention_phase(dev)
     dec_worst, dec_t = decode_phase(dev)
     dec8_worst, dec8_t = float8_decode_phase(dev)

@@ -1,9 +1,10 @@
 """The kernels' launch counters, read and advanced together.
 
 Each wrapper counts its own calls (``flash_decode.launches`` and the
-others).  A CUDA graph's replay launches what its capture recorded without
-calling a wrapper, and its capture called the wrappers without launching
-anything on the card; :class:`repro_torch.models.transformer.DecodeGraph`
+others), and the head's product its calls by route
+(``head_product.routes``).  A CUDA graph's replay launches what its capture
+recorded without calling a wrapper, and its capture called the wrappers
+without launching anything on the card; :class:`repro_torch.models.transformer.DecodeGraph`
 takes back what a capture counted (:func:`since`, :func:`add` of its
 negation) and adds it at every replay, so the counters keep counting the
 launches the card runs.
@@ -12,6 +13,8 @@ from __future__ import annotations
 
 from typing import Dict, Tuple
 
+from ..models.layers import head_product
+from .bf16_split import bf16_split
 from .flash_attention import flash_attention
 from .flash_decode import flash_decode
 from .rwkv6_scan import rwkv6_scan
@@ -23,6 +26,8 @@ _COUNTERS = (
     (flash_attention, ("launches", "wgmma_launches", "simt_launches")),
     (flash_decode, ("launches", "kind_launches")),
     (rwkv6_scan, ("launches",)),
+    (bf16_split, ("launches",)),
+    (head_product, ("routes",)),      # the head's products by route
 )
 
 Counts = Dict[Tuple[str, str], object]

@@ -14,11 +14,12 @@ import torch
 
 from . import meta as _meta
 from . import ref as _ref
+from .bf16_split import bf16_split as _bf16_split
 from .flash_attention import flash_attention as _flash_attention
 from .flash_decode import flash_decode as _flash_decode
 from .rwkv6_scan import rwkv6_scan as _rwkv6_scan
 
-__all__ = ["attention", "decode_attention", "rwkv6"]
+__all__ = ["attention", "decode_attention", "rwkv6", "split_bf16"]
 
 
 def attention(
@@ -58,3 +59,12 @@ def rwkv6(
     if r.device.type == "meta":
         return _meta.rwkv6(r, k, v, w, u, S0)
     return _rwkv6_scan(r, k, v, w, u, S0)
+
+
+def split_bf16(g: torch.Tensor) -> torch.Tensor:
+    """A float32 matrix ``(rows, cols)`` as three bfloat16 pieces ``(rows, 3,
+    cols)`` that sum to it; see :func:`repro_torch.kernels.ref.bf16_split_ref`.
+    Plain torch ops on the CPU and the meta device alike."""
+    if g.device.type == "cuda":
+        return _bf16_split(g)
+    return _ref.bf16_split_ref(g)

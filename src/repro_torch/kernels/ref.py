@@ -13,7 +13,7 @@ import torch
 
 from .cast import astype
 
-__all__ = ["attention_ref", "decode_attention_ref", "rwkv6_ref"]
+__all__ = ["attention_ref", "decode_attention_ref", "rwkv6_ref", "bf16_split_ref"]
 
 
 def attention_ref(
@@ -103,3 +103,17 @@ def rwkv6_ref(
         S = ws[:, t, :, :, None] * S + kv
     y = torch.stack(ys, dim=1) if ys else rs.new_zeros(rs.shape)
     return y.to(r.dtype), S
+
+
+def bf16_split_ref(g: torch.Tensor) -> torch.Tensor:
+    """``g`` ``(rows, cols)`` float32 as three bfloat16 pieces, ``(rows, 3,
+    cols)``: ``hi = bf16(g)``, ``mid = bf16(g - hi)``, ``lo = bf16(g - hi -
+    mid)``, each rounded to nearest even.  ``hi + mid + lo == g`` bit for bit
+    wherever ``|g| >= 2**-110`` or ``g == 0`` (three 8-bit significands cover
+    float32's 24; below, ``lo`` rounds to a multiple of bf16's least
+    subnormal, ``2**-133``)."""
+    bf16 = torch.bfloat16
+    hi = g.to(bf16)
+    r = g - hi.to(g.dtype)
+    mid = r.to(bf16)
+    return torch.stack([hi, mid, (r - mid.to(g.dtype)).to(bf16)], dim=1)

@@ -17,6 +17,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..kernels import ops
 from ..kernels.cast import FLOAT8, astype
 from .config import ModelConfig
 
@@ -24,7 +25,8 @@ __all__ = [
     "torch_dtype", "Layers", "lead_axes", "stacked_normal", "dense_init", "dense_apply",
     "norm_init", "norm_apply",
     "activation", "mlp_init", "mlp_apply", "embed_init", "rope_freqs",
-    "apply_rope", "apply_mrope", "FLOAT8", "astype",
+    "apply_rope", "apply_mrope", "FLOAT8", "astype", "HEAD_SPLIT_BYTES", "HEAD_MAX_K",
+    "HeadProduct", "head_route", "head_product",
 ]
 
 
@@ -155,6 +157,144 @@ def embed_init(gen: torch.Generator, vocab: int, dim: int, dtype: torch.dtype,
                device: torch.device) -> Dict[str, torch.Tensor]:
     w = torch.randn((vocab, dim), generator=gen, dtype=torch.float32, device=device) * 0.02
     return {"embedding": w.to(dtype)}
+
+
+# -- the head's product ---------------------------------------------------------------
+# the most bytes of the cotangent's bf16 pieces that the head's backward holds at once
+HEAD_SPLIT_BYTES = 1 << 30
+# the longest contraction one tensor-core product of the head takes: the tensor
+# cores' float32 accumulation drifts from float32 sums with the length of the chain,
+# so a longer one goes in pieces added in float32
+HEAD_MAX_K = 4096
+
+
+def head_route(h: torch.Tensor, w: torch.Tensor, out_dtype: torch.dtype) -> str:
+    """How :func:`head_product` computes ``h @ w`` into ``out_dtype``:
+    ``"tensor_core"`` on a CUDA device where ``h`` and ``w`` share a 16-bit
+    dtype and the result is float32 (:class:`HeadProduct`); ``"upcast"``
+    everywhere else, operands in another dtype than ``out_dtype`` cast to it
+    first (:class:`_CastProduct`): on the CPU, where aten's ``mm`` has no
+    ``out_dtype`` kernel, on meta tensors, for float32 operands and for
+    logits in the operands' own dtype."""
+    if (h.is_cuda and h.dtype in (torch.bfloat16, torch.float16) and w.dtype == h.dtype
+            and out_dtype == torch.float32):
+        return "tensor_core"
+    return "upcast"
+
+
+def head_product(h: torch.Tensor, w: torch.Tensor, out_dtype: torch.dtype) -> torch.Tensor:
+    """``h (..., d) @ w (d, V)`` in ``out_dtype`` by :func:`head_route`'s
+    route: the JAX model's product with ``preferred_element_type``.  Each
+    product of two 16-bit values is exact in float32, so the routes differ
+    only in how the sums are ordered and rounded.  ``head_product.routes``
+    counts the calls by route."""
+    route = head_route(h, w, out_dtype)
+    head_product.routes[route] += 1
+    if h.dtype == w.dtype == out_dtype:
+        return h @ w
+    h2d = h.reshape(-1, h.shape[-1])
+    out = (HeadProduct.apply(h2d, w) if route == "tensor_core"
+           else _CastProduct.apply(h2d, w, out_dtype))
+    return out.view(*h.shape[:-1], w.shape[1])
+
+
+head_product.routes = {"tensor_core": 0, "upcast": 0}
+
+
+def _cast_grads(ctx, g: torch.Tensor):
+    """The gradients of ``h.to(g.dtype) @ w.to(g.dtype)`` for the saved
+    ``h`` (T, d) and ``w`` (d, V), cast back to their dtypes: the products
+    autograd makes through the casts, on copies cast anew."""
+    h, w = ctx.saved_tensors
+    need_h, need_w = ctx.needs_input_grad[:2]
+    gh = g.mm(w.to(g.dtype).t()).to(h.dtype) if need_h else None
+    gw = h.to(g.dtype).t().mm(g).to(w.dtype) if need_w else None
+    return gh, gw
+
+
+class _CastProduct(torch.autograd.Function):
+    """The upcast route: ``h.to(dt) @ w.to(dt)``, the same values as
+    autograd through the casts, but saving ``h`` and ``w`` as they are and
+    casting them anew in the backward, so no cast copy is held between the
+    passes, as the tensor-core route holds none (the dry-run's trace on meta
+    takes this route for a card's step)."""
+
+    @staticmethod
+    def forward(ctx, h, w, dt):
+        ctx.save_for_backward(h, w)
+        return h.to(dt) @ w.to(dt)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (*_cast_grads(ctx, g), None)
+
+
+def _mm_f32(a: torch.Tensor, b: torch.Tensor,
+            out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``a @ b`` in float32 from 16-bit operands, added into ``out`` (float32)
+    when given.  On a card cuBLAS products on the tensor cores, accumulating
+    in float32, one for each :data:`HEAD_MAX_K` of the contraction, each
+    added into the result in float32; elsewhere the operands cast up, the
+    same exact products summed in another order."""
+    if not a.is_cuda:
+        prod = torch.mm(a.float(), b.float())
+        return prod if out is None else out.add_(prod)
+    for k0 in range(0, a.shape[1], HEAD_MAX_K):
+        ak, bk = a[:, k0:k0 + HEAD_MAX_K], b[k0:k0 + HEAD_MAX_K]
+        if out is None:
+            out = torch.mm(ak, bk, out_dtype=torch.float32)
+        else:
+            torch.addmm(out, ak, bk, out_dtype=torch.float32, out=out)
+    return out
+
+
+class HeadProduct(torch.autograd.Function):
+    """``h (T, d) @ w (d, V)`` -> float32 ``(T, V)`` from 16-bit operands,
+    with an exact backward.  It saves ``h`` and ``w`` as they are, no float32
+    copy.
+
+    The backward does not round the float32 cotangent ``G``: a bf16 ``G``
+    would lose 16 of its 24 bits.  It splits ``G`` into three bf16 pieces
+    that sum to it (:func:`repro_torch.kernels.ops.split_bf16`, one pass) and
+    multiplies the pieces on the tensor cores with float32 outputs, ``dh =
+    sum_k piece_k @ w.T`` and ``dw = sum_k h.T @ piece_k``, cast once to the
+    operands' dtype as the upcast route's backward casts its float32
+    gradients.  The vocabulary goes in column blocks whose pieces hold at
+    most :data:`HEAD_SPLIT_BYTES`; in a block the pieces are stacked along
+    the contracted axis, so each gradient is one contraction: ``(T, 3n) @
+    (3n, d)`` against the block of ``w.T`` repeated three times, added into
+    ``dh`` in float32, and ``(d, 3T) @ (3T, n)`` against ``h`` with each row
+    repeated three times, written into the block's columns of ``dw``.  With
+    float16 operands the pieces would leave float16's exponent range, so the
+    backward multiplies by the operands cast up, as the upcast route's does.
+    On the CPU each product is emulated (:func:`_mm_f32`)."""
+
+    @staticmethod
+    def forward(ctx, h, w):
+        ctx.save_for_backward(h, w)
+        return _mm_f32(h, w)
+
+    @staticmethod
+    def backward(ctx, g):
+        h, w = ctx.saved_tensors
+        need_h, need_w = ctx.needs_input_grad[:2]
+        g = g.contiguous()
+        if h.dtype != torch.bfloat16:
+            return _cast_grads(ctx, g)
+        T, V = g.shape
+        n = min(V, max(64, HEAD_SPLIT_BYTES // (6 * T) // 64 * 64))
+        gh = torch.zeros(h.shape, dtype=g.dtype, device=g.device) if need_h else None
+        gw = torch.empty(w.shape, dtype=w.dtype, device=w.device) if need_w else None
+        h3 = h.repeat_interleave(3, dim=0).T if need_w else None    # column 3t + k is h[t]
+        for v0 in range(0, V, n):
+            wb = w[:, v0:v0 + n]
+            nb = wb.shape[1]
+            p = ops.split_bf16(g[:, v0:v0 + nb])                       # (T, 3, nb)
+            if need_h:
+                _mm_f32(p.view(T, 3 * nb), wb.T.repeat(3, 1), out=gh)
+            if need_w:
+                gw[:, v0:v0 + nb] = _mm_f32(h3, p.view(3 * T, nb))
+        return (gh.to(h.dtype) if need_h else None), gw
 
 
 # -- rotary embeddings ----------------------------------------------------------------

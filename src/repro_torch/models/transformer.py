@@ -60,7 +60,8 @@ from ..obs.runtime import span
 from .attention import (AttnFn, DecodeFn, gqa_apply, gqa_init, make_cache, make_mla_cache,
                         mla_apply, mla_init)
 from .config import ModelConfig
-from .layers import embed_init, mlp_apply, mlp_init, norm_apply, norm_init, torch_dtype
+from .layers import (embed_init, head_product, head_route, mlp_apply, mlp_init, norm_apply,
+                     norm_init, torch_dtype)
 from .moe import moe_apply, moe_init
 from .recurrent import (MixFn, rglru_apply, rglru_init, rglru_state, rwkv6_apply, rwkv6_init,
                         rwkv6_state)
@@ -491,17 +492,27 @@ class LM:
         return x, aux + own
 
     # ------------------------------------------------------------------ heads --
-    def logits(self, params, hidden: torch.Tensor) -> torch.Tensor:
-        """``hidden @ W`` in ``logits_dtype``, constrained to
-        ``logits_sharding``.  The JAX model gets float32 logits from bf16
-        operands (``preferred_element_type``); here both operands are cast
-        up first, which gives the same values."""
+    def _head(self, params) -> Tuple[torch.Tensor, torch.dtype]:
+        """The head's weight ``(d, vocab)`` (the tied embedding's transpose or
+        ``lm_head.w``, a view, no copy) and the logits' dtype."""
         cfg = self.cfg
         w = (params["embed"]["embedding"].T if cfg.tie_embeddings
              else params["lm_head"]["w"])
-        ld = torch_dtype(cfg.logits_dtype)
-        with span("model.logits", device=self.device):
-            return _constrain(hidden.to(ld) @ w.to(ld), self.logits_sharding)
+        return w, torch_dtype(cfg.logits_dtype)
+
+    def logits(self, params, hidden: torch.Tensor) -> torch.Tensor:
+        """``hidden @ W`` in ``logits_dtype``, constrained to
+        ``logits_sharding``.  The JAX model gets float32 logits from bf16
+        operands (``preferred_element_type``); here
+        :func:`~repro_torch.models.layers.head_product` does: on a card, 16-bit
+        operands go to the tensor cores with a float32 output and an exact
+        backward; elsewhere both operands are cast up first, which gives the
+        same values.  The span's ``route`` says which."""
+        w, ld = self._head(params)
+        with span("model.logits", device=self.device) as sp:
+            if sp:
+                sp.set(route=head_route(hidden, w, ld))
+            return _constrain(head_product(hidden, w, ld), self.logits_sharding)
 
     def _xent(self, params, hidden: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
         """Mean cross-entropy over the vocabulary; with ``xent_chunk`` > 1
@@ -605,22 +616,23 @@ class DecodeGraph:
     ``decode_step`` on that stream as two graphs sharing one memory pool,
     split where the step calls :meth:`LM.logits`: the backbone (embedding,
     every layer, final norm, into a static hidden buffer), then the head
-    (the cast and product into a static logits buffer, and whatever the step
-    does after them).  The capture goes through ``decode_step`` as the
-    model's class has it at that moment, so a wrapper patched over
+    (its product into a static logits buffer, and whatever the step does
+    after it).  The capture goes through ``decode_step`` as the model's
+    class has it at that moment, so a wrapper patched over
     ``LM.decode_step`` before then is replayed with the step.  A replay
     opens the eager step's spans: ``model.decode_step`` (with
     ``replay=True``) over both replays, ``model.logits`` with its device
-    time over the head's; and ``model.backbone`` with its device time over
-    the backbone's (the layers' own spans, ``model.mla`` and ``model.moe``,
-    are not recorded inside a graph).  The capture records no span (none
+    time and the ``route`` the capture took over the head's; and
+    ``model.backbone`` with its device time over the backbone's (the
+    layers' own spans, ``model.mla`` and ``model.moe``, are not recorded
+    inside a graph).  The capture records no span (none
     records while a stream captures), runs no garbage collection and counts
     no launch; each replay adds the launches the capture counted to the
     kernels' counters (:mod:`repro_torch.kernels.counts`).
 
     A call returns the logits ``(B, vocab)``: after a capture, the static
     buffer the next replay overwrites.  The graphs' pool holds the step's
-    activations and the head's cast copy for as long as the object lives.
+    activations and the logits for as long as the object lives.
     ``captures`` and ``replays`` count what the calls did."""
 
     WARMUP_STEPS = 1
@@ -633,6 +645,7 @@ class DecodeGraph:
         self.hidden: Optional[torch.Tensor] = None     # held: the head's graph reads it
         self.logits: Optional[torch.Tensor] = None
         self.launches: Optional[counts.Counts] = None
+        self.route: Optional[str] = None              # the head's, as captured
         self.warmups = self.captures = self.replays = 0
 
     def serves(self, model: LM, params, caches) -> bool:
@@ -668,6 +681,7 @@ class DecodeGraph:
                 head.capture_begin(backbone.pool())
                 capturing.append(head)
                 self.hidden = hidden
+                self.route = head_route(hidden, *model._head(params))
             return head_of(params, hidden)
 
         before = counts.snapshot()
@@ -703,7 +717,9 @@ class DecodeGraph:
                 sp.set(replay=True)
             with span("model.backbone", device=dev):
                 backbone.replay()
-            with span("model.logits", device=dev):
+            with span("model.logits", device=dev) as sp:
+                if sp:
+                    sp.set(route=self.route)
                 head.replay()
         counts.add(self.launches)
         self.replays += 1

@@ -88,7 +88,8 @@ RUNTIME_SCHEMA: Dict[str, str] = {
     "model.decode_step": "LM.decode_step: the host issuing every layer's kernels of "
                          "one step, or the replay of its CUDA graphs (device_ms; replay: "
                          "whether the step was a replay)",
-    "model.logits": "LM.logits: the head's cast and product (device_ms)",
+    "model.logits": "LM.logits: the head's product (device_ms; route: head_product's, "
+                    "'tensor_core' or 'upcast')",
     "model.backbone": "DecodeGraph's replay of the backbone's graph: embedding, every "
                       "layer and the final norm of one decode step (device_ms)",
     "model.mla": "mla_apply in one layer: MLA attention, its cache written "
